@@ -21,6 +21,19 @@ Phases, each printing its name and seconds as it ends:
              (``measure_decode``, ``measure_prefill``).
 7. profile - ``torch.profiler`` over one prefill and 5 decode steps: device
              time by op and the device's busy share of the wall time.
+8. train   - the training path: ``run_pretrain`` on the reference config
+             from a seeded random init, micro-batch 16 x accum 4 x seq 4096,
+             bf16 compute, in a temporary working directory (the corpus
+             cache, checkpoints and export land there, never in the tree):
+             3 steps with a checkpoint at step 2, then a resume that must
+             start at step 2 from the saved params; launch counts read
+             around exactly those two runs; one micro-batch's loss and
+             every parameter gradient through the kernels held against the
+             plain path; ``measure_train`` tokens/s; ``torch.profiler`` over
+             one micro-step.
+
+The kernels phase also holds the two backward kernels against their plain
+versions at the training cell's shapes (bs 16, n 4096).
 
 Then one JSON line with the kernels, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -29,9 +42,11 @@ exits non-zero; nothing catches it.  Imports nothing of JAX or ``nsa_tpu``.
 
 import faulthandler
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -40,35 +55,56 @@ sys.path.insert(0, HERE)
 import torch  # noqa: E402
 
 import nsa_tpu_torch  # noqa: E402,F401  (fails at once outside a checkout)
+from nsa_tpu_torch.config import DataConfig, TrainConfig  # noqa: E402
 from nsa_tpu_torch.eval.efficiency import (  # noqa: E402
     clone_cache,
     measure_decode,
     measure_prefill,
+    measure_train,
     seeded_ids,
 )
 from nsa_tpu_torch.models.transformer import (  # noqa: E402
     greedy_decode,
+    init_transformer,
     transformer_decode_step,
+    transformer_loss,
     transformer_prefill,
 )
 from nsa_tpu_torch.ops.cuda import nsa_decode, nsa_prefill, runtime  # noqa: E402
 from nsa_tpu_torch.ops.nsa import _ckv_width  # noqa: E402
-from nsa_tpu_torch.utils.checkpoint import load_params_npz, model_config_from_meta  # noqa: E402
+from nsa_tpu_torch.train import pretrain  # noqa: E402
+from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
+    latest_checkpoint,
+    load_params_npz,
+    model_config_from_meta,
+    restore_checkpoint,
+    tree_items,
+    tree_leaves,
+)
+from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
 BUDGET_S = {"device": 30, "build": 180, "kernels": 240, "weights": 60,
-            "main": 120, "measure": 120, "profile": 120}
+            "main": 120, "measure": 120, "profile": 120, "train": 300}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
+# the training cell: the JAX trainer's settings (nsa_tpu/config.py:137-159)
+MICRO, ACCUM, SEQ = 16, 4, 4096
+TRAIN_STEPS, CKPT_STEP = 3, 2
+# synthetic corpus cut from the default 32,000,000 bytes to keep its
+# generation (pure Python, ~2 s per MB) inside the phase budget
+CORPUS_BYTES = 4_000_000
 DECODE_T = PROMPT + GEN - 1  # the last decode position of the cell
 SEED = 0
 DEVICE = "cuda"
 WEIGHTS = os.path.join(HERE, "ckpt_export", "sparse_mlp_seq4096.npz")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak, same source
-# bf16 keeps 8 significant bits (unit roundoff 2^-9).  The plain versions
-# round their softmax weights to bf16 before the weighted sum and round the
-# output; the kernels keep the weights in float32.  On outputs that are
-# convex combinations of values |v| <= ~5 that is <= ~2 * 2^-9 * 5 = 0.02.
+# bf16 keeps 8 significant bits (unit roundoff 2^-9).  The plain decode
+# versions round their softmax weights to bf16 before the weighted sum and
+# round the output; the kernels keep the weights in float32 (so does the
+# plain prefill forward, which then differs by sum order and the output's
+# rounding).  On outputs that are convex combinations of values |v| <= ~5
+# that is <= ~2 * 2^-9 * 5 = 0.02.
 TOL_OUT = 0.03
 TOL_LSE = 1e-3               # float32 both ways, same bf16 inputs: sum order only
 TIE = 1e-6                   # selection scores closer than this count as ties
@@ -76,6 +112,25 @@ TIE = 1e-6                   # selection scores closer than this count as ties
 # one bf16 rounding (2^-8 relative) between the paths; through the residual
 # stream that stays within ~1% of the logits' scale.
 TOL_LOGITS_REL = 0.02
+# backward kernels against their plain versions, same bf16 inputs, float32
+# arithmetic both ways: dq, dk, dv are rounded to bf16 at the end by both, so
+# they differ by at most one bf16 ulp of the largest value (2^-7 of it, the
+# top binade's ulp with 8 significant bits); d_gates and the deltas stay
+# float32 and differ by sum order over <= 64 terms and expf (1e-4 of the max).
+TOL_BWD_BF16 = 2.0 ** -7
+TOL_BWD_F32 = 1e-4
+# One micro-batch, bf16 compute, relative L2 error per gradient tensor.
+# Kernels vs the kernel forward with the plain backward (the two backward
+# kernels alone): dq, dk, dv differ by <= one bf16 ulp (2^-8 relative) per
+# element, carried back through the earlier layers: 0.05.  Kernels vs the
+# plain path: the two forwards also differ by one rounding of their bf16
+# outputs, and gradients that are net sums over all 65k positions with heavy
+# cancellation (k_pos, the compressors' first bias, gate_b: norms 1e-7 to
+# 1e-5, far below their summands) magnify that to 6-8% where the backward
+# alone stays under 3%: 0.1.  The loss agrees within 2e-3 relative.
+TOL_GRAD_BWD_REL_L2 = 0.05
+TOL_GRAD_REL_L2 = 0.1
+TOL_LOSS_REL = 2e-3
 
 PHASES = []
 
@@ -124,25 +179,48 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-def kernel_prefill(gen, flush, cfg):
-    nsa = cfg.nsa
-    b, kvh, G, n, d = BATCH, cfg.kv_heads, cfg.num_grouped_queries, PROMPT, cfg.dim_head
-    Bs, S, window, scale = nsa.selection_block_size, nsa.num_selected_blocks, \
-        nsa.sliding_window_size, d ** -0.5
+def prefill_inputs(gen, cfg, b, n):
+    """Seeded prefill-kernel inputs at [b, n]: rq, rk, v in bf16; selected
+    blocks strictly before each row's own block (duplicates allowed: the
+    union must count them once), 90% valid."""
+    kvh, G, d = cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head
+    Bs, S = cfg.nsa.selection_block_size, cfg.nsa.num_selected_blocks
     dev = DEVICE
     rq = torch.randn((b, kvh * G, n, d), generator=gen, device=dev).to(torch.bfloat16)
     rk = torch.randn((b, kvh, n, d), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b, kvh, n, d), generator=gen, device=dev).to(torch.bfloat16)
-    # selected blocks strictly before each row's own block (duplicates
-    # allowed: the union must count them once), 90% valid
     q_blk = torch.arange(n, device=dev) // Bs
     raw = torch.randint(0, 1 << 30, (b, kvh, n, S), generator=gen, device=dev)
     sel_idx = (raw % q_blk.clamp(min=1)[:, None]).to(torch.int32)
     sel_mask = (torch.rand((b, kvh, n, S), generator=gen, device=dev) < 0.9) \
         & (q_blk > 0)[:, None]
+    return rq, rk, v, sel_idx, sel_mask
+
+
+def needed_keys(sel_idx, sel_mask, cfg):
+    """(row, key) pairs these inputs need: the valid selected blocks once
+    each, the diagonal block up to the row (fine), and the band (sliding)."""
+    b, kvh, n, S = sel_idx.shape
+    Bs, window = cfg.nsa.selection_block_size, cfg.nsa.sliding_window_size
+    pos = torch.arange(n, device=sel_idx.device)
+    q_blk = pos // Bs
+    keep = sel_mask & (sel_idx != q_blk[:, None])
+    same = sel_idx[..., :, None] == sel_idx[..., None, :]
+    earlier = torch.ones(S, S, dtype=torch.bool, device=sel_idx.device).tril(-1)
+    keep &= ~(same & keep[..., None, :] & earlier).any(-1)
+    fine = keep.sum().item() * Bs + b * kvh * (pos % Bs + 1).sum().item()
+    band = b * kvh * (pos.clamp(max=window) + 1).sum().item()
+    return fine, band
+
+
+def kernel_prefill(gen, flush, cfg):
+    nsa = cfg.nsa
+    G, d = cfg.num_grouped_queries, cfg.dim_head
+    Bs, window, scale = nsa.selection_block_size, nsa.sliding_window_size, d ** -0.5
+    rq, rk, v, sel_idx, sel_mask = prefill_inputs(gen, cfg, BATCH, PROMPT)
     args = (rq, rk, v, sel_idx, sel_mask, Bs, window, scale)
 
-    got = nsa_prefill.nsa_fine_sliding_attention(*args)
+    got = nsa_prefill.prefill_fwd(*args)
     want = nsa_prefill.fine_sliding_plain(*args)
     torch.cuda.synchronize()
     errs = [max_err(x, y) for x, y in zip(got, want)]
@@ -152,23 +230,71 @@ def kernel_prefill(gen, flush, cfg):
     check(errs[2] <= TOL_LSE and errs[3] <= TOL_LSE, "prefill_fwd LSEs disagree")
     check(all(torch.isfinite(x.float()).all().item() for x in got), "prefill_fwd non-finite")
 
-    # the keys this data needs: valid selected blocks once each, the
-    # diagonal block up to the row, the band
-    pos = torch.arange(n, device=dev)
-    keep = sel_mask & (sel_idx != q_blk[:, None])
-    same = sel_idx[..., :, None] == sel_idx[..., None, :]
-    earlier = torch.ones(S, S, dtype=torch.bool, device=dev).tril(-1)
-    keep &= ~(same & keep[..., None, :] & earlier).any(-1)
-    keys = keep.sum().item() * Bs + b * kvh * ((pos % Bs + 1) + (pos.clamp(max=window) + 1)).sum().item()
-    flops = keys * G * 4 * d
+    flops = sum(needed_keys(sel_idx, sel_mask, cfg)) * G * 4 * d
     bms, by = bound_ms(nbytes(rq, rk, v, sel_idx, sel_mask, *got), flops)
-    ms = timed_ms(lambda: nsa_prefill.nsa_fine_sliding_attention(*args), 10, flush)
+    ms = timed_ms(lambda: nsa_prefill.prefill_fwd(*args), 10, flush)
     plain = timed_ms(lambda: nsa_prefill.fine_sliding_plain(*args), 2, flush)
     return {"name": "prefill_fwd", "route": "cuda",
             "source": "nsa_tpu_torch/csrc/nsa_prefill.cu",
             "replaces": "nsa_tpu/ops/pallas/nsa_prefill.py:315",
             "max_abs_err": max(errs[0], errs[1]), "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def kernel_prefill_bwd(gen, flush, cfg):
+    """Both backward kernels against their plain versions at the training
+    cell's shapes; seeded inputs and cotangents, the forward from the kernel."""
+    nsa = cfg.nsa
+    G, d = cfg.num_grouped_queries, cfg.dim_head
+    Bs, window, scale = nsa.selection_block_size, nsa.sliding_window_size, d ** -0.5
+    rq, rk, v, sel_idx, sel_mask = prefill_inputs(gen, cfg, MICRO, SEQ)
+    sel = (rq, rk, v, sel_idx, sel_mask)
+    fo, so, flse, slse = nsa_prefill.prefill_fwd(*sel, Bs, window, scale)
+    dfo = torch.randn(fo.shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+    dso = torch.randn(so.shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+    dq_args = (*sel, fo, so, flse, slse, dfo, dso, Bs, window, scale)
+    got_q = nsa_prefill.prefill_bwd_dq(*dq_args)
+    want_q = nsa_prefill.prefill_bwd_dq_plain(*dq_args)
+    # the dkv kernel and its plain version read the same (plain) deltas
+    dkv_args = (*sel, flse, slse, want_q[2], want_q[3], dfo, dso, Bs, window, scale)
+    got_kv = nsa_prefill.prefill_bwd_dkv(*dkv_args)
+    want_kv = nsa_prefill.prefill_bwd_dkv_plain(*dkv_args)
+    again = nsa_prefill.prefill_bwd_dkv(*dkv_args)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, x, y, tol in (("dq", got_q[0], want_q[0], TOL_BWD_BF16),
+                            ("d_gates", got_q[1], want_q[1], TOL_BWD_F32),
+                            ("fine_delta", got_q[2], want_q[2], TOL_BWD_F32),
+                            ("sliding_delta", got_q[3], want_q[3], TOL_BWD_F32),
+                            ("dk", got_kv[0], want_kv[0], TOL_BWD_BF16),
+                            ("dv", got_kv[1], want_kv[1], TOL_BWD_BF16)):
+        err, top = max_err(x, y), y.float().abs().max().item()
+        errs[name] = err
+        print(f"  prefill_bwd {name}: max|err| {err:.3e} (tol {tol:.3g} x max|plain| "
+              f"{top:.3f})", flush=True)
+        check(torch.isfinite(x.float()).all().item() and err <= tol * top,
+              f"prefill_bwd {name} disagrees with its plain version")
+    check(torch.equal(got_kv[0], again[0]) and torch.equal(got_kv[1], again[1]),
+          "prefill_bwd_dkv is not deterministic")
+
+    fine, band = needed_keys(sel_idx, sel_mask, cfg)
+    common = nbytes(*sel, flse, slse, dfo, dso)
+    # dq: s, do.v and dS.k per (row, key, head); dkv: s, do.v, dS.q, p.do per
+    # (row, key, head) of each branch
+    bq, byq = bound_ms(common + nbytes(fo, so, *got_q), (fine + band) * G * 6 * d)
+    bkv, bykv = bound_ms(common + nbytes(got_q[2], got_q[3], *got_kv), (fine + band) * G * 8 * d)
+    out = []
+    for name, fn, plain, args, bms, by, err, line in (
+            ("prefill_bwd_dq", nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dq_plain,
+             dq_args, bq, byq, max(errs["dq"], errs["d_gates"]), 657),
+            ("prefill_bwd_dkv", nsa_prefill.prefill_bwd_dkv, nsa_prefill.prefill_bwd_dkv_plain,
+             dkv_args, bkv, bykv, max(errs["dk"], errs["dv"]), 677)):
+        out.append({"name": name, "route": "cuda", "source": "nsa_tpu_torch/csrc/nsa_prefill_bwd.cu",
+                    "replaces": f"nsa_tpu/ops/pallas/nsa_prefill.py:{line}",
+                    "max_abs_err": err, "ms": timed_ms(lambda: fn(*args), 10, flush),
+                    "plain_ms": timed_ms(lambda: plain(*args), 2, flush),
+                    "bound_ms": bms, "bound_by": by, "library_ms": None})
+    return out
 
 
 def kernel_decode(gen, flush, cfg):
@@ -308,6 +434,162 @@ def profile_main_path(params, cfg, ids, first, steps=5):
     return _report(prof, f"{steps} decode steps", wall, per=steps)
 
 
+class StepLog(MetricsLogger):
+    """The trainer's logger, keeping what it logs for the gates."""
+
+    def __init__(self, csv_path):
+        super().__init__(csv_path)
+        self.rows = []
+
+    def log(self, step, **metrics):
+        super().log(step, **metrics)
+        self.rows.append((step, metrics))
+
+
+def expected_launches(cfg, tc, start):
+    """Kernel launches of ``run_pretrain`` over steps start .. num_batches-1:
+    a forward per micro-batch, validation and generation prefill, a backward
+    per micro-batch, and the generation's decode steps."""
+    steps = range(start, tc.num_batches)
+    val = sum(s % tc.validate_every == 0 for s in steps)
+    gen = sum(bool(tc.generate_every) and s % tc.generate_every == 0 and s > 0 for s in steps)
+    micro = len(steps) * tc.grad_accum_every
+    return {"prefill_fwd": cfg.depth * (micro + val + gen),
+            "prefill_bwd_dq": cfg.depth * micro, "prefill_bwd_dkv": cfg.depth * micro,
+            "decode_select": cfg.depth * gen * tc.generate_length,
+            "decode_attend": cfg.depth * gen * tc.generate_length}
+
+
+def rel_l2(a, b):
+    diff = (a.float() - b.float()).norm().item()
+    ref = b.float().norm().item()
+    return diff / ref if ref > 0 else diff
+
+
+def train_phase(smi):
+    """The training path at the cell, from a seeded random init; returns its
+    launch counts and metrics."""
+    cfg = nsa_tpu_torch.reference_model_config().replace(dtype="bfloat16")
+    counted = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv,
+               nsa_decode.decode_select, nsa_decode.decode_attend)
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            tc = TrainConfig(num_batches=TRAIN_STEPS, batch_size=MICRO, grad_accum_every=ACCUM,
+                             seq_len=SEQ, log_every=1, validate_every=2, generate_every=2,
+                             generate_length=16, ckpt_every=CKPT_STEP,
+                             ckpt_dir=os.path.join(tmp, "ckpt", "smoke"),
+                             log_csv=os.path.join(tmp, "ckpt", "smoke", "log.csv"))
+            data = DataConfig(path=os.path.join(tmp, "enwik8.gz"), synthetic_bytes=CORPUS_BYTES)
+            log1, log2 = StepLog(tc.log_csv), StepLog(tc.log_csv)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counted:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            pretrain.run_pretrain(cfg, tc, data, logger=log1, device=DEVICE)
+            ckpt = latest_checkpoint(tc.ckpt_dir)
+            check(ckpt is not None and ckpt.endswith(f"step_{CKPT_STEP:08d}"),
+                  f"no checkpoint at step {CKPT_STEP}: {ckpt}")
+            check(os.path.isfile(os.path.join(tmp, "ckpt_export", "smoke.npz")),
+                  "run_pretrain wrote no export")
+            # the resume must start at the checkpoint's step, from its params
+            saved = tree_leaves(restore_checkpoint(ckpt, ("params",), DEVICE)[0]["params"])
+            first = []
+            real_step = pretrain.train_step
+
+            def recording_step(params, *args, **kw):
+                if not first:
+                    first.append(all(torch.equal(p.detach(), q)
+                                     for p, q in zip(tree_leaves(params), saved)))
+                return real_step(params, *args, **kw)
+
+            pretrain.train_step = recording_step
+            try:
+                pretrain.run_pretrain(cfg, tc, data, logger=log2, device=DEVICE)
+            finally:
+                pretrain.train_step = real_step
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            os.chdir(here)
+    want = expected_launches(cfg, tc, 0)
+    for k, n in expected_launches(cfg, tc, CKPT_STEP).items():
+        want[k] += n
+    print(f"  train launches {launches}", flush=True)
+    check(launches == want, f"train-path launches {launches}, expected {want}")
+    check(first == [True] and log2.rows and log2.rows[0][0] == CKPT_STEP,
+          f"resume did not start at step {CKPT_STEP} from the saved params")
+    losses = [m.get("loss", m.get("valid_loss")) for _, m in log1.rows + log2.rows]
+    check(len(losses) == 3 + 2 + 1 + 1 and all(math.isfinite(x) for x in losses),
+          f"train losses not all finite: {losses}")
+    print(f"  train: {TRAIN_STEPS} + {TRAIN_STEPS - CKPT_STEP} steps of {MICRO}x{ACCUM}x{SEQ} "
+          f"in {train_s:.2f}s (corpus, checkpoints, validation and generation included); "
+          f"peak memory {peak / 2**30:.2f} GiB; {smi}", flush=True)
+
+    # one micro-batch: loss and every gradient, kernels vs the plain path,
+    # and vs the kernel forward with the plain backward (the two backward
+    # kernels alone)
+    params = pretrain.trainable(init_transformer(cfg, torch.Generator().manual_seed(SEED),
+                                                 device="cpu"), DEVICE)
+    ids = seeded_ids(MICRO, SEQ + 1, cfg.vocab_size, SEED + 1, DEVICE)
+    leaves = tree_leaves(params)
+
+    def loss_and_grads(use_kernels):
+        loss = transformer_loss(params, cfg, ids, use_kernels=use_kernels)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    lk, gk = loss_and_grads(True)
+    lp, gp = loss_and_grads(False)
+    kernel_bwd = nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv
+    nsa_prefill.prefill_bwd_dq = nsa_prefill.prefill_bwd_dq_plain
+    nsa_prefill.prefill_bwd_dkv = nsa_prefill.prefill_bwd_dkv_plain
+    try:
+        _, gh = loss_and_grads(True)
+    finally:
+        nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv = kernel_bwd
+    check(math.isfinite(lk) and abs(lk - lp) <= TOL_LOSS_REL * abs(lp),
+          f"kernel-path loss {lk} disagrees with the plain path's {lp}")
+    check(all(torch.isfinite(g).all().item() for g in gk), "kernel-path gradients not finite")
+    print(f"  micro-batch {MICRO}x{SEQ} loss kernels {lk:.6f} plain {lp:.6f}", flush=True)
+    grad_errs = {}
+    for label, other, tol in (("plain path", gp, TOL_GRAD_REL_L2),
+                              ("kernel forward + plain backward", gh, TOL_GRAD_BWD_REL_L2)):
+        errs = {key: rel_l2(a, b) for (key, _), a, b in zip(tree_items(params), gk, other)}
+        worst = max(errs, key=errs.get)
+        grad_errs[label] = errs[worst]
+        print(f"  gradients, kernels vs {label}: rel L2 max {errs[worst]:.3e} at {worst} "
+              f"(tol {tol}), median {sorted(errs.values())[len(errs) // 2]:.3e} "
+              f"over {len(errs)} tensors", flush=True)
+        check(errs[worst] <= tol, f"kernel-path gradients disagree with the {label}")
+    del gk, gp, gh
+
+    tps = measure_train(params, cfg, MICRO, ACCUM, SEQ, iters=3, seed=SEED, device=DEVICE)
+    print(f"  measure_train micro {MICRO} accum {ACCUM} seq {SEQ}: {tps:.1f} tokens/s "
+          f"(mean of 3 steps); {smi}", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    loss = transformer_loss(params, cfg, ids)        # warm
+    loss.backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        transformer_loss(params, cfg, ids).backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _report(prof, f"one training micro-step {MICRO}x{SEQ}", wall)
+    return launches, {"train_s": train_s, "train_peak_bytes": peak,
+                      "train_losses": losses, "measure_train_tok_s": tps,
+                      "grad_rel_l2_max": grad_errs["plain path"],
+                      "grad_rel_l2_max_bwd_only": grad_errs["kernel forward + plain backward"],
+                      "loss_kernels": lk, "loss_plain": lp,
+                      "train_micro_step_device_busy": busy}
+
+
 def main():
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t0 = time.perf_counter()
@@ -341,14 +623,14 @@ def main():
 
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
-        kernels = [kernel_prefill(gen, flush, cfg), *kernel_decode(gen, flush, cfg)]
+        kernels = [kernel_prefill(gen, flush, cfg), *kernel_decode(gen, flush, cfg),
+                   *kernel_prefill_bwd(gen, flush, cfg)]
         del flush
         torch.cuda.empty_cache()
         t0 = phase("kernels", t0)
 
         ids = seeded_ids(BATCH, PROMPT, cfg.vocab_size, SEED, "cuda")
-        counted = (nsa_prefill.nsa_fine_sliding_attention, nsa_decode.decode_select,
-                   nsa_decode.decode_attend)
+        counted = (nsa_prefill.prefill_fwd, nsa_decode.decode_select, nsa_decode.decode_attend)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in counted:
@@ -371,7 +653,7 @@ def main():
         decode_s = ds.elapsed_time(de) / 1e3
         peak = torch.cuda.max_memory_allocated()
         print(f"  launches {launches}", flush=True)
-        want = {"nsa_fine_sliding_attention": cfg.depth, "decode_select": cfg.depth * GEN,
+        want = {"prefill_fwd": cfg.depth, "decode_select": cfg.depth * GEN,
                 "decode_attend": cfg.depth * GEN}
         check(launches == want, f"main-path launches {launches}, expected {want}")
         check(tuple(logits.shape) == (BATCH, PROMPT, cfg.vocab_size)
@@ -406,16 +688,24 @@ def main():
         t0 = phase("measure", t0)
 
         busy = profile_main_path(params, cfg, ids, first)
+        del params, ids, logits
+        torch.cuda.empty_cache()
         t0 = phase("profile", t0)
 
+    train_launches, train = train_phase(smi)
+    torch.cuda.empty_cache()
+    t0 = phase("train", t0)
+
     for k in kernels:
-        k["launches"] = launches[{"prefill_fwd": "nsa_fine_sliding_attention"}.get(
-            k["name"], k["name"])]
+        # each kernel's count from its own path: serving for the forward and
+        # decode kernels, training for the backward ones
+        k["launches"] = (train_launches if k["name"].startswith("prefill_bwd")
+                         else launches)[k["name"]]
     print(json.dumps({"main": {
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,
         "measure_decode_tok_s": tps, "measure_prefill_tok_s": prefill_tps, "peak_bytes": peak,
-        "logits_max_abs_err": err, "decode_device_busy": busy,
-        "phases_s": dict(PHASES)}}), flush=True)
+        "logits_max_abs_err": err, "decode_device_busy": busy, **train,
+        "train_launches": train_launches, "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 """Typed configuration for the PyTorch port.
 
-A copy of the model and NSA dataclasses of ``nsa_tpu/config.py``: the port
+A copy of the model, NSA, training and data dataclasses of
+``nsa_tpu/config.py``: the port
 imports nothing from ``nsa_tpu``, so that it runs where JAX is not
 installed.  Field names, defaults and validation are the JAX package's, so
 one JSON ``model_config`` (as written into ``ckpt_export/*.npz``) builds
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -102,6 +104,44 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Pretraining loop configuration (``nsa_tpu/config.py``'s, same fields
+    and defaults)."""
+
+    num_batches: int = 5000
+    batch_size: int = 16
+    grad_accum_every: int = 4
+    learning_rate: float = 1e-4
+    grad_clip_norm: float = 0.5
+    seq_len: int = 4096
+    # the loss is read back to the host (a device sync) only every
+    # log_every steps; early stopping is checked at the same cadence
+    log_every: int = 20
+    validate_every: int = 100
+    generate_every: int = 500
+    generate_length: int = 512
+    prime_length: int = 64
+    early_stop_loss: float = 0.2
+    ckpt_every: int = 2500
+    ckpt_dir: str = "./ckpt"
+    seed: int = 0
+    log_csv: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """enwik8-style byte corpus configuration (``nsa_tpu/config.py``'s)."""
+
+    path: str = "data/enwik8.gz"
+    num_bytes: int = 95_000_000
+    train_bytes: int = 90_000_000
+    # without the corpus file, fall back to a deterministic synthetic byte
+    # corpus so that the pipeline stays runnable end to end
+    allow_synthetic_fallback: bool = True
+    synthetic_bytes: int = 32_000_000
 
 
 def config_to_json(cfg) -> str:

@@ -1,5 +1,6 @@
-"""Prefill and decode throughput on the card
-(``nsa_tpu/eval/efficiency.py``: ``measure_prefill``, ``measure_decode``).
+"""Prefill, decode and training throughput on the card
+(``nsa_tpu/eval/efficiency.py``: ``measure_prefill``, ``measure_decode``;
+``measure_train`` times the port's ``train_step``).
 
 Timed with CUDA events around work on the current stream, after a warm-up;
 a measurement that finds no card raises instead of timing the CPU.  Token
@@ -15,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, TrainConfig
 from ..models.transformer import (
     ModelCache,
     default_max_len,
@@ -24,6 +25,7 @@ from ..models.transformer import (
     transformer_prefill,
 )
 from ..ops.nsa import NSADecodeCache
+from ..train.pretrain import make_optimizer, train_step, trainable
 
 
 def require_cuda(device="cuda") -> torch.device:
@@ -93,3 +95,20 @@ def measure_decode(params, cfg: ModelConfig, batch_size: int, prompt_len: int,
             if i:
                 total_ms += ms
     return batch_size * gen_len * iters / (total_ms / 1e3)
+
+
+def measure_train(params, cfg: ModelConfig, micro_batch: int, accum: int, seq_len: int,
+                  iters: int = 3, *, seed: int = 0, device="cuda") -> float:
+    """Training throughput in tokens/s of ``train_step`` (``accum``
+    micro-batches of ``micro_batch x seq_len`` and one Adam update), mean
+    over ``iters`` timed steps after one warm-up, on a trainable copy of
+    ``params`` with a fresh optimizer (the caller's params are untouched)."""
+    device = require_cuda(device)
+    params = trainable(params, device)
+    optimizer = make_optimizer(TrainConfig(), params)
+    batch = seeded_ids(accum * micro_batch, seq_len + 1, cfg.vocab_size, seed, device)
+    batch = batch.reshape(accum, micro_batch, seq_len + 1)
+    train_step(params, optimizer, batch, cfg, accum)
+    ms = timed_ms(lambda: [train_step(params, optimizer, batch, cfg, accum)
+                           for _ in range(iters)], device)
+    return micro_batch * accum * seq_len * iters / (ms / 1e3)

@@ -80,16 +80,18 @@ def _logits(params, cfg: ModelConfig, x):
 
 def transformer_forward(
     params, cfg: ModelConfig, ids: torch.Tensor, *,
-    return_cache_max_len: Optional[int] = None,
+    return_cache_max_len: Optional[int] = None, use_kernels: bool = True,
 ):
     """Forward over token ids [b, n] -> float32 logits [b, n, vocab]; with
-    ``return_cache_max_len`` also the ``ModelCache`` (prefill)."""
+    ``return_cache_max_len`` also the ``ModelCache`` (prefill).
+    ``use_kernels`` as in ``sparse_attention_forward``."""
     _check_model(cfg)
     x = params["token_emb"][ids].to(_compute_dtype(cfg))
     caches = []
     for layer in params["layers"]:
         res = sparse_attention_forward(
-            layer["attn"], cfg, x, return_cache_max_len=return_cache_max_len
+            layer["attn"], cfg, x, return_cache_max_len=return_cache_max_len,
+            use_kernels=use_kernels,
         )
         if return_cache_max_len is None:
             attn_out = res
@@ -102,6 +104,15 @@ def transformer_forward(
     if return_cache_max_len is None:
         return logits
     return logits, ModelCache(layers=tuple(caches), seq_len=ids.shape[1])
+
+
+def transformer_loss(params, cfg: ModelConfig, ids: torch.Tensor, *,
+                     use_kernels: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy over ids [b, n + 1] (inputs
+    ``ids[:, :-1]``, labels ``ids[:, 1:]``), in float32."""
+    logits = transformer_forward(params, cfg, ids[:, :-1], use_kernels=use_kernels)
+    return torch.nn.functional.cross_entropy(
+        logits.flatten(0, 1), ids[:, 1:].flatten().long())
 
 
 def transformer_prefill(params, cfg: ModelConfig, ids: torch.Tensor, max_len: int):

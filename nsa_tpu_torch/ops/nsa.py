@@ -13,8 +13,8 @@ are never rotated; the gate bias starts at ``[-2, -2, 2]``; decode masks the
 diagonal block exactly as prefill does, so prefill and incremental decode
 agree.
 
-The prefill runs branches 2 and 3 in one kernel
-(``ops/cuda/nsa_prefill.py``); the decode step runs ``decode_select`` then
+The prefill and training run branches 2 and 3 in one forward kernel and
+two backward kernels (``ops/cuda/nsa_prefill.py``); the decode step runs ``decode_select`` then
 ``decode_attend`` (``ops/cuda/nsa_decode.py``) at every batch size.  The
 port covers the configuration those kernels take: causal, query heads
 sharing their KV head's selection, ``selection_block_size / stride > 1``,
@@ -143,10 +143,17 @@ def _gate_combine(params, cfg: ModelConfig, normed, branch_outs):
 
 def sparse_attention_forward(
     params, cfg: ModelConfig, x: torch.Tensor, *,
-    return_cache_max_len: Optional[int] = None,
+    return_cache_max_len: Optional[int] = None, use_kernels: bool = True,
 ):
     """Prefill / training forward. x: [b, n, dim] -> out [b, n, dim], or
-    (out, NSADecodeCache) when ``return_cache_max_len`` is given."""
+    (out, NSADecodeCache) when ``return_cache_max_len`` is given.
+
+    Differentiable: the straight-through top-k gates go into the fine +
+    sliding attention, so its ``d_gates`` reaches branch 1's logits, the
+    compressors, ``mem_kv`` and the queries through the selection scores,
+    as in the JAX package.  ``use_kernels=False`` runs the plain versions
+    of the forward and backward kernels on any device (see
+    ``sparse_attention_decode``)."""
     _check_supported(cfg)
     nsa = cfg.nsa
     b, n, _ = x.shape
@@ -185,7 +192,7 @@ def sparse_attention_forward(
     rq, rk = rotate_qk(q, k, cfg.rope_theta)
 
     # ---- branch 1 + selection, chunked over queries ----------------------
-    couts, idxs, msks = [], [], []
+    couts, idxs, msks, gts = [], [], [], []
     for c0 in range(0, n, cfg.attn_chunk_size):
         positions = torch.arange(c0, min(c0 + cfg.attn_chunk_size, n), device=dev)
         cmask = ck_ends[None, :] < positions[:, None]                # [m, mem+w]
@@ -197,14 +204,16 @@ def sparse_attention_forward(
         couts.append(c_out)
         idxs.append(sel.indices)
         msks.append(sel.mask)
+        gts.append(sel.gates)
     compressed_out = torch.cat(couts, dim=2)
     sel_idx = torch.cat(idxs, dim=2)
     sel_mask = torch.cat(msks, dim=2)
+    gates = torch.cat(gts, dim=2) if nsa.use_diff_topk else None
 
     # ---- branches 2 + 3: the fused fine + sliding kernel -----------------
-    fine_out, sliding_out, _, _ = nsa_fine_sliding_attention(
-        rq.contiguous(), rk.contiguous(), v.contiguous(), sel_idx, sel_mask,
-        Bs, nsa.sliding_window_size, scale,
+    fine_out, sliding_out = nsa_fine_sliding_attention(
+        rq.contiguous(), rk.contiguous(), v.contiguous(), sel_idx, sel_mask, gates,
+        Bs, nsa.sliding_window_size, scale, use_kernels=use_kernels,
     )
 
     out = _gate_combine(params, cfg, normed, [compressed_out, fine_out, sliding_out])

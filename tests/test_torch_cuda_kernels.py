@@ -13,7 +13,10 @@ Shapes are small but keep the kernels' dim_head of 64.  Tolerances are
 stated in bf16: the plain versions round softmax weights and outputs to
 bf16 (unit roundoff 2^-9) where the kernels keep float32, so outputs agree
 to 0.03 absolute on values of order 1-5; log-sum-exps are float32 both
-ways (1e-3).
+ways (1e-3).  The backward kernels and their plain versions both compute in
+float32 and round dq, dk, dv to bf16 at the end: one bf16 ulp of the
+largest value (2^-7 of it); d_gates and the deltas stay float32 (1e-4 of
+the largest value: sum order and expf).
 """
 
 import pytest
@@ -24,11 +27,13 @@ from nsa_tpu_torch.eval.efficiency import clone_cache
 from nsa_tpu_torch.models.transformer import (
     init_transformer,
     transformer_decode_step,
+    transformer_loss,
     transformer_prefill,
 )
 from nsa_tpu_torch.ops.cuda import nsa_decode, nsa_prefill
 from nsa_tpu_torch.ops.nsa import _ckv_width
-from nsa_tpu_torch.utils.checkpoint import tree_to
+from nsa_tpu_torch.train.pretrain import trainable
+from nsa_tpu_torch.utils.checkpoint import tree_leaves, tree_to
 
 pytestmark = pytest.mark.gpu
 
@@ -59,13 +64,68 @@ def test_prefill_kernel_matches_plain(gen, G, n, S):
                             dtype=torch.int32)
     sel_mask = torch.rand((b, kvh, n, S), generator=gen, device="cuda") < 0.7
     args = (rq, rk, v, sel_idx, sel_mask, Bs, window, 0.125)
-    before = nsa_prefill.nsa_fine_sliding_attention.launches
-    got = nsa_prefill.nsa_fine_sliding_attention(*args)
+    before = nsa_prefill.prefill_fwd.launches
+    got = nsa_prefill.prefill_fwd(*args)
     want = nsa_prefill.fine_sliding_plain(*args)
     torch.cuda.synchronize()
-    assert nsa_prefill.nsa_fine_sliding_attention.launches == before + 1
+    assert nsa_prefill.prefill_fwd.launches == before + 1
     assert max_err(got[0], want[0]) <= TOL_OUT and max_err(got[1], want[1]) <= TOL_OUT
     assert max_err(got[2], want[2]) <= TOL_LSE and max_err(got[3], want[3]) <= TOL_LSE
+
+
+@pytest.mark.parametrize("G,n,S", [(2, 300, 4), (1, 77, 2), (4, 130, 16), (8, 64, 3)])
+def test_prefill_backward_kernels_match_plain(gen, G, n, S):
+    """Random selections with duplicates, own-block and future slots."""
+    b, kvh, d, Bs, window, scale = 2, 2, 64, 16, 64, 0.125
+    rq, rk, v = randn(gen, b, kvh * G, n, d), randn(gen, b, kvh, n, d), randn(gen, b, kvh, n, d)
+    sel_idx = torch.randint(0, -(-n // Bs), (b, kvh, n, S), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    sel_mask = torch.rand((b, kvh, n, S), generator=gen, device="cuda") < 0.7
+    sel = (rq, rk, v, sel_idx, sel_mask)
+    fo, so, flse, slse = nsa_prefill.prefill_fwd(*sel, Bs, window, scale)
+    dfo, dso = randn(gen, b, kvh * G, n, d), randn(gen, b, kvh * G, n, d)
+    dq_args = (*sel, fo, so, flse, slse, dfo, dso, Bs, window, scale)
+    before = (nsa_prefill.prefill_bwd_dq.launches, nsa_prefill.prefill_bwd_dkv.launches)
+    got_q = nsa_prefill.prefill_bwd_dq(*dq_args)
+    want_q = nsa_prefill.prefill_bwd_dq_plain(*dq_args)
+    dkv_args = (*sel, flse, slse, want_q[2], want_q[3], dfo, dso, Bs, window, scale)
+    got_kv = nsa_prefill.prefill_bwd_dkv(*dkv_args)
+    want_kv = nsa_prefill.prefill_bwd_dkv_plain(*dkv_args)
+    again = nsa_prefill.prefill_bwd_dkv(*dkv_args)
+    torch.cuda.synchronize()
+    assert (nsa_prefill.prefill_bwd_dq.launches,
+            nsa_prefill.prefill_bwd_dkv.launches) == (before[0] + 1, before[1] + 2)
+    for x, y, tol in zip((*got_q, *got_kv), (*want_q, *want_kv),
+                         (2.0 ** -7, 1e-4, 1e-4, 1e-4, 2.0 ** -7, 2.0 ** -7)):
+        assert max_err(x, y) <= tol * y.float().abs().max().item()
+    assert torch.equal(got_kv[0], again[0]) and torch.equal(got_kv[1], again[1])
+
+
+def test_model_loss_grads_kernels_match_plain(gen, monkeypatch):
+    """Two layers at the reference widths, random float32 weights from a
+    seed, bf16 compute: the loss and every gradient through the kernels
+    against the plain path, and against the kernel forward with the plain
+    backward; relative L2 per tensor with chip_smoke.py's tolerances and
+    reasons (0.1 and 0.05)."""
+    cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
+    params = trainable(init_transformer(cfg, torch.Generator().manual_seed(0), device="cpu"),
+                       "cuda")
+    ids = torch.randint(0, 256, (2, 513), generator=gen, device="cuda")
+
+    def loss_and_grads(use_kernels):
+        loss = transformer_loss(params, cfg, ids, use_kernels=use_kernels)
+        return loss.item(), torch.autograd.grad(loss, tree_leaves(params))
+
+    lk, gk = loss_and_grads(True)
+    lp, gp = loss_and_grads(False)
+    monkeypatch.setattr(nsa_prefill, "prefill_bwd_dq", nsa_prefill.prefill_bwd_dq_plain)
+    monkeypatch.setattr(nsa_prefill, "prefill_bwd_dkv", nsa_prefill.prefill_bwd_dkv_plain)
+    _, gh = loss_and_grads(True)
+    assert abs(lk - lp) <= 2e-3 * abs(lp)
+    for a, b, c in zip(gk, gp, gh):
+        assert torch.isfinite(a).all()
+        assert (a - b).norm() <= 0.1 * b.norm() + 1e-12
+        assert (a - c).norm() <= 0.05 * c.norm() + 1e-12
 
 
 @pytest.mark.parametrize("t", [0, 9, 200, 1023])

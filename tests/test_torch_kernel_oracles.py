@@ -8,7 +8,11 @@ run them:
 * decode_attend_plain  vs nsa_tpu.ops.pallas.nsa_decode.decode_attend
   (fed the blocks the info row names, gathered on the JAX side);
 * fine_sliding_plain   vs nsa_tpu.ops.pallas.nsa_prefill._forward
-  (fine and sliding outputs and both log-sum-exps).
+  (fine and sliding outputs and both log-sum-exps);
+* prefill_bwd_dq_plain + prefill_bwd_dkv_plain vs
+  nsa_tpu.ops.pallas.nsa_prefill._backward_kernels (dq, dk, dv, d_gates),
+  and both against autograd through fine_sliding_plain with gates and
+  through the autograd.Function nsa_fine_sliding_attention.
 
 On CPU tensors each wrapper must run exactly its plain version and count no
 launch.  Inputs from numpy with fixed seeds, float32; tolerance 1e-5 (sum
@@ -117,9 +121,9 @@ def test_fine_sliding_plain_matches_pallas(n, sel_block, window, S):
         block_q=32, block_k=64, interpret=True,
     )
     args = (T(rq), T(rk), T(v), T(sel_idx), T(sel_mask), sel_block, window, 0.3)
-    before = t_pre.nsa_fine_sliding_attention.launches
-    got = t_pre.nsa_fine_sliding_attention(*args)
-    assert t_pre.nsa_fine_sliding_attention.launches == before
+    before = t_pre.prefill_fwd.launches
+    got = t_pre.prefill_fwd(*args)
+    assert t_pre.prefill_fwd.launches == before
     np.testing.assert_allclose(got[0].numpy(), np.asarray(fo), **TOL)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(so), **TOL)
     np.testing.assert_allclose(got[2].numpy(), np.asarray(flse)[..., :n, 0].reshape(b, h, n),
@@ -129,3 +133,50 @@ def test_fine_sliding_plain_matches_pallas(n, sel_block, window, S):
     plain = t_pre.fine_sliding_plain(*args, chunk=16)   # chunking changes nothing
     for x, y in zip(plain, got):
         np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,sel_block,window,S", [(40, 8, 12, 2), (70, 16, 20, 3), (9, 4, 8, 1)])
+def test_fine_sliding_backward_plain_matches_pallas(n, sel_block, window, S):
+    """The same selections as the forward test (duplicates, the row's own
+    block, future blocks, invalid slots): d_gates follows the Pallas slot
+    masks, so a duplicate or own-block slot gets its block's gradient."""
+    rs = np.random.RandomState(n)
+    b, h, kvh, d = 2, 4, 2, 16
+    rq, rk, v = rnd(rs, b, h, n, d), rnd(rs, b, kvh, n, d), rnd(rs, b, kvh, n, d)
+    W = -(-n // sel_block)
+    sel_idx = rs.randint(0, W, (b, kvh, n, S)).astype(np.int32)
+    sel_mask = rs.rand(b, kvh, n, S) < 0.7
+    dfo, dso = rnd(rs, b, h, n, d), rnd(rs, b, h, n, d)
+    kw = dict(sel_block=sel_block, window=window, scale=0.3)
+    jin = [jnp.asarray(x) for x in (rq, rk, v, sel_idx, sel_mask)]
+    fo, so, flse, slse = j_pre._forward(*jin, block_q=32, block_k=64, interpret=True, **kw)
+    want = j_pre._backward_kernels(*jin, fo, so, flse, slse, jnp.asarray(dfo), jnp.asarray(dso),
+                                   block_q=32, block_k=64, interpret=True, **kw)
+
+    sel = (T(rq), T(rk), T(v), T(sel_idx), T(sel_mask))
+    flse_t = T(np.asarray(flse)[..., :n, 0].reshape(b, h, n))
+    slse_t = T(np.asarray(slse)[..., :n, 0].reshape(b, h, n))
+    before = (t_pre.prefill_bwd_dq.launches, t_pre.prefill_bwd_dkv.launches)
+    dq, dg, fdel, sdel = t_pre.prefill_bwd_dq(*sel, T(fo), T(so), flse_t, slse_t, T(dfo),
+                                              T(dso), sel_block, window, 0.3)
+    dk, dv = t_pre.prefill_bwd_dkv(*sel, flse_t, slse_t, fdel, sdel, T(dfo), T(dso),
+                                   sel_block, window, 0.3)
+    assert (t_pre.prefill_bwd_dq.launches, t_pre.prefill_bwd_dkv.launches) == before
+    got = (dq, dk, dv, dg)
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), **TOL)
+    assert dg.abs().max() > 0
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in sel[:3]]
+        gates = torch.ones(b, kvh, n, S, requires_grad=True)
+        fo_, so_ = fn(*leaves, gates)[:2]
+        return torch.autograd.grad((fo_ * T(dfo)).sum() + (so_ * T(dso)).sum(),
+                                   leaves + [gates])
+
+    for fn in (lambda q, k, v_, g: t_pre.fine_sliding_plain(q, k, v_, *sel[3:], sel_block,
+                                                            window, 0.3, gates=g),
+               lambda q, k, v_, g: t_pre.nsa_fine_sliding_attention(q, k, v_, *sel[3:], g,
+                                                                    sel_block, window, 0.3)):
+        for x, y in zip(grads(fn), got):
+            np.testing.assert_allclose(x.numpy(), y.numpy(), **TOL)
