@@ -21,7 +21,15 @@ Phases, each printing its name and seconds as it ends:
              (``measure_decode``, ``measure_prefill``).
 7. profile - ``torch.profiler`` over one prefill and 5 decode steps: device
              time by op and the device's busy share of the wall time.
-8. train   - the training path: ``run_pretrain`` on the reference config
+8. small   - the small-batch decode path (b <= 8, the fused route) on the
+             trained model at bs 8 and bs 1: prefill of 3900 seeded tokens,
+             100 greedy steps with the 4096-row cache, launch counts read
+             around exactly that run (the fused pair depth x 100 each, no
+             split launch); the first step's logits held against the plain
+             fused route and, at bs 8, the split kernel route; decode tok/s of
+             the fused and the split route at bs 8 in turns (fused, split,
+             split, fused); ``torch.profiler`` over 5 steps.
+9. train   - the training path: ``run_pretrain`` on the reference config
              from a seeded random init, micro-batch 16 x accum 4 x seq 4096,
              bf16 compute, in a temporary working directory (the corpus
              cache, checkpoints and export land there, never in the tree):
@@ -33,7 +41,10 @@ Phases, each printing its name and seconds as it ends:
              one micro-step.
 
 The kernels phase also holds the two backward kernels against their plain
-versions at the training cell's shapes (bs 16, n 4096).
+versions at the training cell's shapes (bs 16, n 4096), and the two fused
+decode kernels at the small-batch cell's (bs 8, layer 0's trained weights,
+seeded activations and caches; the select kernel at an emission step and
+at the step before it).
 
 Then one JSON line with the kernels, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -64,14 +75,20 @@ from nsa_tpu_torch.eval.efficiency import (  # noqa: E402
     seeded_ids,
 )
 from nsa_tpu_torch.models.transformer import (  # noqa: E402
+    fuse_decode_params,
     greedy_decode,
     init_transformer,
     transformer_decode_step,
     transformer_loss,
     transformer_prefill,
 )
-from nsa_tpu_torch.ops.cuda import nsa_decode, nsa_prefill, runtime  # noqa: E402
-from nsa_tpu_torch.ops.nsa import _ckv_width  # noqa: E402
+from nsa_tpu_torch.ops.cuda import (  # noqa: E402
+    nsa_decode,
+    nsa_decode_fused,
+    nsa_prefill,
+    runtime,
+)
+from nsa_tpu_torch.ops.nsa import _ckv_width, fuse_decode_layer  # noqa: E402
 from nsa_tpu_torch.train import pretrain  # noqa: E402
 from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
     latest_checkpoint,
@@ -84,9 +101,14 @@ from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
 from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
-BUDGET_S = {"device": 30, "build": 180, "kernels": 240, "weights": 60,
-            "main": 120, "measure": 120, "profile": 120, "train": 300}
+# about twice each phase's longest time over two H100 runs (47 s build, 79 s
+# train on the slower host), at least 10 s for the phases of a few seconds,
+# whose time is host noise; 400 s in all
+BUDGET_S = {"device": 10, "build": 100, "weights": 10, "kernels": 10, "main": 10,
+            "measure": 20, "profile": 50, "small": 30, "train": 160}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
+SMALL_BATCHES = (8, 1)       # the small-batch cell: the fused decode route
+FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
 # the training cell: the JAX trainer's settings (nsa_tpu/config.py:137-159)
 MICRO, ACCUM, SEQ = 16, 4, 4096
 TRAIN_STEPS, CKPT_STEP = 3, 2
@@ -131,6 +153,13 @@ TOL_BWD_F32 = 1e-4
 TOL_GRAD_BWD_REL_L2 = 0.05
 TOL_GRAD_REL_L2 = 0.1
 TOL_LOSS_REL = 2e-3
+# The fused decode kernels against their plain versions: both round at the
+# same points (the emitted ckv row, the combined attention output, the
+# layer's y, the FF's hidden row and output) from float32 sums taken in
+# another order, so a rounding can flip by one bf16 ulp (2^-7 of the
+# largest value) and carry at most one more ulp downstream: 2^-6 of the
+# largest value.  The ring shift and the kv row write are copies: bit-equal.
+TOL_FUSED = 2.0 ** -6
 
 PHASES = []
 
@@ -297,6 +326,169 @@ def kernel_prefill_bwd(gen, flush, cfg):
     return out
 
 
+def check_selection(info_k, info_p, scores, num_sel, n_slide, label):
+    """Packed info rows [..., INFO_WIDTH] of a kernel and its plain version:
+    trailing ids equal; selected ids equal except where the scores tie
+    within TIE; validity equal on the rows whose ids agree.  Returns the
+    number of rows that differ by ties."""
+    n_slots = num_sel + n_slide
+    check(torch.equal(info_k[..., num_sel:n_slots], info_p[..., num_sel:n_slots]),
+          f"{label} trailing ids disagree")
+    ids_k, ids_p = info_k[..., :num_sel].long(), info_p[..., :num_sel].long()
+    gap = (scores.gather(-1, ids_k) - scores.gather(-1, ids_p)).abs()
+    differ = ids_k != ids_p
+    check(bool((gap[differ] <= TIE).all()), f"{label} picks a block that is not a tie")
+    same_rows = ~differ.any(-1)
+    vk, vp = info_k[..., n_slots:n_slots + num_sel], info_p[..., n_slots:n_slots + num_sel]
+    check(torch.equal(vk[same_rows], vp[same_rows]), f"{label} validity disagrees")
+    return differ.any(-1).sum().item()
+
+
+def attend_rows(vp, t, Bs, n_slide, window, bkvh):
+    """kv rows the attention needs: valid selected blocks, the band and the
+    diagonal block up to t."""
+    trail = t // Bs - torch.arange(n_slide - 1, -1, -1)
+    j = trail[:, None] * Bs + torch.arange(Bs)
+    diag = torch.zeros_like(j, dtype=torch.bool)
+    diag[-1] = True
+    trail_rows = (((j >= t - window) | diag) & (j <= t) & (trail >= 0)[:, None]).sum().item()
+    return vp.sum().item() * Bs + bkvh * trail_rows
+
+
+def kernel_decode_fused(gen, flush, cfg, params, b):
+    """Rows 6 and 7 at bs ``b``: layer 0's trained weights, packed; seeded
+    queries, caches and residual stream."""
+    nsa = cfg.nsa
+    kvh, g, d, dim = cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head, cfg.dim
+    stride, Bs, Bc, window = nsa.compress_block_sliding_stride, nsa.selection_block_size, \
+        nsa.compress_block_size, nsa.sliding_window_size
+    num_sel, M = nsa.num_selected_blocks, nsa.num_compressed_mem_kv
+    n_slide = -(-window // Bs) + 1
+    scale = d ** -0.5
+    Wc = _ckv_width(MAX_LEN, stride, nsa.num_compress_per_fine)
+    layer = fuse_decode_layer(params["layers"][0], torch.bfloat16)
+    fp, ffp = layer["attn"]["decode_fused"], layer["ff"]["decode_fused"]
+    weights = (fp["pos_kv"], fp["w1k"], fp["b1k"], fp["w1v"], fp["b1v"], fp["w2"], fp["b2"])
+    ff = tuple(ffp[k] for k in ("norm_scale", "w1", "b1", "w2", "b2"))
+    dev = DEVICE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, ckv, ring, kv_new = randn(b, kvh, g, d), randn(b, kvh, Wc, 2 * d), \
+        randn(b, kvh, Bc, 2 * d), randn(b, kvh, 1, 2 * d)
+    mem_kv = fp["mem_kv"]
+    kw = dict(max_blocks=MAX_LEN // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
+              n_slide=n_slide, scale=scale)
+    times, plain_times, errs, outs = {}, {}, [], {}
+    for t in (DECODE_T, DECODE_T - 1):          # an emission step, then one without
+        num_cb = t // stride
+        caches = [(ckv.clone(), ring.clone()) for _ in range(2)]
+        c_k, info_k = nsa_decode_fused.decode_select_emit(q, *caches[0], kv_new, mem_kv,
+                                                          *weights, t, num_cb, **kw)
+        c_p, info_p = nsa_decode_fused.decode_select_emit_plain(q, *caches[1], kv_new, mem_kv,
+                                                                *weights, t, num_cb, **kw)
+        _, scores = nsa_decode.select_scores_plain(q, ckv, mem_kv, num_cb, t, stride=stride,
+                                                   sel_block=Bs, scale=scale)
+        torch.cuda.synchronize()
+        emit = nsa_decode_fused.emits(t, stride)
+        err_c = max_err(c_k, c_p)
+        ties = check_selection(info_k.reshape(b, kvh, -1), info_p.reshape(b, kvh, -1), scores,
+                               num_sel, n_slide, f"decode_select_emit t={t}")
+        check(torch.equal(caches[0][1], caches[1][1])
+              and torch.equal(caches[0][1][:, :, -1:], kv_new)
+              and torch.equal(caches[0][1][:, :, :-1], ring[:, :, 1:]),
+              f"decode_select_emit t={t}: the shifted ring is not bit-equal")
+        others = [i for i in range(Wc) if i != num_cb]
+        for label, ckv_x in (("kernel", caches[0][0]), ("plain", caches[1][0])):
+            check(torch.equal(ckv_x[:, :, others], ckv[:, :, others]),
+                  f"decode_select_emit t={t}: the {label} wrote a ckv row other than {num_cb}")
+        row_k, row_p = caches[0][0][:, :, num_cb], caches[1][0][:, :, num_cb]
+        err_row = max_err(row_k, row_p)
+        top_row = row_p.float().abs().max().item()
+        if emit:
+            check(err_row <= TOL_FUSED * top_row and not torch.equal(row_p, ckv[:, :, num_cb]),
+                  f"decode_select_emit t={t}: the emitted ckv row disagrees")
+        else:
+            check(torch.equal(row_k, ckv[:, :, num_cb]) and torch.equal(row_p, ckv[:, :, num_cb]),
+                  f"decode_select_emit t={t}: a row was emitted off the stride")
+        check(err_c <= TOL_OUT and bool(torch.isfinite(c_k.float()).all()),
+              f"decode_select_emit t={t}: c_out disagrees")
+        print(f"  decode_select_emit bs {b} t={t} (emits: {emit}): max|err| c_out {err_c:.5f} "
+              f"(tol {TOL_OUT}); ids equal on {b * kvh - ties}/{b * kvh} rows, {ties} differ "
+              f"only by ties within {TIE}; emitted row max|err| {err_row:.5f} (tol {TOL_FUSED:g} "
+              f"x max {top_row:.3f}); ring bit-equal; other ckv rows unchanged", flush=True)
+        errs.append(max(err_c, err_row))
+        outs[t] = (c_p, info_p)
+        work = (q, ckv.clone(), ring.clone(), kv_new, mem_kv, *weights)
+        times[t] = timed_ms(lambda: nsa_decode_fused.decode_select_emit(
+            *work, t, num_cb, **kw), 50, flush)
+        plain_times[t] = timed_ms(lambda: nsa_decode_fused.decode_select_emit_plain(
+            *work, t, num_cb, **kw), 10, flush)
+    # amortised over the stride: one emission step in `stride`
+    amort = (times[DECODE_T] + (stride - 1) * times[DECODE_T - 1]) / stride
+    amort_plain = (plain_times[DECODE_T] + (stride - 1) * plain_times[DECODE_T - 1]) / stride
+    num_cb = DECODE_T // stride
+    c_p, info_p = outs[DECODE_T]
+    step_bytes = (nbytes(q, mem_kv, c_p, info_p, kv_new) + 2 * nbytes(ring)
+                  + b * kvh * num_cb * 2 * d * 2)
+    emit_bytes = nbytes(*weights) + b * kvh * 2 * d * 2
+    hid = fp["w1k"].shape[2]
+    step_flops = b * kvh * g * (num_cb + M) * 4 * d
+    emit_flops = b * kvh * 2 * (Bc * d * hid + hid * d) * 2
+    bms, by = bound_ms(step_bytes + emit_bytes / stride, step_flops + emit_flops / stride)
+    print(f"  decode_select_emit bs {b}: {times[DECODE_T]:.4f} ms emitting, "
+          f"{times[DECODE_T - 1]:.4f} ms not, {amort:.4f} ms amortised over {stride} steps "
+          f"(bound {bms:.5f} ms, by {by}); plain {amort_plain:.4f} ms", flush=True)
+    sel = {"name": "decode_select_emit", "route": "cuda",
+           "source": "nsa_tpu_torch/csrc/nsa_decode_fused.cu",
+           "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:441",
+           "max_abs_err": max(errs), "ms": amort, "plain_ms": amort_plain,
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "ms_emit_step": times[DECODE_T], "ms_other_step": times[DECODE_T - 1]}
+
+    # attend: both versions get the same info and c_out (the plain select's)
+    t = DECODE_T
+    rq, kv = randn(b, kvh, g, d), randn(b, kvh, MAX_LEN, 2 * d)
+    kv_row = randn(b, kvh, 1, 2 * d)
+    gates = torch.sigmoid(randn(b, kvh, g, 3).float()).to(torch.bfloat16)
+    x = randn(b, 1, dim)
+    akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
+               eps=cfg.norm_eps)
+    kv_k, kv_p = kv.clone(), kv.clone()
+    args = (kv_row, info_p, c_p, gates, x, fp["w_out"], t, ff)
+    out_k = nsa_decode_fused.decode_attend_fused(rq, kv_k, *args, **akw)
+    out_p = nsa_decode_fused.decode_attend_fused_plain(rq, kv_p, *args, **akw)
+    torch.cuda.synchronize()
+    err_a, top = max_err(out_k, out_p), out_p.float().abs().max().item()
+    check(torch.equal(kv_k, kv_p) and torch.equal(kv_k[:, :, t], kv_row[:, :, 0])
+          and torch.equal(kv_k[:, :, :t], kv[:, :, :t])
+          and torch.equal(kv_k[:, :, t + 1:], kv[:, :, t + 1:]),
+          "decode_attend_fused: the kv cache is not the old one with row t written")
+    check(err_a <= TOL_FUSED * top and bool(torch.isfinite(out_k.float()).all()),
+          "decode_attend_fused disagrees")
+    print(f"  decode_attend_fused bs {b} (FF inside): max|err| {err_a:.5f} (tol {TOL_FUSED:g} x "
+          f"max {top:.3f}); kv row {t} written, bit-equal; no other row changed", flush=True)
+    vp = info_p.reshape(b, kvh, -1)[..., num_sel + n_slide:2 * num_sel + n_slide]
+    rows = attend_rows(vp, t, Bs, n_slide, window, b * kvh)
+    hid4 = ff[1].shape[1]
+    bms, by = bound_ms(nbytes(rq, info_p, c_p, gates, x, kv_row, fp["w_out"], *ff, out_k)
+                       + rows * 2 * d * 2 + nbytes(kv_row),
+                       rows * g * 4 * d + b * 2 * (kvh * g * d * dim + 2 * dim * hid4))
+    att = {"name": "decode_attend_fused", "route": "cuda",
+           "source": "nsa_tpu_torch/csrc/nsa_decode_fused.cu",
+           "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:830",
+           "max_abs_err": err_a,
+           "ms": timed_ms(lambda: nsa_decode_fused.decode_attend_fused(rq, kv_k, *args, **akw),
+                          50, flush),
+           "plain_ms": timed_ms(lambda: nsa_decode_fused.decode_attend_fused_plain(
+               rq, kv_p, *args, **akw), 10, flush),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+    print(f"  decode_attend_fused bs {b}: {att['ms']:.4f} ms (bound {bms:.5f} ms, by {by}); "
+          f"plain {att['plain_ms']:.4f} ms", flush=True)
+    return sel, att
+
+
 def kernel_decode(gen, flush, cfg):
     nsa = cfg.nsa
     b, kvh, g, d = BATCH, cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head
@@ -322,16 +514,8 @@ def kernel_decode(gen, flush, cfg):
     torch.cuda.synchronize()
     n_slots = num_sel + n_slide
     err_c = max_err(c_k, c_p)
-    check(torch.equal(info_k[..., num_sel:n_slots], info_p[..., num_sel:n_slots]),
-          "decode_select trailing ids disagree")
-    ids_k, ids_p = info_k[..., :num_sel].long(), info_p[..., :num_sel].long()
-    gap = (scores.gather(-1, ids_k) - scores.gather(-1, ids_p)).abs()
-    differ = ids_k != ids_p
-    ties = differ.any(-1).sum().item()
-    check(bool((gap[differ] <= TIE).all()), "decode_select picks a block that is not a tie")
-    same_rows = ~differ.any(-1)
-    vk, vp = info_k[..., n_slots:n_slots + num_sel], info_p[..., n_slots:n_slots + num_sel]
-    check(torch.equal(vk[same_rows], vp[same_rows]), "decode_select validity disagrees")
+    ties = check_selection(info_k, info_p, scores, num_sel, n_slide, "decode_select")
+    vp = info_p[..., n_slots:n_slots + num_sel]
     print(f"  decode_select max|err| c_out {err_c:.5f} (tol {TOL_OUT}); ids equal on "
           f"{b * kvh - ties}/{b * kvh} rows, {ties} rows differ only by ties within {TIE}",
           flush=True)
@@ -360,13 +544,7 @@ def kernel_decode(gen, flush, cfg):
     print(f"  decode_attend max|err| {err_a:.5f} (tol {TOL_OUT})", flush=True)
     check(err_a <= TOL_OUT and torch.isfinite(out_k.float()).all().item(),
           "decode_attend disagrees")
-    # rows this data needs: valid selected blocks, the band and the diagonal
-    trail = t // Bs - torch.arange(n_slide - 1, -1, -1)
-    j = trail[:, None] * Bs + torch.arange(Bs)
-    diag = torch.zeros_like(j, dtype=torch.bool)
-    diag[-1] = True
-    trail_rows = (((j >= t - window) | diag) & (j <= t) & (trail >= 0)[:, None]).sum().item()
-    rows = vp.sum().item() * Bs + b * kvh * trail_rows
+    rows = attend_rows(vp, t, Bs, n_slide, window, b * kvh)
     bms, by = bound_ms(nbytes(rq, info_p, c_p, gates, out_k) + rows * 2 * d * 2,
                        rows * g * 4 * d)
     att = {"name": "decode_attend", "route": "cuda",
@@ -387,9 +565,9 @@ def _dev_us(e):
 
 def _report(prof, label, wall, per=1, top=8):
     """Print device time of a profile, by kernel and by the op that launched
-    it; return the device's busy share of ``wall``.  Busy time sums the
-    device-side records only (kernels, copies): an op's record carries its
-    kernels' time again."""
+    it; return the device's busy share of ``wall`` and the device records
+    per ``per``.  Busy time sums the device-side records only (kernels,
+    copies): an op's record carries its kernels' time again."""
     from torch.autograd import DeviceType
 
     avgs = [e for e in prof.key_averages() if _dev_us(e) > 0]
@@ -405,7 +583,25 @@ def _report(prof, label, wall, per=1, top=8):
         for e in sorted(group, key=_dev_us, reverse=True)[:top]:
             print(f"    {_dev_us(e) / 1e3 / per:9.3f} ms/{unit} x{e.count // per:<5d} "
                   f"{e.key[:90]}", flush=True)
-    return busy / 1e6 / wall
+    return busy / 1e6 / wall, sum(e.count for e in kernels) / per
+
+
+def profile_decode(params, cfg, token, cache, label, steps=5):
+    """torch.profiler over ``steps`` decode steps after a warm step on a
+    copy of the cache; returns the device's busy share of their wall time
+    and the device records per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    transformer_decode_step(params, cfg, token, clone_cache(cache))   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = transformer_decode_step(params, cfg, token, cache)
+            token = logits.argmax(-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _report(prof, f"{steps} decode steps, {label}", wall, per=steps)
 
 
 def profile_main_path(params, cfg, ids, first, steps=5):
@@ -413,25 +609,94 @@ def profile_main_path(params, cfg, ids, first, steps=5):
     time by op; returns the device's busy share of the decode wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, cache = transformer_prefill(params, cfg, ids, MAX_LEN)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report(prof, f"prefill {BATCH}x{PROMPT}", wall)
-    token = first
-    transformer_decode_step(params, cfg, token, clone_cache(cache))   # warm
+    return profile_decode(params, cfg, first, cache, f"bs {BATCH}", steps)[0]
+
+
+def decode_run(params, cfg, first, cache, route=None):
+    """``GEN`` greedy decode steps from ``first``; returns (tokens, device
+    seconds between CUDA events around the steps)."""
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    tokens = greedy_decode(params, cfg, first, cache, GEN, route=route)
+    e.record()
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            logits, cache = transformer_decode_step(params, cfg, token, cache)
-            token = logits.argmax(-1)
+    return tokens, s.elapsed_time(e) / 1e3
+
+
+def small_batch_phase(params, cfg, smi):
+    """The small-batch decode path at each of SMALL_BATCHES: prefill,
+    then GEN greedy steps on the default (fused) route, launch counts read
+    around exactly that run; the first step against the plain fused route
+    and, at bs 8, the split kernel route; tok/s of both routes in turns at
+    bs 8; a profile of 5 steps.  Returns the launch counts of the first
+    batch size's run and the metrics."""
+    packed = fuse_decode_params(params, cfg)
+    fused = (nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused)
+    counted = (nsa_prefill.prefill_fwd, nsa_decode.decode_select, nsa_decode.decode_attend,
+               *fused)
+    metrics, first_launches = {}, None
+    for b in SMALL_BATCHES:
+        ids = seeded_ids(b, PROMPT, cfg.vocab_size, SEED + b, DEVICE)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return _report(prof, f"{steps} decode steps", wall, per=steps)
+        for fn in counted:
+            fn.launches = 0
+        logits, cache = transformer_prefill(params, cfg, ids, MAX_LEN)
+        first = logits[:, -1].argmax(-1)
+        start = clone_cache(cache)
+        tokens, decode_s = decode_run(packed, cfg, first, cache)
+        launches = {fn.__name__: fn.launches for fn in counted}
+        first_launches = first_launches or launches
+        print(f"  bs {b} launches {launches}", flush=True)
+        want = {"prefill_fwd": cfg.depth, "decode_select": 0, "decode_attend": 0,
+                "decode_select_emit": cfg.depth * GEN, "decode_attend_fused": cfg.depth * GEN}
+        check(launches == want, f"bs {b} small-batch launches {launches}, expected {want}")
+        check(tuple(tokens.shape) == (b, GEN) and int(tokens.min()) >= 0
+              and int(tokens.max()) < cfg.vocab_size, f"bs {b} generated tokens malformed")
+
+        step0, _ = transformer_decode_step(packed, cfg, first, clone_cache(start))
+        others = [("plain fused route", dict(use_kernels=False))]
+        if b == SMALL_BATCHES[0]:
+            others.append(("split kernel route", dict(route="split")))
+        m = {"decode_tok_s": b * GEN / decode_s}
+        for label, kw in others:
+            ref, _ = transformer_decode_step(packed, cfg, first, clone_cache(start), **kw)
+            err, scale_l = max_err(step0, ref), ref.abs().max().item()
+            agree = (step0.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            print(f"  bs {b} first decode step logits: fused kernels vs {label} max|err| "
+                  f"{err:.4f} (tol {TOL_LOGITS_REL} x max|logit| {scale_l:.2f}); argmax agrees "
+                  f"on {agree * 100:.1f}% of rows", flush=True)
+            check(bool(torch.isfinite(step0).all()) and err <= TOL_LOGITS_REL * max(scale_l, 1.0),
+                  f"bs {b} fused-route decode logits disagree with the {label}")
+            m[f"logits_max_abs_err_vs_{label.split()[0]}"] = err
+        print(f"  bs {b} decode {GEN} steps: {decode_s:.3f}s = {b * GEN / decode_s:.1f} tok/s "
+              f"(fused route); {smi}", flush=True)
+
+        if b == SMALL_BATCHES[0]:
+            # the two routes in turns in this call: fused, split, split, fused
+            tps, toks = {"fused": [], "split": []}, {}
+            for route in ("fused", "split", "split", "fused"):
+                toks[route], sec = decode_run(packed, cfg, first, clone_cache(start), route)
+                tps[route].append(b * GEN / sec)
+            agree = (toks["fused"] == toks["split"]).float().mean().item()
+            print(f"  bs {b} decode tok/s, fused {tps['fused']} split {tps['split']} (in turns "
+                  f"f, s, s, f); means fused {sum(tps['fused']) / 2:.1f} split "
+                  f"{sum(tps['split']) / 2:.1f}; greedy tokens of the two routes agree on "
+                  f"{agree * 100:.1f}%; {smi}", flush=True)
+            m.update({"ab_fused_tok_s": tps["fused"], "ab_split_tok_s": tps["split"],
+                      "greedy_tokens_agree_split": agree})
+        busy, records = profile_decode(packed, cfg, tokens[:, -1], cache, f"bs {b} fused route")
+        m.update({"decode_device_busy": busy, "device_records_per_step": records})
+        metrics[f"bs{b}"] = m
+        del cache, start
+        torch.cuda.empty_cache()
+    return first_launches, metrics
 
 
 class StepLog(MetricsLogger):
@@ -456,8 +721,9 @@ def expected_launches(cfg, tc, start):
     micro = len(steps) * tc.grad_accum_every
     return {"prefill_fwd": cfg.depth * (micro + val + gen),
             "prefill_bwd_dq": cfg.depth * micro, "prefill_bwd_dkv": cfg.depth * micro,
-            "decode_select": cfg.depth * gen * tc.generate_length,
-            "decode_attend": cfg.depth * gen * tc.generate_length}
+            "decode_select": 0, "decode_attend": 0,       # generation runs at bs 1: fused
+            "decode_select_emit": cfg.depth * gen * tc.generate_length,
+            "decode_attend_fused": cfg.depth * gen * tc.generate_length}
 
 
 def rel_l2(a, b):
@@ -471,7 +737,8 @@ def train_phase(smi):
     launch counts and metrics."""
     cfg = nsa_tpu_torch.reference_model_config().replace(dtype="bfloat16")
     counted = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv,
-               nsa_decode.decode_select, nsa_decode.decode_attend)
+               nsa_decode.decode_select, nsa_decode.decode_attend,
+               nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused)
     here = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -581,7 +848,7 @@ def train_phase(smi):
         transformer_loss(params, cfg, ids).backward()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = _report(prof, f"one training micro-step {MICRO}x{SEQ}", wall)
+    busy = _report(prof, f"one training micro-step {MICRO}x{SEQ}", wall)[0]
     return launches, {"train_s": train_s, "train_peak_bytes": peak,
                       "train_losses": losses, "measure_train_tok_s": tps,
                       "grad_rel_l2_max": grad_errs["plain path"],
@@ -624,13 +891,15 @@ def main():
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
         kernels = [kernel_prefill(gen, flush, cfg), *kernel_decode(gen, flush, cfg),
-                   *kernel_prefill_bwd(gen, flush, cfg)]
+                   *kernel_prefill_bwd(gen, flush, cfg),
+                   *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0])]
         del flush
         torch.cuda.empty_cache()
         t0 = phase("kernels", t0)
 
         ids = seeded_ids(BATCH, PROMPT, cfg.vocab_size, SEED, "cuda")
-        counted = (nsa_prefill.prefill_fwd, nsa_decode.decode_select, nsa_decode.decode_attend)
+        counted = (nsa_prefill.prefill_fwd, nsa_decode.decode_select, nsa_decode.decode_attend,
+                   nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in counted:
@@ -654,7 +923,8 @@ def main():
         peak = torch.cuda.max_memory_allocated()
         print(f"  launches {launches}", flush=True)
         want = {"prefill_fwd": cfg.depth, "decode_select": cfg.depth * GEN,
-                "decode_attend": cfg.depth * GEN}
+                "decode_attend": cfg.depth * GEN, "decode_select_emit": 0,
+                "decode_attend_fused": 0}       # bs 64 takes the split route
         check(launches == want, f"main-path launches {launches}, expected {want}")
         check(tuple(logits.shape) == (BATCH, PROMPT, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()), "prefill logits not finite/shaped")
@@ -688,23 +958,30 @@ def main():
         t0 = phase("measure", t0)
 
         busy = profile_main_path(params, cfg, ids, first)
-        del params, ids, logits
+        del ids, logits
         torch.cuda.empty_cache()
         t0 = phase("profile", t0)
+
+        small_launches, small = small_batch_phase(params, cfg, smi)
+        del params
+        torch.cuda.empty_cache()
+        t0 = phase("small", t0)
 
     train_launches, train = train_phase(smi)
     torch.cuda.empty_cache()
     t0 = phase("train", t0)
 
     for k in kernels:
-        # each kernel's count from its own path: serving for the forward and
-        # decode kernels, training for the backward ones
+        # each kernel's count from its own path: serving at bs 64 for the
+        # forward and split decode kernels, serving at bs 8 for the fused
+        # ones, training for the backward ones
         k["launches"] = (train_launches if k["name"].startswith("prefill_bwd")
+                         else small_launches if k["name"] in FUSED_KERNELS
                          else launches)[k["name"]]
     print(json.dumps({"main": {
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,
         "measure_decode_tok_s": tps, "measure_prefill_tok_s": prefill_tps, "peak_bytes": peak,
-        "logits_max_abs_err": err, "decode_device_busy": busy, **train,
+        "logits_max_abs_err": err, "decode_device_busy": busy, "small": small, **train,
         "train_launches": train_launches, "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them

@@ -4,9 +4,11 @@
 token embed -> depth x (NSA attention + prenorm GELU FF) -> RMSNorm ->
 logits.  The model is plain functions over a params dict in the JAX
 package's layout (see ``utils/checkpoint.py``); the decode cache is a
-``ModelCache`` threaded through ``transformer_decode_step``.  The port
-decodes through ``decode_select`` + ``decode_attend`` at every batch size.
-The full-attention baseline model is not ported yet (``ROADMAP.md``).
+``ModelCache`` threaded through ``transformer_decode_step``.  The decode
+step takes the fused pair ``decode_select_emit`` + ``decode_attend_fused``
+at b <= 8 and ``decode_select`` + ``decode_attend`` above, per layer (JAX's
+``NSA_MEGA_DECODE=0`` route: its whole-model decode kernel is not ported
+yet).  The full-attention baseline model is not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ..ops.common import rms_norm, round_up_mult
 from ..ops.nsa import (
     NSADecodeCache,
     ff_apply_gelu,
+    fuse_decode_layer,
     init_sparse_attention,
     sparse_attention_decode,
     sparse_attention_forward,
@@ -120,14 +123,28 @@ def transformer_prefill(params, cfg: ModelConfig, ids: torch.Tensor, max_len: in
     return transformer_forward(params, cfg, ids, return_cache_max_len=max_len)
 
 
+def fuse_decode_params(params: dict, cfg: ModelConfig) -> dict:
+    """Pack every layer's decode weights ONCE, outside the step loop
+    (``nsa_tpu.models.transformer.fuse_decode_params``): the fused q|k|v|gate
+    projection, the packed compressors, ``mem_kv``, ``w_out`` and the FF in
+    the compute dtype (``fuse_decode_layer``).  Returns a new params dict
+    that the decode step reads the packed weights from; packing again is a
+    no-op."""
+    if all("decode_fused" in layer["attn"] for layer in params["layers"]):
+        return params
+    dtype = _compute_dtype(cfg)
+    return {**params, "layers": [fuse_decode_layer(layer, dtype) for layer in params["layers"]]}
+
+
 def transformer_decode_step(
     params, cfg: ModelConfig, token: torch.Tensor, cache: ModelCache, *,
-    use_kernels: bool = True,
+    use_kernels: bool = True, route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ModelCache]:
     """One token step. token: [b] int -> float32 logits [b, vocab], cache.
 
-    The cache's kv and ckv tensors are updated in place.  ``use_kernels``
-    as in ``sparse_attention_decode``.
+    The cache's tensors are updated in place.  ``use_kernels`` and
+    ``route`` as in ``sparse_attention_decode``; params packed by
+    ``fuse_decode_params`` save the per-step packing.
     """
     _check_model(cfg)
     x = params["token_emb"][token][:, None].to(_compute_dtype(cfg))   # [b, 1, dim]
@@ -135,7 +152,8 @@ def transformer_decode_step(
     new_layers = []
     for layer, lc in zip(params["layers"], cache.layers):
         x, lc = sparse_attention_decode(
-            layer["attn"], cfg, x, lc, t, ff_params=layer["ff"], use_kernels=use_kernels
+            layer["attn"], cfg, x, lc, t, ff_params=layer["ff"], use_kernels=use_kernels,
+            route=route,
         )
         new_layers.append(lc)
     logits = _logits(params, cfg, x)[:, 0]
@@ -151,26 +169,29 @@ def default_max_len(cfg: ModelConfig, need: int) -> int:
 
 
 def greedy_decode(params, cfg: ModelConfig, token: torch.Tensor, cache: ModelCache,
-                  gen_len: int) -> torch.Tensor:
+                  gen_len: int, *, route: Optional[str] = None) -> torch.Tensor:
     """``gen_len`` greedy decode steps from ``token`` [b], each consuming the
-    token it emits; returns the consumed tokens [b, gen_len]."""
+    token it emits; returns the consumed tokens [b, gen_len].  The decode
+    weights are packed once first (``fuse_decode_params``)."""
+    params = fuse_decode_params(params, cfg)
     tokens = []
     for _ in range(gen_len):
         tokens.append(token)
-        logits, cache = transformer_decode_step(params, cfg, token, cache)
+        logits, cache = transformer_decode_step(params, cfg, token, cache, route=route)
         token = logits.argmax(-1)
     return torch.stack(tokens, dim=1)
 
 
 def transformer_greedy(
     params, cfg: ModelConfig, prompt: torch.Tensor, gen_len: int,
-    max_len: Optional[int] = None,
+    max_len: Optional[int] = None, *, route: Optional[str] = None,
 ) -> torch.Tensor:
     """Greedy generation: prefill, then ``gen_len`` decode steps.
-    prompt [b, n] -> tokens [b, gen_len], the first from the prefill."""
+    prompt [b, n] -> tokens [b, gen_len], the first from the prefill;
+    ``route`` as in ``sparse_attention_decode``."""
     b, n = prompt.shape
     if gen_len == 0:
         return prompt.new_zeros((b, 0))
     max_len = default_max_len(cfg, n + gen_len) if max_len is None else max_len
     logits, cache = transformer_prefill(params, cfg, prompt, max_len)
-    return greedy_decode(params, cfg, logits[:, -1].argmax(-1), cache, gen_len)
+    return greedy_decode(params, cfg, logits[:, -1].argmax(-1), cache, gen_len, route=route)

@@ -39,13 +39,16 @@ def trailing_blocks(t: int, sel_block: int, n_slide: int, device) -> torch.Tenso
 
 
 def select_scores_plain(q, ckv, mem_kv, num_cb: int, t: int, *, stride: int,
-                        sel_block: int, scale: float):
+                        sel_block: int, scale: float, weights_dtype=None):
     """Branch 1 and the normalized fine-block scores.
 
     q [b, kvh, g, d]; ckv [b, kvh, Wc, 2d]; mem_kv [2, kvh, M, d] ->
     (c_out [b, kvh, g, d], scores [b, kvh, Wc // npf] float32).
+    The softmax weights are rounded to ``weights_dtype`` before P.V: q's
+    dtype by default (the XLA decode path), float32 for the fused kernels.
     """
     b, kvh, g, d = q.shape
+    wd = q.dtype if weights_dtype is None else weights_dtype
     Wc = ckv.shape[2]
     M = mem_kv.shape[2]
     mem_k, mem_v = mem_kv[0].to(q.dtype), mem_kv[1].to(q.dtype)
@@ -55,9 +58,9 @@ def select_scores_plain(q, ckv, mem_kv, num_cb: int, t: int, *, stride: int,
     live = torch.arange(Wc, device=q.device) < num_cb
     csim_blocks = csim_blocks.masked_fill(~live, mask_value(torch.float32))
     csim = torch.cat([csim_mem, csim_blocks], dim=-1)              # [b,kvh,g,M+Wc]
-    cattn = torch.softmax(csim, dim=-1).to(q.dtype)
+    cattn = torch.softmax(csim, dim=-1).to(wd)
     cv_all = torch.cat([mem_v[None].expand(b, kvh, M, d), ckv[..., d:]], dim=2)
-    c_out = torch.einsum("bhgj,bhjd->bhgd", cattn, cv_all)
+    c_out = torch.einsum("bhgj,bhjd->bhgd", cattn, cv_all.to(wd)).to(q.dtype)
 
     importance = group_importance(csim.reshape(b, kvh * g, 1, -1), M, g, True)
     q_pos = torch.tensor([t], device=q.device)
@@ -67,11 +70,13 @@ def select_scores_plain(q, ckv, mem_kv, num_cb: int, t: int, *, stride: int,
 
 def decode_select_plain(q, ckv, mem_kv, t: int, num_cb: int, *, max_blocks: int,
                         stride: int, sel_block: int, num_sel: int, n_slide: int,
-                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of ``decode_select``."""
+                        scale: float, weights_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of ``decode_select`` (``weights_dtype`` as
+    in ``select_scores_plain``)."""
     b, kvh = q.shape[:2]
     c_out, scores = select_scores_plain(
-        q, ckv, mem_kv, num_cb, t, stride=stride, sel_block=sel_block, scale=scale
+        q, ckv, mem_kv, num_cb, t, stride=stride, sel_block=sel_block, scale=scale,
+        weights_dtype=weights_dtype,
     )
     sel = select_blocks(scores, num_sel, use_diff_topk=False)
     S = sel.indices.shape[-1]
@@ -124,12 +129,15 @@ def decode_select(q, ckv, mem_kv, t: int, num_cb: int, *, max_blocks: int,
 decode_select.launches = 0
 
 
-def decode_attend_plain(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
-                        window: int, num_sel: int, n_slide: int,
-                        scale: float) -> torch.Tensor:
-    """The plain PyTorch version of ``decode_attend``: the block gather, the
-    fine and sliding masked softmaxes, and the gate combine."""
+def attend_combined_plain(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
+                          window: int, num_sel: int, n_slide: int, scale: float,
+                          weights_dtype=None) -> torch.Tensor:
+    """The block gather, the fine and sliding masked softmaxes, and the gate
+    combine, returned in float32 [b, kvh, g, d].  The softmax weights and
+    each branch's P.V are rounded to ``weights_dtype``: rq's dtype by
+    default (the XLA decode path), float32 for the fused kernels."""
     b, kvh, g, d = rq.shape
+    wd = rq.dtype if weights_dtype is None else weights_dtype
     max_len = kv.shape[2]
     Bs = sel_block
     n_slots = num_sel + n_slide
@@ -157,12 +165,21 @@ def decode_attend_plain(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
 
     def masked_out(mask):
         s = sim.masked_fill(~mask, mask_value(torch.float32))
-        attn = torch.softmax(s, dim=-1).to(rq.dtype)
-        return torch.einsum("bhgj,bhjd->bhgd", attn, fv)
+        attn = torch.softmax(s, dim=-1).to(wd)
+        return torch.einsum("bhgj,bhjd->bhgd", attn, fv.to(wd)).float()
 
-    stacked = torch.stack([c_out, masked_out(fine_mask), masked_out(slide_mask)], dim=-1)
-    out = torch.einsum("bhgs,bhgds->bhgd", gates.to(rq.dtype).float(), stacked.float())
-    return out.to(rq.dtype)
+    stacked = torch.stack([c_out.float(), masked_out(fine_mask), masked_out(slide_mask)], dim=-1)
+    return torch.einsum("bhgs,bhgds->bhgd", gates.to(rq.dtype).float(), stacked)
+
+
+def decode_attend_plain(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
+                        window: int, num_sel: int, n_slide: int,
+                        scale: float) -> torch.Tensor:
+    """The plain PyTorch version of ``decode_attend``: the block gather, the
+    fine and sliding masked softmaxes, and the gate combine."""
+    return attend_combined_plain(rq, kv, info, c_out, gates, t, sel_block=sel_block,
+                                 window=window, num_sel=num_sel, n_slide=n_slide,
+                                 scale=scale).to(rq.dtype)
 
 
 def decode_attend(rq, kv, info, c_out, gates, t: int, *, sel_block: int,

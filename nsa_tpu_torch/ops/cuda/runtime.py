@@ -41,6 +41,8 @@ SIGNATURES = {
     "nsa_prefill_bwd_dkv": [_p] * 13 + [_i] * 7 + [_f, _p],
     "nsa_decode_select": [_p] * 5 + [_i] * 13 + [_f, _p],
     "nsa_decode_attend": [_p] * 6 + [_i] * 10 + [_f, _p],
+    "nsa_decode_select_emit": [_p] * 15 + [_i] * 16 + [_f, _p],
+    "nsa_decode_attend_fused": [_p] * 16 + [_i] * 12 + [_f, _f, _p],
 }
 
 

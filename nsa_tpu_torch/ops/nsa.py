@@ -14,8 +14,12 @@ diagonal block exactly as prefill does, so prefill and incremental decode
 agree.
 
 The prefill and training run branches 2 and 3 in one forward kernel and
-two backward kernels (``ops/cuda/nsa_prefill.py``); the decode step runs ``decode_select`` then
-``decode_attend`` (``ops/cuda/nsa_decode.py``) at every batch size.  The
+two backward kernels (``ops/cuda/nsa_prefill.py``).  The decode step takes
+one of two routes, as in the JAX package: at b <= 8 the fused pair
+``decode_select_emit`` + ``decode_attend_fused`` (``ops/cuda/nsa_decode_fused.py``)
+runs the whole layer, the FF included; above that the split pair
+``decode_select`` + ``decode_attend`` (``ops/cuda/nsa_decode.py``) with the
+cache writes, emission, projection and FF as separate ops.  The
 port covers the configuration those kernels take: causal, query heads
 sharing their KV head's selection, ``selection_block_size / stride > 1``,
 the ``mlp`` compressor.  Other configurations raise ``NotImplementedError``
@@ -40,6 +44,13 @@ from .cuda.nsa_decode import (
     decode_attend_plain,
     decode_select,
     decode_select_plain,
+)
+from .cuda.nsa_decode_fused import (
+    decode_attend_fused,
+    decode_attend_fused_plain,
+    decode_select_emit,
+    decode_select_emit_plain,
+    emits,
 )
 from .cuda.nsa_prefill import nsa_fine_sliding_attention
 from .rotary import rotate_at_offset, rotate_qk
@@ -263,6 +274,64 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     )
 
 
+# JAX's NSA_FUSED_DECODE_MAX_B default: the fused route's largest batch
+FUSED_DECODE_MAX_B = 8
+
+
+def _fused_decode_applies(cfg: ModelConfig) -> bool:
+    nsa = cfg.nsa
+    return (nsa.query_heads_share_selected_kv and nsa.num_compress_per_fine > 1
+            and nsa.num_selected_blocks > 0 and nsa.compressor == "mlp")
+
+
+def _use_fused_decode(cfg: ModelConfig, b: int) -> bool:
+    """Whether the decode step takes the fused route by default: JAX's
+    ``_use_fused_decode(...) and b <= NSA_FUSED_DECODE_MAX_B``.  JAX's
+    further condition, batch tiles that Mosaic can lay out, holds for every
+    b <= 8 and has no counterpart here."""
+    return _fused_decode_applies(cfg) and b <= FUSED_DECODE_MAX_B
+
+
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.to(dtype).contiguous()
+
+
+def _pack_attn(attn: dict, dtype: torch.dtype) -> dict:
+    kc, vc = attn["k_compress"], attn["v_compress"]
+    f32 = torch.float32
+    return {
+        "w_qkvg": _cast(torch.cat([attn["w_q"], attn["w_k"], attn["w_v"], attn["gate_w"]], 1),
+                        dtype),
+        "pos_kv": _cast(torch.cat([attn["k_pos"], attn["v_pos"]], -1), dtype),
+        "w1k": _cast(kc["w1"], dtype), "b1k": _cast(kc["b1"], f32),
+        "w1v": _cast(vc["w1"], dtype), "b1v": _cast(vc["b1"], f32),
+        "w2": _cast(torch.cat([kc["w2"], vc["w2"]], -1), dtype),
+        "b2": _cast(torch.cat([kc["b2"], vc["b2"]], -1), f32),
+        "mem_kv": _cast(attn["mem_kv"], dtype),
+        "w_out": _cast(attn["w_out"], dtype),
+    }
+
+
+def _pack_ff(ff: dict, dtype: torch.dtype) -> dict:
+    f32 = torch.float32
+    return {"norm_scale": _cast(ff["norm_scale"], f32), "w1": _cast(ff["w1"], dtype),
+            "b1": _cast(ff["b1"], f32), "w2": _cast(ff["w2"], dtype),
+            "b2": _cast(ff["b2"], f32)}
+
+
+def fuse_decode_layer(layer: dict, dtype: torch.dtype) -> dict:
+    """A layer's decode weights packed once for the decode step
+    (``fuse_decode_params``): ``attn["decode_fused"]`` holds the fused
+    projection ``w_qkvg``, ``pos_kv = k_pos||v_pos``, the compressors'
+    ``w1k``, ``w1v`` [kvh, Bc*d, hid] and ``w2 = w2_k||w2_v``, ``mem_kv``
+    and ``w_out`` in ``dtype`` and the compressors' biases in float32;
+    ``ff["decode_fused"]`` the FF's matrices in ``dtype`` and its norm scale
+    and biases in float32.  Returns a new layer dict; the input is unchanged."""
+    return {**layer,
+            "attn": {**layer["attn"], "decode_fused": _pack_attn(layer["attn"], dtype)},
+            "ff": {**layer["ff"], "decode_fused": _pack_ff(layer["ff"], dtype)}}
+
+
 def ff_apply_gelu(ffp, cfg: ModelConfig, x):
     """The prenorm FF block: RMSNorm, then Linear-GELU(exact erf)-Linear with
     biases; the model's FF in prefill, and the decode step's when it is
@@ -274,19 +343,27 @@ def ff_apply_gelu(ffp, cfg: ModelConfig, x):
 
 def sparse_attention_decode(
     params, cfg: ModelConfig, x: torch.Tensor, cache: NSADecodeCache, t: int,
-    ff_params=None, *, use_kernels: bool = True,
+    ff_params=None, *, use_kernels: bool = True, route: Optional[str] = None,
 ):
     """One decode step at position ``t`` (tokens already cached). x: [b, 1, dim].
 
     Returns ``(x + attn_out, cache)``: the updated residual stream, with the
-    layer's FF block applied too when ``ff_params`` is given.  ``cache.kv``
-    and ``cache.ckv`` are written in place; the returned cache holds them
-    and the shifted ring.
+    layer's FF block applied too when ``ff_params`` is given.  The caches
+    are written in place; the returned cache holds them (and, on the split
+    route, the shifted ring as a new tensor).
 
-    ``use_kernels=False`` runs the plain PyTorch versions of
-    ``decode_select`` / ``decode_attend`` on any device, to hold the kernel
-    path against them on the card; otherwise the wrappers choose (kernel on
-    CUDA, plain version on the CPU).
+    ``route``: ``None`` takes the fused pair at b <= 8 and the split pair
+    above (JAX's default); ``"fused"`` or ``"split"`` forces one (JAX's
+    ``NSA_FUSED_DECODE_MAX_B`` / ``NSA_NO_FUSED_DECODE``).  On the fused
+    route the layer owns the FF: ``decode_attend_fused`` runs it.  Packed
+    weights from ``fuse_decode_layer`` are used when present
+    (``params["decode_fused"]``, ``ff_params["decode_fused"]``), else packed
+    here.
+
+    ``use_kernels=False`` runs the plain PyTorch versions of the route's
+    two kernels on any device, to hold the kernel path against them on the
+    card; otherwise the wrappers choose (kernel on CUDA, plain version on
+    the CPU).
     """
     _check_supported(cfg)
     nsa = cfg.nsa
@@ -298,16 +375,26 @@ def sparse_attention_decode(
     Bc = nsa.compress_block_size
     Bs = nsa.selection_block_size
     window = nsa.sliding_window_size
+    n_slide = -(-window // Bs) + 1
     max_len = cache.kv.shape[2]
     if not 0 <= t < max_len:
         raise ValueError(f"position {t} is outside the cache of {max_len}")
+    if route not in (None, "fused", "split"):
+        raise ValueError(f"route must be None, 'fused' or 'split', got {route!r}")
+    if route == "fused" and not _fused_decode_applies(cfg):
+        raise ValueError("the fused decode route needs shared selection, selected "
+                         "blocks and the mlp compressor")
+    fused = _use_fused_decode(cfg, b) if route is None else route == "fused"
     num_cb = t // stride
-    run_fill = nsa.compress_overlap_len + t - num_cb * stride
+
+    fp = params.get("decode_fused")
+    if fp is None and fused:
+        fp = _pack_attn(params, x.dtype)
+    w_fused = (fp["w_qkvg"] if fp is not None else torch.cat(
+        [params["w_q"], params["w_k"], params["w_v"], params["gate_w"]], dim=1
+    )).to(x.dtype)
 
     normed = rms_norm(x, params["norm_scale"], cfg.norm_eps)
-    w_fused = torch.cat(
-        [params["w_q"], params["w_k"], params["w_v"], params["gate_w"]], dim=1
-    ).to(normed.dtype)
     proj = (normed @ w_fused)[:, 0]                 # [b, h*d + 2*kvh*d + 3h]
     hd, kd = cfg.dim_inner, cfg.dim_kv_inner
     q = proj[:, :hd].reshape(b, h, d)
@@ -319,6 +406,34 @@ def sparse_attention_decode(
     rq = rotate_at_offset(q[:, :, None], t, cfg.rope_theta)[:, :, 0]
     rk_new = rotate_at_offset(k_new[:, :, None], t, cfg.rope_theta)[:, :, 0]
     gates = torch.sigmoid(gate_logits + params["gate_b"].to(gate_logits.dtype))
+    skw = dict(max_blocks=max_len // Bs, stride=stride, sel_block=Bs,
+               num_sel=nsa.num_selected_blocks, n_slide=n_slide, scale=scale)
+    akw = dict(sel_block=Bs, window=window, num_sel=nsa.num_selected_blocks,
+               n_slide=n_slide, scale=scale)
+
+    if fused:
+        # ---- the fused pair: ring shift, emission, kv row write, attention,
+        # projection, residual and FF in two kernels -----------------------
+        select, attend_fn = (
+            (decode_select_emit, decode_attend_fused) if use_kernels
+            else (decode_select_emit_plain, decode_attend_fused_plain)
+        )
+        c_out, info = select(
+            q.reshape(b, kvh, g, d).contiguous(), cache.ckv, cache.ring,
+            kv_new[:, :, None].to(cache.ring.dtype), fp["mem_kv"].to(x.dtype),
+            fp["pos_kv"], fp["w1k"], fp["b1k"], fp["w1v"], fp["b1v"], fp["w2"], fp["b2"],
+            t, num_cb, **skw,
+        )
+        kv_new_rot = torch.cat([rk_new, v_new], dim=-1)[:, :, None].to(cache.kv.dtype)
+        ff = ()
+        if ff_params is not None:
+            ffp = ff_params.get("decode_fused") or _pack_ff(ff_params, x.dtype)
+            ff = tuple(ffp[k] for k in ("norm_scale", "w1", "b1", "w2", "b2"))
+        out_x = attend_fn(
+            rq.reshape(b, kvh, g, d), cache.kv, kv_new_rot, info, c_out,
+            gates.reshape(b, kvh, g, 3), x, fp["w_out"], t, ff, eps=cfg.norm_eps, **akw,
+        )
+        return out_x, cache
 
     # ---- caches: ring shift, kv row write --------------------------------
     ring = torch.cat([cache.ring[:, :, 1:], kv_new[:, :, None]], dim=2)
@@ -329,7 +444,7 @@ def sparse_attention_decode(
     # when t+1 completes a stride the ring holds the window [t+1-Bc, t+1)
     # (zero before the sequence start) and its compression lands in slot
     # num_cb; otherwise the candidate goes to the never-read trash row
-    emit = run_fill + 1 == Bc
+    emit = emits(t, stride)
     row_pos = torch.arange(Bc, device=x.device) + (t + 1 - Bc)
     win = ring.masked_fill((row_pos < 0)[None, None, :, None], 0.0)
     new_ck, new_cv = _compress_kv(params, cfg, win[:, :, None, :, :d], win[:, :, None, :, d:])
@@ -343,18 +458,13 @@ def sparse_attention_decode(
         (decode_select, decode_attend) if use_kernels
         else (decode_select_plain, decode_attend_plain)
     )
-    n_slide = -(-window // Bs) + 1
     c_out, info = select(
         q.reshape(b, kvh, g, d).contiguous(), ckv_cache, params["mem_kv"].to(x.dtype),
-        t, num_cb,
-        max_blocks=max_len // Bs, stride=stride, sel_block=Bs,
-        num_sel=nsa.num_selected_blocks, n_slide=n_slide, scale=scale,
+        t, num_cb, **skw,
     )
     out = attend_fn(
         rq.reshape(b, kvh, g, d), kv_cache, info, c_out,
-        gates.reshape(b, kvh, g, 3).contiguous(), t,
-        sel_block=Bs, window=window, num_sel=nsa.num_selected_blocks,
-        n_slide=n_slide, scale=scale,
+        gates.reshape(b, kvh, g, 3).contiguous(), t, **akw,
     )
     out = out.reshape(b, 1, h * d) @ params["w_out"].to(x.dtype)
 

@@ -16,7 +16,12 @@ to 0.03 absolute on values of order 1-5; log-sum-exps are float32 both
 ways (1e-3).  The backward kernels and their plain versions both compute in
 float32 and round dq, dk, dv to bf16 at the end: one bf16 ulp of the
 largest value (2^-7 of it); d_gates and the deltas stay float32 (1e-4 of
-the largest value: sum order and expf).
+the largest value: sum order and expf).  The fused decode kernels and their
+plain versions round at the same points (the emitted ckv row, the combined
+attention output, the layer's y, the FF's hidden row and output) from
+float32 sums taken in another order, so a rounding can flip by one ulp and
+carry one more ulp downstream: 2^-6 of the largest value (two bf16 ulps);
+the ring shift and the kv row write are copies, bit-equal.
 """
 
 import pytest
@@ -25,12 +30,13 @@ import torch
 from nsa_tpu_torch import reference_model_config
 from nsa_tpu_torch.eval.efficiency import clone_cache
 from nsa_tpu_torch.models.transformer import (
+    fuse_decode_params,
     init_transformer,
     transformer_decode_step,
     transformer_loss,
     transformer_prefill,
 )
-from nsa_tpu_torch.ops.cuda import nsa_decode, nsa_prefill
+from nsa_tpu_torch.ops.cuda import nsa_decode, nsa_decode_fused, nsa_prefill
 from nsa_tpu_torch.ops.nsa import _ckv_width
 from nsa_tpu_torch.train.pretrain import trainable
 from nsa_tpu_torch.utils.checkpoint import tree_leaves, tree_to
@@ -165,7 +171,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 def test_model_decode_step_kernels_match_plain(gen):
-    """Two layers at the reference widths, random weights from a seed."""
+    """Two layers at the reference widths, random weights from a seed, on
+    the split route (bs 4 would take the fused route by default)."""
     cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
     params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cuda"),
                      dtype=torch.bfloat16)
@@ -174,7 +181,143 @@ def test_model_decode_step_kernels_match_plain(gen):
         logits, cache = transformer_prefill(params, cfg, ids, 256)
         token = logits[:, -1].argmax(-1)
         plain = clone_cache(cache)
-        got, _ = transformer_decode_step(params, cfg, token, cache)
-        want, _ = transformer_decode_step(params, cfg, token, plain, use_kernels=False)
+        got, _ = transformer_decode_step(params, cfg, token, cache, route="split")
+        want, _ = transformer_decode_step(params, cfg, token, plain, use_kernels=False,
+                                          route="split")
     assert torch.isfinite(got).all()
     assert max_err(got, want) <= 0.02 * max(want.abs().max().item(), 1.0)
+
+
+TOL_FUSED = 2.0 ** -6
+
+
+def fused_weights(gen, kvh, Bc, d, hid):
+    """Packed compressor weights at trained-like scales (fan-in uniform)."""
+    def uni(*shape, fan_in):
+        return ((torch.rand(shape, generator=gen, device="cuda") * 2 - 1) * fan_in ** -0.5)
+
+    return (randn(gen, kvh, Bc, 2 * d) * 0.1,
+            uni(kvh, Bc * d, hid, fan_in=Bc * d).to(torch.bfloat16), uni(kvh, hid, fan_in=Bc * d),
+            uni(kvh, Bc * d, hid, fan_in=Bc * d).to(torch.bfloat16), uni(kvh, hid, fan_in=Bc * d),
+            uni(kvh, hid, 2 * d, fan_in=hid).to(torch.bfloat16), uni(kvh, 2 * d, fan_in=hid))
+
+
+@pytest.mark.parametrize("t", [7, 199, 200, 1023])
+def test_decode_select_emit_kernel_matches_plain(gen, t):
+    """t = 7 and 199 emit (stride 8), t = 7 over a window that starts
+    before position 0; t = 200 and 1023 do not."""
+    b, kvh, g, d, M, Bc, hid = 3, 2, 2, 64, 1, 16, 128
+    stride, Bs, window, num_sel, max_len = 8, 16, 64, 4, 1024
+    n_slide = -(-window // Bs) + 1
+    Wc = _ckv_width(max_len, stride, Bs // stride)
+    q, ckv, mem_kv = randn(gen, b, kvh, g, d), randn(gen, b, kvh, Wc, 2 * d), randn(gen, 2, kvh, M, d)
+    ring, kv_new = randn(gen, b, kvh, Bc, 2 * d), randn(gen, b, kvh, 1, 2 * d)
+    weights = fused_weights(gen, kvh, Bc, d, hid)
+    kw = dict(max_blocks=max_len // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
+              n_slide=n_slide, scale=0.125)
+    caches = [(ckv.clone(), ring.clone()) for _ in range(2)]
+    before = nsa_decode_fused.decode_select_emit.launches
+    c_k, info_k = nsa_decode_fused.decode_select_emit(q, caches[0][0], caches[0][1], kv_new,
+                                                      mem_kv, *weights, t, t // stride, **kw)
+    c_p, info_p = nsa_decode_fused.decode_select_emit_plain(
+        q, caches[1][0], caches[1][1], kv_new, mem_kv, *weights, t, t // stride, **kw)
+    torch.cuda.synchronize()
+    assert nsa_decode_fused.decode_select_emit.launches == before + 1
+    assert max_err(c_k, c_p) <= TOL_OUT
+    assert torch.equal(info_k, info_p)   # random scores: no ties
+    assert torch.equal(caches[0][1], caches[1][1])
+    assert torch.equal(caches[0][1][:, :, -1:], kv_new)
+    slot = t // stride
+    for ckv_k in (caches[0][0], caches[1][0]):     # no other row changes
+        assert torch.equal(torch.cat([ckv_k[:, :, :slot], ckv_k[:, :, slot + 1:]], 2),
+                           torch.cat([ckv[:, :, :slot], ckv[:, :, slot + 1:]], 2))
+    row_k, row_p = caches[0][0][:, :, slot], caches[1][0][:, :, slot]
+    if (t + 1) % stride:
+        assert torch.equal(row_k, ckv[:, :, slot]) and torch.equal(row_p, ckv[:, :, slot])
+    else:
+        assert not torch.equal(row_p, ckv[:, :, slot])
+        assert max_err(row_k, row_p) <= TOL_FUSED * row_p.float().abs().max().item()
+
+
+@pytest.mark.parametrize("with_ff", [True, False])
+@pytest.mark.parametrize("t,b", [(0, 1), (200, 3), (1023, 9)])
+def test_decode_attend_fused_kernel_matches_plain(gen, t, b, with_ff):
+    """b = 9 takes two passes of the kernels' 8-row batch groups."""
+    kvh, g, d, stride, Bs, window, num_sel, max_len = 2, 2, 64, 8, 16, 64, 4, 1024
+    dim, hid4 = 256, 512
+    n_slide = -(-window // Bs) + 1
+    Wc = _ckv_width(max_len, stride, Bs // stride)
+    q, ckv, mem_kv = randn(gen, b, kvh, g, d), randn(gen, b, kvh, Wc, 2 * d), randn(gen, 2, kvh, 1, d)
+    skw = dict(max_blocks=max_len // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
+               n_slide=n_slide, scale=0.125)
+    c_out, info = nsa_decode.decode_select_plain(q, ckv, mem_kv, t, t // stride, **skw)
+    info = info.reshape(b, -1)
+    rq, kv, kv_new = randn(gen, b, kvh, g, d), randn(gen, b, kvh, max_len, 2 * d), \
+        randn(gen, b, kvh, 1, 2 * d)
+    gates = torch.rand((b, kvh, g, 3), generator=gen, device="cuda").to(torch.bfloat16)
+    x = randn(gen, b, 1, dim)
+    w_out = (randn(gen, kvh * g * d, dim) * (kvh * g * d) ** -0.5).to(torch.bfloat16)
+    ff = ()
+    if with_ff:
+        ff = (1.0 + 0.1 * torch.randn(dim, generator=gen, device="cuda"),
+              (randn(gen, dim, hid4) * dim ** -0.5).to(torch.bfloat16),
+              0.1 * torch.randn(hid4, generator=gen, device="cuda"),
+              (randn(gen, hid4, dim) * hid4 ** -0.5).to(torch.bfloat16),
+              0.1 * torch.randn(dim, generator=gen, device="cuda"))
+    akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=0.125)
+    kv_k, kv_p = kv.clone(), kv.clone()
+    before = nsa_decode_fused.decode_attend_fused.launches
+    out_k = nsa_decode_fused.decode_attend_fused(rq, kv_k, kv_new, info, c_out, gates, x, w_out,
+                                                 t, ff, **akw)
+    out_p = nsa_decode_fused.decode_attend_fused_plain(rq, kv_p, kv_new, info, c_out, gates, x,
+                                                       w_out, t, ff, **akw)
+    torch.cuda.synchronize()
+    assert nsa_decode_fused.decode_attend_fused.launches == before + 1
+    assert out_k.shape == (b, 1, dim) and torch.isfinite(out_k.float()).all()
+    assert max_err(out_k, out_p) <= TOL_FUSED * out_p.float().abs().max().item()
+    assert torch.equal(kv_k, kv_p) and torch.equal(kv_k[:, :, t], kv_new[:, :, 0])
+    assert torch.equal(torch.cat([kv_k[:, :, :t], kv_k[:, :, t + 1:]], 2),
+                       torch.cat([kv[:, :, :t], kv[:, :, t + 1:]], 2))
+
+
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    b, kvh, g, d, Bc = 2, 2, 2, 64, 16
+    q, ring, kv_new = randn(gen, b, kvh, g, d), randn(gen, b, kvh, Bc, 2 * d), \
+        randn(gen, b, kvh, 1, 2 * d)
+    ckv = randn(gen, b, kvh, 136, 2 * d)
+    weights = list(fused_weights(gen, kvh, Bc, d, 128))
+    kw = dict(max_blocks=64, stride=8, sel_block=16, num_sel=4, n_slide=5, scale=0.125)
+    with pytest.raises(TypeError):         # float32 biases only
+        nsa_decode_fused.decode_select_emit(q, ckv, ring, kv_new, randn(gen, 2, kvh, 1, d),
+                                            *weights[:2], weights[2].bfloat16(), *weights[3:],
+                                            15, 1, **kw)
+    weights[1] = weights[1][..., :100].contiguous()    # compressor width not a multiple of 64
+    with pytest.raises(ValueError):
+        nsa_decode_fused.decode_select_emit(q, ckv, ring, kv_new, randn(gen, 2, kvh, 1, d),
+                                            *weights, 15, 1, **kw)
+
+
+def test_model_decode_step_fused_route_matches_plain(gen):
+    """Two layers at the reference widths at bs 4 (the fused route), random
+    weights from a seed, across an emission step: kernels against the
+    plain versions, within chip_smoke.py's 2% of the logits' scale."""
+    cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
+    params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cuda"),
+                     dtype=torch.bfloat16)
+    packed = fuse_decode_params(params, cfg)
+    ids = torch.randint(0, 256, (4, 199), generator=gen, device="cuda")
+    before = (nsa_decode_fused.decode_select_emit.launches,
+              nsa_decode_fused.decode_attend_fused.launches, nsa_decode.decode_select.launches)
+    with torch.inference_mode():
+        logits, cache = transformer_prefill(params, cfg, ids, 256)
+        token = logits[:, -1].argmax(-1)
+        plain = clone_cache(cache)
+        for _ in range(2):     # t = 199 emits, t = 200 does not
+            got, cache = transformer_decode_step(packed, cfg, token, cache)
+            want, plain = transformer_decode_step(packed, cfg, token, plain, use_kernels=False)
+            assert torch.isfinite(got).all()
+            assert max_err(got, want) <= 0.02 * max(want.abs().max().item(), 1.0)
+            token = want.argmax(-1)
+    assert (nsa_decode_fused.decode_select_emit.launches,
+            nsa_decode_fused.decode_attend_fused.launches,
+            nsa_decode.decode_select.launches) == (before[0] + 4, before[1] + 4, before[2])

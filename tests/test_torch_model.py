@@ -59,6 +59,15 @@ class SelectionLog:
 
 
 def test_prefill_and_greedy_decode_match_jax(monkeypatch):
+    """At b = 2 the port decodes on its fused route, JAX on its XLA path."""
+    prefill_and_greedy_decode_against_jax(monkeypatch, route=None)
+
+
+def test_prefill_and_greedy_decode_match_jax_split_route(monkeypatch):
+    prefill_and_greedy_decode_against_jax(monkeypatch, route="split")
+
+
+def prefill_and_greedy_decode_against_jax(monkeypatch, route):
     params, port = model_params(0)
     j_cfg, t_cfg = j_tiny(), t_tiny()
     prompt, steps, max_len = 13, 8, 32
@@ -81,7 +90,7 @@ def test_prefill_and_greedy_decode_match_jax(monkeypatch):
     for step in range(steps):
         j_logits, j_cache = j_step(params, jnp.asarray(token), j_cache)
         t_logits, t_cache = tt.transformer_decode_step(port, t_cfg, torch.from_numpy(token),
-                                                       t_cache)
+                                                       t_cache, route=route)
         np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
                                    err_msg=f"step {step}", **TOL)
         token = np.asarray(j_logits).argmax(-1)
@@ -102,11 +111,23 @@ def test_greedy_generation_matches_jax_sampler():
     want = jt.transformer_sample(params, j_tiny(), jnp.asarray(ids), 10, max_len=32)
     got = tt.transformer_greedy(port, t_tiny(), torch.from_numpy(ids), 10, max_len=32)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    split = tt.transformer_greedy(port, t_tiny(), torch.from_numpy(ids), 10, max_len=32,
+                                  route="split")
+    np.testing.assert_array_equal(split.numpy(), np.asarray(want))
     assert tt.transformer_greedy(port, t_tiny(), torch.from_numpy(ids), 0).shape == (2, 0)
 
 
 @pytest.mark.parametrize("n,prompt", [(24, 8), (19, 5), (17, 16), (18, 1)])
 def test_prefill_equals_incremental_decode(n, prompt):
+    prefill_equals_incremental_decode(n, prompt, route=None)
+
+
+@pytest.mark.parametrize("n,prompt", [(24, 8), (18, 1)])
+def test_prefill_equals_incremental_decode_split_route(n, prompt):
+    prefill_equals_incremental_decode(n, prompt, route="split")
+
+
+def prefill_equals_incremental_decode(n, prompt, route):
     _, port = model_params(4)
     cfg = t_tiny()
     ids = torch.from_numpy(prompt_ids(2, n, seed=n))
@@ -114,7 +135,7 @@ def test_prefill_equals_incremental_decode(n, prompt):
     logits, cache = tt.transformer_prefill(port, cfg, ids[:, :prompt], 32)
     outs = [logits[:, -1]]
     for t in range(prompt, n):
-        logits, cache = tt.transformer_decode_step(port, cfg, ids[:, t], cache)
+        logits, cache = tt.transformer_decode_step(port, cfg, ids[:, t], cache, route=route)
         outs.append(logits)
     np.testing.assert_allclose(torch.stack(outs, 1).numpy(), full[:, prompt - 1:].numpy(),
                                **TOL)

@@ -39,9 +39,14 @@ def inputs(n, seed, b=2, dim=64):
     return (np.random.RandomState(seed).standard_normal((b, n, dim)) * 0.5).astype(np.float32)
 
 
-def assert_cache_equal(t_cache, j_cache):
+def assert_cache_equal(t_cache, j_cache, trash=True):
+    """Every leaf equal; ``trash=False`` leaves out ckv's last row, the trash
+    row that only the split route writes."""
     for name, t_leaf, j_leaf in zip(t_cache._fields, t_cache, j_cache):
-        np.testing.assert_allclose(t_leaf.numpy(), np.asarray(j_leaf), err_msg=name, **TOL)
+        t_leaf, j_leaf = t_leaf.numpy(), np.asarray(j_leaf)
+        if name == "ckv" and not trash:
+            t_leaf, j_leaf = t_leaf[:, :, :-1], j_leaf[:, :, :-1]
+        np.testing.assert_allclose(t_leaf, j_leaf, err_msg=name, **TOL)
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
@@ -66,7 +71,18 @@ def test_prefill_forward_with_cache(impl, n, chunk):
 @pytest.mark.parametrize("prompt", [1, 6])
 def test_decode_steps_across_emissions(prompt):
     """stride 2: every other step emits a compressed block; 14 steps cross
-    seven emissions and a selection-block boundary every 4 positions."""
+    seven emissions and a selection-block boundary every 4 positions.  At
+    b = 2 the port takes its fused route, against JAX's XLA path."""
+    decode_steps_against_jax(prompt, route=None)
+
+
+@pytest.mark.parametrize("prompt", [1, 6])
+def test_decode_steps_across_emissions_split_route(prompt):
+    """The same steps on the port's split route, trash row included."""
+    decode_steps_against_jax(prompt, route="split")
+
+
+def decode_steps_against_jax(prompt, route):
     layer, port = layer_params()
     steps, max_len = 14, 32
     x = inputs(prompt + steps, seed=8)
@@ -82,21 +98,30 @@ def test_decode_steps_across_emissions(prompt):
                                 jnp.int32(t), layer["ff"])
         t_out, t_cache = t_nsa.sparse_attention_decode(
             port["attn"], t_cfg, torch.from_numpy(x[:, t:t + 1]), t_cache, t,
-            ff_params=port["ff"])
+            ff_params=port["ff"], route=route)
         np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), err_msg=f"t={t}", **TOL)
-        assert_cache_equal(t_cache, j_cache)
+        assert_cache_equal(t_cache, j_cache, trash=route == "split")
 
 
 def test_decode_plain_and_wrapper_paths_agree_on_cpu():
     """use_kernels=False calls the plain versions directly; on CPU tensors the
     wrappers run the same plain versions, so both paths give equal bits."""
+    plain_and_wrapper_paths_agree(route=None)
+
+
+def test_decode_plain_and_wrapper_paths_agree_on_cpu_split_route():
+    plain_and_wrapper_paths_agree(route="split")
+
+
+def plain_and_wrapper_paths_agree(route):
     _, port = layer_params()
     cfg = t_tiny()
     x = torch.from_numpy(inputs(10, seed=10))
     _, c1 = t_nsa.sparse_attention_forward(port["attn"], cfg, x[:, :9], return_cache_max_len=16)
     c2 = t_nsa.NSADecodeCache(*(leaf.clone() for leaf in c1))
-    a, _ = t_nsa.sparse_attention_decode(port["attn"], cfg, x[:, 9:], c1, 9)
-    b, _ = t_nsa.sparse_attention_decode(port["attn"], cfg, x[:, 9:], c2, 9, use_kernels=False)
+    a, _ = t_nsa.sparse_attention_decode(port["attn"], cfg, x[:, 9:], c1, 9, route=route)
+    b, _ = t_nsa.sparse_attention_decode(port["attn"], cfg, x[:, 9:], c2, 9, use_kernels=False,
+                                         route=route)
     assert torch.equal(a, b)
 
 
