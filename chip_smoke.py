@@ -21,14 +21,19 @@ Phases, each printing its name and seconds as it ends:
              (``measure_decode``, ``measure_prefill``).
 7. profile - ``torch.profiler`` over one prefill and 5 decode steps: device
              time by op and the device's busy share of the wall time.
-8. small   - the small-batch decode path (b <= 8, the fused route) on the
-             trained model at bs 8 and bs 1: prefill of 3900 seeded tokens,
-             100 greedy steps with the 4096-row cache, launch counts read
-             around exactly that run (the fused pair depth x 100 each, no
-             split launch); the first step's logits held against the plain
-             fused route and, at bs 8, the split kernel route; decode tok/s of
-             the fused and the split route at bs 8 in turns (fused, split,
-             split, fused); ``torch.profiler`` over 5 steps.
+8. small   - the small-batch decode path (b <= 8: the whole-model kernel,
+             JAX's default there) on the trained model at bs 8 and bs 1:
+             prefill of 3900 seeded tokens, 100 greedy steps with the
+             4096-row cache, launch counts read around exactly that run
+             (``decode_step_mega`` once a token, no per-layer launch); the
+             first step's logits held against the plain whole-model decode,
+             the fused and the split kernel routes; one launch of 25 greedy
+             tokens against 25 launches of one, bit for bit; decode tok/s of
+             the routes in turns (mega, fused, split, split, fused, mega at
+             bs 8; mega, fused, fused, mega at bs 1), the fused pair's launch
+             counts (depth x 100 each) read around its first run;
+             ``measure_decode`` (25 tokens a launch); ``torch.profiler`` over
+             5 steps of the mega and of the fused route.
 9. train   - the training path: ``run_pretrain`` on the reference config
              from a seeded random init, micro-batch 16 x accum 4 x seq 4096,
              bf16 compute, in a temporary working directory (the corpus
@@ -41,10 +46,12 @@ Phases, each printing its name and seconds as it ends:
              one micro-step.
 
 The kernels phase also holds the two backward kernels against their plain
-versions at the training cell's shapes (bs 16, n 4096), and the two fused
+versions at the training cell's shapes (bs 16, n 4096), the two fused
 decode kernels at the small-batch cell's (bs 8, layer 0's trained weights,
 seeded activations and caches; the select kernel at an emission step and
-at the step before it).
+at the step before it), and the whole-model decode kernel there (bs 8, all
+layers' trained weights, seeded tokens and full-length caches, an emission
+step and the step before it).
 
 Then one JSON line with the kernels, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -68,6 +75,7 @@ import torch  # noqa: E402
 import nsa_tpu_torch  # noqa: E402,F401  (fails at once outside a checkout)
 from nsa_tpu_torch.config import DataConfig, TrainConfig  # noqa: E402
 from nsa_tpu_torch.eval.efficiency import (  # noqa: E402
+    _pick_mega_steps,
     clone_cache,
     measure_decode,
     measure_prefill,
@@ -75,16 +83,20 @@ from nsa_tpu_torch.eval.efficiency import (  # noqa: E402
     seeded_ids,
 )
 from nsa_tpu_torch.models.transformer import (  # noqa: E402
+    cache_tensors,
     fuse_decode_params,
     greedy_decode,
     init_transformer,
     transformer_decode_step,
+    transformer_decode_step_mega,
     transformer_loss,
     transformer_prefill,
+    use_mega_decode,
 )
 from nsa_tpu_torch.ops.cuda import (  # noqa: E402
     nsa_decode,
     nsa_decode_fused,
+    nsa_decode_mega,
     nsa_prefill,
     runtime,
 )
@@ -101,14 +113,15 @@ from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
 from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
-# about twice each phase's longest time over two H100 runs (47 s build, 79 s
-# train on the slower host), at least 10 s for the phases of a few seconds,
-# whose time is host noise; 400 s in all
-BUDGET_S = {"device": 10, "build": 100, "weights": 10, "kernels": 10, "main": 10,
+# about twice each phase's longest time on the H100 (61 s build of the eight
+# kernels, 12 s small phase, 79 s train on the slower host), at least 10 s
+# for the phases of a few seconds, whose time is host noise; 420 s in all
+BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 10, "main": 10,
             "measure": 20, "profile": 50, "small": 30, "train": 160}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
-SMALL_BATCHES = (8, 1)       # the small-batch cell: the fused decode route
+SMALL_BATCHES = (8, 1)       # the small-batch cell: the whole-model decode route
 FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
+MEGA_STEPS = _pick_mega_steps(GEN)   # tokens per launch in measure_decode: 25
 # the training cell: the JAX trainer's settings (nsa_tpu/config.py:137-159)
 MICRO, ACCUM, SEQ = 16, 4, 4096
 TRAIN_STEPS, CKPT_STEP = 3, 2
@@ -159,6 +172,8 @@ TOL_LOSS_REL = 2e-3
 # another order, so a rounding can flip by one bf16 ulp (2^-7 of the
 # largest value) and carry at most one more ulp downstream: 2^-6 of the
 # largest value.  The ring shift and the kv row write are copies: bit-equal.
+# The whole-model kernel against its plain version: the same bodies and
+# rounding points through every layer, held to the same 2^-6.
 TOL_FUSED = 2.0 ** -6
 
 PHASES = []
@@ -489,6 +504,147 @@ def kernel_decode_fused(gen, flush, cfg, params, b):
     return sel, att
 
 
+def kernel_decode_mega(gen, flush, cfg, packed, b):
+    """Row 12 at bs ``b``: the whole model's trained weights (packed);
+    seeded tokens and caches at full length; an emission step and the step
+    before it.  The rows a step writes (kv row t, the ring's new row, the
+    emitted ckv row) come from bf16 roundings of float32 sums that the two
+    versions take in another order, so they are held within TOL_FUSED of the
+    largest value; every other cache row, and the ring's shifted rows, must
+    be bit-equal to what was there."""
+    nsa = cfg.nsa
+    L, kvh, d, stride = cfg.depth, cfg.kv_heads, cfg.dim_head, nsa.compress_block_sliding_stride
+    Bc, Bs, window = nsa.compress_block_size, nsa.selection_block_size, nsa.sliding_window_size
+    num_sel, n_slide = nsa.num_selected_blocks, -(-window // nsa.selection_block_size) + 1
+    Wc = _ckv_width(MAX_LEN, stride, nsa.num_compress_per_fine)
+    mp = packed["mega"]
+    dev = DEVICE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    kv, ckv, ring = randn(L, b, kvh, MAX_LEN, 2 * d), randn(L, b, kvh, Wc, 2 * d), \
+        randn(L, b, kvh, Bc, 2 * d)
+    token = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=dev)
+    infos = []                   # the plain version's selections, for the bound
+    real_select = nsa_decode_mega.decode_select_emit_plain
+
+    def recording_select(*a, **k):
+        out = real_select(*a, **k)
+        infos.append(out[1])
+        return out
+
+    times, plain_times, errs, phases = {}, {}, [], {}
+    for t in (DECODE_T, DECODE_T - 1):           # an emission step, then one without
+        num_cb, emit = t // stride, nsa_decode_fused.emits(t, stride)
+        caches = [(kv.clone(), ckv.clone(), ring.clone()) for _ in range(2)]
+        lg_k, tok_k, *_ = transformer_decode_step_mega(mp, cfg, token, *caches[0], t, greedy=True)
+        infos.clear()
+        nsa_decode_mega.decode_select_emit_plain = recording_select
+        try:
+            lg_p, tok_p, *_ = transformer_decode_step_mega(mp, cfg, token, *caches[1], t,
+                                                           greedy=True, use_kernels=False)
+        finally:
+            nsa_decode_mega.decode_select_emit_plain = real_select
+        torch.cuda.synchronize()
+        err, top = max_err(lg_k, lg_p), lg_p.abs().max().item()
+        check(bool(torch.isfinite(lg_k).all()) and err <= TOL_FUSED * top,
+              f"decode_step_mega t={t}: logits disagree with the plain version")
+        # the argmax: equal, except where the plain logits' top two are
+        # closer than the tolerance
+        top2 = lg_p.float().topk(2, dim=-1).values
+        near = (top2[:, 0] - top2[:, 1]) <= TOL_FUSED * top
+        check(bool(((tok_k[:, 0] == tok_p[:, 0]) | near).all())
+              and torch.equal(tok_k[:, 0].long(), lg_k.argmax(-1)),
+              f"decode_step_mega t={t}: the in-kernel argmax disagrees")
+        slot = min(num_cb, Wc - 1)
+        row_errs = []
+        for (kv_x, ckv_x, ring_x) in caches:
+            check(torch.equal(kv_x[..., :t, :], kv[..., :t, :])
+                  and torch.equal(kv_x[..., t + 1:, :], kv[..., t + 1:, :])
+                  and torch.equal(ring_x[..., :-1, :], ring[..., 1:, :])
+                  and torch.equal(ckv_x[..., :slot, :], ckv[..., :slot, :])
+                  and torch.equal(ckv_x[..., slot + 1:, :], ckv[..., slot + 1:, :]),
+                  f"decode_step_mega t={t}: a cache row other than the step's own changed")
+            check(emit or torch.equal(ckv_x, ckv),
+                  f"decode_step_mega t={t}: a ckv row was written off the stride")
+        for name, a_, b_ in (("kv row t", caches[0][0][..., t, :], caches[1][0][..., t, :]),
+                             ("ring row", caches[0][2][..., -1, :], caches[1][2][..., -1, :]),
+                             ("emitted ckv row", caches[0][1][..., slot, :],
+                              caches[1][1][..., slot, :])):
+            e, m = max_err(a_, b_), b_.float().abs().max().item()
+            check(e <= TOL_FUSED * m, f"decode_step_mega t={t}: {name} disagrees")
+            row_errs.append(e)
+        print(f"  decode_step_mega bs {b} t={t} (emits: {emit}): logits max|err| {err:.5f} (tol "
+              f"{TOL_FUSED:g} x max {top:.3f}); argmax equal on "
+              f"{int((tok_k[:, 0] == tok_p[:, 0]).sum())}/{b} rows ({int(near.sum())} near-ties); "
+              f"written rows max|err| kv {row_errs[0]:.5f} ring {row_errs[1]:.5f} ckv "
+              f"{row_errs[2]:.5f}; every other cache row bit-equal", flush=True)
+        errs.append(max(err, *row_errs))
+        work = (kv.clone(), ckv.clone(), ring.clone())
+        times[t] = timed_ms(lambda: transformer_decode_step_mega(
+            mp, cfg, token, *work, t, greedy=True), 20, flush)
+        plain_times[t] = timed_ms(lambda: transformer_decode_step_mega(
+            mp, cfg, token, *work, t, greedy=True, use_kernels=False), 3, flush)
+        if emit:
+            emit_infos = list(infos)
+        phases[t] = mega_phase_us(mp, cfg, token, work, t)
+        print(f"  decode_step_mega bs {b} t={t}: us per phase (mean over layers): "
+              f"{ {k: round(v, 2) for k, v in phases[t].items()} }", flush=True)
+    amort = (times[DECODE_T] + (stride - 1) * times[DECODE_T - 1]) / stride
+    amort_plain = (plain_times[DECODE_T] + (stride - 1) * plain_times[DECODE_T - 1]) / stride
+
+    # the bound of the amortised step: each layer's weights, the live ckv
+    # rows, the kv rows the masks keep, the ring read and written, the row
+    # written; the compressors at 1 step in `stride`
+    num_cb = DECODE_T // stride
+    dense = [mp[k] for k in ("attn_norm", "w_qkvg", "gate_b", "mem_kv", "w_out", "ff_norm",
+                             "fw1", "fb1", "fw2", "fb2", "out_norm", "to_logits")]
+    comp = [mp[k] for k in ("pos_kv", "b1k", "b1v", "b2c", "w1k", "w1v", "w2c")]
+    rows = sum(attend_rows(info.reshape(b, kvh, -1)[..., num_sel + n_slide:
+                                                    2 * num_sel + n_slide],
+                           DECODE_T, Bs, n_slide, window, b * kvh) for info in emit_infos)
+    step_bytes = (nbytes(*dense) + b * cfg.dim * 2 + L * b * kvh * num_cb * 2 * d * 2
+                  + rows * 2 * d * 2 + 2 * nbytes(ring) + L * b * kvh * 2 * d * 2
+                  + b * cfg.vocab_size * 4 + b * 4)
+    emit_bytes = nbytes(*comp) + L * b * kvh * 2 * d * 2
+    P, hid4 = mp["w_qkvg"].shape[2], mp["fw1"].shape[2]
+    g, hid = cfg.num_grouped_queries, mp["w1k"].shape[3]
+    step_flops = (2 * b * L * (cfg.dim * P + cfg.dim_inner * cfg.dim + 2 * cfg.dim * hid4)
+                  + 2 * b * cfg.dim * cfg.vocab_size
+                  + L * b * kvh * g * (num_cb + nsa.num_compressed_mem_kv) * 4 * d
+                  + rows * g * 4 * d)
+    emit_flops = L * b * kvh * 2 * (Bc * d * hid + hid * d) * 2
+    bms, by = bound_ms(step_bytes + emit_bytes / stride, step_flops + emit_flops / stride)
+    print(f"  decode_step_mega bs {b}: {times[DECODE_T]:.4f} ms emitting, "
+          f"{times[DECODE_T - 1]:.4f} ms not, {amort:.4f} ms amortised over {stride} steps "
+          f"(bound {bms:.5f} ms, by {by}); plain {amort_plain:.4f} ms", flush=True)
+    return {"name": "decode_step_mega", "route": "cuda",
+            "source": "nsa_tpu_torch/csrc/nsa_decode_mega.cu",
+            "replaces": "nsa_tpu/ops/pallas/nsa_megakernel.py:1234",
+            "max_abs_err": max(errs), "ms": amort, "plain_ms": amort_plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "ms_emit_step": times[DECODE_T], "ms_other_step": times[DECODE_T - 1],
+            "phase_us_emit_step": phases[DECODE_T], "phase_us_other_step": phases[DECODE_T - 1]}
+
+
+MEGA_PHASES = ("norm+qkvg", "select+emission", "attend+w_out", "residual+ff1", "ff2")
+
+
+def mega_phase_us(mp, cfg, token, caches, t):
+    """Where one launch's time goes: the kernel's global-timer marks after
+    each grid sync, as microseconds per phase (the mean over the layers),
+    the LM head, and the span from the first mark to the last."""
+    L = cfg.depth
+    marks = torch.zeros(nsa_decode_mega.phase_marks(L, 1), dtype=torch.int64, device=DEVICE)
+    transformer_decode_step_mega(mp, cfg, token, *caches, t, greedy=True, phase_ns=marks)
+    torch.cuda.synchronize()
+    us = (marks[1:] - marks[:-1]).double().cpu() / 1e3
+    per_layer = us[:5 * L].reshape(L, 5).mean(0)
+    return {**{name: per_layer[i].item() for i, name in enumerate(MEGA_PHASES)},
+            "lm_head": us[5 * L].item(), "span": (marks[-1] - marks[0]).item() / 1e3}
+
+
 def kernel_decode(gen, flush, cfg):
     nsa = cfg.nsa
     b, kvh, g, d = BATCH, cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head
@@ -586,18 +742,19 @@ def _report(prof, label, wall, per=1, top=8):
     return busy / 1e6 / wall, sum(e.count for e in kernels) / per
 
 
-def profile_decode(params, cfg, token, cache, label, steps=5):
-    """torch.profiler over ``steps`` decode steps after a warm step on a
-    copy of the cache; returns the device's busy share of their wall time
-    and the device records per step."""
+def profile_decode(params, cfg, token, cache, label, steps=5, route=None):
+    """torch.profiler over ``steps`` decode steps on ``route`` after a warm
+    step, on copies of the cache; returns the device's busy share of their
+    wall time and the device records per step."""
     from torch.profiler import ProfilerActivity, profile
 
-    transformer_decode_step(params, cfg, token, clone_cache(cache))   # warm
+    transformer_decode_step(params, cfg, token, clone_cache(cache), route=route)   # warm
+    cache = clone_cache(cache)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, cache = transformer_decode_step(params, cfg, token, cache)
+            logits, cache = transformer_decode_step(params, cfg, token, cache, route=route)
             token = logits.argmax(-1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -619,84 +776,138 @@ def profile_main_path(params, cfg, ids, first, steps=5):
     return profile_decode(params, cfg, first, cache, f"bs {BATCH}", steps)[0]
 
 
-def decode_run(params, cfg, first, cache, route=None):
+def decode_run(params, cfg, first, cache, route=None, steps=1):
     """``GEN`` greedy decode steps from ``first``; returns (tokens, device
     seconds between CUDA events around the steps)."""
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     s.record()
-    tokens = greedy_decode(params, cfg, first, cache, GEN, route=route)
+    tokens = greedy_decode(params, cfg, first, cache, GEN, route=route, steps=steps)
     e.record()
     torch.cuda.synchronize()
     return tokens, s.elapsed_time(e) / 1e3
 
 
+def zero_launches(counted):
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+
+
+def read_launches(counted):
+    torch.cuda.synchronize()
+    return {fn.__name__: fn.launches for fn in counted}
+
+
+def check_mega_steps(packed, cfg, first, start, b):
+    """One launch of MEGA_STEPS greedy tokens against MEGA_STEPS launches of
+    one, from copies of the same cache: the tokens, the last logits and
+    every cache tensor bit for bit."""
+    mp = packed["mega"]
+    single, multi = clone_cache(start), clone_cache(start)
+    tok, toks = first, []
+    for i in range(MEGA_STEPS):
+        lg1, nxt, *_ = transformer_decode_step_mega(mp, cfg, tok, *cache_tensors(single),
+                                                    start.seq_len + i, greedy=True)
+        toks.append(nxt)
+        tok = nxt[:, 0]
+    lgn, toksn, *_ = transformer_decode_step_mega(mp, cfg, first, *cache_tensors(multi),
+                                                  start.seq_len, greedy=True, steps=MEGA_STEPS)
+    torch.cuda.synchronize()
+    same = (torch.equal(torch.cat(toks, 1), toksn) and torch.equal(lg1, lgn)
+            and all(torch.equal(x, y) for a, c in zip(single.layers, multi.layers)
+                    for x, y in zip(a, c)))
+    print(f"  bs {b} one launch of {MEGA_STEPS} greedy tokens vs {MEGA_STEPS} launches of one: "
+          f"tokens, last logits and caches bit-equal: {same}", flush=True)
+    check(same, f"bs {b}: steps={MEGA_STEPS} differs from {MEGA_STEPS} single steps")
+
+
 def small_batch_phase(params, cfg, smi):
-    """The small-batch decode path at each of SMALL_BATCHES: prefill,
-    then GEN greedy steps on the default (fused) route, launch counts read
-    around exactly that run; the first step against the plain fused route
-    and, at bs 8, the split kernel route; tok/s of both routes in turns at
-    bs 8; a profile of 5 steps.  Returns the launch counts of the first
-    batch size's run and the metrics."""
+    """The small-batch decode path at each of SMALL_BATCHES: prefill, then
+    GEN greedy steps on the default route (the whole-model kernel), launch
+    counts read around exactly that run; the first step against the plain
+    whole-model decode, the fused and the split kernel routes;
+    MEGA_STEPS tokens in one launch against single launches; tok/s of the
+    routes in turns (mega, fused, [split, split,] fused, mega), the fused
+    pair's launch counts read around its first run; ``measure_decode``
+    (MEGA_STEPS tokens a launch); a profile of 5 steps on the mega and the
+    fused route.  Returns the launch counts of the first batch size's runs,
+    default and fused, and the metrics."""
     packed = fuse_decode_params(params, cfg)
-    fused = (nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused)
     counted = (nsa_prefill.prefill_fwd, nsa_decode.decode_select, nsa_decode.decode_attend,
-               *fused)
-    metrics, first_launches = {}, None
+               nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused,
+               nsa_decode_mega.decode_step_mega)
+    none = {fn.__name__: 0 for fn in counted}
+    metrics, first_launches, fused_launches = {}, None, None
     for b in SMALL_BATCHES:
+        check(use_mega_decode(cfg, b), f"bs {b} does not take the whole-model decode")
         ids = seeded_ids(b, PROMPT, cfg.vocab_size, SEED + b, DEVICE)
-        torch.cuda.synchronize()
-        for fn in counted:
-            fn.launches = 0
+        zero_launches(counted)
         logits, cache = transformer_prefill(params, cfg, ids, MAX_LEN)
         first = logits[:, -1].argmax(-1)
         start = clone_cache(cache)
         tokens, decode_s = decode_run(packed, cfg, first, cache)
-        launches = {fn.__name__: fn.launches for fn in counted}
+        launches = read_launches(counted)
         first_launches = first_launches or launches
         print(f"  bs {b} launches {launches}", flush=True)
-        want = {"prefill_fwd": cfg.depth, "decode_select": 0, "decode_attend": 0,
-                "decode_select_emit": cfg.depth * GEN, "decode_attend_fused": cfg.depth * GEN}
+        want = {**none, "prefill_fwd": cfg.depth, "decode_step_mega": GEN}
         check(launches == want, f"bs {b} small-batch launches {launches}, expected {want}")
         check(tuple(tokens.shape) == (b, GEN) and int(tokens.min()) >= 0
               and int(tokens.max()) < cfg.vocab_size, f"bs {b} generated tokens malformed")
 
         step0, _ = transformer_decode_step(packed, cfg, first, clone_cache(start))
-        others = [("plain fused route", dict(use_kernels=False))]
-        if b == SMALL_BATCHES[0]:
-            others.append(("split kernel route", dict(route="split")))
         m = {"decode_tok_s": b * GEN / decode_s}
-        for label, kw in others:
+        for label, kw in (("plain whole-model decode", dict(use_kernels=False)),
+                          ("fused kernel route", dict(route="fused")),
+                          ("split kernel route", dict(route="split"))):
             ref, _ = transformer_decode_step(packed, cfg, first, clone_cache(start), **kw)
             err, scale_l = max_err(step0, ref), ref.abs().max().item()
             agree = (step0.argmax(-1) == ref.argmax(-1)).float().mean().item()
-            print(f"  bs {b} first decode step logits: fused kernels vs {label} max|err| "
+            print(f"  bs {b} first decode step logits: whole-model kernel vs {label} max|err| "
                   f"{err:.4f} (tol {TOL_LOGITS_REL} x max|logit| {scale_l:.2f}); argmax agrees "
                   f"on {agree * 100:.1f}% of rows", flush=True)
             check(bool(torch.isfinite(step0).all()) and err <= TOL_LOGITS_REL * max(scale_l, 1.0),
-                  f"bs {b} fused-route decode logits disagree with the {label}")
+                  f"bs {b} whole-model decode logits disagree with the {label}")
             m[f"logits_max_abs_err_vs_{label.split()[0]}"] = err
         print(f"  bs {b} decode {GEN} steps: {decode_s:.3f}s = {b * GEN / decode_s:.1f} tok/s "
-              f"(fused route); {smi}", flush=True)
+              f"(whole-model kernel, 1 token a launch); {smi}", flush=True)
+        check_mega_steps(packed, cfg, first, start, b)
 
-        if b == SMALL_BATCHES[0]:
-            # the two routes in turns in this call: fused, split, split, fused
-            tps, toks = {"fused": [], "split": []}, {}
-            for route in ("fused", "split", "split", "fused"):
-                toks[route], sec = decode_run(packed, cfg, first, clone_cache(start), route)
-                tps[route].append(b * GEN / sec)
-            agree = (toks["fused"] == toks["split"]).float().mean().item()
-            print(f"  bs {b} decode tok/s, fused {tps['fused']} split {tps['split']} (in turns "
-                  f"f, s, s, f); means fused {sum(tps['fused']) / 2:.1f} split "
-                  f"{sum(tps['split']) / 2:.1f}; greedy tokens of the two routes agree on "
-                  f"{agree * 100:.1f}%; {smi}", flush=True)
-            m.update({"ab_fused_tok_s": tps["fused"], "ab_split_tok_s": tps["split"],
-                      "greedy_tokens_agree_split": agree})
-        busy, records = profile_decode(packed, cfg, tokens[:, -1], cache, f"bs {b} fused route")
-        m.update({"decode_device_busy": busy, "device_records_per_step": records})
+        # the routes in turns in this call; the fused pair's launches are
+        # read around its first run
+        order = (("mega", "fused", "split", "split", "fused", "mega") if b == SMALL_BATCHES[0]
+                 else ("mega", "fused", "fused", "mega"))
+        tps, toks = {r: [] for r in order}, {}
+        for route in order:
+            if route == "fused" and not tps["fused"]:
+                zero_launches(counted)
+            toks[route], sec = decode_run(packed, cfg, first, clone_cache(start), route)
+            if route == "fused" and not tps["fused"]:
+                runs = read_launches(counted)
+                want = {**none, "decode_select_emit": cfg.depth * GEN,
+                        "decode_attend_fused": cfg.depth * GEN}
+                check(runs == want, f"bs {b} fused-route launches {runs}, expected {want}")
+                fused_launches = fused_launches or runs
+            tps[route].append(b * GEN / sec)
+        means = {r: sum(v) / len(v) for r, v in tps.items()}
+        agree = {r: (toks["mega"] == toks[r]).float().mean().item() for r in tps if r != "mega"}
+        print(f"  bs {b} decode tok/s in turns {' '.join(order)}: {tps}; means {means}; greedy "
+              f"tokens agree with the mega route's on {agree}; {smi}", flush=True)
+        m.update({f"ab_{r}_tok_s": v for r, v in tps.items()})
+        m["greedy_tokens_agree"] = agree
+
+        tps_m = measure_decode(params, cfg, b, PROMPT, GEN, iters=3, seq_len=MAX_LEN, seed=SEED)
+        print(f"  measure_decode bs {b} prompt {PROMPT} gen {GEN} max_len {MAX_LEN}: "
+              f"{tps_m:.1f} tok/s (mean of 3, {_pick_mega_steps(GEN)} tokens a launch); {smi}",
+              flush=True)
+        m["measure_decode_tok_s"] = tps_m
+        for label, route in (("mega", None), ("fused", "fused")):
+            busy, records = profile_decode(packed, cfg, tokens[:, -1], start,
+                                           f"bs {b} {label} route", route=route)
+            m.update({f"{label}_device_busy": busy, f"{label}_device_records_per_step": records})
         metrics[f"bs{b}"] = m
         del cache, start
         torch.cuda.empty_cache()
-    return first_launches, metrics
+    return first_launches, fused_launches, metrics
 
 
 class StepLog(MetricsLogger):
@@ -721,9 +932,9 @@ def expected_launches(cfg, tc, start):
     micro = len(steps) * tc.grad_accum_every
     return {"prefill_fwd": cfg.depth * (micro + val + gen),
             "prefill_bwd_dq": cfg.depth * micro, "prefill_bwd_dkv": cfg.depth * micro,
-            "decode_select": 0, "decode_attend": 0,       # generation runs at bs 1: fused
-            "decode_select_emit": cfg.depth * gen * tc.generate_length,
-            "decode_attend_fused": cfg.depth * gen * tc.generate_length}
+            "decode_select": 0, "decode_attend": 0,       # generation runs at bs 1: mega
+            "decode_select_emit": 0, "decode_attend_fused": 0,
+            "decode_step_mega": gen * tc.generate_length}
 
 
 def rel_l2(a, b):
@@ -738,7 +949,8 @@ def train_phase(smi):
     cfg = nsa_tpu_torch.reference_model_config().replace(dtype="bfloat16")
     counted = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv,
                nsa_decode.decode_select, nsa_decode.decode_attend,
-               nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused)
+               nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused,
+               nsa_decode_mega.decode_step_mega)
     here = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -892,14 +1104,17 @@ def main():
         flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
         kernels = [kernel_prefill(gen, flush, cfg), *kernel_decode(gen, flush, cfg),
                    *kernel_prefill_bwd(gen, flush, cfg),
-                   *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0])]
+                   *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0]),
+                   kernel_decode_mega(gen, flush, cfg, fuse_decode_params(params, cfg),
+                                      SMALL_BATCHES[0])]
         del flush
         torch.cuda.empty_cache()
         t0 = phase("kernels", t0)
 
         ids = seeded_ids(BATCH, PROMPT, cfg.vocab_size, SEED, "cuda")
         counted = (nsa_prefill.prefill_fwd, nsa_decode.decode_select, nsa_decode.decode_attend,
-                   nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused)
+                   nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused,
+                   nsa_decode_mega.decode_step_mega)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in counted:
@@ -924,7 +1139,7 @@ def main():
         print(f"  launches {launches}", flush=True)
         want = {"prefill_fwd": cfg.depth, "decode_select": cfg.depth * GEN,
                 "decode_attend": cfg.depth * GEN, "decode_select_emit": 0,
-                "decode_attend_fused": 0}       # bs 64 takes the split route
+                "decode_attend_fused": 0, "decode_step_mega": 0}   # bs 64: the split route
         check(launches == want, f"main-path launches {launches}, expected {want}")
         check(tuple(logits.shape) == (BATCH, PROMPT, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()), "prefill logits not finite/shaped")
@@ -962,7 +1177,7 @@ def main():
         torch.cuda.empty_cache()
         t0 = phase("profile", t0)
 
-        small_launches, small = small_batch_phase(params, cfg, smi)
+        small_launches, fused_launches, small = small_batch_phase(params, cfg, smi)
         del params
         torch.cuda.empty_cache()
         t0 = phase("small", t0)
@@ -973,10 +1188,12 @@ def main():
 
     for k in kernels:
         # each kernel's count from its own path: serving at bs 64 for the
-        # forward and split decode kernels, serving at bs 8 for the fused
-        # ones, training for the backward ones
+        # forward and split decode kernels, the fused route's run at bs 8
+        # for the fused pair, serving at bs 8 (the default route) for the
+        # whole-model kernel, training for the backward ones
         k["launches"] = (train_launches if k["name"].startswith("prefill_bwd")
-                         else small_launches if k["name"] in FUSED_KERNELS
+                         else fused_launches if k["name"] in FUSED_KERNELS
+                         else small_launches if k["name"] == "decode_step_mega"
                          else launches)[k["name"]]
     print(json.dumps({"main": {
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,

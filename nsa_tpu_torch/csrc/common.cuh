@@ -28,6 +28,10 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// One value of a bf16 or float32 tensor as a float.
+__device__ __forceinline__ float ldf(float x) { return x; }
+__device__ __forceinline__ float ldf(bf16 x) { return __bfloat162float(x); }
+
 // Two consecutive bf16 values as floats (the caller's pointer is 4-byte aligned).
 __device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));

@@ -1,10 +1,13 @@
 // Device code shared by the decode kernels of nsa_decode.cu (the split
-// route: decode_select, decode_attend) and nsa_decode_fused.cu (the fused
-// route: decode_select_emit, decode_attend_fused): the body of one thread
-// block's compressed attention + selection, and of its fine + sliding
-// attention with the gate combine.  Each body works on one (batch row, KV
-// head) pair, `bh`, inside a block of any size that is a multiple of 32, out
-// of the dynamic shared memory it is handed.
+// route: decode_select, decode_attend), nsa_decode_fused.cu (the fused
+// route: decode_select_emit, decode_attend_fused) and nsa_decode_mega.cu
+// (the whole-model decode step): the body of one thread block's compressed
+// attention + selection, and of its fine + sliding attention with the gate
+// combine.  Each body works on one (batch row, KV head) pair, `bh`, inside a
+// block of any size that is a multiple of 32, out of the dynamic shared
+// memory it is handed.  Pointers to buffers that the whole-model kernel
+// writes during its own launch carry no __restrict__, so the compiler never
+// reads them through the non-coherent read-only path.
 #pragma once
 
 #include "common.cuh"
@@ -43,11 +46,11 @@ size_t select_smem_bytes(int Wc, int M, int Wf, int threads) {
 // iterative top-k by one warp (ties to the lowest index).  Writes c_out and
 // the packed info row: [0, S) selected ids, [S, S + n_slide) trailing ids,
 // [S + n_slide, 2S + n_slide) validity, the rest zero.  Reads no ckv row at
-// or above num_cb.
-template <int G>
-__device__ void select_body(const bf16* __restrict__ q, const bf16* ckv,
-                            const bf16* __restrict__ mem_kv, bf16* __restrict__ c_out,
-                            int* __restrict__ info, int kvh, int Wc, int M, int t, int num_cb,
+// or above num_cb.  mem_kv is bf16 (the split and fused routes) or float32
+// (the whole-model kernel, as JAX's megakernel keeps it).
+template <int G, typename MemT>
+__device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restrict__ mem_kv,
+                            bf16* c_out, int* info, int kvh, int Wc, int M, int t, int num_cb,
                             int stride, int sel_block, int num_sel, int n_slide,
                             int max_blocks, int info_width, float scale, int bh,
                             unsigned char* smem_raw) {
@@ -66,8 +69,8 @@ __device__ void select_body(const bf16* __restrict__ q, const bf16* ckv,
   const int h = bh % kvh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bf16* rows = ckv + (size_t)bh * Wc * 2 * kD;
-  const bf16* memk = mem_kv + (size_t)h * M * kD;
-  const bf16* memv = mem_kv + (size_t)(kvh + h) * M * kD;
+  const MemT* memk = mem_kv + (size_t)h * M * kD;
+  const MemT* memv = mem_kv + (size_t)(kvh + h) * M * kD;
   const int n_live = min(num_cb, Wc);
 
   for (int i = tid; i < G * kD; i += blockDim.x)
@@ -92,7 +95,7 @@ __device__ void select_body(const bf16* __restrict__ q, const bf16* ckv,
   for (int o = tid; o < G * M; o += blockDim.x) {
     const int g = o / M, m = o % M;
     float s = 0.f;
-    for (int e = 0; e < kD; ++e) s += qs[g * kD + e] * __bfloat162float(memk[m * kD + e]);
+    for (int e = 0; e < kD; ++e) s += qs[g * kD + e] * ldf(memk[m * kD + e]);
     simm[o] = s * scale;
   }
   __syncthreads();
@@ -165,7 +168,7 @@ __device__ void select_body(const bf16* __restrict__ q, const bf16* ckv,
     const int g = o / kD, e = o % kD;
     float acc = 0.f;
     for (int part = 0; part < parts; ++part) acc += cacc[part * outs + o];
-    for (int m = 0; m < M; ++m) acc += simm[g * M + m] * __bfloat162float(memv[m * kD + e]);
+    for (int m = 0; m < M; ++m) acc += simm[g * M + m] * ldf(memv[m * kD + e]);
     c_out[(size_t)bh * outs + o] = __float2bfloat16(acc * inv_den[g]);
   }
 
@@ -213,9 +216,8 @@ size_t attend_smem_bytes(int J, int threads) {
 // fused route writes that row in the same launch).  Returns the combined
 // float32 output [G][kD] in shared memory, visible to the whole block.
 template <int G>
-__device__ float* attend_body(const bf16* __restrict__ rq, const bf16* kv,
-                              const int* __restrict__ info, const bf16* __restrict__ c_out,
-                              const bf16* __restrict__ gates, const bf16* row_t, int max_len,
+__device__ float* attend_body(const bf16* rq, const bf16* kv, const int* info,
+                              const bf16* c_out, const bf16* gates, const bf16* row_t, int max_len,
                               int t, int sel_block, int window, int num_sel, int n_slide,
                               int info_width, float scale, int bh, unsigned char* smem_raw) {
   const int n_slots = num_sel + n_slide;

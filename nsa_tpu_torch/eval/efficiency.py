@@ -11,6 +11,7 @@ outside the timed region).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -20,9 +21,11 @@ from ..config import ModelConfig, TrainConfig
 from ..models.transformer import (
     ModelCache,
     default_max_len,
+    fuse_decode_params,
     greedy_decode,
     transformer_forward,
     transformer_prefill,
+    use_mega_decode,
 )
 from ..ops.nsa import NSADecodeCache
 from ..train.pretrain import make_optimizer, train_step, trainable
@@ -61,6 +64,14 @@ def timed_ms(fn, device) -> float:
     return start.elapsed_time(end)
 
 
+def _pick_mega_steps(gen_len: int) -> int:
+    """Tokens per whole-model kernel launch for a ``gen_len`` rollout
+    (``nsa_tpu.eval.efficiency._pick_mega_steps``): the largest divisor of
+    ``gen_len`` up to ``NSA_MEGA_STEPS`` (default 32)."""
+    cap = max(1, min(int(os.environ.get("NSA_MEGA_STEPS", "32")), gen_len))
+    return next(s for s in range(cap, 0, -1) if gen_len % s == 0)
+
+
 def measure_prefill(params, cfg: ModelConfig, batch_size: int, prompt_len: int,
                     iters: int = 5, *, seed: int = 0, device="cuda") -> float:
     """Prefill throughput in tokens/s (full-prompt forward), mean over
@@ -80,18 +91,22 @@ def measure_decode(params, cfg: ModelConfig, batch_size: int, prompt_len: int,
     """Decode throughput in tokens/s: prefill once, then ``gen_len`` greedy
     cached steps, ``batch_size * gen_len`` tokens per run; mean over
     ``iters`` timed runs after one warm-up.  ``seq_len`` pins the cache
-    length (the benchmark cell's 4096)."""
+    length (the benchmark cell's 4096).  Where ``use_mega_decode`` holds,
+    the whole-model kernel decodes ``_pick_mega_steps(gen_len)`` tokens per
+    launch, as JAX's ``measure_decode`` does."""
     device = require_cuda(device)
     max_len = default_max_len(cfg, max(prompt_len + gen_len + 1, seq_len or 0))
     ids = seeded_ids(batch_size, prompt_len, cfg.vocab_size, seed, device)
+    steps = _pick_mega_steps(gen_len) if use_mega_decode(cfg, batch_size) else 1
+    params = fuse_decode_params(params, cfg)
     total_ms = 0.0
     with torch.no_grad():
         logits, cache = transformer_prefill(params, cfg, ids, max_len)
         first = logits[:, -1].argmax(-1)
         for i in range(iters + 1):
             run_cache = clone_cache(cache)
-            ms = timed_ms(lambda: greedy_decode(params, cfg, first, run_cache, gen_len),
-                          device)
+            ms = timed_ms(lambda: greedy_decode(params, cfg, first, run_cache, gen_len,
+                                                steps=steps), device)
             if i:
                 total_ms += ms
     return batch_size * gen_len * iters / (total_ms / 1e3)

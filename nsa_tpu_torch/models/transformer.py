@@ -5,22 +5,27 @@ token embed -> depth x (NSA attention + prenorm GELU FF) -> RMSNorm ->
 logits.  The model is plain functions over a params dict in the JAX
 package's layout (see ``utils/checkpoint.py``); the decode cache is a
 ``ModelCache`` threaded through ``transformer_decode_step``.  The decode
-step takes the fused pair ``decode_select_emit`` + ``decode_attend_fused``
-at b <= 8 and ``decode_select`` + ``decode_attend`` above, per layer (JAX's
-``NSA_MEGA_DECODE=0`` route: its whole-model decode kernel is not ported
-yet).  The full-attention baseline model is not ported yet (``ROADMAP.md``).
+step takes one of three routes, as in the JAX package: at b <= 8 the
+whole-model kernel ``decode_step_mega`` (one launch for all layers, JAX's
+default there, ``use_mega_decode``); with ``NSA_MEGA_DECODE=0`` the fused
+pair ``decode_select_emit`` + ``decode_attend_fused`` per layer; above
+b = 8 the split pair ``decode_select`` + ``decode_attend`` per layer.  The
+full-attention baseline model is not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import ModelConfig
 from ..ops.common import rms_norm, round_up_mult
+from ..ops.cuda.nsa_decode_mega import MAX_BATCH, decode_step_mega, decode_step_mega_plain
 from ..ops.nsa import (
     NSADecodeCache,
+    _fused_decode_applies,
     ff_apply_gelu,
     fuse_decode_layer,
     init_sparse_attention,
@@ -123,17 +128,142 @@ def transformer_prefill(params, cfg: ModelConfig, ids: torch.Tensor, max_len: in
     return transformer_forward(params, cfg, ids, return_cache_max_len=max_len)
 
 
+def _mega_applies(cfg: ModelConfig) -> bool:
+    """The configurations the whole-model decode kernel takes: the sparse
+    model with the gelu FF and the fused route's NSA settings."""
+    return cfg.use_sparse_attn and cfg.ff_kind == "gelu" and _fused_decode_applies(cfg)
+
+
+def use_mega_decode(cfg: ModelConfig, batch: int) -> bool:
+    """Whether the decode step takes the whole-model kernel
+    (``nsa_tpu.models.transformer.use_mega_decode``): sparse attention, the
+    gelu FF, the ``mlp`` compressor, shared selection,
+    ``num_compress_per_fine > 1`` and selected blocks, at ``batch`` <= 8.
+    ``NSA_MEGA_DECODE=0`` opts out; ``NSA_MEGA_MAX_B`` moves the cutover,
+    never above 16.  JAX's further conditions, ``attn_impl == "pallas"``
+    and the ``NSA_SCOPED_VMEM_KIB`` opt-in for b 9-16, are TPU compiler
+    matters (which kernel implementation, how much VMEM) with no
+    counterpart here."""
+    if os.environ.get("NSA_MEGA_DECODE", "") == "0":
+        return False
+    max_b = int(os.environ.get("NSA_MEGA_MAX_B", "8"))
+    return _mega_applies(cfg) and batch <= min(max_b, MAX_BATCH)
+
+
+def pack_mega_params(params: dict, cfg: ModelConfig) -> dict:
+    """Stack the per-layer weights into the ``[L, ...]`` tensors the
+    whole-model decode kernel reads (``nsa_tpu.models.transformer.
+    pack_mega_params``, same names and shapes; per-layer vectors keep their
+    singleton middle dim).  Every weight is in the compute dtype except
+    ``mem_kv``, which stays float32 as in JAX.  JAX's ``pswap``, a lane
+    permutation that Mosaic needs for rotary, has no counterpart: the kernel
+    reads the rotary pairs directly."""
+    if not _mega_applies(cfg):
+        raise ValueError("the whole-model decode takes the sparse model with the gelu FF, "
+                         "shared selection, selected blocks and the mlp compressor")
+    dtype = _compute_dtype(cfg)
+    layers = params["layers"]
+
+    def stack(fn, dt=dtype):
+        return torch.stack([fn(layer["attn"], layer["ff"]).to(dt) for layer in layers])
+
+    def cat(a, b):
+        return torch.cat([a, b], dim=-1)
+
+    return {
+        "token_emb": params["token_emb"].to(dtype).contiguous(),
+        "to_logits": params["to_logits"].to(dtype).contiguous(),
+        "out_norm": params["norm_scale"][None].to(dtype),
+        "attn_norm": stack(lambda a, f: a["norm_scale"][None]),
+        "w_qkvg": stack(lambda a, f: torch.cat([a["w_q"], a["w_k"], a["w_v"], a["gate_w"]],
+                                               dim=1)),
+        "gate_b": stack(lambda a, f: a["gate_b"][None]),
+        "mem_kv": stack(lambda a, f: a["mem_kv"], torch.float32),
+        "pos_kv": stack(lambda a, f: cat(a["k_pos"], a["v_pos"])),
+        "b1k": stack(lambda a, f: a["k_compress"]["b1"]),
+        "b1v": stack(lambda a, f: a["v_compress"]["b1"]),
+        "b2c": stack(lambda a, f: cat(a["k_compress"]["b2"], a["v_compress"]["b2"])),
+        "w1k": stack(lambda a, f: a["k_compress"]["w1"]),
+        "w1v": stack(lambda a, f: a["v_compress"]["w1"]),
+        "w2c": stack(lambda a, f: cat(a["k_compress"]["w2"], a["v_compress"]["w2"])),
+        "w_out": stack(lambda a, f: a["w_out"]),
+        "ff_norm": stack(lambda a, f: f["norm_scale"][None]),
+        "fw1": stack(lambda a, f: f["w1"]),
+        "fb1": stack(lambda a, f: f["b1"][None]),
+        "fw2": stack(lambda a, f: f["w2"]),
+        "fb2": stack(lambda a, f: f["b2"][None]),
+    }
+
+
 def fuse_decode_params(params: dict, cfg: ModelConfig) -> dict:
-    """Pack every layer's decode weights ONCE, outside the step loop
-    (``nsa_tpu.models.transformer.fuse_decode_params``): the fused q|k|v|gate
-    projection, the packed compressors, ``mem_kv``, ``w_out`` and the FF in
-    the compute dtype (``fuse_decode_layer``).  Returns a new params dict
-    that the decode step reads the packed weights from; packing again is a
-    no-op."""
+    """Pack the decode weights ONCE, outside the step loop
+    (``nsa_tpu.models.transformer.fuse_decode_params``): every layer's
+    fused q|k|v|gate projection, packed compressors, ``mem_kv``, ``w_out``
+    and FF in the compute dtype (``fuse_decode_layer``), and, where the
+    whole-model decode applies, its stacked weights under ``"mega"``
+    (``pack_mega_params``).  Returns a new params dict that the decode step
+    reads the packed weights from; packing again is a no-op."""
     if all("decode_fused" in layer["attn"] for layer in params["layers"]):
         return params
     dtype = _compute_dtype(cfg)
-    return {**params, "layers": [fuse_decode_layer(layer, dtype) for layer in params["layers"]]}
+    packed = {**params, "layers": [fuse_decode_layer(layer, dtype)
+                                   for layer in params["layers"]]}
+    if _mega_applies(cfg):
+        packed["mega"] = pack_mega_params(params, cfg)
+    return packed
+
+
+def stack_decode_caches(cache: ModelCache):
+    """``ModelCache`` -> stacked (kv [L, ...], ckv [L, ...], ring [L, ...])
+    copies (``nsa_tpu.models.transformer.stack_decode_caches``).  The
+    whole-model decode also runs on a ``ModelCache``'s own per-layer tensors
+    in place, which needs no copy."""
+    return tuple(torch.stack([getattr(lc, f) for lc in cache.layers])
+                 for f in ("kv", "ckv", "ring"))
+
+
+def _mega_kw(cfg: ModelConfig) -> dict:
+    nsa = cfg.nsa
+    Bs = nsa.selection_block_size
+    return dict(heads=cfg.heads, stride=nsa.compress_block_sliding_stride, sel_block=Bs,
+                num_sel=nsa.num_selected_blocks, n_slide=-(-nsa.sliding_window_size // Bs) + 1,
+                window=nsa.sliding_window_size, scale=cfg.dim_head ** -0.5,
+                eps=cfg.norm_eps, theta=cfg.rope_theta)
+
+
+def transformer_decode_step_mega(mp: dict, cfg: ModelConfig, token: torch.Tensor, kv, ckv,
+                                 ring, t: int, greedy: bool = False, steps: int = 1, *,
+                                 use_kernels: bool = True, phase_ns=None):
+    """Whole-model decode through ``decode_step_mega``: (logits [b, vocab]
+    float32, kv, ckv, ring), or with ``greedy=True`` (logits, tokens [b,
+    steps], kv, ckv, ring) with the argmax taken in the kernel, ``steps``
+    tokens per launch.  ``mp`` from ``pack_mega_params``; the caches
+    stacked (``stack_decode_caches``) or per layer, updated in place.
+    ``use_kernels=False`` runs the plain version on any device;
+    ``phase_ns`` as in ``decode_step_mega``."""
+    if not use_kernels:
+        return decode_step_mega_plain(mp, kv, ckv, ring, token, t, steps=steps, greedy=greedy,
+                                      **_mega_kw(cfg))
+    return decode_step_mega(mp, kv, ckv, ring, token, t, steps=steps, greedy=greedy,
+                            phase_ns=phase_ns, **_mega_kw(cfg))
+
+
+def _mega_route(cfg: ModelConfig, b: int, route: Optional[str]) -> bool:
+    """Whether a decode step of ``b`` rows takes the whole-model kernel:
+    ``route`` None follows ``use_mega_decode``, "mega" forces it, "fused"
+    and "split" force a per-layer route."""
+    if route not in (None, "mega", "fused", "split"):
+        raise ValueError(f"route must be None, 'mega', 'fused' or 'split', got {route!r}")
+    if route == "mega" and not _mega_applies(cfg):
+        raise ValueError("the mega decode route needs the sparse model with the gelu FF, "
+                         "shared selection, selected blocks and the mlp compressor")
+    return route == "mega" or (route is None and use_mega_decode(cfg, b))
+
+
+def cache_tensors(cache: ModelCache):
+    """A ``ModelCache``'s per-layer (kv, ckv, ring) tensors, which the
+    whole-model decode updates in place."""
+    return tuple([getattr(lc, f) for lc in cache.layers] for f in ("kv", "ckv", "ring"))
 
 
 def transformer_decode_step(
@@ -142,13 +272,21 @@ def transformer_decode_step(
 ) -> Tuple[torch.Tensor, ModelCache]:
     """One token step. token: [b] int -> float32 logits [b, vocab], cache.
 
-    The cache's tensors are updated in place.  ``use_kernels`` and
-    ``route`` as in ``sparse_attention_decode``; params packed by
-    ``fuse_decode_params`` save the per-step packing.
+    The cache's tensors are updated in place.  ``route``: None takes the
+    whole-model kernel where ``use_mega_decode`` holds, else the layer's
+    default (fused at b <= 8, split above); "mega", "fused" or "split"
+    forces one.  ``use_kernels=False`` runs the route's plain versions (see
+    ``sparse_attention_decode``).  Params packed by ``fuse_decode_params``
+    save the per-step packing.
     """
     _check_model(cfg)
-    x = params["token_emb"][token][:, None].to(_compute_dtype(cfg))   # [b, 1, dim]
     t = cache.seq_len
+    if _mega_route(cfg, token.shape[0], route):
+        mp = params.get("mega") or pack_mega_params(params, cfg)
+        logits = transformer_decode_step_mega(mp, cfg, token, *cache_tensors(cache), t,
+                                              use_kernels=use_kernels)[0]
+        return logits, ModelCache(layers=cache.layers, seq_len=t + 1)
+    x = params["token_emb"][token][:, None].to(_compute_dtype(cfg))   # [b, 1, dim]
     new_layers = []
     for layer, lc in zip(params["layers"], cache.layers):
         x, lc = sparse_attention_decode(
@@ -169,11 +307,27 @@ def default_max_len(cfg: ModelConfig, need: int) -> int:
 
 
 def greedy_decode(params, cfg: ModelConfig, token: torch.Tensor, cache: ModelCache,
-                  gen_len: int, *, route: Optional[str] = None) -> torch.Tensor:
+                  gen_len: int, *, route: Optional[str] = None, steps: int = 1) -> torch.Tensor:
     """``gen_len`` greedy decode steps from ``token`` [b], each consuming the
-    token it emits; returns the consumed tokens [b, gen_len].  The decode
-    weights are packed once first (``fuse_decode_params``)."""
+    token it emits; returns the consumed tokens [b, gen_len].  The cache's
+    tensors are updated in place.  The decode weights are packed once first
+    (``fuse_decode_params``).  ``route`` as in ``transformer_decode_step``;
+    on the whole-model kernel the argmax is taken in the kernel, ``steps``
+    tokens per launch (a divisor of ``gen_len``)."""
     params = fuse_decode_params(params, cfg)
+    if _mega_route(cfg, token.shape[0], route):
+        if gen_len % steps:
+            raise ValueError(f"steps {steps} must divide gen_len {gen_len}")
+        kv, ckv, ring = cache_tensors(cache)
+        chunks = []
+        for i in range(gen_len // steps):
+            _, toks, *_ = transformer_decode_step_mega(
+                params["mega"], cfg, token, kv, ckv, ring, cache.seq_len + i * steps,
+                greedy=True, steps=steps)
+            toks = toks.to(token.dtype)
+            chunks.append(torch.cat([token[:, None], toks[:, :-1]], dim=1))
+            token = toks[:, -1]
+        return torch.cat(chunks, dim=1) if chunks else token.new_zeros((token.shape[0], 0))
     tokens = []
     for _ in range(gen_len):
         tokens.append(token)
@@ -188,10 +342,67 @@ def transformer_greedy(
 ) -> torch.Tensor:
     """Greedy generation: prefill, then ``gen_len`` decode steps.
     prompt [b, n] -> tokens [b, gen_len], the first from the prefill;
-    ``route`` as in ``sparse_attention_decode``."""
+    ``route`` as in ``transformer_decode_step``."""
     b, n = prompt.shape
     if gen_len == 0:
         return prompt.new_zeros((b, 0))
     max_len = default_max_len(cfg, n + gen_len) if max_len is None else max_len
     logits, cache = transformer_prefill(params, cfg, prompt, max_len)
     return greedy_decode(params, cfg, logits[:, -1].argmax(-1), cache, gen_len, route=route)
+
+
+def top_k_filter(logits: torch.Tensor, filter_thres: float) -> torch.Tensor:
+    """Keep the ``ceil((1 - filter_thres) * vocab)`` largest logits (at
+    least one, ties at the k-th value kept), -inf elsewhere."""
+    vocab = logits.shape[-1]
+    k = max(1, -int(-((1.0 - filter_thres) * vocab) // 1))        # ceil, as JAX
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return logits.masked_fill(logits < kth, float("-inf"))
+
+
+def _sample_from_logits(logits: torch.Tensor, temperature: float, filter_thres: float,
+                        gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy (temperature <= 0) or top-k + Gumbel-max sampling
+    (``nsa_tpu.models.transformer._sample_from_logits``); ``gumbel`` is the
+    noise, logits' shape, which JAX draws from its key inside."""
+    if temperature <= 0:
+        return logits.argmax(-1)
+    return (top_k_filter(logits, filter_thres) / temperature + gumbel).argmax(-1)
+
+
+def transformer_sample(
+    params, cfg: ModelConfig, prompt: torch.Tensor, gen_len: int, *,
+    temperature: float = 0.0, filter_thres: float = 0.9,
+    gumbel: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+    max_len: Optional[int] = None, route: Optional[str] = None,
+) -> torch.Tensor:
+    """Autoregressive generation (``nsa_tpu.models.transformer.
+    transformer_sample``): prefill, then decode steps. prompt [b, n] ->
+    [b, gen_len] sampled ids, the first from the prefill.
+
+    Greedy (temperature <= 0) is ``transformer_greedy``: on the whole-model
+    kernel its argmax runs in the kernel.  Tempered sampling takes the
+    top-k filter and Gumbel-max over each step's logits, on the route
+    ``route`` picks (the whole-model kernel's logits at b <= 8).  JAX draws
+    its noise from a key; here ``gumbel`` [gen_len, b, vocab] passes it in
+    (row i samples token i), or ``generator`` draws it (default: a fresh
+    generator seeded 0 on the prompt's device)."""
+    b, n = prompt.shape
+    if temperature <= 0 or gen_len == 0:
+        return transformer_greedy(params, cfg, prompt, gen_len, max_len, route=route)
+    if gumbel is None:
+        if generator is None:
+            generator = torch.Generator(device=prompt.device).manual_seed(0)
+        u = torch.rand((gen_len, b, cfg.vocab_size), generator=generator,
+                       device=generator.device).to(prompt.device)
+        gumbel = -torch.log(-torch.log(u + 1e-20) + 1e-20)          # JAX's form
+    max_len = default_max_len(cfg, n + gen_len) if max_len is None else max_len
+    params = fuse_decode_params(params, cfg)
+    logits, cache = transformer_prefill(params, cfg, prompt, max_len)
+    token = _sample_from_logits(logits[:, -1], temperature, filter_thres, gumbel[0])
+    tokens = [token]
+    for i in range(1, gen_len):
+        logits, cache = transformer_decode_step(params, cfg, token, cache, route=route)
+        token = _sample_from_logits(logits, temperature, filter_thres, gumbel[i])
+        tokens.append(token)
+    return torch.stack(tokens, dim=1)

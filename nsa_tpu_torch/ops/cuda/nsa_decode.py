@@ -46,12 +46,14 @@ def select_scores_plain(q, ckv, mem_kv, num_cb: int, t: int, *, stride: int,
     (c_out [b, kvh, g, d], scores [b, kvh, Wc // npf] float32).
     The softmax weights are rounded to ``weights_dtype`` before P.V: q's
     dtype by default (the XLA decode path), float32 for the fused kernels.
+    ``mem_kv`` is used in its own dtype: the callers cast it to q's, except
+    the whole-model decode, which keeps it in float32 as JAX's megakernel does.
     """
     b, kvh, g, d = q.shape
     wd = q.dtype if weights_dtype is None else weights_dtype
     Wc = ckv.shape[2]
     M = mem_kv.shape[2]
-    mem_k, mem_v = mem_kv[0].to(q.dtype), mem_kv[1].to(q.dtype)
+    mem_k, mem_v = mem_kv[0], mem_kv[1]
     qf = q.float()
     csim_mem = torch.einsum("bhgd,hmd->bhgm", qf, mem_k.float()) * scale
     csim_blocks = torch.einsum("bhgd,bhjd->bhgj", qf, ckv[..., :d].float()) * scale
@@ -59,8 +61,8 @@ def select_scores_plain(q, ckv, mem_kv, num_cb: int, t: int, *, stride: int,
     csim_blocks = csim_blocks.masked_fill(~live, mask_value(torch.float32))
     csim = torch.cat([csim_mem, csim_blocks], dim=-1)              # [b,kvh,g,M+Wc]
     cattn = torch.softmax(csim, dim=-1).to(wd)
-    cv_all = torch.cat([mem_v[None].expand(b, kvh, M, d), ckv[..., d:]], dim=2)
-    c_out = torch.einsum("bhgj,bhjd->bhgd", cattn, cv_all.to(wd)).to(q.dtype)
+    cv_all = torch.cat([mem_v[None].expand(b, kvh, M, d).to(wd), ckv[..., d:].to(wd)], dim=2)
+    c_out = torch.einsum("bhgj,bhjd->bhgd", cattn, cv_all).to(q.dtype)
 
     importance = group_importance(csim.reshape(b, kvh * g, 1, -1), M, g, True)
     q_pos = torch.tensor([t], device=q.device)

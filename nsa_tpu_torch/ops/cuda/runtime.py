@@ -1,8 +1,9 @@
 """Build, load and call the port's CUDA kernels.
 
-All sources under ``nsa_tpu_torch/csrc/`` are compiled by ONE ``nvcc`` call
-into one shared library with a plain C interface, on first use, into
-``nsa_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
+Every source under ``nsa_tpu_torch/csrc/`` is compiled by its own ``nvcc``
+call, all started together, and one more links the objects into one shared
+library with a plain C interface, on first use, into
+``nsa_tpu_torch/_build/`` (listed in ``.gitignore``), loaded with
 ``ctypes``.  The library's name carries a hash of the sources and flags, so
 an edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing here runs at import time; a missing ``nvcc`` or a failed build
@@ -30,7 +31,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -43,6 +44,9 @@ SIGNATURES = {
     "nsa_decode_attend": [_p] * 6 + [_i] * 10 + [_f, _p],
     "nsa_decode_select_emit": [_p] * 15 + [_i] * 16 + [_f, _p],
     "nsa_decode_attend_fused": [_p] * 16 + [_i] * 12 + [_f, _f, _p],
+    # the whole-model decode: a host array of pointers and of ints (see
+    # csrc/nsa_decode_mega.cu for their order), their lengths, scale, eps
+    "nsa_decode_mega": [_p, _i, _p, _i, _f, _f, _p],
 }
 
 
@@ -83,18 +87,26 @@ def library() -> KernelLibrary:
     seconds, log = 0.0, ""
     if not path.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cus = [src for src in _sources() if src.suffix == ".cu"]
+            objs = [os.path.join(tmp, src.stem + ".o") for src in cus]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for src, obj in zip(cus, objs)]
+            log = "".join(p.communicate()[0] for p in procs)
+            if any(p.returncode for p in procs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            so = os.path.join(tmp, "lib.so")
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs],
+                                  capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n{log}")
+            os.replace(so, path)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -32,11 +32,13 @@ from nsa_tpu_torch.eval.efficiency import clone_cache
 from nsa_tpu_torch.models.transformer import (
     fuse_decode_params,
     init_transformer,
+    stack_decode_caches,
     transformer_decode_step,
+    transformer_decode_step_mega,
     transformer_loss,
     transformer_prefill,
 )
-from nsa_tpu_torch.ops.cuda import nsa_decode, nsa_decode_fused, nsa_prefill
+from nsa_tpu_torch.ops.cuda import nsa_decode, nsa_decode_fused, nsa_decode_mega, nsa_prefill
 from nsa_tpu_torch.ops.nsa import _ckv_width
 from nsa_tpu_torch.train.pretrain import trainable
 from nsa_tpu_torch.utils.checkpoint import tree_leaves, tree_to
@@ -298,7 +300,7 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 def test_model_decode_step_fused_route_matches_plain(gen):
-    """Two layers at the reference widths at bs 4 (the fused route), random
+    """Two layers at the reference widths at bs 4 on the fused route, random
     weights from a seed, across an emission step: kernels against the
     plain versions, within chip_smoke.py's 2% of the logits' scale."""
     cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
@@ -313,11 +315,87 @@ def test_model_decode_step_fused_route_matches_plain(gen):
         token = logits[:, -1].argmax(-1)
         plain = clone_cache(cache)
         for _ in range(2):     # t = 199 emits, t = 200 does not
-            got, cache = transformer_decode_step(packed, cfg, token, cache)
-            want, plain = transformer_decode_step(packed, cfg, token, plain, use_kernels=False)
+            got, cache = transformer_decode_step(packed, cfg, token, cache, route="fused")
+            want, plain = transformer_decode_step(packed, cfg, token, plain, use_kernels=False,
+                                                  route="fused")
             assert torch.isfinite(got).all()
             assert max_err(got, want) <= 0.02 * max(want.abs().max().item(), 1.0)
             token = want.argmax(-1)
     assert (nsa_decode_fused.decode_select_emit.launches,
             nsa_decode_fused.decode_attend_fused.launches,
             nsa_decode.decode_select.launches) == (before[0] + 4, before[1] + 4, before[2])
+
+
+@pytest.mark.parametrize("b", [3, 9])
+def test_decode_step_mega_kernel_matches_plain(gen, b):
+    """Two layers at the reference widths, random weights from a seed, at
+    t = 199 (emits) and 200: the whole-model kernel against its plain
+    version, logits within 2^-6 of the largest, the in-kernel argmax
+    equal except at near-ties, and every cache row but the step's own
+    bit-equal (b = 9 takes two of the kernel's 8-row groups); then one
+    launch of 4 greedy tokens against 4 launches of one, bit for bit."""
+    cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
+    params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cuda"),
+                     dtype=torch.bfloat16)
+    mp = fuse_decode_params(params, cfg)["mega"]
+    ids = torch.randint(0, 256, (b, 199), generator=gen, device="cuda")
+    with torch.inference_mode():
+        logits, cache = transformer_prefill(params, cfg, ids, 256)
+        first = logits[:, -1].argmax(-1)
+        start = stack_decode_caches(cache)
+        kern, plain = [x.clone() for x in start], [x.clone() for x in start]
+        token = first
+        before = nsa_decode_mega.decode_step_mega.launches
+        for t in (199, 200):
+            got, tok_k, *_ = transformer_decode_step_mega(mp, cfg, token, *kern, t, greedy=True)
+            want, tok_p, *_ = transformer_decode_step_mega(mp, cfg, token, *plain, t, greedy=True,
+                                                           use_kernels=False)
+            top = want.abs().max().item()
+            assert torch.isfinite(got).all() and max_err(got, want) <= TOL_FUSED * top
+            top2 = want.topk(2, dim=-1).values
+            near = top2[:, 0] - top2[:, 1] <= TOL_FUSED * top
+            assert bool(((tok_k == tok_p)[:, 0] | near).all())
+            assert torch.equal(tok_k[:, 0].long(), got.argmax(-1))
+            token = tok_p[:, 0]
+        assert nsa_decode_mega.decode_step_mega.launches == before + 2
+        ring = start[2]
+        for name, x, y, rows in (("kv", kern[0], plain[0], (199, 200)),
+                                 ("ckv", kern[1], plain[1], (199 // 8,))):
+            keep = [i for i in range(x.shape[3]) if i not in rows]
+            assert torch.equal(x[:, :, :, keep], y[:, :, :, keep]), name
+            assert torch.equal(x[:, :, :, keep], start[0 if name == "kv" else 1][:, :, :, keep])
+            assert max_err(x, y) <= TOL_FUSED * y.float().abs().max().item(), name
+        assert torch.equal(kern[2][..., :-2, :], ring[..., 2:, :])
+        assert max_err(kern[2], plain[2]) <= TOL_FUSED * plain[2].float().abs().max().item()
+
+        single, multi = [x.clone() for x in start], [x.clone() for x in start]
+        token, toks = first, []
+        for i in range(4):
+            lg1, nxt, *_ = transformer_decode_step_mega(mp, cfg, token, *single, 199 + i,
+                                                        greedy=True)
+            toks.append(nxt)
+            token = nxt[:, 0]
+        lg4, toks4, *_ = transformer_decode_step_mega(mp, cfg, first, *multi, 199, greedy=True,
+                                                      steps=4)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(toks, 1), toks4) and torch.equal(lg1, lg4)
+    assert all(torch.equal(x, y) for x, y in zip(single, multi))
+
+
+def test_mega_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
+    params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cuda"),
+                     dtype=torch.bfloat16)
+    mp = fuse_decode_params(params, cfg)["mega"]
+    with torch.inference_mode():
+        _, cache = transformer_prefill(params, cfg, torch.zeros(2, 20, dtype=torch.long,
+                                                                device="cuda"), 256)
+        kv, ckv, ring = stack_decode_caches(cache)
+        token = torch.zeros(2, dtype=torch.long, device="cuda")
+        with pytest.raises(ValueError, match="steps"):      # several tokens only when greedy
+            transformer_decode_step_mega(mp, cfg, token, kv, ckv, ring, 20, steps=2)
+        with pytest.raises(ValueError):                     # past the cache's end
+            transformer_decode_step_mega(mp, cfg, token, kv, ckv, ring, 255, steps=2,
+                                         greedy=True)
+        with pytest.raises(TypeError):                      # bf16 caches only
+            transformer_decode_step_mega(mp, cfg, token, kv.float(), ckv, ring, 20)

@@ -4,8 +4,10 @@
 layers at dim 512), cast to float32, on the CPU, at bs 2: the prefill of a
 300-token prompt (three query chunks) into a 1024-row cache, then 24 greedy
 decode steps.  JAX runs its XLA path (``attn_impl="xla"``); the port runs
-its plain versions, and at bs 2 its fused decode route, so this holds the
-fused route's plain versions against JAX's split XLA math on real weights.
+its plain versions on both of its small-batch decode routes: the
+whole-model decode (its default at bs 2) and the per-layer fused route, so
+this holds both routes' plain versions against JAX's split XLA math on
+real weights.
 
 Tolerance: logits atol/rtol 2e-4, the repo's prefill/decode tolerance
 (float32 sums in another order through six layers); greedy tokens exact.
@@ -19,6 +21,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from nsa_tpu.config import model_config_from_json
@@ -33,7 +36,8 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 BATCH, PROMPT, STEPS, MAX_LEN = 2, 300, 24, 1024
 
 
-def test_committed_weights_prefill_and_decode_match_jax():
+@pytest.mark.parametrize("route", ["mega", "fused"])
+def test_committed_weights_prefill_and_decode_match_jax(route):
     t_params, meta = load_params_npz(WEIGHTS, device="cpu", dtype=torch.float32)
     t_cfg = model_config_from_meta(meta).replace(dtype="float32")
     j_cfg = dataclasses.replace(
@@ -53,13 +57,15 @@ def test_committed_weights_prefill_and_decode_match_jax():
 
     j_step = jax.jit(lambda p, tok, c: jt.transformer_decode_step(p, j_cfg, tok, c))
     packed = tt.fuse_decode_params(t_params, t_cfg)
+    assert tt.use_mega_decode(t_cfg, BATCH)       # the default route at bs 2 is "mega"
     token = np.asarray(j_logits[:, -1]).argmax(-1)
     assert (t_logits[:, -1].argmax(-1).numpy() == token).all()
     for step in range(STEPS):
         j_logits, j_cache = j_step(j_params, jnp.asarray(token), j_cache)
         with torch.no_grad():
             t_logits, t_cache = tt.transformer_decode_step(packed, t_cfg,
-                                                           torch.from_numpy(token), t_cache)
+                                                           torch.from_numpy(token), t_cache,
+                                                           route=route)
         np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
                                    err_msg=f"step {step}", **TOL)
         token = np.asarray(j_logits).argmax(-1)
