@@ -44,14 +44,36 @@ Phases, each printing its name and seconds as it ends:
              every parameter gradient through the kernels held against the
              plain path; ``measure_train`` tokens/s; ``torch.profiler`` over
              one micro-step.
+10. serve  - the serving engine (``nsa_tpu_torch.serve.ContinuousBatchingEngine``)
+             on the trained model: 48 seeded requests (prompts of 256-3900
+             bytes in [32, 127), 32-128 new tokens each) through 16 slots of
+             4096 rows in buckets of 512-4096, 8 tokens a sync, greedy, on a
+             dense pool and on a paged pool of 640 pages of 64 rows (62.5% of
+             the dense pool's); every request's tokens equal on both; 4
+             requests at 1 token a sync equal the same at 8, their first
+             ragged step's logits held against prefill + a b = 1 decode step
+             of the same prompt; launch counts read around each run (depth
+             ragged select-emit and ragged or paged attend launches a decode
+             step, none of the one-position decode kernels); 4 requests on
+             the split route (depth block-gather launches a step); every page
+             back on the free list; no host sync inside a multi-token window
+             (``torch.cuda.set_sync_debug_mode("error")``); new tokens/s,
+             requests/s, wall time, kv pool MiB, peak memory, and a profile of
+             5 ragged steps at 16 slots.
 
 The kernels phase also holds the two backward kernels against their plain
 versions at the training cell's shapes (bs 16, n 4096), the two fused
 decode kernels at the small-batch cell's (bs 8, layer 0's trained weights,
 seeded activations and caches; the select kernel at an emission step and
-at the step before it), and the whole-model decode kernel there (bs 8, all
+at the step before it), the whole-model decode kernel there (bs 8, all
 layers' trained weights, seeded tokens and full-length caches, an emission
-step and the step before it).
+step and the step before it), and the serving engine's four kernels at 16
+slots of 4096 rows with layer 0's trained weights: the ragged select-emit
+and attend kernels at seeded mixed positions (t = 0, emitting and
+non-emitting rows before and after the first full compression window, t up
+to 4095), and at one position against the one-position pair; the paged
+attend kernel under a seeded permutation page table of 64-row pages, bit
+for bit the ragged one; the block gather of the ragged split route.
 
 Then one JSON line with the kernels, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -70,6 +92,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import nsa_tpu_torch  # noqa: E402,F401  (fails at once outside a checkout)
@@ -97,10 +120,13 @@ from nsa_tpu_torch.ops.cuda import (  # noqa: E402
     nsa_decode,
     nsa_decode_fused,
     nsa_decode_mega,
+    nsa_decode_ragged,
     nsa_prefill,
+    paged_gather,
     runtime,
 )
 from nsa_tpu_torch.ops.nsa import _ckv_width, fuse_decode_layer  # noqa: E402
+from nsa_tpu_torch import serve  # noqa: E402
 from nsa_tpu_torch.train import pretrain  # noqa: E402
 from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
     latest_checkpoint,
@@ -114,10 +140,11 @@ from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
 # about twice each phase's longest time on the H100 (61 s build of the eight
-# kernels, 12 s small phase, 79 s train on the slower host), at least 10 s
-# for the phases of a few seconds, whose time is host noise; 420 s in all
+# kernels, 12 s small phase, 79 s train on the slower host, 19 s serve), at
+# least 10 s for the phases of a few seconds, whose time is host noise; 460 s
+# in all
 BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 10, "main": 10,
-            "measure": 20, "profile": 50, "small": 30, "train": 160}
+            "measure": 20, "profile": 50, "small": 30, "serve": 40, "train": 160}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
 SMALL_BATCHES = (8, 1)       # the small-batch cell: the whole-model decode route
 FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
@@ -175,6 +202,18 @@ TOL_LOSS_REL = 2e-3
 # The whole-model kernel against its plain version: the same bodies and
 # rounding points through every layer, held to the same 2^-6.
 TOL_FUSED = 2.0 ** -6
+# the serving cell: the engine's slot pool at the trained model's cache length
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_SYNC = 16, 48, 8
+SERVE_BUCKETS = (512, 1024, 2048, 4096)
+PAGE_TOKENS, POOL_PAGES = 64, 640
+SERVE_CHECK_REQUESTS = 4
+# every kernel the port has, counted around each path's run
+ALL_KERNELS = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv,
+               nsa_decode.decode_select, nsa_decode.decode_attend,
+               nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused,
+               nsa_decode_mega.decode_step_mega, nsa_decode_ragged.decode_select_emit_ragged,
+               nsa_decode_ragged.decode_attend_fused_ragged,
+               nsa_decode_ragged.decode_attend_fused_paged, paged_gather.paged_gather)
 
 PHASES = []
 
@@ -645,6 +684,236 @@ def mega_phase_us(mp, cfg, token, caches, t):
             "lm_head": us[5 * L].item(), "span": (marks[-1] - marks[0]).item() / 1e3}
 
 
+def ragged_positions(gen, b):
+    """Per-row positions: t = 0; before the first full compression window
+    5 (no emission), 7 and 15 (emitting); 4095 (emitting) and 4094, 3999
+    (emitting) and 3998; the rest seeded uniform in [16, 4096)."""
+    fixed = torch.tensor([0, 5, 7, 15, 4095, 4094, DECODE_T, DECODE_T - 1], device=DEVICE)
+    rest = torch.randint(16, MAX_LEN, (b - len(fixed),), generator=gen, device=DEVICE)
+    return torch.cat([fixed, rest]).int()
+
+
+def ragged_attend_rows(info, t, cfg):
+    """kv rows the attention of each (row, head) needs at its own t."""
+    nsa = cfg.nsa
+    Bs, window, num_sel = nsa.selection_block_size, nsa.sliding_window_size, nsa.num_selected_blocks
+    n_slide = -(-window // Bs) + 1
+    b, kvh = info.shape[0], cfg.kv_heads
+    vp = info.reshape(b, kvh, -1)[..., num_sel + n_slide:2 * num_sel + n_slide].cpu()
+    return sum(attend_rows(vp[i:i + 1], int(ti), Bs, n_slide, window, kvh)
+               for i, ti in enumerate(t.tolist()))
+
+
+def kernel_decode_ragged(gen, flush, cfg, params, b):
+    """Rows 8-11 at ``b`` slots of MAX_LEN rows: layer 0's trained weights,
+    packed; seeded queries, caches, residual stream and mixed positions."""
+    nsa = cfg.nsa
+    kvh, g, d, dim = cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head, cfg.dim
+    stride, Bs, Bc, window = nsa.compress_block_sliding_stride, nsa.selection_block_size, \
+        nsa.compress_block_size, nsa.sliding_window_size
+    num_sel, M = nsa.num_selected_blocks, nsa.num_compressed_mem_kv
+    n_slide = -(-window // Bs) + 1
+    n_slots, scale = num_sel + n_slide, d ** -0.5
+    Wc = _ckv_width(MAX_LEN, stride, nsa.num_compress_per_fine)
+    layer = fuse_decode_layer(params["layers"][0], torch.bfloat16)
+    fp, ffp = layer["attn"]["decode_fused"], layer["ff"]["decode_fused"]
+    weights = (fp["pos_kv"], fp["w1k"], fp["b1k"], fp["w1v"], fp["b1v"], fp["w2"], fp["b2"])
+    ff = tuple(ffp[k] for k in ("norm_scale", "w1", "b1", "w2", "b2"))
+    mem_kv = fp["mem_kv"]
+    R = nsa_decode_ragged
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+    q, ckv, ring, kv_new = randn(b, kvh, g, d), randn(b, kvh, Wc, 2 * d), \
+        randn(b, kvh, Bc, 2 * d), randn(b, kvh, 1, 2 * d)
+    t = ragged_positions(gen, b)
+    num_cb = t // stride
+    kw = dict(max_blocks=MAX_LEN // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
+              n_slide=n_slide, scale=scale)
+    rows = torch.arange(b, device=DEVICE)
+    emit = R.ragged_emits(t, num_cb, stride)
+    slot = num_cb.long().clamp(max=Wc - 1)
+
+    # ---- row 8: the ragged select-emit at mixed positions ------------------
+    caches = [(ckv.clone(), ring.clone()) for _ in range(2)]
+    c_k, info_k = R.decode_select_emit_ragged(q, *caches[0], kv_new, mem_kv, *weights, t,
+                                              num_cb, **kw)
+    c_p, info_p = R.decode_select_emit_ragged_plain(q, *caches[1], kv_new, mem_kv, *weights, t,
+                                                    num_cb, **kw)
+    _, scores = nsa_decode.select_scores_plain(q, ckv, mem_kv, num_cb, t, stride=stride,
+                                               sel_block=Bs, scale=scale)
+    torch.cuda.synchronize()
+    err_c, top_c = max_err(c_k, c_p), c_p.float().abs().max().item()
+    ties = check_selection(info_k.reshape(b, kvh, -1), info_p.reshape(b, kvh, -1), scores,
+                           num_sel, n_slide, "decode_select_emit_ragged")
+    check(torch.equal(caches[0][1], caches[1][1])
+          and torch.equal(caches[0][1][:, :, -1:], kv_new)
+          and torch.equal(caches[0][1][:, :, :-1], ring[:, :, 1:]),
+          "decode_select_emit_ragged: the shifted ring is not bit-equal")
+    others = (torch.arange(Wc, device=DEVICE)[None] != slot[:, None])[:, None, :, None] \
+        .expand_as(ckv)
+    for label, ckv_x in (("kernel", caches[0][0]), ("plain", caches[1][0])):
+        check(torch.equal(ckv_x[others], ckv[others]),
+              f"decode_select_emit_ragged: the {label} wrote a ckv row off its row's slot")
+        check(torch.equal(ckv_x[rows, :, slot][~emit], ckv[rows, :, slot][~emit]),
+              f"decode_select_emit_ragged: the {label} wrote a non-emitting row's slot")
+    row_k, row_p = caches[0][0][rows, :, slot][emit], caches[1][0][rows, :, slot][emit]
+    err_row, top_row = max_err(row_k, row_p), row_p.float().abs().max().item()
+    check(err_c <= TOL_FUSED * top_c and bool(torch.isfinite(c_k.float()).all()),
+          "decode_select_emit_ragged: c_out disagrees")
+    check(err_row <= TOL_FUSED * top_row, "decode_select_emit_ragged: an emitted row disagrees")
+    n_emit = int(emit.sum())
+    print(f"  decode_select_emit_ragged {b} slots at t={t.tolist()} ({n_emit} emit): max|err| "
+          f"c_out {err_c:.5f} (tol {TOL_FUSED:g} x max {top_c:.3f}); ids equal on "
+          f"{b * kvh - ties}/{b * kvh} rows, {ties} differ only by ties within {TIE}; emitted "
+          f"rows max|err| {err_row:.5f} (tol {TOL_FUSED:g} x max {top_row:.3f}); ring "
+          f"bit-equal; every other ckv row unchanged", flush=True)
+    work = (q, ckv.clone(), ring.clone(), kv_new, mem_kv, *weights, t, num_cb)
+    live = int(num_cb.sum())
+    sel_bytes = (nbytes(q, mem_kv, c_p, info_p, kv_new, t, num_cb) + 2 * nbytes(ring)
+                 + live * kvh * 2 * d * 2 + (nbytes(*weights) if n_emit else 0)
+                 + n_emit * kvh * 2 * d * 2)
+    hid = fp["w1k"].shape[2]
+    sel_flops = ((live + b * M) * kvh * g * 4 * d
+                 + n_emit * kvh * 2 * (Bc * d * hid + hid * d) * 2)
+    bms, by = bound_ms(sel_bytes, sel_flops)
+    sel = {"name": "decode_select_emit_ragged", "route": "cuda",
+           "source": "nsa_tpu_torch/csrc/nsa_decode_ragged.cu",
+           "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:1059",
+           "max_abs_err": max(err_c, err_row),
+           "ms": timed_ms(lambda: R.decode_select_emit_ragged(*work, **kw), 50, flush),
+           "plain_ms": timed_ms(lambda: R.decode_select_emit_ragged_plain(*work, **kw), 10, flush),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+    # ---- row 9: the ragged attend, FF inside, at the same positions --------
+    rq, kv = randn(b, kvh, g, d), randn(b, kvh, MAX_LEN, 2 * d)
+    kv_row = randn(b, kvh, 1, 2 * d)
+    gates = torch.sigmoid(randn(b, kvh, g, 3).float()).to(torch.bfloat16)
+    x = randn(b, 1, dim)
+    akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
+               eps=cfg.norm_eps)
+    args = (kv_row, info_p, c_p, gates, x, fp["w_out"], t, ff)
+    kv_k, kv_p = kv.clone(), kv.clone()
+    out_k = R.decode_attend_fused_ragged(rq, kv_k, *args, **akw)
+    out_p = R.decode_attend_fused_ragged_plain(rq, kv_p, *args, **akw)
+    torch.cuda.synchronize()
+    err_a, top = max_err(out_k, out_p), out_p.float().abs().max().item()
+    written = torch.zeros(b, MAX_LEN, dtype=torch.bool, device=DEVICE)
+    written[rows, t.long()] = True
+    written = written[:, None, :, None].expand_as(kv)
+    check(torch.equal(kv_k, kv_p) and torch.equal(kv_k[rows, :, t.long()], kv_row[:, :, 0])
+          and torch.equal(kv_k[~written], kv[~written]),
+          "decode_attend_fused_ragged: the kv cache is not the old one with each row's t written")
+    check(err_a <= TOL_FUSED * top and bool(torch.isfinite(out_k.float()).all()),
+          "decode_attend_fused_ragged disagrees")
+    print(f"  decode_attend_fused_ragged {b} slots (FF inside): max|err| {err_a:.5f} (tol "
+          f"{TOL_FUSED:g} x max {top:.3f}); each row's kv row t written, bit-equal; no other "
+          f"row changed", flush=True)
+    kv_rows = ragged_attend_rows(info_p, t, cfg)
+    hid4 = ff[1].shape[1]
+    att_bytes = (nbytes(rq, info_p, c_p, gates, x, kv_row, fp["w_out"], *ff, out_k, t)
+                 + kv_rows * 2 * d * 2 + nbytes(kv_row))
+    att_flops = kv_rows * g * 4 * d + b * 2 * (kvh * g * d * dim + 2 * dim * hid4)
+    bms, by = bound_ms(att_bytes, att_flops)
+    att = {"name": "decode_attend_fused_ragged", "route": "cuda",
+           "source": "nsa_tpu_torch/csrc/nsa_decode_ragged.cu",
+           "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:1317",
+           "max_abs_err": err_a,
+           "ms": timed_ms(lambda: R.decode_attend_fused_ragged(rq, kv_k, *args, **akw), 50,
+                          flush),
+           "plain_ms": timed_ms(lambda: R.decode_attend_fused_ragged_plain(rq, kv_p, *args,
+                                                                           **akw), 10, flush),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+    # ---- row 10: the paged attend under a permutation table ----------------
+    n_pg = MAX_LEN // PAGE_TOKENS
+    table = torch.randperm(b * n_pg, generator=gen, device=DEVICE).reshape(b, n_pg).int()
+    pool = randn(b * n_pg + 1, kvh, PAGE_TOKENS, 2 * d)
+    pool[table.reshape(-1).long()] = kv.reshape(b, kvh, n_pg, PAGE_TOKENS, 2 * d) \
+        .transpose(1, 2).reshape(-1, kvh, PAGE_TOKENS, 2 * d)
+    trash = pool[-1].clone()
+    pool_k, pool_p = pool.clone(), pool.clone()
+    out_g = R.decode_attend_fused_paged(rq, pool_k, table, *args, **akw)
+    out_gp = R.decode_attend_fused_paged_plain(rq, pool_p, table, *args, **akw)
+    torch.cuda.synchronize()
+    logical = pool_k[table.long()].transpose(1, 2).reshape(b, kvh, MAX_LEN, 2 * d)
+    same = torch.equal(out_g, out_k)
+    check(same and torch.equal(logical, kv_k) and torch.equal(pool_k[-1], trash),
+          "decode_attend_fused_paged is not bit-equal to the ragged kernel on the same "
+          "logical cache")
+    err_g, top_g = max_err(out_g, out_gp), out_gp.float().abs().max().item()
+    check(err_g <= TOL_FUSED * top_g and torch.equal(pool_k, pool_p),
+          "decode_attend_fused_paged disagrees with its plain version")
+    print(f"  decode_attend_fused_paged {b} slots, pages of {PAGE_TOKENS} rows under a "
+          f"permutation table: output bit-equal to the ragged kernel's: {same}; its pool through "
+          f"the table equals the ragged kernel's kv; max|err| vs plain {err_g:.5f} (tol "
+          f"{TOL_FUSED:g} x max {top_g:.3f})", flush=True)
+    bms, by = bound_ms(att_bytes + nbytes(table), att_flops)
+    pag = {"name": "decode_attend_fused_paged", "route": "cuda",
+           "source": "nsa_tpu_torch/csrc/nsa_decode_ragged.cu",
+           "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:1608",
+           "max_abs_err": err_g,
+           "ms": timed_ms(lambda: R.decode_attend_fused_paged(rq, pool_k, table, *args, **akw),
+                          50, flush),
+           "plain_ms": timed_ms(lambda: R.decode_attend_fused_paged_plain(
+               rq, pool_p, table, *args, **akw), 10, flush),
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+    # ---- rows 8-9 at one position for every row, against rows 6-7 ----------
+    tu = torch.full((b,), DECODE_T, dtype=torch.int32, device=DEVICE)
+    caches = [(ckv.clone(), ring.clone()) for _ in range(2)]
+    c_r, info_r = R.decode_select_emit_ragged(q, *caches[0], kv_new, mem_kv, *weights, tu,
+                                              tu // stride, **kw)
+    c_s, info_s = nsa_decode_fused.decode_select_emit(q, *caches[1], kv_new, mem_kv, *weights,
+                                                      DECODE_T, DECODE_T // stride, **kw)
+    uargs = (kv_row, info_s, c_s, gates, x, fp["w_out"])
+    kv_r, kv_s = kv.clone(), kv.clone()
+    o_r = R.decode_attend_fused_ragged(rq, kv_r, *uargs, tu, ff, **akw)
+    o_s = nsa_decode_fused.decode_attend_fused(rq, kv_s, *uargs, DECODE_T, ff, **akw)
+    torch.cuda.synchronize()
+    bits = {"c_out": torch.equal(c_r, c_s), "info": torch.equal(info_r, info_s),
+            "ckv": torch.equal(caches[0][0], caches[1][0]),
+            "ring": torch.equal(caches[0][1], caches[1][1]),
+            "attend_out": torch.equal(o_r, o_s), "kv": torch.equal(kv_r, kv_s)}
+    uerr = max(max_err(c_r, c_s) / max(c_s.float().abs().max().item(), 1e-30),
+               max_err(caches[0][0], caches[1][0]) / caches[1][0].float().abs().max().item(),
+               max_err(o_r, o_s) / o_s.float().abs().max().item())
+    check(uerr <= TOL_FUSED and bits["ring"] and bits["kv"],
+          "rows 8-9 at one position disagree with rows 6-7")
+    check_selection(info_r.reshape(b, kvh, -1), info_s.reshape(b, kvh, -1),
+                    nsa_decode.select_scores_plain(q, ckv, mem_kv, DECODE_T // stride, DECODE_T,
+                                                   stride=stride, sel_block=Bs, scale=scale)[1],
+                    num_sel, n_slide, "ragged vs one-position select")
+    print(f"  rows 8-9 at t={DECODE_T} for every slot vs rows 6-7: max relative err {uerr:.5f} "
+          f"(tol {TOL_FUSED:g}); bit-equal: {bits}", flush=True)
+
+    # ---- row 11: the block gather of the ragged split route ----------------
+    idx = info_p.reshape(b, kvh, -1)[..., :n_slots].contiguous()
+    gk = paged_gather.paged_gather(kv, idx, Bs)
+    gp = paged_gather.paged_gather_plain(kv, idx, Bs)
+    blocks = kv.view(b, kvh, MAX_LEN // Bs, Bs, 2 * d)
+    bi, hi, il = rows[:, None, None], torch.arange(kvh, device=DEVICE)[None, :, None], idx.long()
+    lib = blocks[bi, hi, il]
+    torch.cuda.synchronize()
+    check(torch.equal(gk, gp) and torch.equal(gk, lib.reshape(gk.shape)),
+          "paged_gather is not the blocks it was asked for")
+    print(f"  paged_gather {b} slots x {kvh} heads x {n_slots} blocks of {Bs} rows: equal to "
+          f"its plain version and to advanced indexing", flush=True)
+    bms, by = bound_ms(2 * nbytes(gk) + nbytes(idx), 0)
+    gat = {"name": "paged_gather", "route": "cuda", "source": "nsa_tpu_torch/csrc/paged_gather.cu",
+           "replaces": "nsa_tpu/ops/pallas/paged_gather.py:73", "max_abs_err": 0.0,
+           "ms": timed_ms(lambda: paged_gather.paged_gather(kv, idx, Bs), 50, flush),
+           "plain_ms": timed_ms(lambda: paged_gather.paged_gather_plain(kv, idx, Bs), 10, flush),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timed_ms(lambda: blocks[bi, hi, il], 50, flush)}
+    for k in (sel, att, pag, gat):
+        print(f"  {k['name']} {b} slots: {k['ms']:.4f} ms (bound {k['bound_ms']:.5f} ms, by "
+              f"{k['bound_by']}); plain {k['plain_ms']:.4f} ms; library {k['library_ms']}",
+              flush=True)
+    return sel, att, pag, gat
+
+
 def kernel_decode(gen, flush, cfg):
     nsa = cfg.nsa
     b, kvh, g, d = BATCH, cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head
@@ -910,6 +1179,226 @@ def small_batch_phase(params, cfg, smi):
     return first_launches, fused_launches, metrics
 
 
+def serve_requests(n, seed=0):
+    """``n`` seeded requests: prompts of 256-3900 bytes in [32, 127), as
+    ``scripts/serve_bench.py`` makes them, and 32-128 new tokens each."""
+    rs = np.random.RandomState(seed)
+    reqs = []
+    for _ in range(n):
+        prompt = rs.randint(32, 127, size=rs.randint(256, 3901)).astype(np.int32)
+        reqs.append((prompt, int(rs.randint(32, 129))))
+    return reqs
+
+
+class EngineRun:
+    """Count the ragged decode steps and prefill waves of engine runs, and
+    run every multi-token window under ``set_sync_debug_mode("error")``:
+    a host sync inside one raises."""
+
+    def __enter__(self):
+        self.steps = self.waves = self.windows = 0
+        self.real = (serve.transformer_decode_step_ragged, serve.wave_prefill,
+                     serve.ragged_decode_multi)
+        step, wave, multi = self.real
+
+        def counted_step(*a, **k):
+            self.steps += 1
+            return step(*a, **k)
+
+        def counted_wave(*a, **k):
+            self.waves += 1
+            return wave(*a, **k)
+
+        def no_sync_multi(*a, **k):
+            self.windows += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return multi(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        serve.transformer_decode_step_ragged = counted_step
+        serve.wave_prefill = counted_wave
+        serve.ragged_decode_multi = no_sync_multi
+        return self
+
+    def __exit__(self, *exc):
+        (serve.transformer_decode_step_ragged, serve.wave_prefill,
+         serve.ragged_decode_multi) = self.real
+
+
+def run_engine(params, cfg, reqs, **kw):
+    """Add ``reqs`` to a fresh engine and run it, the counts set to 0 just
+    before and read just after; returns (tokens per request, engine, wall
+    seconds, launches, steps, waves, windows, held), ``held`` the engine
+    steps after whose admission requests waited beside a free slot (the
+    paged pool out of pages)."""
+    eng = serve.ContinuousBatchingEngine(params, cfg, max_batch=SERVE_SLOTS, max_len=MAX_LEN,
+                                         prefill_buckets=SERVE_BUCKETS, **kw)
+    rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+    admit, held = eng._admit, [0]
+
+    def counted_admit():
+        admit()
+        held[0] += bool(eng.pending) and eng.num_active < eng.max_batch
+
+    eng._admit = counted_admit
+    with EngineRun() as run:
+        zero_launches(ALL_KERNELS)
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(ALL_KERNELS)
+    check(sorted(outs) == sorted(rids) and not eng.pending and eng.num_active == 0,
+          "the engine left requests unfinished")
+    for (p, n), r in zip(reqs, rids):
+        check(1 <= len(outs[r]) <= n and int(outs[r].min()) >= 0
+              and int(outs[r].max()) < cfg.vocab_size, f"request {r}: malformed tokens")
+    return [outs[r] for r in rids], eng, wall, launches, run.steps, run.waves, run.windows, \
+        held[0]
+
+
+def check_engine_launches(launches, depth, steps, waves, attend, label):
+    none = {fn.__name__: 0 for fn in ALL_KERNELS}
+    want = {**none, "prefill_fwd": depth * waves}
+    if attend == "paged_gather":
+        want["paged_gather"] = depth * steps
+    else:
+        want.update({"decode_select_emit_ragged": depth * steps, attend: depth * steps})
+    print(f"  {label}: {steps} ragged steps, {waves} prefill waves; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    check(launches == want, f"{label} launches {launches}, expected {want}")
+
+
+def kv_pool_mib(eng):
+    return sum(lc.kv.numel() * lc.kv.element_size() for lc in eng.cache_layers) / 2**20
+
+
+def serve_phase(params, cfg, smi):
+    """The serving engine at the cell: the checks on 4 requests first (they
+    warm the prefill shapes), then the 48-request mix on the dense and the
+    paged pool, then a profile of 5 ragged steps.  Returns the launch
+    counts of the dense, paged and split runs and the metrics."""
+    L = cfg.depth
+    reqs = serve_requests(SERVE_REQUESTS)
+    few = reqs[:SERVE_CHECK_REQUESTS]
+    m = {}
+
+    # 4 requests at 1 token a sync: the first ragged step's logits, against
+    # prefill + one b = 1 decode step of the same prompt
+    first_logits = []
+    real_step = serve.ragged_decode_step
+
+    def recording_step(*a, **k):
+        out = real_step(*a, **k)
+        if not first_logits:
+            first_logits.append(out[0].clone())
+        return out
+
+    serve.ragged_decode_step = recording_step
+    try:
+        one, eng1, *_ = run_engine(params, cfg, few, steps_per_sync=1)
+    finally:
+        serve.ragged_decode_step = real_step
+    eight, *_ = run_engine(params, cfg, few, steps_per_sync=SERVE_SYNC)
+    same = all(np.array_equal(a, b) for a, b in zip(one, eight))
+    print(f"  {SERVE_CHECK_REQUESTS} requests at 1 and at {SERVE_SYNC} tokens a sync: token "
+          f"for token equal: {same}", flush=True)
+    check(same, f"steps_per_sync 1 and {SERVE_SYNC} give different tokens")
+    packed = eng1.params
+    agree, errs, firsts = [], [], []
+    for i, (prompt, n) in enumerate(few):
+        # the prompt alone at its own length, then the engine's first token
+        # through one decode step at b = 1 (the whole-model kernel)
+        ids = torch.from_numpy(prompt).long().to(DEVICE)[None]
+        logits, cache = transformer_prefill(packed, cfg, ids, MAX_LEN)
+        firsts.append(int(logits[0, -1].argmax()) == int(one[i][0]))
+        first = torch.tensor([int(one[i][0])], device=DEVICE)
+        ref, cache = transformer_decode_step(packed, cfg, first, cache)
+        got = first_logits[0][i]
+        err, top = max_err(got, ref[0]), ref.abs().max().item()
+        errs.append(err)
+        check(bool(torch.isfinite(got).all()) and err <= TOL_LOGITS_REL * max(top, 1.0),
+              f"request {i}: the engine's first ragged step disagrees with prefill + decode")
+        toks = greedy_decode(packed, cfg, ref.argmax(-1), cache, n - 1)[0].cpu().numpy()
+        agree.append(float(np.mean(toks == one[i][1:n])))
+    print(f"  first ragged step logits vs prefill + a b = 1 decode step of the same token: "
+          f"max|err| {[round(e, 4) for e in errs]} (tol {TOL_LOGITS_REL} x max|logit|); the "
+          f"prefill's first token equals the engine's: {firsts}; the {[n - 1 for _, n in few]} "
+          f"greedy tokens after it agree with b = 1 decoding on "
+          f"{[round(a, 3) for a in agree]}", flush=True)
+    m["first_step_logits_max_abs_err"] = max(errs)
+    m["b1_token_agreement"] = agree
+
+    # 4 requests on the split route: the block gather, depth times a step
+    split, _, _, split_launches, steps, waves, _, _ = run_engine(
+        params, cfg, few, steps_per_sync=SERVE_SYNC, route="split")
+    check_engine_launches(split_launches, L, steps, waves, "paged_gather",
+                          f"split route, {SERVE_CHECK_REQUESTS} requests")
+    m["split_token_agreement"] = float(np.mean([np.mean(a == b) for a, b in zip(split, eight)]))
+
+    # the 48-request mix, dense then paged
+    runs = {}
+    for label, kw, attend in (
+            ("dense", {}, "decode_attend_fused_ragged"),
+            ("paged", dict(paged_pool_pages=POOL_PAGES, page_tokens=PAGE_TOKENS),
+             "decode_attend_fused_paged")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        toks, eng, wall, launches, steps, waves, windows, held = run_engine(
+            params, cfg, reqs, steps_per_sync=SERVE_SYNC, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        check_engine_launches(launches, L, steps, waves, attend, f"{label} pool")
+        if label == "paged":
+            check(sorted(eng._free_pages) == list(range(POOL_PAGES))
+                  and bool(np.all(eng.page_table == eng.trash_page)),
+                  "paged engine: pages not all back on the free list")
+        new = sum(len(x) for x in toks)
+        mib = kv_pool_mib(eng)
+        runs[label] = dict(tokens=toks, launches=launches)
+        print(f"  serve {label}: {SERVE_REQUESTS} requests, {new} new tokens in {wall:.3f}s = "
+              f"{new / wall:.1f} new tokens/s, {SERVE_REQUESTS / wall:.3f} requests/s; "
+              f"{steps} ragged steps in {windows} windows of {SERVE_SYNC} (no host sync inside "
+              f"any), {waves} prefill waves, requests held back beside a free slot after "
+              f"{held} admissions; kv pool {mib:.1f} MiB ({mib / L:.2f} MiB a layer); "
+              f"peak memory {peak / 2**30:.2f} GiB; {smi}", flush=True)
+        m[label] = {"wall_s": wall, "new_tokens": new, "new_tokens_per_s": new / wall,
+                    "requests_per_s": SERVE_REQUESTS / wall, "ragged_steps": steps,
+                    "windows": windows, "waves": waves, "held_admissions": held,
+                    "kv_pool_mib": mib,
+                    "peak_bytes": peak}
+        del eng
+    same = all(np.array_equal(a, b) for a, b in zip(runs["dense"]["tokens"],
+                                                    runs["paged"]["tokens"]))
+    print(f"  every request's tokens equal on the dense and the paged pool: {same}", flush=True)
+    check(same, "the dense and the paged engine give different tokens")
+
+    # a profile of 5 ragged steps at 16 slots (the mix's first 16 admitted)
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = serve.ContinuousBatchingEngine(params, cfg, max_batch=SERVE_SLOTS, max_len=MAX_LEN,
+                                         prefill_buckets=SERVE_BUCKETS)
+    for p, n in reqs[:SERVE_SLOTS]:
+        eng.add_request(p, max_new_tokens=n)
+    eng._admit()
+    args = eng._decode_args()
+    serve.ragged_decode_step(*args)                          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            serve.ragged_decode_step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, records = _report(prof, f"5 ragged decode steps, {SERVE_SLOTS} slots", wall, per=5)
+    m.update({"ragged_step_device_busy": busy, "ragged_step_device_records": records,
+              "ragged_step_ms_profiled": wall / 5 * 1e3})
+    del eng
+    torch.cuda.empty_cache()
+    return runs["dense"]["launches"], runs["paged"]["launches"], split_launches, m
+
+
 class StepLog(MetricsLogger):
     """The trainer's logger, keeping what it logs for the gates."""
 
@@ -1106,7 +1595,8 @@ def main():
                    *kernel_prefill_bwd(gen, flush, cfg),
                    *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0]),
                    kernel_decode_mega(gen, flush, cfg, fuse_decode_params(params, cfg),
-                                      SMALL_BATCHES[0])]
+                                      SMALL_BATCHES[0]),
+                   *kernel_decode_ragged(gen, flush, cfg, params, SERVE_SLOTS)]
         del flush
         torch.cuda.empty_cache()
         t0 = phase("kernels", t0)
@@ -1178,9 +1668,13 @@ def main():
         t0 = phase("profile", t0)
 
         small_launches, fused_launches, small = small_batch_phase(params, cfg, smi)
-        del params
         torch.cuda.empty_cache()
         t0 = phase("small", t0)
+
+        dense_launches, paged_launches, split_launches, served = serve_phase(params, cfg, smi)
+        del params
+        torch.cuda.empty_cache()
+        t0 = phase("serve", t0)
 
     train_launches, train = train_phase(smi)
     torch.cuda.empty_cache()
@@ -1190,15 +1684,20 @@ def main():
         # each kernel's count from its own path: serving at bs 64 for the
         # forward and split decode kernels, the fused route's run at bs 8
         # for the fused pair, serving at bs 8 (the default route) for the
-        # whole-model kernel, training for the backward ones
+        # whole-model kernel, training for the backward ones, the serving
+        # engine's dense, paged and split-route runs for its four
         k["launches"] = (train_launches if k["name"].startswith("prefill_bwd")
                          else fused_launches if k["name"] in FUSED_KERNELS
                          else small_launches if k["name"] == "decode_step_mega"
+                         else paged_launches if k["name"] == "decode_attend_fused_paged"
+                         else split_launches if k["name"] == "paged_gather"
+                         else dense_launches if k["name"].endswith("_ragged")
                          else launches)[k["name"]]
     print(json.dumps({"main": {
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,
         "measure_decode_tok_s": tps, "measure_prefill_tok_s": prefill_tps, "peak_bytes": peak,
-        "logits_max_abs_err": err, "decode_device_busy": busy, "small": small, **train,
+        "logits_max_abs_err": err, "decode_device_busy": busy, "small": small,
+        "serve": served, **train,
         "train_launches": train_launches, "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them

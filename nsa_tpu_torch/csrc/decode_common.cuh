@@ -201,6 +201,28 @@ __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restri
   }
 }
 
+// Where row r of item bh = (batch row, KV head) of the packed kv cache
+// lives: a dense cache [b, kvh, max_len, 2kD], or a page pool [P, kvh,
+// page, 2kD] under a page table [b, max_pages] (logical row r of batch
+// row bi lives in page table[bi][r / page], at row r % page).
+struct DenseRows {
+  bf16* kv;
+  int max_len;
+  __device__ __forceinline__ bf16* row(int bh, int r) const {
+    return kv + ((size_t)bh * max_len + r) * 2 * kD;
+  }
+};
+
+struct PagedRows {
+  bf16* pool;
+  const int* table;
+  int kvh, page, max_pages;
+  __device__ __forceinline__ bf16* row(int bh, int r) const {
+    const int pg = table[(size_t)(bh / kvh) * max_pages + r / page];
+    return pool + (((size_t)pg * kvh + bh % kvh) * page + r % page) * 2 * kD;
+  }
+};
+
 template <int G>
 size_t attend_smem_bytes(int J, int threads) {
   const int outs = G * kD, parts = threads / outs > 1 ? threads / outs : 1;
@@ -210,16 +232,17 @@ size_t attend_smem_bytes(int J, int threads) {
 
 // Fine and sliding attention of the G rotated queries of `bh` over the S
 // selected + n_slide trailing blocks, read straight from the kv cache
-// through the info row's block ids; two masked softmaxes sharing one q.K,
-// and the gate combine g_c * c_out + g_f * fine + g_s * sliding.  Row t is
-// staged from `row_t` instead of the cache when `row_t` is not null (the
-// fused route writes that row in the same launch).  Returns the combined
-// float32 output [G][kD] in shared memory, visible to the whole block.
-template <int G>
-__device__ float* attend_body(const bf16* rq, const bf16* kv, const int* info,
-                              const bf16* c_out, const bf16* gates, const bf16* row_t, int max_len,
-                              int t, int sel_block, int window, int num_sel, int n_slide,
-                              int info_width, float scale, int bh, unsigned char* smem_raw) {
+// (`kv`: DenseRows or PagedRows) through the info row's block ids; two
+// masked softmaxes sharing one q.K, and the gate combine g_c * c_out + g_f *
+// fine + g_s * sliding.  Row t is staged from `row_t` instead of the cache
+// when `row_t` is not null (the fused route writes that row in the same
+// launch).  Returns the combined float32 output [G][kD] in shared memory,
+// visible to the whole block.
+template <int G, typename Rows>
+__device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, const bf16* c_out,
+                              const bf16* gates, const bf16* row_t, int t, int sel_block,
+                              int window, int num_sel, int n_slide, int info_width, float scale,
+                              int bh, unsigned char* smem_raw) {
   const int n_slots = num_sel + n_slide;
   const int J = n_slots * sel_block;
   constexpr int outs = G * kD;
@@ -236,7 +259,6 @@ __device__ float* attend_body(const bf16* rq, const bf16* kv, const int* info,
 
   const int tid = threadIdx.x;
   const int* irow = info + (size_t)bh * info_width;
-  const bf16* rows = kv + (size_t)bh * max_len * 2 * kD;
   const int last_blk = t / sel_block;
 
   for (int i = tid; i < G * kD; i += blockDim.x)
@@ -259,8 +281,7 @@ __device__ float* attend_body(const bf16* rq, const bf16* kv, const int* info,
   for (int i = tid; i < J * kVec; i += blockDim.x) {
     const int col = i / kVec, c = i % kVec;
     if (!okm[col]) continue;
-    const bf16* src = (row_t != nullptr && rowid[col] == t)
-                          ? row_t : rows + (size_t)rowid[col] * 2 * kD;
+    const bf16* src = (row_t != nullptr && rowid[col] == t) ? row_t : kv.row(bh, rowid[col]);
     cp_async16(tile + col * kFullRow + 8 * c, src + 8 * c);
   }
   cp_async_wait_all();

@@ -102,17 +102,26 @@ __device__ void rms_norm_rows(float* ys, int nb, int dim, const T* __restrict__ 
 
 // ---------------------------------------------------------------------------
 // The emission, item (KV head h, hidden chunk) = (item / nchunks, item %
-// nchunks): for every batch row, the window [t+1-Bc, t+1) — rows 1.. of the
-// OLD ring, then the new token's unrotated k || v — zero before the sequence
-// start, plus k_pos || v_pos, rounded to bf16 as the cache dtype; times this
-// chunk's kCols columns of w1k / w1v, plus b1, relu, rounded; times the
-// chunk's kCols rows of w2: partial[h][chunk][b][2kD], the chunk's share of
-// the emitted row.  The new token's k half of row (bi, h) is at new_k +
-// bi * new_row + h * new_head, its v half likewise at new_v.
+// nchunks): for every emitting batch row, the window [t+1-Bc, t+1) — rows
+// 1.. of the OLD ring, then the new token's unrotated k || v — zero before
+// the sequence start, plus k_pos || v_pos, rounded to bf16 as the cache
+// dtype; times this chunk's kCols columns of w1k / w1v, plus b1, relu,
+// rounded; times the chunk's kCols rows of w2: partial[h][chunk][b][2kD],
+// the chunk's share of the emitted row.  The new token's k half of row (bi,
+// h) is at new_k + bi * new_row + h * new_head, its v half likewise at
+// new_v.  The emitting rows are all b rows at position t, or, for the
+// ragged decode, the `nrows` rows listed in `rows` (shared memory), each at
+// its own position tvec[row].
 // ---------------------------------------------------------------------------
 template <int kCols>
-size_t emit_smem_bytes(int Bc) {
+__host__ __device__ size_t emit_smem_bytes(int Bc) {
   return sizeof(float) * (kBG * Bc * kD + kBG * kThreads * 2 + kBG * kCols);
+}
+
+// Whether the step at position t, with num_cb compressed rows cached,
+// completes a compressed block (JAX's run_fill + 1 == Bc).
+__device__ __forceinline__ bool emits_at(int t, int num_cb, int stride) {
+  return t - num_cb * stride + 1 == stride;
 }
 
 template <int kCols, typename BiasT>
@@ -121,7 +130,9 @@ __device__ void emit_partial_body(const bf16* ring, const bf16* new_k, const bf1
                                   const bf16* __restrict__ w1k, const BiasT* __restrict__ b1k,
                                   const bf16* __restrict__ w1v, const BiasT* __restrict__ b1v,
                                   const bf16* __restrict__ w2, float* partial, int b, int kvh,
-                                  int Bc, int hid, int t, int item, unsigned char* smem_raw) {
+                                  int Bc, int hid, int t, int item, unsigned char* smem_raw,
+                                  const int* rows = nullptr, int nrows = 0,
+                                  const int* tvec = nullptr) {
   const int K = Bc * kD;
   float* win = reinterpret_cast<float*>(smem_raw);  // [kBG][K] window, one half
   float* red = win + kBG * K;                       // [kBG * kThreads * 2]
@@ -129,9 +140,10 @@ __device__ void emit_partial_body(const bf16* ring, const bf16* new_k, const bf1
   const int nchunks = hid / kCols;
   const int h = item / nchunks, chunk = item % nchunks, c0 = chunk * kCols;
   const int tid = threadIdx.x;
+  const int n_emit = rows != nullptr ? nrows : b;
 
-  for (int b0 = 0; b0 < b; b0 += kBG) {
-    const int nb = min(kBG, b - b0);
+  for (int b0 = 0; b0 < n_emit; b0 += kBG) {
+    const int nb = min(kBG, n_emit - b0);
     for (int half = 0; half < 2; ++half) {
       const bf16* nw = (half ? new_v : new_k) + (size_t)h * new_head;
       for (int i0 = tid; i0 < nb * K; i0 += 8 * blockDim.x) {
@@ -140,11 +152,13 @@ __device__ void emit_partial_body(const bf16* ring, const bf16* new_k, const bf1
         for (int u = 0; u < 8; ++u) {       // all loads first, then the math
           const int i = i0 + u * blockDim.x;
           const int bb = i / K, r = i % K, j = r / kD, e = r % kD;
-          const size_t bh = (size_t)(b0 + bb) * kvh + h;
-          const bool live = i < nb * K && t + 1 - Bc + j >= 0;
+          const int bi = i >= nb * K ? 0 : rows != nullptr ? rows[b0 + bb] : b0 + bb;
+          const int tr = tvec != nullptr ? tvec[bi] : t;
+          const size_t bh = (size_t)bi * kvh + h;
+          const bool live = i < nb * K && tr + 1 - Bc + j >= 0;
           v[u] = live ? __bfloat162float(j < Bc - 1
                                              ? ring[(bh * Bc + j + 1) * 2 * kD + half * kD + e]
-                                             : nw[(size_t)(b0 + bb) * new_row + e])
+                                             : nw[(size_t)bi * new_row + e])
                       : 0.f;
           pos[u] = i < nb * K
                        ? __bfloat162float(pos_kv[((size_t)h * Bc + j) * 2 * kD + half * kD + e])
@@ -166,11 +180,12 @@ __device__ void emit_partial_body(const bf16* ring, const bf16* new_k, const bf1
       // this chunk's share of the second layer, for this half's kD outputs
       for (int i = tid; i < nb * kD; i += blockDim.x) {
         const int bb = i / kD, e = i % kD;
+        const int bi = rows != nullptr ? rows[b0 + bb] : b0 + bb;
         const bf16* w = w2 + ((size_t)h * hid + c0) * 2 * kD + half * kD + e;
         float s = 0.f;
 #pragma unroll 8
         for (int c = 0; c < kCols; ++c) s += hs[bb * kCols + c] * __bfloat162float(w[(size_t)c * 2 * kD]);
-        partial[(((size_t)h * nchunks + chunk) * b + b0 + bb) * 2 * kD + half * kD + e] = s;
+        partial[(((size_t)h * nchunks + chunk) * b + bi) * 2 * kD + half * kD + e] = s;
       }
       __syncthreads();             // win and hs are rewritten next
     }
@@ -210,24 +225,23 @@ __device__ void ring_shift_body(bf16* rg, const bf16* new_row, int Bc, unsigned 
 
 // Attention of item bh = (batch row, KV head) with the head's share of the
 // output projection: writes the new token's row (kv_new + bh * 2kD, rotated
-// k || v) into kv[t], runs attend_body with row t staged from it, rounds
-// the combined output to bf16 and multiplies it by the head's rows of w_out:
-// part[bh][dim] in float32.
-template <int G>
-__device__ void attend_out_body(const bf16* rq, bf16* kv, const bf16* kv_new, const int* info,
-                                const bf16* c_out, const bf16* gates,
-                                const bf16* __restrict__ w_out, float* part, int kvh, int max_len,
-                                int dim, int t, int sel_block, int window, int num_sel,
-                                int n_slide, int info_width, float scale, int bh,
-                                unsigned char* smem_raw) {
+// k || v) into row t of the kv cache (`kv`: DenseRows or PagedRows), runs
+// attend_body with row t staged from it, rounds the combined output to bf16
+// and multiplies it by the head's rows of w_out: part[bh][dim] in float32.
+template <int G, typename Rows>
+__device__ void attend_out_body(const bf16* rq, const Rows kv, const bf16* kv_new,
+                                const int* info, const bf16* c_out, const bf16* gates,
+                                const bf16* __restrict__ w_out, float* part, int kvh, int dim,
+                                int t, int sel_block, int window, int num_sel, int n_slide,
+                                int info_width, float scale, int bh, unsigned char* smem_raw) {
   constexpr int outs = G * kD;
   const int h = bh % kvh;
   const bf16* row_t = kv_new + (size_t)bh * 2 * kD;
   if (threadIdx.x < 2 * kD / 8)    // the new token's row, written in place
-    reinterpret_cast<uint4*>(kv + ((size_t)bh * max_len + t) * 2 * kD)[threadIdx.x] =
+    reinterpret_cast<uint4*>(kv.row(bh, t))[threadIdx.x] =
         reinterpret_cast<const uint4*>(row_t)[threadIdx.x];
-  float* comb = attend_body<G>(rq, kv, info, c_out, gates, row_t, max_len, t, sel_block, window,
-                               num_sel, n_slide, info_width, scale, bh, smem_raw);
+  float* comb = attend_body<G>(rq, kv, info, c_out, gates, row_t, t, sel_block, window, num_sel,
+                               n_slide, info_width, scale, bh, smem_raw);
   for (int o = threadIdx.x; o < outs; o += blockDim.x) comb[o] = round_bf16(comb[o]);
   __syncthreads();
   // this head's rows of w_out: [h*outs, (h+1)*outs) x dim
@@ -354,6 +368,50 @@ __device__ void ff2_body(const bf16* hbuf, const bf16* __restrict__ ff_w2,
 cudaError_t set_smem(const void* kern, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// ---------------------------------------------------------------------------
+// The per-layer kernels' tail after attention (decode_attend_fused and its
+// ragged and paged variants): launch 2, one block per kFF1Cols FF hidden
+// columns (one block without the FF), adds x and the heads' partials in
+// head order in float32 and rounds once (y); block 0 writes y to out; with
+// the FF it runs the FF's first product into hbuf.  Launch 3, one block per
+// kFF2Cols output columns: the FF's second product, + b2 + y, into out.
+// ---------------------------------------------------------------------------
+constexpr int kFF1Cols = 64;      // FF hidden columns per block
+constexpr int kFF2Cols = 16;      // output columns per block of the FF's second product
+
+__global__ void resid_ff1_kernel(const bf16* __restrict__ x, const float* __restrict__ part,
+                                 const float* __restrict__ ff_norm, const bf16* __restrict__ ff_w1,
+                                 const float* __restrict__ ff_b1, bf16* __restrict__ hbuf,
+                                 bf16* __restrict__ out, int b, int kvh, int dim, int hid4,
+                                 float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  resid_ff1_body<kFF1Cols>(x, part, ff_norm, ff_w1, ff_b1, hbuf, blockIdx.x == 0 ? out : nullptr,
+                           b, kvh, dim, hid4, eps, blockIdx.x, smem_raw);
+}
+
+__global__ void ff2_kernel(const bf16* __restrict__ hbuf, const bf16* __restrict__ ff_w2,
+                           const float* __restrict__ ff_b2, bf16* out, int b, int dim, int hid4) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ff2_body<kFF2Cols>(hbuf, ff_w2, ff_b2, out, out, b, dim, hid4, blockIdx.x, smem_raw);
+}
+
+cudaError_t launch_resid_ff(const bf16* x, const float* part, const float* ff_norm,
+                            const bf16* ff_w1, const float* ff_b1, const bf16* ff_w2,
+                            const float* ff_b2, bf16* hbuf, bf16* out, int b, int kvh, int dim,
+                            int hid4, float eps, cudaStream_t stream) {
+  cudaError_t e;
+  const size_t shmem1 = ff1_smem_bytes<kFF1Cols>(dim);
+  if ((e = set_smem((const void*)resid_ff1_kernel, shmem1)) != cudaSuccess) return e;
+  resid_ff1_kernel<<<hid4 ? hid4 / kFF1Cols : 1, kThreads, shmem1, stream>>>(
+      x, part, ff_norm, ff_w1, ff_b1, hbuf, out, b, kvh, dim, hid4, eps);
+  if ((e = cudaGetLastError()) != cudaSuccess || hid4 == 0) return e;
+
+  const size_t shmem2 = ff2_smem_bytes<kFF2Cols>(hid4);
+  if ((e = set_smem((const void*)ff2_kernel, shmem2)) != cudaSuccess) return e;
+  ff2_kernel<<<dim / kFF2Cols, kThreads, shmem2, stream>>>(hbuf, ff_w2, ff_b2, out, b, dim, hid4);
+  return cudaGetLastError();
 }
 
 }  // namespace

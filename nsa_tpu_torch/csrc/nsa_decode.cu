@@ -50,9 +50,9 @@ __global__ void attend_kernel(const bf16* __restrict__ rq, const bf16* __restric
                               int n_slide, int info_width, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int bh = blockIdx.x;
-  const float* comb = attend_body<G>(rq, kv, info, c_out, gates, nullptr, max_len, t,
-                                     sel_block, window, num_sel, n_slide, info_width, scale,
-                                     bh, smem_raw);
+  const float* comb = attend_body<G>(rq, DenseRows{const_cast<bf16*>(kv), max_len}, info, c_out,
+                                     gates, nullptr, t, sel_block, window, num_sel, n_slide,
+                                     info_width, scale, bh, smem_raw);
   for (int o = threadIdx.x; o < G * kD; o += blockDim.x)
     out[(size_t)bh * G * kD + o] = __float2bfloat16(comb[o]);
 }

@@ -57,8 +57,6 @@ namespace nsa {
 namespace {
 
 constexpr int kEmitCols = 64;     // compressor hidden columns per emission block
-constexpr int kFF1Cols = 64;      // FF hidden columns per block
-constexpr int kFF2Cols = 16;      // output columns per block of the FF's second product
 
 // decode_select_emit, launch 1 (emission steps only): one block per (KV
 // head, kEmitCols hidden columns); partial[h][chunk][b][2*kD].
@@ -108,29 +106,9 @@ __global__ void attend_fused_kernel(const bf16* __restrict__ rq, bf16* kv,
                                     int window, int num_sel, int n_slide, int info_width,
                                     float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  attend_out_body<G>(rq, kv, kv_new, info, c_out, gates, w_out, part, kvh, max_len, dim, t,
-                     sel_block, window, num_sel, n_slide, info_width, scale, blockIdx.x, smem_raw);
-}
-
-// decode_attend_fused, launch 2: y = round(x + sum_h part[h]) (block 0
-// writes it to out); with the FF, hbuf = gelu(round(norm(y) @ w1) + b1) for
-// this block's kFF1Cols columns.
-__global__ void resid_ff1_kernel(const bf16* __restrict__ x, const float* __restrict__ part,
-                                 const float* __restrict__ ff_norm, const bf16* __restrict__ ff_w1,
-                                 const float* __restrict__ ff_b1, bf16* __restrict__ hbuf,
-                                 bf16* __restrict__ out, int b, int kvh, int dim, int hid4,
-                                 float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  resid_ff1_body<kFF1Cols>(x, part, ff_norm, ff_w1, ff_b1, hbuf, blockIdx.x == 0 ? out : nullptr,
-                           b, kvh, dim, hid4, eps, blockIdx.x, smem_raw);
-}
-
-// decode_attend_fused, launch 3 (with the FF): out = round(y + round(round(
-// hbuf @ w2) + b2)) for this block's kFF2Cols output columns.
-__global__ void ff2_kernel(const bf16* __restrict__ hbuf, const bf16* __restrict__ ff_w2,
-                           const float* __restrict__ ff_b2, bf16* out, int b, int dim, int hid4) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  ff2_body<kFF2Cols>(hbuf, ff_w2, ff_b2, out, out, b, dim, hid4, blockIdx.x, smem_raw);
+  attend_out_body<G>(rq, DenseRows{kv, max_len}, kv_new, info, c_out, gates, w_out, part, kvh,
+                     dim, t, sel_block, window, num_sel, n_slide, info_width, scale, blockIdx.x,
+                     smem_raw);
 }
 
 template <int G>
@@ -182,17 +160,8 @@ cudaError_t launch_attend_fused(const bf16* rq, bf16* kv, const bf16* kv_new, co
                                              kvh, max_len, dim, t, sel_block, window, num_sel,
                                              n_slide, info_width, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-
-  const size_t shmem1 = ff1_smem_bytes<kFF1Cols>(dim);
-  if ((e = set_smem((const void*)resid_ff1_kernel, shmem1)) != cudaSuccess) return e;
-  resid_ff1_kernel<<<hid4 ? hid4 / kFF1Cols : 1, kThreads, shmem1, stream>>>(
-      x, part, ff_norm, ff_w1, ff_b1, hbuf, out, b, kvh, dim, hid4, eps);
-  if ((e = cudaGetLastError()) != cudaSuccess || hid4 == 0) return e;
-
-  const size_t shmem2 = ff2_smem_bytes<kFF2Cols>(hid4);
-  if ((e = set_smem((const void*)ff2_kernel, shmem2)) != cudaSuccess) return e;
-  ff2_kernel<<<dim / kFF2Cols, kThreads, shmem2, stream>>>(hbuf, ff_w2, ff_b2, out, b, dim, hid4);
-  return cudaGetLastError();
+  return launch_resid_ff(x, part, ff_norm, ff_w1, ff_b1, ff_w2, ff_b2, hbuf, out, b, kvh, dim,
+                         hid4, eps, stream);
 }
 
 }  // namespace

@@ -304,8 +304,8 @@ __global__ void __launch_bounds__(kThreads) mega_kernel(const MegaArgs a) {
                         a.ckv[l] + ((size_t)bh * a.Wc + slot) * 2 * kD, nchunks, a.b, bi, hi);
         ring_shift_body(a.ring[l] + (size_t)bh * a.Bc * 2 * kD, a.kvn_unrot + (size_t)bh * 2 * kD,
                         a.Bc, smem);
-        attend_out_body<G>(a.rq, a.kv[l], a.kvn_rot, a.info, a.c_out, a.gates,
-                           a.w_out + (size_t)l * din * a.dim, a.part, a.kvh, a.max_len, a.dim, t,
+        attend_out_body<G>(a.rq, DenseRows{a.kv[l], a.max_len}, a.kvn_rot, a.info, a.c_out,
+                           a.gates, a.w_out + (size_t)l * din * a.dim, a.part, a.kvh, a.dim, t,
                            a.sel_block, a.window, a.num_sel, a.n_slide, a.info_width, a.scale, bh,
                            smem);
       }

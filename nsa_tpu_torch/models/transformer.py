@@ -10,6 +10,8 @@ whole-model kernel ``decode_step_mega`` (one launch for all layers, JAX's
 default there, ``use_mega_decode``); with ``NSA_MEGA_DECODE=0`` the fused
 pair ``decode_select_emit`` + ``decode_attend_fused`` per layer; above
 b = 8 the split pair ``decode_select`` + ``decode_attend`` per layer.  The
+serving engine's ragged step (``transformer_decode_step_ragged``, one
+position per row) takes the ragged fused pair per layer.  The
 full-attention baseline model is not ported yet (``ROADMAP.md``).
 """
 
@@ -89,17 +91,19 @@ def _logits(params, cfg: ModelConfig, x):
 def transformer_forward(
     params, cfg: ModelConfig, ids: torch.Tensor, *,
     return_cache_max_len: Optional[int] = None, use_kernels: bool = True,
+    true_len=None,
 ):
     """Forward over token ids [b, n] -> float32 logits [b, n, vocab]; with
-    ``return_cache_max_len`` also the ``ModelCache`` (prefill).
-    ``use_kernels`` as in ``sparse_attention_forward``."""
+    ``return_cache_max_len`` also the ``ModelCache`` (prefill), whose
+    ``seq_len`` is the largest true length.  ``use_kernels`` and
+    ``true_len`` as in ``sparse_attention_forward``."""
     _check_model(cfg)
     x = params["token_emb"][ids].to(_compute_dtype(cfg))
     caches = []
     for layer in params["layers"]:
         res = sparse_attention_forward(
             layer["attn"], cfg, x, return_cache_max_len=return_cache_max_len,
-            use_kernels=use_kernels,
+            use_kernels=use_kernels, true_len=true_len,
         )
         if return_cache_max_len is None:
             attn_out = res
@@ -111,7 +115,10 @@ def transformer_forward(
     logits = _logits(params, cfg, x)
     if return_cache_max_len is None:
         return logits
-    return logits, ModelCache(layers=tuple(caches), seq_len=ids.shape[1])
+    # per-row true lengths: the serving engine tracks each slot's length
+    # itself, so the scalar position is only their upper bound
+    seq_len = ids.shape[1] if true_len is None else int(torch.as_tensor(true_len).max())
+    return logits, ModelCache(layers=tuple(caches), seq_len=seq_len)
 
 
 def transformer_loss(params, cfg: ModelConfig, ids: torch.Tensor, *,
@@ -123,9 +130,13 @@ def transformer_loss(params, cfg: ModelConfig, ids: torch.Tensor, *,
         logits.flatten(0, 1), ids[:, 1:].flatten().long())
 
 
-def transformer_prefill(params, cfg: ModelConfig, ids: torch.Tensor, max_len: int):
-    """Prefill: forward over the prompt, building the decode cache."""
-    return transformer_forward(params, cfg, ids, return_cache_max_len=max_len)
+def transformer_prefill(params, cfg: ModelConfig, ids: torch.Tensor, max_len: int, *,
+                        true_len=None):
+    """Prefill: forward over the prompt, building the decode cache;
+    ``true_len`` marks the real lengths of right-padded prompts (see
+    ``sparse_attention_forward``)."""
+    return transformer_forward(params, cfg, ids, return_cache_max_len=max_len,
+                               true_len=true_len)
 
 
 def _mega_applies(cfg: ModelConfig) -> bool:
@@ -296,6 +307,40 @@ def transformer_decode_step(
         new_layers.append(lc)
     logits = _logits(params, cfg, x)[:, 0]
     return logits, ModelCache(layers=tuple(new_layers), seq_len=t + 1)
+
+
+def transformer_decode_step_ragged(
+    params, cfg: ModelConfig, tokens: torch.Tensor, layer_caches, seq_lens: torch.Tensor,
+    page_table: Optional[torch.Tensor] = None, *, use_kernels: bool = True,
+    route: Optional[str] = None,
+) -> Tuple[torch.Tensor, Tuple[NSADecodeCache, ...]]:
+    """One ragged token step over a slot pool
+    (``nsa_tpu.models.transformer.transformer_decode_step_ragged``): row i
+    decodes at its own position ``seq_lens[i]``.  tokens [b] int, seq_lens
+    [b] int tensors on the params' device; ``layer_caches`` a tuple of
+    per-layer caches with leading [b], written in place.  Returns (logits
+    [b, vocab] float32, layer_caches).  Nothing is read back to the host.
+
+    With ``page_table`` ([b, max_pages] int32, shared by every layer) each
+    layer's kv leaf is a page pool (the paged serving engine).  ``route``:
+    None or "fused" takes the ragged fused pair, "split" JAX's XLA branches
+    with the block-gather kernel (its ``NSA_NO_FUSED_DECODE=1``); the
+    whole-model kernel takes one position only and never runs here.
+    ``use_kernels=False`` runs the plain versions."""
+    _check_model(cfg)
+    if route not in (None, "fused", "split"):
+        raise ValueError(f"the ragged step's route must be None, 'fused' or 'split', "
+                         f"got {route!r}")
+    x = params["token_emb"][tokens][:, None].to(_compute_dtype(cfg))    # [b, 1, dim]
+    t = seq_lens.to(device=x.device, dtype=torch.int32)
+    new_layers = []
+    for layer, lc in zip(params["layers"], layer_caches):
+        x, lc = sparse_attention_decode(
+            layer["attn"], cfg, x, lc, t, ff_params=layer["ff"], use_kernels=use_kernels,
+            route=route, page_table=page_table,
+        )
+        new_layers.append(lc)
+    return _logits(params, cfg, x)[:, 0], tuple(new_layers)
 
 
 def default_max_len(cfg: ModelConfig, need: int) -> int:

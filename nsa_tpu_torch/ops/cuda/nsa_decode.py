@@ -16,6 +16,9 @@ Each wrapper launches its CUDA kernel (``csrc/nsa_decode.cu``) for CUDA
 tensors and runs the plain PyTorch version beside it for CPU tensors.  The
 plain versions follow the JAX package's XLA decode path
 (``_decode_compressed`` / ``_decode_fine_sliding``, ``ops/nsa.py:870-996``).
+They also take the position ``t`` (and ``num_cb``) as a [b] tensor, one
+position per row, for the ragged decode kernels' plain versions
+(``nsa_decode_ragged.py``); the kernels here take one position.
 """
 
 from __future__ import annotations
@@ -32,13 +35,40 @@ from . import runtime
 INFO_WIDTH = 128   # packed info row: [0,S) ids | [S,S+ns) trailing | [S+ns,2S+ns) valid
 
 
-def trailing_blocks(t: int, sel_block: int, n_slide: int, device) -> torch.Tensor:
+def per_row(t):
+    """A position as it broadcasts against a trailing axis: the int itself,
+    or a [b] tensor as [b, 1]."""
+    return t[:, None] if isinstance(t, torch.Tensor) else t
+
+
+def trailing_blocks(t, sel_block: int, n_slide: int, device) -> torch.Tensor:
     """Ids of the n_slide blocks ending at the query's own block, ascending
-    and unclipped (negative before the sequence start)."""
-    return t // sel_block - torch.arange(n_slide - 1, -1, -1, device=device)
+    and unclipped (negative before the sequence start): [n_slide] for an
+    int t, [b, n_slide] for a [b] tensor."""
+    return per_row(t) // sel_block - torch.arange(n_slide - 1, -1, -1, device=device)
 
 
-def select_scores_plain(q, ckv, mem_kv, num_cb: int, t: int, *, stride: int,
+def gather_kv_blocks(kv, idx, sel_block: int, page_table=None) -> torch.Tensor:
+    """The blocks ``idx`` [b, kvh, S] of the packed cache, [b, kvh, S * Bs,
+    2d]: from a dense cache kv [b, kvh, max_len, 2d], or, with
+    ``page_table`` [b, max_pages], from a page pool kv [P, kvh, PAGE, 2d]
+    where logical row r of batch row i lives in page ``page_table[i, r //
+    PAGE]`` at row ``r % PAGE`` (block ids clamped to the table's reach, as
+    the paged TPU kernel does)."""
+    b, kvh, S = idx.shape
+    Bs, d2 = sel_block, kv.shape[-1]
+    if page_table is None:
+        kvb = kv.reshape(b, kvh, kv.shape[2] // Bs, Bs, d2)
+        return gather_blocks(kvb, idx[:, :, None])[:, :, 0].reshape(b, kvh, S * Bs, d2)
+    page = kv.shape[2]
+    start = idx.long().clamp(max=page_table.shape[1] * page // Bs - 1) * Bs   # [b, kvh, S]
+    pages = page_table.long().gather(1, (start // page).reshape(b, kvh * S)).reshape(b, kvh, S)
+    rows = (start % page)[..., None] + torch.arange(Bs, device=kv.device)     # [b, kvh, S, Bs]
+    heads = torch.arange(kvh, device=kv.device)[None, :, None, None]
+    return kv[pages[..., None], heads, rows].reshape(b, kvh, S * Bs, d2)
+
+
+def select_scores_plain(q, ckv, mem_kv, num_cb, t, *, stride: int,
                         sel_block: int, scale: float, weights_dtype=None):
     """Branch 1 and the normalized fine-block scores.
 
@@ -57,20 +87,21 @@ def select_scores_plain(q, ckv, mem_kv, num_cb: int, t: int, *, stride: int,
     qf = q.float()
     csim_mem = torch.einsum("bhgd,hmd->bhgm", qf, mem_k.float()) * scale
     csim_blocks = torch.einsum("bhgd,bhjd->bhgj", qf, ckv[..., :d].float()) * scale
-    live = torch.arange(Wc, device=q.device) < num_cb
-    csim_blocks = csim_blocks.masked_fill(~live, mask_value(torch.float32))
+    live = torch.arange(Wc, device=q.device) < per_row(num_cb)        # [Wc] | [b, Wc]
+    csim_blocks = csim_blocks.masked_fill(~live.reshape(-1, 1, 1, Wc),
+                                          mask_value(torch.float32))
     csim = torch.cat([csim_mem, csim_blocks], dim=-1)              # [b,kvh,g,M+Wc]
     cattn = torch.softmax(csim, dim=-1).to(wd)
     cv_all = torch.cat([mem_v[None].expand(b, kvh, M, d).to(wd), ckv[..., d:].to(wd)], dim=2)
     c_out = torch.einsum("bhgj,bhjd->bhgd", cattn, cv_all).to(q.dtype)
 
     importance = group_importance(csim.reshape(b, kvh * g, 1, -1), M, g, True)
-    q_pos = torch.tensor([t], device=q.device)
+    q_pos = torch.as_tensor(t, device=q.device).reshape(-1, 1)        # [1 | b, 1]
     scores = fine_block_scores(importance, q_pos, sel_block, stride)
     return c_out, scores[:, :, 0]
 
 
-def decode_select_plain(q, ckv, mem_kv, t: int, num_cb: int, *, max_blocks: int,
+def decode_select_plain(q, ckv, mem_kv, t, num_cb, *, max_blocks: int,
                         stride: int, sel_block: int, num_sel: int, n_slide: int,
                         scale: float, weights_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of ``decode_select`` (``weights_dtype`` as
@@ -86,7 +117,7 @@ def decode_select_plain(q, ckv, mem_kv, t: int, num_cb: int, *, max_blocks: int,
     info = torch.zeros((b, kvh, INFO_WIDTH), dtype=torch.int32, device=q.device)
     info[..., :S] = sel.indices
     trail = trailing_blocks(t, sel_block, n_slide, q.device).clamp(0, max_blocks - 1)
-    info[..., num_sel:n_slots] = trail.to(torch.int32)
+    info[..., num_sel:n_slots] = trail.to(torch.int32).unsqueeze(-2)
     info[..., n_slots:n_slots + S] = sel.mask.to(torch.int32)
     return c_out, info
 
@@ -131,36 +162,39 @@ def decode_select(q, ckv, mem_kv, t: int, num_cb: int, *, max_blocks: int,
 decode_select.launches = 0
 
 
-def attend_combined_plain(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
+def attend_combined_plain(rq, kv, info, c_out, gates, t, *, sel_block: int,
                           window: int, num_sel: int, n_slide: int, scale: float,
-                          weights_dtype=None) -> torch.Tensor:
+                          weights_dtype=None, page_table=None,
+                          gathered: bool = False) -> torch.Tensor:
     """The block gather, the fine and sliding masked softmaxes, and the gate
     combine, returned in float32 [b, kvh, g, d].  The softmax weights and
     each branch's P.V are rounded to ``weights_dtype``: rq's dtype by
-    default (the XLA decode path), float32 for the fused kernels."""
+    default (the XLA decode path), float32 for the fused kernels.  With
+    ``page_table`` kv is a page pool (see ``gather_kv_blocks``); with
+    ``gathered`` kv is already the gathered blocks [b, kvh, n_slots * Bs,
+    2d] (the ragged split route gathers them with ``paged_gather``)."""
     b, kvh, g, d = rq.shape
     wd = rq.dtype if weights_dtype is None else weights_dtype
-    max_len = kv.shape[2]
     Bs = sel_block
     n_slots = num_sel + n_slide
-    kvb = kv.reshape(b, kvh, max_len // Bs, Bs, 2 * d)
-    idx_all = info[..., :n_slots]
-    fkv = gather_blocks(kvb, idx_all[:, :, None])[:, :, 0].reshape(b, kvh, n_slots * Bs, 2 * d)
+    fkv = kv if gathered else gather_kv_blocks(kv, info[..., :n_slots], Bs, page_table)
 
-    trail = trailing_blocks(t, Bs, n_slide, rq.device)
-    j_trail = trail[:, None] * Bs + torch.arange(Bs, device=rq.device)   # [ns, Bs]
-    trail_ok = (trail >= 0)[:, None]
+    trail = trailing_blocks(t, Bs, n_slide, rq.device)                  # [ns] | [b, ns]
+    j_trail = trail[..., None] * Bs + torch.arange(Bs, device=rq.device)   # [(b,) ns, Bs]
+    trail_ok = (trail >= 0)[..., None]
+    tt = per_row(per_row(t))
     diag_only = torch.zeros((n_slide, 1), dtype=torch.bool, device=rq.device)
     diag_only[-1] = True
-    fine_trail = diag_only & (j_trail <= t) & trail_ok
-    slide_trail = (j_trail >= t - window) & (j_trail <= t) & trail_ok
+    fine_trail = diag_only & (j_trail <= tt) & trail_ok
+    slide_trail = (j_trail >= tt - window) & (j_trail <= tt) & trail_ok
+
+    def heads(m):       # [(b,) ns, Bs] -> [b, kvh, ns, Bs]
+        return m.reshape(-1, 1, n_slide, Bs).expand(b, kvh, n_slide, Bs)
+
     sel_ok = info[..., n_slots:n_slots + num_sel].bool()[..., None].expand(b, kvh, num_sel, Bs)
-    fine_mask = torch.cat(
-        [sel_ok, fine_trail[None, None].expand(b, kvh, n_slide, Bs)], dim=2
-    ).reshape(b, kvh, 1, n_slots * Bs)
-    slide_mask = torch.cat(
-        [torch.zeros_like(sel_ok), slide_trail[None, None].expand(b, kvh, n_slide, Bs)], dim=2
-    ).reshape(b, kvh, 1, n_slots * Bs)
+    fine_mask = torch.cat([sel_ok, heads(fine_trail)], dim=2).reshape(b, kvh, 1, n_slots * Bs)
+    slide_mask = torch.cat([torch.zeros_like(sel_ok), heads(slide_trail)], dim=2
+                           ).reshape(b, kvh, 1, n_slots * Bs)
 
     sim = torch.einsum("bhgd,bhjd->bhgj", rq.float(), fkv[..., :d].float()) * scale
     fv = fkv[..., d:]

@@ -30,7 +30,7 @@ from typing import Tuple
 import torch
 
 from . import nsa_decode, runtime
-from .nsa_decode import INFO_WIDTH
+from .nsa_decode import INFO_WIDTH, per_row
 
 EMIT_COLS = 64      # compressor hidden columns per emission block (the kernel's)
 
@@ -40,13 +40,35 @@ def emits(t: int, stride: int) -> bool:
     return (t + 1) % stride == 0
 
 
+def emission_plain(shifted, t, pos_kv, w1k, b1k, w1v, b1v, w2, b2, dtype) -> torch.Tensor:
+    """The GroupedMLP compression of the window [t+1-Bc, t+1) that the
+    shifted ring [b, kvh, Bc, 2d] holds, rows before the sequence start
+    zeroed, plus the intra-block positions: the candidate row [b, kvh, 2d]
+    in ``dtype``, rounded where the Pallas kernels round.  ``t`` is an int
+    or a [b] tensor."""
+    b, kvh, Bc, d2 = shifted.shape
+    d = d2 // 2
+    row_pos = torch.arange(Bc, device=shifted.device) + (per_row(t) + 1 - Bc)   # [(b,) Bc]
+    win = shifted.masked_fill((row_pos < 0).reshape(-1, 1, Bc, 1), 0.0)
+    win = win + pos_kv.to(win.dtype)[None]
+
+    def mlp(x, w1, b1, w2_, b2_):
+        hid = torch.einsum("bhi,hio->bho", x.reshape(b, kvh, Bc * d).float(), w1.float())
+        hid = torch.relu(hid + b1.float()[None]).to(dtype)
+        out = torch.einsum("bho,hoe->bhe", hid.float(), w2_.float()) + b2_.float()[None]
+        return out.to(dtype)
+
+    ck = mlp(win[..., :d], w1k, b1k, w2[..., :d], b2[:, :d])
+    cv = mlp(win[..., d:], w1v, b1v, w2[..., d:], b2[:, d:])
+    return torch.cat([ck, cv], dim=-1)
+
+
 def decode_select_emit_plain(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v,
                              w2, b2, t: int, num_cb: int, *, max_blocks: int, stride: int,
                              sel_block: int, num_sel: int, n_slide: int,
                              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of ``decode_select_emit``."""
-    b, kvh, g, d = q.shape
-    Bc = ring.shape[2]
+    b, kvh = q.shape[:2]
     c_out, info = nsa_decode.decode_select_plain(
         q, ckv, mem_kv, t, num_cb, max_blocks=max_blocks, stride=stride,
         sel_block=sel_block, num_sel=num_sel, n_slide=n_slide, scale=scale,
@@ -54,21 +76,8 @@ def decode_select_emit_plain(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v
     )
     shifted = torch.cat([ring[:, :, 1:], kv_new.to(ring.dtype)], dim=2)
     if emits(t, stride):
-        # the window [t+1-Bc, t+1), zero before the sequence start, plus the
-        # intra-block positions, in the cache dtype
-        row_pos = torch.arange(Bc, device=q.device) + (t + 1 - Bc)
-        win = shifted.masked_fill((row_pos < 0)[None, None, :, None], 0.0)
-        win = win + pos_kv.to(win.dtype)[None]
-
-        def mlp(x, w1, b1, w2_, b2_):
-            hid = torch.einsum("bhi,hio->bho", x.reshape(b, kvh, Bc * d).float(), w1.float())
-            hid = torch.relu(hid + b1.float()[None]).to(ckv.dtype)
-            out = torch.einsum("bho,hoe->bhe", hid.float(), w2_.float()) + b2_.float()[None]
-            return out.to(ckv.dtype)
-
-        ck = mlp(win[..., :d], w1k, b1k, w2[..., :d], b2[:, :d])
-        cv = mlp(win[..., d:], w1v, b1v, w2[..., d:], b2[:, d:])
-        ckv[:, :, num_cb] = torch.cat([ck, cv], dim=-1)
+        ckv[:, :, num_cb] = emission_plain(shifted, t, pos_kv, w1k, b1k, w1v, b1v, w2, b2,
+                                           ckv.dtype)
     ring.copy_(shifted)
     return c_out, info.reshape(b, kvh * INFO_WIDTH)
 
@@ -145,16 +154,18 @@ def ff_tail_plain(y32, dtype, norm_scale, w1, b1, w2, b2, eps: float):
     return (y16 + o).float()
 
 
-def decode_attend_fused_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t: int,
-                              ff=(), *, sel_block: int, window: int, num_sel: int,
-                              n_slide: int, scale: float, eps: float = 1e-6) -> torch.Tensor:
-    """The plain PyTorch version of ``decode_attend_fused``."""
+def attend_out_plain(rq, kv, info, c_out, gates, x, w_out, t, ff=(), *, sel_block: int,
+                     window: int, num_sel: int, n_slide: int, scale: float,
+                     eps: float = 1e-6, page_table=None) -> torch.Tensor:
+    """``decode_attend_fused``'s plain body after the kv row write: the
+    attention over the cache (or page pool), the projection summed over the
+    heads in order, the residual and the FF.  ``t`` is an int or a [b]
+    tensor."""
     b, kvh, g, d = rq.shape
-    kv[:, :, t] = kv_new[:, :, 0].to(kv.dtype)
     comb = nsa_decode.attend_combined_plain(
         rq, kv, info.reshape(b, kvh, INFO_WIDTH), c_out, gates, t, sel_block=sel_block,
         window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
-        weights_dtype=torch.float32,
+        weights_dtype=torch.float32, page_table=page_table,
     ).to(kv.dtype).float()
     y = x[:, 0].float()
     for h in range(kvh):     # the heads' projections, summed in order
@@ -162,6 +173,16 @@ def decode_attend_fused_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t: i
     if ff:
         y = ff_tail_plain(y, x.dtype, *ff, eps=eps)
     return y.to(x.dtype)[:, None]
+
+
+def decode_attend_fused_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t: int,
+                              ff=(), *, sel_block: int, window: int, num_sel: int,
+                              n_slide: int, scale: float, eps: float = 1e-6) -> torch.Tensor:
+    """The plain PyTorch version of ``decode_attend_fused``."""
+    kv[:, :, t] = kv_new[:, :, 0].to(kv.dtype)
+    return attend_out_plain(rq, kv, info, c_out, gates, x, w_out, t, ff, sel_block=sel_block,
+                            window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
+                            eps=eps)
 
 
 def decode_attend_fused(rq, kv, kv_new, info, c_out, gates, x, w_out, t: int, ff=(), *,

@@ -1,0 +1,239 @@
+"""The ragged decode-step kernels of the serving engine
+(``nsa_tpu/ops/pallas/nsa_decode_fused.py``, one position per row): the
+fused pair of ``nsa_decode_fused.py`` with the position ``t`` and the
+compressed-row count ``num_cb`` as [b] int32 tensors on the device, so that
+every slot of the engine's pool decodes at its own length, and the attend
+kernel over a paged kv pool.
+
+* ``decode_select_emit_ragged`` — ``decode_select_emit`` at per-row
+  positions: each row emits (into ``ckv[min(num_cb, Wc - 1)]``) exactly
+  when its own step completes a compressed block.
+* ``decode_attend_fused_ragged`` — ``decode_attend_fused`` writing each
+  row's new kv row at its own ``t``.
+* ``decode_attend_fused_paged`` — the same over a page pool [P, kvh, PAGE,
+  2d] addressed through a page table [b, max_pages]: logical row r of
+  batch row i lives in page ``page_table[i, r // PAGE]`` at row ``r % PAGE``.
+
+Each wrapper launches its CUDA kernel (``csrc/nsa_decode_ragged.cu``) for
+CUDA tensors, raises on what the kernel does not take, and runs the plain
+PyTorch version beside it for CPU tensors.  Neither reads a position back
+to the host: the kernels decide per row on the device, and the plain
+versions compute every row's candidate and keep it where the row's
+position says so, at the scalar plain versions' rounding points.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import nsa_decode, runtime
+from .nsa_decode import INFO_WIDTH
+from .nsa_decode_fused import EMIT_COLS, attend_out_plain, emission_plain
+
+
+def ragged_emits(t: torch.Tensor, num_cb: torch.Tensor, stride: int) -> torch.Tensor:
+    """[b] bool: whether each row's step completes a compressed block (JAX's
+    ``run_fill + 1 == Bc``)."""
+    return t - num_cb * stride + 1 == stride
+
+
+def decode_select_emit_ragged_plain(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v,
+                                    w2, b2, t, num_cb, *, max_blocks: int, stride: int,
+                                    sel_block: int, num_sel: int, n_slide: int,
+                                    scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of ``decode_select_emit_ragged``."""
+    b, kvh = q.shape[:2]
+    c_out, info = nsa_decode.decode_select_plain(
+        q, ckv, mem_kv, t, num_cb, max_blocks=max_blocks, stride=stride,
+        sel_block=sel_block, num_sel=num_sel, n_slide=n_slide, scale=scale,
+        weights_dtype=torch.float32,
+    )
+    shifted = torch.cat([ring[:, :, 1:], kv_new.to(ring.dtype)], dim=2)
+    cand = emission_plain(shifted, t, pos_kv, w1k, b1k, w1v, b1v, w2, b2, ckv.dtype)
+    rows = torch.arange(b, device=q.device)
+    slot = num_cb.long().clamp(0, ckv.shape[2] - 1)
+    emit = ragged_emits(t, num_cb, stride)[:, None, None]
+    ckv[rows, :, slot] = torch.where(emit, cand, ckv[rows, :, slot])
+    ring.copy_(shifted)
+    return c_out, info.reshape(b, kvh * INFO_WIDTH)
+
+
+def decode_select_emit_ragged(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v, w2, b2,
+                              t, num_cb, *, max_blocks: int, stride: int, sel_block: int,
+                              num_sel: int, n_slide: int,
+                              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """As ``decode_select_emit``, with t and num_cb [b] int32 (one position
+    per row).  q [b, kvh, g, d] UNROTATED; ckv and ring updated in place.
+    Returns (c_out [b, kvh, g, d], info [b, kvh * INFO_WIDTH] int32)."""
+    args = (q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v, w2, b2, t, num_cb)
+    kw = dict(max_blocks=max_blocks, stride=stride, sel_block=sel_block,
+              num_sel=num_sel, n_slide=n_slide, scale=scale)
+    if runtime.on_cpu(*args):
+        return decode_select_emit_ragged_plain(*args, **kw)
+    b, kvh, g, d = q.shape
+    Wc, Bc, M, hid = ckv.shape[2], ring.shape[2], mem_kv.shape[2], w1k.shape[2]
+    npf = sel_block // stride
+    if d != 64 or g not in (1, 2, 4, 8) or npf < 2 or Wc % npf or hid % EMIT_COLS \
+            or 2 * num_sel + n_slide > INFO_WIDTH:
+        raise ValueError(f"decode_select_emit_ragged kernel takes dim_head 64, g in 1/2/4/8, "
+                         f"sel_block/stride >= 2 dividing the ckv width and a compressor "
+                         f"width divisible by {EMIT_COLS}; got d={d}, g={g}, npf={npf}, "
+                         f"Wc={Wc}, hid={hid}")
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    ptrs = [
+        runtime.check("q", q, bf, (b, kvh, g, d)),
+        runtime.check("ckv", ckv, bf, (b, kvh, Wc, 2 * d)),
+        runtime.check("ring", ring, bf, (b, kvh, Bc, 2 * d)),
+        runtime.check("kv_new", kv_new, bf, (b, kvh, 1, 2 * d)),
+        runtime.check("mem_kv", mem_kv, bf, (2, kvh, M, d)),
+        runtime.check("pos_kv", pos_kv, bf, (kvh, Bc, 2 * d)),
+        runtime.check("w1k", w1k, bf, (kvh, Bc * d, hid)),
+        runtime.check("b1k", b1k, f32, (kvh, hid)),
+        runtime.check("w1v", w1v, bf, (kvh, Bc * d, hid)),
+        runtime.check("b1v", b1v, f32, (kvh, hid)),
+        runtime.check("w2", w2, bf, (kvh, hid, 2 * d)),
+        runtime.check("b2", b2, f32, (kvh, 2 * d)),
+        runtime.check("t", t, i32, (b,)),
+        runtime.check("num_cb", num_cb, i32, (b,)),
+    ]
+    c_out = torch.empty_like(q)
+    info = torch.empty((b, kvh * INFO_WIDTH), dtype=i32, device=q.device)
+    # per (head, hidden chunk) partial sums of the emitting rows' compressor
+    partial = torch.empty((kvh, hid // EMIT_COLS, b, 2 * d), dtype=f32, device=q.device)
+    with torch.cuda.device(q.device):
+        runtime.library().call(
+            "nsa_decode_select_emit_ragged", *ptrs, c_out.data_ptr(), info.data_ptr(),
+            partial.data_ptr(), b, kvh, g, Wc, M, Bc, hid, stride, sel_block, num_sel, n_slide,
+            max_blocks, INFO_WIDTH, scale, runtime.stream_of(q),
+        )
+    decode_select_emit_ragged.launches += 1
+    return c_out, info
+
+
+decode_select_emit_ragged.launches = 0
+
+
+def decode_attend_fused_ragged_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t, ff=(), *,
+                                     sel_block: int, window: int, num_sel: int, n_slide: int,
+                                     scale: float, eps: float = 1e-6) -> torch.Tensor:
+    """The plain PyTorch version of ``decode_attend_fused_ragged``."""
+    rows = torch.arange(rq.shape[0], device=rq.device)
+    kv[rows, :, t.long()] = kv_new[:, :, 0].to(kv.dtype)
+    return attend_out_plain(rq, kv, info, c_out, gates, x, w_out, t, ff, sel_block=sel_block,
+                            window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
+                            eps=eps)
+
+
+def decode_attend_fused_paged_plain(rq, kv_pool, page_table, kv_new, info, c_out, gates, x,
+                                    w_out, t, ff=(), *, sel_block: int, window: int,
+                                    num_sel: int, n_slide: int, scale: float,
+                                    eps: float = 1e-6) -> torch.Tensor:
+    """The plain PyTorch version of ``decode_attend_fused_paged``."""
+    page = kv_pool.shape[2]
+    tl = t.long()
+    pages = page_table.long().gather(1, (tl // page)[:, None])[:, 0]
+    kv_pool[pages, :, tl % page] = kv_new[:, :, 0].to(kv_pool.dtype)
+    return attend_out_plain(rq, kv_pool, info, c_out, gates, x, w_out, t, ff,
+                            sel_block=sel_block, window=window, num_sel=num_sel,
+                            n_slide=n_slide, scale=scale, eps=eps, page_table=page_table)
+
+
+def _attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out, t, ff, *,
+                 sel_block, window, num_sel, n_slide, scale, eps):
+    """Check the operands of the ragged or (with ``page_table``) paged attend
+    kernel and launch it; returns the layer output."""
+    b, kvh, g, d = rq.shape
+    dim = x.shape[-1]
+    hid4 = ff[1].shape[1] if ff else 0
+    d2 = kv.shape[-1]
+    if d != 64 or g not in (1, 2, 4, 8) or kv.shape[2] % sel_block or dim % 64 or hid4 % 64:
+        raise ValueError(f"{name} kernel takes dim_head 64, g in 1/2/4/8, a cache length or "
+                         f"page divisible by sel_block and model and FF widths divisible by "
+                         f"64; got d={d}, g={g}, rows={kv.shape[2]}, dim={dim}, "
+                         f"ff hidden={hid4}")
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    ptrs = [runtime.check("rq", rq, bf, (b, kvh, g, d))]
+    if page_table is None:
+        ptrs.append(runtime.check("kv", kv, bf, (b, kvh, None, 2 * d)))
+    else:
+        ptrs += [runtime.check("kv_pool", kv, bf, (None, kvh, None, 2 * d)),
+                 runtime.check("page_table", page_table, i32, (b, None))]
+    ptrs += [
+        runtime.check("kv_new", kv_new, bf, (b, kvh, 1, d2)),
+        runtime.check("info", info, i32, (b, kvh * INFO_WIDTH)),
+        runtime.check("c_out", c_out, bf, (b, kvh, g, d)),
+        runtime.check("gates", gates, bf, (b, kvh, g, 3)),
+        runtime.check("x", x, bf, (b, 1, dim)),
+        runtime.check("w_out", w_out, bf, (kvh * g * d, dim)),
+    ]
+    if ff:
+        norm_scale, w1, b1, w2, b2 = ff
+        ptrs += [
+            runtime.check("ff norm_scale", norm_scale, f32, (dim,)),
+            runtime.check("ff w1", w1, bf, (dim, hid4)),
+            runtime.check("ff b1", b1, f32, (hid4,)),
+            runtime.check("ff w2", w2, bf, (hid4, dim)),
+            runtime.check("ff b2", b2, f32, (dim,)),
+        ]
+    else:
+        ptrs += [0] * 5
+    ptrs.append(runtime.check("t", t, i32, (b,)))
+    part = torch.empty((b, kvh, dim), dtype=f32, device=rq.device)   # per-head projections
+    hbuf = torch.empty((b, max(hid4, 1)), dtype=bf, device=rq.device)  # the FF's hidden row
+    out = torch.empty_like(x)
+    rows = ((kv.shape[2],) if page_table is None
+            else (kv.shape[2], page_table.shape[1]))       # max_len | page, max_pages
+    with torch.cuda.device(rq.device):
+        runtime.library().call(
+            name, *ptrs, part.data_ptr(), hbuf.data_ptr(), out.data_ptr(), b, kvh, g, *rows,
+            dim, hid4, sel_block, window, num_sel, n_slide, INFO_WIDTH, scale, eps,
+            runtime.stream_of(rq),
+        )
+    return out
+
+
+def decode_attend_fused_ragged(rq, kv, kv_new, info, c_out, gates, x, w_out, t, ff=(), *,
+                               sel_block: int, window: int, num_sel: int, n_slide: int,
+                               scale: float, eps: float = 1e-6) -> torch.Tensor:
+    """As ``decode_attend_fused``, with t [b] int32 (one position per row):
+    row t[i] of batch row i of kv [b, kvh, max_len, 2d] is written in place.
+    Returns ``x + attn`` [b, 1, dim], with the FF applied when given."""
+    kw = dict(sel_block=sel_block, window=window, num_sel=num_sel, n_slide=n_slide,
+              scale=scale, eps=eps)
+    ff = tuple(ff)
+    if runtime.on_cpu(rq, kv, kv_new, info, c_out, gates, x, w_out, t, *ff):
+        return decode_attend_fused_ragged_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t,
+                                                ff, **kw)
+    out = _attend_call("nsa_decode_attend_fused_ragged", rq, kv, None, kv_new, info, c_out,
+                       gates, x, w_out, t, ff, **kw)
+    decode_attend_fused_ragged.launches += 1
+    return out
+
+
+decode_attend_fused_ragged.launches = 0
+
+
+def decode_attend_fused_paged(rq, kv_pool, page_table, kv_new, info, c_out, gates, x, w_out, t,
+                              ff=(), *, sel_block: int, window: int, num_sel: int, n_slide: int,
+                              scale: float, eps: float = 1e-6) -> torch.Tensor:
+    """``decode_attend_fused_ragged`` over a page pool kv_pool [P, kvh, PAGE,
+    2d] and page_table [b, max_pages] int32 (PAGE a multiple of sel_block
+    and 8): row t[i] goes to page ``page_table[i, t[i] // PAGE]`` in place."""
+    kw = dict(sel_block=sel_block, window=window, num_sel=num_sel, n_slide=n_slide,
+              scale=scale, eps=eps)
+    ff = tuple(ff)
+    page = kv_pool.shape[2]
+    if page % sel_block or page % 8:
+        raise ValueError(f"the page ({page} rows) must be a multiple of sel_block and 8")
+    if runtime.on_cpu(rq, kv_pool, page_table, kv_new, info, c_out, gates, x, w_out, t, *ff):
+        return decode_attend_fused_paged_plain(rq, kv_pool, page_table, kv_new, info, c_out,
+                                               gates, x, w_out, t, ff, **kw)
+    out = _attend_call("nsa_decode_attend_fused_paged", rq, kv_pool, page_table, kv_new, info,
+                       c_out, gates, x, w_out, t, ff, **kw)
+    decode_attend_fused_paged.launches += 1
+    return out
+
+
+decode_attend_fused_paged.launches = 0

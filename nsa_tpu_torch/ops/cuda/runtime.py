@@ -44,6 +44,10 @@ SIGNATURES = {
     "nsa_decode_attend": [_p] * 6 + [_i] * 10 + [_f, _p],
     "nsa_decode_select_emit": [_p] * 15 + [_i] * 16 + [_f, _p],
     "nsa_decode_attend_fused": [_p] * 16 + [_i] * 12 + [_f, _f, _p],
+    "nsa_decode_select_emit_ragged": [_p] * 17 + [_i] * 13 + [_f, _p],
+    "nsa_decode_attend_fused_ragged": [_p] * 17 + [_i] * 11 + [_f, _f, _p],
+    "nsa_decode_attend_fused_paged": [_p] * 18 + [_i] * 12 + [_f, _f, _p],
+    "nsa_paged_gather": [_p] * 3 + [_i] * 5 + [_p],
     # the whole-model decode: a host array of pointers and of ints (see
     # csrc/nsa_decode_mega.cu for their order), their lengths, scale, eps
     "nsa_decode_mega": [_p, _i, _p, _i, _f, _f, _p],

@@ -19,7 +19,12 @@ one of two routes, as in the JAX package: at b <= 8 the fused pair
 ``decode_select_emit`` + ``decode_attend_fused`` (``ops/cuda/nsa_decode_fused.py``)
 runs the whole layer, the FF included; above that the split pair
 ``decode_select`` + ``decode_attend`` (``ops/cuda/nsa_decode.py``) with the
-cache writes, emission, projection and FF as separate ops.  The
+cache writes, emission, projection and FF as separate ops.  The ragged
+step of the serving engine (one position per row, ``t`` a [b] tensor)
+takes the ragged fused pair at every batch size
+(``ops/cuda/nsa_decode_ragged.py``; over a paged kv pool with a page
+table), or, forced to the split route, JAX's XLA branches with the block
+gather as a kernel (``ops/cuda/paged_gather.py``).  The
 port covers the configuration those kernels take: causal, query heads
 sharing their KV head's selection, ``selection_block_size / stride > 1``,
 the ``mlp`` compressor.  Other configurations raise ``NotImplementedError``
@@ -40,10 +45,12 @@ from ..utils.checkpoint import tree_to
 from .common import merge_heads, rms_norm, round_down_mult, round_up_mult, split_heads
 from .compress import apply_compressor, split_compress_windows
 from .cuda.nsa_decode import (
+    attend_combined_plain,
     decode_attend,
     decode_attend_plain,
     decode_select,
     decode_select_plain,
+    per_row,
 )
 from .cuda.nsa_decode_fused import (
     decode_attend_fused,
@@ -52,8 +59,18 @@ from .cuda.nsa_decode_fused import (
     decode_select_emit_plain,
     emits,
 )
+from .cuda.nsa_decode_ragged import (
+    decode_attend_fused_paged,
+    decode_attend_fused_paged_plain,
+    decode_attend_fused_ragged,
+    decode_attend_fused_ragged_plain,
+    decode_select_emit_ragged,
+    decode_select_emit_ragged_plain,
+    ragged_emits,
+)
 from .cuda.nsa_prefill import nsa_fine_sliding_attention
-from .rotary import rotate_at_offset, rotate_qk
+from .cuda.paged_gather import paged_gather, paged_gather_plain
+from .rotary import rotate_at_offset, rotate_at_row_offsets, rotate_qk
 from .selection import fine_block_scores, group_importance, select_blocks
 
 
@@ -155,9 +172,17 @@ def _gate_combine(params, cfg: ModelConfig, normed, branch_outs):
 def sparse_attention_forward(
     params, cfg: ModelConfig, x: torch.Tensor, *,
     return_cache_max_len: Optional[int] = None, use_kernels: bool = True,
+    true_len=None,
 ):
     """Prefill / training forward. x: [b, n, dim] -> out [b, n, dim], or
     (out, NSADecodeCache) when ``return_cache_max_len`` is given.
+
+    ``true_len`` (an int, or a [b] int tensor on x's device) marks the real
+    prompt length of right-padded rows (the serving engine's bucketed
+    prefill): the ring then holds each row's last ``compress_block_size``
+    unrotated tokens ending at its own true length.  Nothing else changes:
+    the pad rows are computed, and never read by a decode step at the true
+    length, which overwrites them as it advances.
 
     Differentiable: the straight-through top-k gates go into the fine +
     sliding attention, so its ``d_gates`` reaches branch 1's logits, the
@@ -243,9 +268,17 @@ def sparse_attention_forward(
         return F.pad(t, (0, 0, 0, size - t.shape[2]))
 
     # ring: the last Bc unrotated tokens, right-aligned, zero on the left
-    lead = max(Bc - n, 0)
-    ring = torch.cat([k[:, :, max(n - Bc, 0):], v[:, :, max(n - Bc, 0):]], dim=-1)
-    ring = F.pad(ring, (0, 0, lead, 0))
+    if true_len is None:
+        lead = max(Bc - n, 0)
+        ring = torch.cat([k[:, :, max(n - Bc, 0):], v[:, :, max(n - Bc, 0):]], dim=-1)
+        ring = F.pad(ring, (0, 0, lead, 0))
+    else:
+        # slot j of row i holds position true_len[i] - Bc + j (+Bc for the
+        # left pad)
+        kv_unrot = F.pad(torch.cat([k, v], dim=-1), (0, 0, Bc, 0))
+        tl = torch.as_tensor(true_len, device=dev).long().expand(b)
+        pos = tl[:, None] + torch.arange(Bc, device=dev)                 # [b, Bc]
+        ring = kv_unrot.gather(2, pos[:, None, :, None].expand(b, kvh, Bc, 2 * d))
     wc = _ckv_width(max_len, stride, nsa.num_compress_per_fine)
     cache = NSADecodeCache(
         kv=torch.cat([pad_to(rk, max_len), pad_to(v, max_len)], dim=-1),
@@ -342,8 +375,9 @@ def ff_apply_gelu(ffp, cfg: ModelConfig, x):
 
 
 def sparse_attention_decode(
-    params, cfg: ModelConfig, x: torch.Tensor, cache: NSADecodeCache, t: int,
+    params, cfg: ModelConfig, x: torch.Tensor, cache: NSADecodeCache, t,
     ff_params=None, *, use_kernels: bool = True, route: Optional[str] = None,
+    page_table: Optional[torch.Tensor] = None,
 ):
     """One decode step at position ``t`` (tokens already cached). x: [b, 1, dim].
 
@@ -352,16 +386,25 @@ def sparse_attention_decode(
     are written in place; the returned cache holds them (and, on the split
     route, the shifted ring as a new tensor).
 
+    ``t`` is an int (every row at one position) or a [b] int tensor on x's
+    device (the ragged step: row i at position t[i], as the serving engine's
+    slots decode; nothing is read back to the host).
+
     ``route``: ``None`` takes the fused pair at b <= 8 and the split pair
-    above (JAX's default); ``"fused"`` or ``"split"`` forces one (JAX's
+    above (JAX's default), and the ragged fused pair at every b for a
+    ragged ``t``; ``"fused"`` or ``"split"`` forces one (JAX's
     ``NSA_FUSED_DECODE_MAX_B`` / ``NSA_NO_FUSED_DECODE``).  On the fused
     route the layer owns the FF: ``decode_attend_fused`` runs it.  Packed
     weights from ``fuse_decode_layer`` are used when present
     (``params["decode_fused"]``, ``ff_params["decode_fused"]``), else packed
     here.
 
+    ``page_table`` [b, max_pages] int32 makes ``cache.kv`` a page pool [P,
+    kvh, PAGE, 2d] shared by the rows (the paged serving engine): it needs a
+    ragged ``t`` and the fused route, as in JAX.
+
     ``use_kernels=False`` runs the plain PyTorch versions of the route's
-    two kernels on any device, to hold the kernel path against them on the
+    kernels on any device, to hold the kernel path against them on the
     card; otherwise the wrappers choose (kernel on CUDA, plain version on
     the CPU).
     """
@@ -376,15 +419,25 @@ def sparse_attention_decode(
     Bs = nsa.selection_block_size
     window = nsa.sliding_window_size
     n_slide = -(-window // Bs) + 1
-    max_len = cache.kv.shape[2]
-    if not 0 <= t < max_len:
+    ragged = isinstance(t, torch.Tensor)
+    paged = page_table is not None
+    max_len = page_table.shape[1] * cache.kv.shape[2] if paged else cache.kv.shape[2]
+    if not ragged and not 0 <= t < max_len:
         raise ValueError(f"position {t} is outside the cache of {max_len}")
     if route not in (None, "fused", "split"):
         raise ValueError(f"route must be None, 'fused' or 'split', got {route!r}")
     if route == "fused" and not _fused_decode_applies(cfg):
         raise ValueError("the fused decode route needs shared selection, selected "
                          "blocks and the mlp compressor")
-    fused = _use_fused_decode(cfg, b) if route is None else route == "fused"
+    if route is None:
+        fused = _fused_decode_applies(cfg) if ragged else _use_fused_decode(cfg, b)
+    else:
+        fused = route == "fused"
+    if paged and not (ragged and fused):
+        raise NotImplementedError("paged KV decode requires ragged positions and the fused "
+                                  "route (mlp compressor, shared-KV selection)")
+    if ragged:
+        t = t.to(device=x.device, dtype=torch.int32)
     num_cb = t // stride
 
     fp = params.get("decode_fused")
@@ -403,8 +456,9 @@ def sparse_attention_decode(
     gate_logits = proj[:, hd + 2 * kd:]
     kv_new = torch.cat([k_new, v_new], dim=-1)      # [b, kvh, 2d] unrotated
 
-    rq = rotate_at_offset(q[:, :, None], t, cfg.rope_theta)[:, :, 0]
-    rk_new = rotate_at_offset(k_new[:, :, None], t, cfg.rope_theta)[:, :, 0]
+    rotate = rotate_at_row_offsets if ragged else rotate_at_offset
+    rq = rotate(q[:, :, None], t, cfg.rope_theta)[:, :, 0]
+    rk_new = rotate(k_new[:, :, None], t, cfg.rope_theta)[:, :, 0]
     gates = torch.sigmoid(gate_logits + params["gate_b"].to(gate_logits.dtype))
     skw = dict(max_blocks=max_len // Bs, stride=stride, sel_block=Bs,
                num_sel=nsa.num_selected_blocks, n_slide=n_slide, scale=scale)
@@ -414,10 +468,19 @@ def sparse_attention_decode(
     if fused:
         # ---- the fused pair: ring shift, emission, kv row write, attention,
         # projection, residual and FF in two kernels -----------------------
-        select, attend_fn = (
-            (decode_select_emit, decode_attend_fused) if use_kernels
-            else (decode_select_emit_plain, decode_attend_fused_plain)
-        )
+        if not ragged:
+            select, attend_fn = (
+                (decode_select_emit, decode_attend_fused) if use_kernels
+                else (decode_select_emit_plain, decode_attend_fused_plain))
+        elif paged:
+            select, attend_fn = (
+                (decode_select_emit_ragged, decode_attend_fused_paged) if use_kernels
+                else (decode_select_emit_ragged_plain, decode_attend_fused_paged_plain))
+        else:
+            select, attend_fn = (
+                (decode_select_emit_ragged, decode_attend_fused_ragged) if use_kernels
+                else (decode_select_emit_ragged_plain, decode_attend_fused_ragged_plain))
+        kv_operands = (cache.kv, page_table) if paged else (cache.kv,)
         c_out, info = select(
             q.reshape(b, kvh, g, d).contiguous(), cache.ckv, cache.ring,
             kv_new[:, :, None].to(cache.ring.dtype), fp["mem_kv"].to(x.dtype),
@@ -430,7 +493,7 @@ def sparse_attention_decode(
             ffp = ff_params.get("decode_fused") or _pack_ff(ff_params, x.dtype)
             ff = tuple(ffp[k] for k in ("norm_scale", "w1", "b1", "w2", "b2"))
         out_x = attend_fn(
-            rq.reshape(b, kvh, g, d), cache.kv, kv_new_rot, info, c_out,
+            rq.reshape(b, kvh, g, d), *kv_operands, kv_new_rot, info, c_out,
             gates.reshape(b, kvh, g, 3), x, fp["w_out"], t, ff, eps=cfg.norm_eps, **akw,
         )
         return out_x, cache
@@ -438,34 +501,48 @@ def sparse_attention_decode(
     # ---- caches: ring shift, kv row write --------------------------------
     ring = torch.cat([cache.ring[:, :, 1:], kv_new[:, :, None]], dim=2)
     kv_cache = cache.kv
-    kv_cache[:, :, t] = torch.cat([rk_new, v_new], dim=-1)
+    rows = torch.arange(b, device=x.device)
+    kv_row = torch.cat([rk_new, v_new], dim=-1)
+    if ragged:
+        kv_cache[rows, :, t.long()] = kv_row.to(kv_cache.dtype)
+    else:
+        kv_cache[:, :, t] = kv_row
 
     # ---- predicated compressed-block emission ----------------------------
     # when t+1 completes a stride the ring holds the window [t+1-Bc, t+1)
     # (zero before the sequence start) and its compression lands in slot
     # num_cb; otherwise the candidate goes to the never-read trash row
-    emit = emits(t, stride)
-    row_pos = torch.arange(Bc, device=x.device) + (t + 1 - Bc)
-    win = ring.masked_fill((row_pos < 0)[None, None, :, None], 0.0)
+    row_pos = torch.arange(Bc, device=x.device) + (per_row(t) + 1 - Bc)   # [(b,) Bc]
+    win = ring.masked_fill((row_pos < 0).reshape(-1, 1, Bc, 1), 0.0)
     new_ck, new_cv = _compress_kv(params, cfg, win[:, :, None, :, :d], win[:, :, None, :, d:])
+    cand = torch.cat([new_ck, new_cv], dim=-1)[:, :, 0]
     ckv_cache = cache.ckv
     trash = ckv_cache.shape[2] - 1
-    slot = min(num_cb, trash) if emit else trash
-    ckv_cache[:, :, slot] = torch.cat([new_ck, new_cv], dim=-1)[:, :, 0]
+    if ragged:
+        slot = torch.where(ragged_emits(t, num_cb, stride), num_cb.clamp(0, trash), trash)
+        ckv_cache[rows, :, slot.long()] = cand.to(ckv_cache.dtype)
+    else:
+        ckv_cache[:, :, min(num_cb, trash) if emits(t, stride) else trash] = cand
 
     # ---- branch 1 + selection, then branches 2 + 3 + gate ----------------
-    select, attend_fn = (
-        (decode_select, decode_attend) if use_kernels
-        else (decode_select_plain, decode_attend_plain)
-    )
-    c_out, info = select(
-        q.reshape(b, kvh, g, d).contiguous(), ckv_cache, params["mem_kv"].to(x.dtype),
-        t, num_cb, **skw,
-    )
-    out = attend_fn(
-        rq.reshape(b, kvh, g, d), kv_cache, info, c_out,
-        gates.reshape(b, kvh, g, 3).contiguous(), t, **akw,
-    )
+    qg, rqg = q.reshape(b, kvh, g, d).contiguous(), rq.reshape(b, kvh, g, d)
+    gates4 = gates.reshape(b, kvh, g, 3).contiguous()
+    mem_kv = params["mem_kv"].to(x.dtype)
+    if ragged:
+        # JAX's XLA branches (its ragged rows under NSA_NO_FUSED_DECODE):
+        # the plain branch 1 and selection, the block gather as a kernel
+        c_out, info = decode_select_plain(qg, ckv_cache, mem_kv, t, num_cb, **skw)
+        gather = paged_gather if use_kernels else paged_gather_plain
+        fkv = gather(kv_cache, info[..., :nsa.num_selected_blocks + n_slide].contiguous(), Bs)
+        out = attend_combined_plain(rqg, fkv, info, c_out, gates4, t, gathered=True,
+                                    **akw).to(x.dtype)
+    else:
+        select, attend_fn = (
+            (decode_select, decode_attend) if use_kernels
+            else (decode_select_plain, decode_attend_plain)
+        )
+        c_out, info = select(qg, ckv_cache, mem_kv, t, num_cb, **skw)
+        out = attend_fn(rqg, kv_cache, info, c_out, gates4, t, **akw)
     out = out.reshape(b, 1, h * d) @ params["w_out"].to(x.dtype)
 
     out_x = x + out

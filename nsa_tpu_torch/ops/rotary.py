@@ -34,6 +34,21 @@ def rotate_at_offset(x: torch.Tensor, offset: int, theta: float = 10000.0):
     return apply_rotary(x, positions, theta)
 
 
+def rotate_at_row_offsets(x: torch.Tensor, offsets: torch.Tensor, theta: float = 10000.0):
+    """Rotate x [b, H, 1, d] with per-row absolute positions ``offsets``
+    [b], a tensor on x's device (the ragged decode step: every slot of the
+    serving pool rotates at its own position)."""
+    b, H, n, d = x.shape
+    if n != 1 or tuple(offsets.shape) != (b,):
+        raise ValueError(f"x {tuple(x.shape)} must be [b, H, 1, d] and offsets [b]")
+    angles = offsets.float()[:, None] * rope_frequencies(d, theta, x.device)   # [b, d/2]
+    cos, sin = torch.cos(angles)[:, None, None], torch.sin(angles)[:, None, None]
+    xf = x.float().reshape(b, H, n, d // 2, 2)
+    x0, x1 = xf[..., 0], xf[..., 1]
+    out = torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
 def rotate_qk(q: torch.Tensor, k: torch.Tensor, theta: float = 10000.0):
     """Rotate q and k jointly at positions [0, n) (training / prefill)."""
     positions = torch.arange(q.shape[-2], device=q.device)

@@ -21,7 +21,10 @@ plain versions round at the same points (the emitted ckv row, the combined
 attention output, the layer's y, the FF's hidden row and output) from
 float32 sums taken in another order, so a rounding can flip by one ulp and
 carry one more ulp downstream: 2^-6 of the largest value (two bf16 ulps);
-the ring shift and the kv row write are copies, bit-equal.
+the ring shift and the kv row write are copies, bit-equal.  The ragged
+and paged decode kernels are held to the same 2^-6; the paged attend
+kernel equals the ragged one bit for bit on the same logical cache, and
+the block gather is a copy.
 """
 
 import pytest
@@ -38,7 +41,15 @@ from nsa_tpu_torch.models.transformer import (
     transformer_loss,
     transformer_prefill,
 )
-from nsa_tpu_torch.ops.cuda import nsa_decode, nsa_decode_fused, nsa_decode_mega, nsa_prefill
+from nsa_tpu_torch.models.transformer import transformer_decode_step_ragged
+from nsa_tpu_torch.ops.cuda import (
+    nsa_decode,
+    nsa_decode_fused,
+    nsa_decode_mega,
+    nsa_decode_ragged,
+    nsa_prefill,
+    paged_gather,
+)
 from nsa_tpu_torch.ops.nsa import _ckv_width
 from nsa_tpu_torch.train.pretrain import trainable
 from nsa_tpu_torch.utils.checkpoint import tree_leaves, tree_to
@@ -399,3 +410,144 @@ def test_mega_wrapper_refuses_what_the_kernel_does_not_take(gen):
                                          greedy=True)
         with pytest.raises(TypeError):                      # bf16 caches only
             transformer_decode_step_mega(mp, cfg, token, kv.float(), ckv, ring, 20)
+
+
+RAGGED_T = [7, 199, 200, 1023, 0, 3]     # 7, 199, 1023 emit (stride 8); 0 and 3 before Bc
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+def test_decode_select_emit_ragged_kernel_matches_plain(gen, uniform):
+    """Mixed positions against the plain version; at one position for every
+    row, against the scalar kernel too."""
+    b, kvh, g, d, M, Bc, hid = 6, 2, 2, 64, 1, 16, 128
+    stride, Bs, window, num_sel, max_len = 8, 16, 64, 4, 1024
+    n_slide = -(-window // Bs) + 1
+    Wc = _ckv_width(max_len, stride, Bs // stride)
+    q, ckv, mem_kv = randn(gen, b, kvh, g, d), randn(gen, b, kvh, Wc, 2 * d), randn(gen, 2, kvh, M, d)
+    ring, kv_new = randn(gen, b, kvh, Bc, 2 * d), randn(gen, b, kvh, 1, 2 * d)
+    weights = fused_weights(gen, kvh, Bc, d, hid)
+    kw = dict(max_blocks=max_len // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
+              n_slide=n_slide, scale=0.125)
+    ts = [199] * b if uniform else RAGGED_T
+    t = torch.tensor(ts, dtype=torch.int32, device="cuda")
+    caches = [(ckv.clone(), ring.clone()) for _ in range(3)]
+    before = nsa_decode_ragged.decode_select_emit_ragged.launches
+    c_k, info_k = nsa_decode_ragged.decode_select_emit_ragged(
+        q, *caches[0], kv_new, mem_kv, *weights, t, t // stride, **kw)
+    c_p, info_p = nsa_decode_ragged.decode_select_emit_ragged_plain(
+        q, *caches[1], kv_new, mem_kv, *weights, t, t // stride, **kw)
+    torch.cuda.synchronize()
+    assert nsa_decode_ragged.decode_select_emit_ragged.launches == before + 1
+    assert max_err(c_k, c_p) <= TOL_OUT
+    assert torch.equal(info_k, info_p)   # random scores: no ties
+    assert torch.equal(caches[0][1], caches[1][1])
+    for i, ti in enumerate(ts):
+        slot = ti // stride
+        for ckv_x in (caches[0][0], caches[1][0]):     # no other row changes
+            assert torch.equal(torch.cat([ckv_x[i, :, :slot], ckv_x[i, :, slot + 1:]], 1),
+                               torch.cat([ckv[i, :, :slot], ckv[i, :, slot + 1:]], 1))
+        row_k, row_p = caches[0][0][i, :, slot], caches[1][0][i, :, slot]
+        if (ti + 1) % stride:
+            assert torch.equal(row_k, ckv[i, :, slot]) and torch.equal(row_p, ckv[i, :, slot])
+        else:
+            assert max_err(row_k, row_p) <= TOL_FUSED * row_p.float().abs().max().item()
+    if uniform:
+        c_s, info_s = nsa_decode_fused.decode_select_emit(q, *caches[2], kv_new, mem_kv,
+                                                          *weights, ts[0], ts[0] // stride, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(info_s, info_k) and torch.equal(caches[2][1], caches[0][1])
+        assert max_err(c_s, c_k) <= TOL_FUSED * c_s.float().abs().max().item()
+        assert max_err(caches[2][0], caches[0][0]) <= TOL_FUSED * caches[2][0].float().abs().max()
+
+
+def test_decode_attend_ragged_and_paged_kernels_match_plain(gen):
+    """Mixed positions, the FF inside; the paged kernel under a permuted
+    table of 64-row pages bit for bit the ragged kernel."""
+    b, kvh, g, d, stride, Bs, window, num_sel, max_len, page = 6, 2, 2, 64, 8, 16, 64, 4, 1024, 64
+    dim, hid4 = 256, 512
+    n_slide = -(-window // Bs) + 1
+    Wc = _ckv_width(max_len, stride, Bs // stride)
+    t = torch.tensor(RAGGED_T, dtype=torch.int32, device="cuda")
+    q, ckv, mem_kv = randn(gen, b, kvh, g, d), randn(gen, b, kvh, Wc, 2 * d), randn(gen, 2, kvh, 1, d)
+    skw = dict(max_blocks=max_len // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
+               n_slide=n_slide, scale=0.125)
+    c_out, info = nsa_decode.decode_select_plain(q, ckv, mem_kv, t, t // stride, **skw)
+    info = info.reshape(b, -1)
+    rq, kv, kv_new = randn(gen, b, kvh, g, d), randn(gen, b, kvh, max_len, 2 * d), \
+        randn(gen, b, kvh, 1, 2 * d)
+    gates = torch.rand((b, kvh, g, 3), generator=gen, device="cuda").to(torch.bfloat16)
+    x = randn(gen, b, 1, dim)
+    w_out = (randn(gen, kvh * g * d, dim) * (kvh * g * d) ** -0.5).to(torch.bfloat16)
+    ff = (1.0 + 0.1 * torch.randn(dim, generator=gen, device="cuda"),
+          (randn(gen, dim, hid4) * dim ** -0.5).to(torch.bfloat16),
+          0.1 * torch.randn(hid4, generator=gen, device="cuda"),
+          (randn(gen, hid4, dim) * hid4 ** -0.5).to(torch.bfloat16),
+          0.1 * torch.randn(dim, generator=gen, device="cuda"))
+    akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=0.125)
+    args = (kv_new, info, c_out, gates, x, w_out, t, ff)
+    kv_k, kv_p = kv.clone(), kv.clone()
+    before = (nsa_decode_ragged.decode_attend_fused_ragged.launches,
+              nsa_decode_ragged.decode_attend_fused_paged.launches)
+    out_k = nsa_decode_ragged.decode_attend_fused_ragged(rq, kv_k, *args, **akw)
+    out_p = nsa_decode_ragged.decode_attend_fused_ragged_plain(rq, kv_p, *args, **akw)
+    n_pg = max_len // page
+    table = torch.randperm(b * n_pg, generator=gen, device="cuda").reshape(b, n_pg).int()
+    pool = randn(gen, b * n_pg + 1, kvh, page, 2 * d)
+    pool[table.reshape(-1).long()] = kv.reshape(b, kvh, n_pg, page, 2 * d).transpose(1, 2) \
+        .reshape(-1, kvh, page, 2 * d)
+    out_g = nsa_decode_ragged.decode_attend_fused_paged(rq, pool, table, *args, **akw)
+    torch.cuda.synchronize()
+    assert (nsa_decode_ragged.decode_attend_fused_ragged.launches,
+            nsa_decode_ragged.decode_attend_fused_paged.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert torch.isfinite(out_k.float()).all()
+    assert max_err(out_k, out_p) <= TOL_FUSED * out_p.float().abs().max().item()
+    assert torch.equal(kv_k, kv_p)
+    for i, ti in enumerate(RAGGED_T):
+        assert torch.equal(kv_k[i, :, ti], kv_new[i, :, 0])
+    assert torch.equal(out_g, out_k)
+    logical = pool[table.long()].transpose(1, 2).reshape(b, kvh, max_len, 2 * d)
+    assert torch.equal(logical, kv_k)
+
+
+def test_paged_gather_kernel_matches_plain(gen):
+    b, kvh, L, Bs, S = 5, 4, 1024, 16, 9
+    cache = randn(gen, b, kvh, L, 128)
+    idx = torch.randint(0, L // Bs, (b, kvh, S), generator=gen, device="cuda").int()
+    before = paged_gather.paged_gather.launches
+    got = paged_gather.paged_gather(cache, idx, Bs)
+    torch.cuda.synchronize()
+    assert paged_gather.paged_gather.launches == before + 1
+    assert torch.equal(got, paged_gather.paged_gather_plain(cache, idx, Bs))
+
+
+@pytest.mark.parametrize("route", [None, "split"])
+def test_model_ragged_step_kernels_match_plain(gen, route):
+    """Two layers at the reference widths, 4 rows at mixed positions from
+    their own prefills, two ragged steps across emissions: kernels against
+    the plain versions within chip_smoke.py's 2% of the logits' scale."""
+    cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
+    params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cuda"),
+                     dtype=torch.bfloat16)
+    packed = fuse_decode_params(params, cfg)
+    lens = [199, 40, 7, 130]
+    ids = torch.randint(0, 256, (4, 200), generator=gen, device="cuda")
+    counted = (nsa_decode_ragged.decode_select_emit_ragged, paged_gather.paged_gather,
+               nsa_decode_fused.decode_select_emit, nsa_decode.decode_select)
+    before = [fn.launches for fn in counted]
+    with torch.inference_mode():
+        logits, cache = transformer_prefill(params, cfg, ids, 256, true_len=torch.tensor(
+            lens, device="cuda"))
+        layers, plain = cache.layers, clone_cache(cache).layers
+        token = logits[torch.arange(4), torch.tensor(lens) - 1].argmax(-1)
+        seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for _ in range(2):
+            got, layers = transformer_decode_step_ragged(packed, cfg, token, layers, seq,
+                                                         route=route)
+            want, plain = transformer_decode_step_ragged(packed, cfg, token, plain, seq,
+                                                         use_kernels=False, route=route)
+            assert torch.isfinite(got).all()
+            assert max_err(got, want) <= 0.02 * max(want.abs().max().item(), 1.0)
+            token, seq = want.argmax(-1), seq + 1
+    ran = [fn.launches - n for fn, n in zip(counted, before)]
+    assert ran == ([0, 4, 0, 0] if route == "split" else [4, 0, 0, 0])
