@@ -60,6 +60,18 @@ Phases, each printing its name and seconds as it ends:
              (``torch.cuda.set_sync_debug_mode("error")``); new tokens/s,
              requests/s, wall time, kv pool MiB, peak memory, and a profile of
              5 ragged steps at 16 slots.
+11. full   - the full-attention baseline (``ckpt_export/full_attn_seq4096.npz``
+             in bf16) at the serving cell: prefill of 64 x 3900 seeded tokens
+             through the flash attention kernel, then 100 greedy decode steps
+             with the 4096-row cache; launch counts read around exactly that
+             run (``flash_attention`` once a layer, no other kernel); the
+             first decode step's logits held against the plain path (the
+             plain flash prefill, then the same step); 4 requests on the
+             serving engine's dense pool at 1 and at 8 tokens a sync, token
+             for token equal; ``nsa_tpu_torch.bench``'s turns (sparse, full,
+             full, sparse decode tok/s on the cell, its JSON printed on a line
+             of its own); ``torch.profiler`` over the prefill and 5 decode
+             steps, with the device time of copies a step (none of the cache).
 
 The kernels phase also holds the two backward kernels against their plain
 versions at the training cell's shapes (bs 16, n 4096), the two fused
@@ -73,7 +85,11 @@ and attend kernels at seeded mixed positions (t = 0, emitting and
 non-emitting rows before and after the first full compression window, t up
 to 4095), and at one position against the one-position pair; the paged
 attend kernel under a seeded permutation page table of 64-row pages, bit
-for bit the ragged one; the block gather of the ragged split route.
+for bit the ragged one; the block gather of the ragged split route; and the
+flash attention kernel of the full-attention baseline at the serving cell's
+shapes (q [64, 8, 3900, 64], k / v [64, 4, 3900, 64], causal), with
+``torch.nn.functional.scaled_dot_product_attention`` timed beside it as its
+library yardstick (the port never calls it).
 
 Then one JSON line with the kernels, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -94,6 +110,7 @@ sys.path.insert(0, HERE)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 import nsa_tpu_torch  # noqa: E402,F401  (fails at once outside a checkout)
 from nsa_tpu_torch.config import DataConfig, TrainConfig  # noqa: E402
@@ -106,17 +123,20 @@ from nsa_tpu_torch.eval.efficiency import (  # noqa: E402
     seeded_ids,
 )
 from nsa_tpu_torch.models.transformer import (  # noqa: E402
+    KVDecodeCache,
     cache_tensors,
     fuse_decode_params,
     greedy_decode,
     init_transformer,
     transformer_decode_step,
     transformer_decode_step_mega,
+    transformer_forward,
     transformer_loss,
     transformer_prefill,
     use_mega_decode,
 )
 from nsa_tpu_torch.ops.cuda import (  # noqa: E402
+    flash,
     nsa_decode,
     nsa_decode_fused,
     nsa_decode_mega,
@@ -126,6 +146,7 @@ from nsa_tpu_torch.ops.cuda import (  # noqa: E402
     runtime,
 )
 from nsa_tpu_torch.ops.nsa import _ckv_width, fuse_decode_layer  # noqa: E402
+from nsa_tpu_torch import bench as port_bench  # noqa: E402
 from nsa_tpu_torch import serve  # noqa: E402
 from nsa_tpu_torch.train import pretrain  # noqa: E402
 from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -140,11 +161,12 @@ from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
 # about twice each phase's longest time on the H100 (61 s build of the eight
-# kernels, 12 s small phase, 79 s train on the slower host, 19 s serve), at
-# least 10 s for the phases of a few seconds, whose time is host noise; 460 s
-# in all
-BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 10, "main": 10,
-            "measure": 20, "profile": 50, "small": 30, "serve": 40, "train": 160}
+# kernels, 12 s small phase, 79 s train on the slower host, 19 s serve, 5.2 s
+# kernels with the plain flash attention at full size, 20.6 s full), at least
+# 10 s for the phases of a few seconds, whose time is host noise; 512 s in all
+BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 12, "main": 10,
+            "measure": 20, "profile": 50, "small": 30, "serve": 40, "full": 50,
+            "train": 160}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
 SMALL_BATCHES = (8, 1)       # the small-batch cell: the whole-model decode route
 FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
@@ -159,6 +181,7 @@ DECODE_T = PROMPT + GEN - 1  # the last decode position of the cell
 SEED = 0
 DEVICE = "cuda"
 WEIGHTS = os.path.join(HERE, "ckpt_export", "sparse_mlp_seq4096.npz")
+FULL_WEIGHTS = os.path.join(HERE, "ckpt_export", "full_attn_seq4096.npz")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak, same source
 # bf16 keeps 8 significant bits (unit roundoff 2^-9).  The plain decode
@@ -202,6 +225,23 @@ TOL_LOSS_REL = 2e-3
 # The whole-model kernel against its plain version: the same bodies and
 # rounding points through every layer, held to the same 2^-6.
 TOL_FUSED = 2.0 ** -6
+# The flash attention kernel against its plain version, element by element
+# (``flash.flash_attention_tolerance``): 2^-7 of |plain| for the two bf16
+# roundings of the output, plus 2^-8 of the same attention taken over |v| for
+# the kernel's rounding of its softmax weights to bf16 before P.V (the plain
+# version, like the TPU kernel, keeps them float32); each term twice its
+# stated source.  The largest ratio |kernel - plain| / bound must stay <= 1;
+# an output with one middle 64-key tile left out of the late query rows (a
+# wrong kernel, built from the plain version) must exceed it.
+FLASH_DROPPED_KEYS = (1920, 1984)
+# A copy of one of the decode's cache slices ([64, 4, <= 4096, 64] bf16,
+# <= 134 MB read and written) would take >= 80 us at 3.35 TB/s; the step's
+# own copies (casts of its activations and softmax weights, the new row)
+# take a few us each.  Held to the longest single copy kernel of the profile
+# (not a mean over the kernels of one name, which the many small casts
+# would pull down); a deliberate copy of one cache slice, profiled the same
+# way, must exceed it.
+MAX_COPY_KERNEL_MS = 0.02
 # the serving cell: the engine's slot pool at the trained model's cache length
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_SYNC = 16, 48, 8
 SERVE_BUCKETS = (512, 1024, 2048, 4096)
@@ -213,7 +253,8 @@ ALL_KERNELS = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.
                nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused,
                nsa_decode_mega.decode_step_mega, nsa_decode_ragged.decode_select_emit_ragged,
                nsa_decode_ragged.decode_attend_fused_ragged,
-               nsa_decode_ragged.decode_attend_fused_paged, paged_gather.paged_gather)
+               nsa_decode_ragged.decode_attend_fused_paged, paged_gather.paged_gather,
+               flash.flash_attention)
 
 PHASES = []
 
@@ -984,6 +1025,64 @@ def kernel_decode(gen, flush, cfg):
     return sel, att
 
 
+def dropped_key_attention(q, k, v, keys):
+    """Causal attention in the plain version's float32 numerics with keys
+    keys[0] .. keys[1] - 1 left out of every query row past them: what a
+    flash kernel that skipped one key tile of the late query tiles returns."""
+    n, g = q.shape[2], q.shape[1] // k.shape[1]
+    rows = torch.arange(n, device=q.device)[:, None]
+    cols = torch.arange(n, device=q.device)[None, :]
+    valid = (rows >= cols) & ~((cols >= keys[0]) & (cols < keys[1]) & (rows >= keys[1]))
+    kf, vf = (x.float().repeat_interleave(g, 1) for x in (k, v))
+    s = ((q.float() * q.shape[-1] ** -0.5) @ kf.transpose(-1, -2)).masked_fill(~valid, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill(~valid, 0.0)
+    return ((p @ vf) / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
+def kernel_flash(gen, flush, cfg):
+    """Row 13 at the full-attention serving cell: seeded bf16 q [64, 8, 3900,
+    64], k / v [64, 4, 3900, 64], causal, against its plain version; SDPA
+    on the same inputs is the library yardstick."""
+    b, h, kvh, d, n = BATCH, cfg.heads, cfg.kv_heads, cfg.dim_head, PROMPT
+    q = torch.randn((b, h, n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    k = torch.randn((b, kvh, n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    v = torch.randn((b, kvh, n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    got = flash.flash_attention(q, k, v)
+    want = flash.flash_attention_plain(q, k, v)
+    tol = flash.flash_attention_tolerance(q, k, v, want)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    ratio = ((got.float() - want.float()).abs() / tol).max().item()
+    # the control: a wrong kernel's output on the first 2 sequences
+    wrong = dropped_key_attention(q[:2], k[:2], v[:2], FLASH_DROPPED_KEYS)
+    control = ((wrong.float() - want[:2].float()).abs() / tol[:2]).max().item()
+    del tol, wrong
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    lib_err = max_err(library(), want)
+    print(f"  flash_attention bs {b} n {n}: max|err| {err:.5f}, max |err| / bound {ratio:.4f} "
+          f"(<= 1: 2^-7 |plain| + 2^-8 attention over |v|); keys {FLASH_DROPPED_KEYS[0]}.."
+          f"{FLASH_DROPPED_KEYS[1] - 1} left out of the later rows: {control:.2f} (must be > 1); "
+          f"the SDPA yardstick vs plain max|err| {lib_err:.5f}", flush=True)
+    check(control > 1.0, "the flash rule passes a kernel that leaves out a key tile")
+    check(bool(torch.isfinite(got.float()).all()) and ratio <= 1.0,
+          "flash_attention disagrees with its plain version")
+    flops = 4 * b * h * d * (n * (n + 1) // 2)            # q.k and p.v per (row, key <= row)
+    bms, by = bound_ms(nbytes(q, k, v, got), flops)
+    ms = timed_ms(lambda: flash.flash_attention(q, k, v), 10, flush)
+    plain = timed_ms(lambda: flash.flash_attention_plain(q, k, v), 2, flush)
+    lib = timed_ms(library, 10, flush)
+    print(f"  flash_attention {ms:.4f} ms (bound {bms:.4f} ms by {by}: {ms / bms:.2f}x), plain "
+          f"{plain:.3f} ms, SDPA {lib:.4f} ms", flush=True)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "nsa_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "nsa_tpu/ops/pallas/flash.py:248",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib}
+
+
 def _dev_us(e):
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
@@ -1399,6 +1498,156 @@ def serve_phase(params, cfg, smi):
     return runs["dense"]["launches"], runs["paged"]["launches"], split_launches, m
 
 
+def copy_ms(prof, per):
+    """(device ms per ``per`` of all copy kernels in a profile, the longest
+    single copy kernel in ms), from the profile's device events one by one."""
+    from torch.autograd import DeviceType
+
+    copies = [_dev_us(e) for e in prof.events() if e.device_type == DeviceType.CUDA
+              and ("copy" in e.name.lower() or "memcpy" in e.name.lower())]
+    return sum(copies) / 1e3 / per, max(copies, default=0.0) / 1e3
+
+
+def full_phase(sparse_params, sparse_cfg, smi):
+    """The full-attention baseline at the serving cell: prefill + GEN greedy
+    steps with launch counts read around exactly that run; the first step
+    against the plain path; the engine at 1 and 8 tokens a sync; the
+    benchmark's turns; a profile of the prefill and 5 decode steps.
+    Returns the run's launch counts and the metrics."""
+    params, meta = load_params_npz(FULL_WEIGHTS, device="cuda", dtype=torch.bfloat16)
+    cfg = model_config_from_meta(meta).replace(dtype="bfloat16")
+    print(f"  loaded {os.path.relpath(FULL_WEIGHTS, HERE)} (step {meta.get('step')}): depth "
+          f"{cfg.depth}, dim {cfg.dim}, heads {cfg.heads}/{cfg.kv_heads}, sparse "
+          f"{cfg.use_sparse_attn}", flush=True)
+    check(not cfg.use_sparse_attn, "the full-attention weights load as a sparse model")
+    params = fuse_decode_params(params, cfg)          # the fused q|k|v, once
+    ids = seeded_ids(BATCH, PROMPT, cfg.vocab_size, SEED, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(ALL_KERNELS)
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    logits, cache = transformer_prefill(params, cfg, ids, MAX_LEN)
+    e.record()
+    first = logits[:, -1].argmax(-1)
+    start = clone_cache(cache)
+    ds, de = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ds.record()
+    step0, cache = transformer_decode_step(params, cfg, first, cache)
+    tokens = torch.cat([first[:, None],
+                        greedy_decode(params, cfg, step0.argmax(-1), cache, GEN - 1)], 1)
+    de.record()
+    launches = read_launches(ALL_KERNELS)
+    prefill_s, decode_s = s.elapsed_time(e) / 1e3, ds.elapsed_time(de) / 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  full launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    want = {**{fn.__name__: 0 for fn in ALL_KERNELS}, "flash_attention": cfg.depth}
+    check(launches == want, f"full-model launches {launches}, expected {want}")
+    check(all(isinstance(lc, KVDecodeCache) for lc in cache.layers)
+          and cache.layers[0].kv.shape == (BATCH, cfg.kv_heads, MAX_LEN, 2 * cfg.dim_head),
+          "full-model cache malformed")
+    check(tuple(logits.shape) == (BATCH, PROMPT, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "full prefill logits not finite/shaped")
+    check(tuple(tokens.shape) == (BATCH, GEN) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size, "full-model tokens malformed")
+
+    # the plain path: the plain flash prefill, then the same first step
+    p_logits, p_cache = transformer_forward(params, cfg, ids, return_cache_max_len=MAX_LEN,
+                                            use_kernels=False)
+    pre_err = max_err(logits, p_logits)
+    plain_step, _ = transformer_decode_step(params, cfg, first, p_cache)
+    err, scale_l = max_err(step0, plain_step), plain_step.abs().max().item()
+    agree = (step0.argmax(-1) == plain_step.argmax(-1)).float().mean().item()
+    print(f"  full prefill logits kernel vs plain max|err| {pre_err:.4f} (tol {TOL_LOGITS_REL} "
+          f"x max|logit| {p_logits.abs().max().item():.2f}); first decode step "
+          f"logits max|err| {err:.4f} (tol {TOL_LOGITS_REL} x max|logit| {scale_l:.2f}); greedy "
+          f"tokens agree on {agree * 100:.1f}% of rows", flush=True)
+    check(pre_err <= TOL_LOGITS_REL * max(p_logits.abs().max().item(), 1.0),
+          "full-model prefill logits disagree with the plain path")
+    check(bool(torch.isfinite(step0).all()) and err <= TOL_LOGITS_REL * max(scale_l, 1.0),
+          "full-model decode logits disagree with the plain path")
+    print(f"  full prefill {BATCH}x{PROMPT}: {prefill_s:.3f}s; decode {GEN} steps: "
+          f"{decode_s:.3f}s = {BATCH * GEN / decode_s:.1f} tok/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; {smi}", flush=True)
+    m = {"prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s, "peak_bytes": peak,
+         "prefill_logits_max_abs_err": pre_err, "logits_max_abs_err": err}
+    del p_logits, p_cache, cache, logits
+
+    # the engine's dense pool, 4 requests at 1 and at SERVE_SYNC tokens a sync
+    few = serve_requests(SERVE_CHECK_REQUESTS)
+    runs = []
+    for sps in (1, SERVE_SYNC):
+        toks, eng, wall, e_launches, steps, waves, _, _ = run_engine(params, cfg, few,
+                                                                     steps_per_sync=sps)
+        want = {**{fn.__name__: 0 for fn in ALL_KERNELS}, "flash_attention": cfg.depth * waves}
+        check(e_launches == want, f"full engine launches {e_launches}, expected {want}")
+        check(all(isinstance(lc, KVDecodeCache) for lc in eng.cache_layers),
+              "the full engine's pool is not a kv cache")
+        runs.append(toks)
+        print(f"  full engine, {SERVE_CHECK_REQUESTS} requests at {sps} token(s) a sync: "
+              f"{steps} ragged steps, {waves} prefill waves, {sum(len(x) for x in toks)} new "
+              f"tokens in {wall:.3f}s", flush=True)
+        del eng
+    same = all(np.array_equal(a, b) for a, b in zip(*runs))
+    print(f"  full engine at 1 and {SERVE_SYNC} tokens a sync: token for token equal: {same}",
+          flush=True)
+    check(same, "the full engine gives different tokens at 1 and 8 tokens a sync")
+
+    # the benchmark's turns, both models already on the card
+    result = port_bench.run_bench(models={"sparse_mlp": (sparse_params, sparse_cfg, "trained"),
+                                          "full_attn": (params, cfg, "trained")},
+                                  log=lambda line: print("  " + line, flush=True))
+    print(json.dumps({"bench": result}), flush=True)
+    m["bench"] = result
+
+    # where the time goes: the prefill, then 5 decode steps from its cache
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        transformer_prefill(params, cfg, ids, MAX_LEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    m["prefill_device_busy"] = _report(prof, f"full prefill {BATCH}x{PROMPT}", wall)[0]
+    token = tokens[:, 0]
+    transformer_decode_step(params, cfg, token, clone_cache(start))       # warm
+
+    def steps(copy_slice):
+        """5 decode steps from the prefill's cache under the profiler; with
+        ``copy_slice`` each step also copies one cache slice (the control)."""
+        tok, run_cache = token, clone_cache(start)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                lg, run_cache = transformer_decode_step(params, cfg, tok, run_cache)
+                tok = lg.argmax(-1)
+                if copy_slice:
+                    run_cache.layers[0].kv[..., :cfg.dim_head].contiguous()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return prof, wall
+
+    prof, wall = steps(False)
+    busy, records = _report(prof, f"5 full decode steps, bs {BATCH}", wall, per=5)
+    copies, longest = copy_ms(prof, 5)
+    control = steps(True)[0]
+    slice_ms = copy_ms(control, 5)[1]
+    if slice_ms <= MAX_COPY_KERNEL_MS:
+        _report(control, "the control's 5 steps", wall, per=5)
+    print(f"  full decode: copy kernels {copies:.4f} ms a step, the longest {longest:.4f} ms "
+          f"(max {MAX_COPY_KERNEL_MS}: no copy of a cache slice); the same steps, each with "
+          f"a deliberate copy of one cache slice: the longest {slice_ms:.4f} ms", flush=True)
+    check(slice_ms > MAX_COPY_KERNEL_MS, "the no-copy gate misses a copy of a cache slice")
+    check(longest <= MAX_COPY_KERNEL_MS, "the full decode step copies its cache")
+    m.update({"decode_device_busy": busy, "decode_device_records_per_step": records,
+              "decode_step_ms_profiled": wall / 5 * 1e3, "decode_copy_ms_per_step": copies,
+              "decode_longest_copy_ms": longest, "cache_slice_copy_ms": slice_ms})
+    del params, start
+    torch.cuda.empty_cache()
+    return launches, m
+
+
 class StepLog(MetricsLogger):
     """The trainer's logger, keeping what it logs for the gates."""
 
@@ -1596,7 +1845,8 @@ def main():
                    *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0]),
                    kernel_decode_mega(gen, flush, cfg, fuse_decode_params(params, cfg),
                                       SMALL_BATCHES[0]),
-                   *kernel_decode_ragged(gen, flush, cfg, params, SERVE_SLOTS)]
+                   *kernel_decode_ragged(gen, flush, cfg, params, SERVE_SLOTS),
+                   kernel_flash(gen, flush, cfg)]
         del flush
         torch.cuda.empty_cache()
         t0 = phase("kernels", t0)
@@ -1604,7 +1854,7 @@ def main():
         ids = seeded_ids(BATCH, PROMPT, cfg.vocab_size, SEED, "cuda")
         counted = (nsa_prefill.prefill_fwd, nsa_decode.decode_select, nsa_decode.decode_attend,
                    nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused,
-                   nsa_decode_mega.decode_step_mega)
+                   nsa_decode_mega.decode_step_mega, flash.flash_attention)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in counted:
@@ -1629,7 +1879,8 @@ def main():
         print(f"  launches {launches}", flush=True)
         want = {"prefill_fwd": cfg.depth, "decode_select": cfg.depth * GEN,
                 "decode_attend": cfg.depth * GEN, "decode_select_emit": 0,
-                "decode_attend_fused": 0, "decode_step_mega": 0}   # bs 64: the split route
+                "decode_attend_fused": 0, "decode_step_mega": 0,   # bs 64: the split route
+                "flash_attention": 0}
         check(launches == want, f"main-path launches {launches}, expected {want}")
         check(tuple(logits.shape) == (BATCH, PROMPT, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()), "prefill logits not finite/shaped")
@@ -1672,9 +1923,13 @@ def main():
         t0 = phase("small", t0)
 
         dense_launches, paged_launches, split_launches, served = serve_phase(params, cfg, smi)
-        del params
         torch.cuda.empty_cache()
         t0 = phase("serve", t0)
+
+        full_launches, full = full_phase(params, cfg, smi)
+        del params
+        torch.cuda.empty_cache()
+        t0 = phase("full", t0)
 
     train_launches, train = train_phase(smi)
     torch.cuda.empty_cache()
@@ -1685,8 +1940,10 @@ def main():
         # forward and split decode kernels, the fused route's run at bs 8
         # for the fused pair, serving at bs 8 (the default route) for the
         # whole-model kernel, training for the backward ones, the serving
-        # engine's dense, paged and split-route runs for its four
+        # engine's dense, paged and split-route runs for its four, the
+        # full-attention baseline's serving run for the flash kernel
         k["launches"] = (train_launches if k["name"].startswith("prefill_bwd")
+                         else full_launches if k["name"] == "flash_attention"
                          else fused_launches if k["name"] in FUSED_KERNELS
                          else small_launches if k["name"] == "decode_step_mega"
                          else paged_launches if k["name"] == "decode_attend_fused_paged"
@@ -1697,7 +1954,7 @@ def main():
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,
         "measure_decode_tok_s": tps, "measure_prefill_tok_s": prefill_tps, "peak_bytes": peak,
         "logits_max_abs_err": err, "decode_device_busy": busy, "small": small,
-        "serve": served, **train,
+        "serve": served, "full": full, **train,
         "train_launches": train_launches, "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them

@@ -1,6 +1,7 @@
 """Prefill, decode and training throughput on the card
-(``nsa_tpu/eval/efficiency.py``: ``measure_prefill``, ``measure_decode``;
-``measure_train`` times the port's ``train_step``).
+(``nsa_tpu/eval/efficiency.py``: ``measure_prefill``, ``measure_decode``,
+``kv_cache_saving_ratio``; ``measure_train`` times the port's
+``train_step``), for the sparse and the full-attention model.
 
 Timed with CUDA events around work on the current stream, after a warm-up;
 a measurement that finds no card raises instead of timing the CPU.  Token
@@ -27,7 +28,6 @@ from ..models.transformer import (
     transformer_prefill,
     use_mega_decode,
 )
-from ..ops.nsa import NSADecodeCache
 from ..train.pretrain import make_optimizer, train_step, trainable
 
 
@@ -46,10 +46,21 @@ def seeded_ids(batch_size: int, length: int, vocab: int, seed: int, device) -> t
 
 
 def clone_cache(cache: ModelCache) -> ModelCache:
+    """A copy of either model's cache (structured sparse or full kv)."""
     return ModelCache(
-        layers=tuple(NSADecodeCache(*(x.clone() for x in lc)) for lc in cache.layers),
+        layers=tuple(type(lc)(*(x.clone() for x in lc)) for lc in cache.layers),
         seq_len=cache.seq_len,
     )
+
+
+def kv_cache_saving_ratio(cfg: ModelConfig, prompt_len: int) -> float:
+    """Analytic per-query KV-access saving of sparse attention,
+    ``1 - min(len, window + k * block) / len``; 0 for full attention."""
+    if not cfg.use_sparse_attn:
+        return 0.0
+    nsa = cfg.nsa
+    selected = nsa.sliding_window_size + nsa.num_selected_blocks * nsa.selection_block_size
+    return 1.0 - min(prompt_len, selected) / prompt_len
 
 
 def timed_ms(fn, device) -> float:
@@ -89,17 +100,28 @@ def measure_decode(params, cfg: ModelConfig, batch_size: int, prompt_len: int,
                    gen_len: int = 100, iters: int = 3, seq_len: Optional[int] = None,
                    *, seed: int = 0, device="cuda") -> float:
     """Decode throughput in tokens/s: prefill once, then ``gen_len`` greedy
-    cached steps, ``batch_size * gen_len`` tokens per run; mean over
-    ``iters`` timed runs after one warm-up.  ``seq_len`` pins the cache
-    length (the benchmark cell's 4096).  Where ``use_mega_decode`` holds,
-    the whole-model kernel decodes ``_pick_mega_steps(gen_len)`` tokens per
-    launch, as JAX's ``measure_decode`` does."""
+    cached steps, ``batch_size * gen_len`` tokens per run; all tokens over
+    all the time of ``iters`` timed runs after one warm-up.  ``seq_len``
+    pins the cache length (the benchmark cell's 4096).  Where
+    ``use_mega_decode`` holds, the whole-model kernel decodes
+    ``_pick_mega_steps(gen_len)`` tokens per launch, as JAX's
+    ``measure_decode`` does."""
+    ms = decode_run_ms(params, cfg, batch_size, prompt_len, gen_len, iters, seq_len,
+                       seed=seed, device=device)
+    return batch_size * gen_len * iters / (sum(ms) / 1e3)
+
+
+def decode_run_ms(params, cfg: ModelConfig, batch_size: int, prompt_len: int,
+                  gen_len: int = 100, iters: int = 3, seq_len: Optional[int] = None,
+                  *, seed: int = 0, device="cuda") -> list:
+    """Device milliseconds of each of ``iters`` timed decode runs of
+    ``measure_decode`` (after its warm-up run)."""
     device = require_cuda(device)
     max_len = default_max_len(cfg, max(prompt_len + gen_len + 1, seq_len or 0))
     ids = seeded_ids(batch_size, prompt_len, cfg.vocab_size, seed, device)
     steps = _pick_mega_steps(gen_len) if use_mega_decode(cfg, batch_size) else 1
     params = fuse_decode_params(params, cfg)
-    total_ms = 0.0
+    runs = []
     with torch.no_grad():
         logits, cache = transformer_prefill(params, cfg, ids, max_len)
         first = logits[:, -1].argmax(-1)
@@ -108,8 +130,8 @@ def measure_decode(params, cfg: ModelConfig, batch_size: int, prompt_len: int,
             ms = timed_ms(lambda: greedy_decode(params, cfg, first, run_cache, gen_len,
                                                 steps=steps), device)
             if i:
-                total_ms += ms
-    return batch_size * gen_len * iters / (total_ms / 1e3)
+                runs.append(ms)
+    return runs
 
 
 def measure_train(params, cfg: ModelConfig, micro_batch: int, accum: int, seq_len: int,

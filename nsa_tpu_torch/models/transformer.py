@@ -1,44 +1,64 @@
-"""Byte-level GPT with native sparse attention
+"""Byte-level GPT with native sparse or full attention
 (``nsa_tpu/models/transformer.py``).
 
-token embed -> depth x (NSA attention + prenorm GELU FF) -> RMSNorm ->
-logits.  The model is plain functions over a params dict in the JAX
-package's layout (see ``utils/checkpoint.py``); the decode cache is a
-``ModelCache`` threaded through ``transformer_decode_step``.  The decode
-step takes one of three routes, as in the JAX package: at b <= 8 the
-whole-model kernel ``decode_step_mega`` (one launch for all layers, JAX's
-default there, ``use_mega_decode``); with ``NSA_MEGA_DECODE=0`` the fused
-pair ``decode_select_emit`` + ``decode_attend_fused`` per layer; above
-b = 8 the split pair ``decode_select`` + ``decode_attend`` per layer.  The
-serving engine's ragged step (``transformer_decode_step_ragged``, one
-position per row) takes the ragged fused pair per layer.  The
-full-attention baseline model is not ported yet (``ROADMAP.md``).
+token embed -> depth x (attention + prenorm GELU FF) -> RMSNorm -> logits.
+The model is plain functions over a params dict in the JAX package's layout
+(see ``utils/checkpoint.py``); the decode cache is a ``ModelCache``
+threaded through ``transformer_decode_step``.
+
+The sparse model's decode step takes one of three routes, as in the JAX
+package: at b <= 8 the whole-model kernel ``decode_step_mega`` (one launch
+for all layers, JAX's default there, ``use_mega_decode``); with
+``NSA_MEGA_DECODE=0`` the fused pair ``decode_select_emit`` +
+``decode_attend_fused`` per layer; above b = 8 the split pair
+``decode_select`` + ``decode_attend`` per layer.  The serving engine's
+ragged step (``transformer_decode_step_ragged``, one position per row)
+takes the ragged fused pair per layer.
+
+The full-attention baseline (``use_sparse_attn=False``) runs its prefill
+and forward attention through the ``flash_attention`` kernel
+(``ops/cuda/flash.py``) and decodes over a ``KVDecodeCache`` with plain
+PyTorch attention, as JAX leaves its decode to XLA.
 """
 
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from ..config import ModelConfig
-from ..ops.common import rms_norm, round_up_mult
+from ..ops.common import mask_value, merge_heads, rms_norm, round_up_mult, split_heads
+from ..ops.cuda.flash import flash_attention, flash_attention_plain
 from ..ops.cuda.nsa_decode_mega import MAX_BATCH, decode_step_mega, decode_step_mega_plain
 from ..ops.nsa import (
     NSADecodeCache,
     _fused_decode_applies,
     ff_apply_gelu,
     fuse_decode_layer,
+    init_decode_cache,
     init_sparse_attention,
     sparse_attention_decode,
     sparse_attention_forward,
 )
+from ..ops.rotary import rotate_at_offset, rotate_at_row_offsets, rotate_qk
 from ..utils.checkpoint import tree_to
 
 
+class KVDecodeCache(NamedTuple):
+    """Full-attention layer cache: rotated K and V packed on the feature
+    axis (``[..., :d]`` key, ``[..., d:]`` value), so one write a step
+    serves both.  The decode step writes it in place."""
+
+    kv: torch.Tensor      # [b, kvh, max_len, 2d]
+
+
+LayerCache = Union[NSADecodeCache, KVDecodeCache]
+
+
 class ModelCache(NamedTuple):
-    layers: Tuple[NSADecodeCache, ...]
+    layers: Tuple[LayerCache, ...]
     seq_len: int          # tokens cached = the next token's position
 
 
@@ -47,10 +67,10 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_model(cfg: ModelConfig) -> None:
-    if not cfg.use_sparse_attn or cfg.ff_kind != "gelu":
+    if cfg.ff_kind != "gelu":
         raise NotImplementedError(
-            "the port implements the sparse-attention model with the gelu FF; "
-            "the full-attention baseline and swiglu wait (see ROADMAP.md)"
+            "the port implements the sparse and full-attention models with the gelu FF; "
+            "swiglu waits (see ROADMAP.md)"
         )
 
 
@@ -66,7 +86,16 @@ def init_transformer(cfg: ModelConfig, generator: torch.Generator, device="cuda"
 
     layers = []
     for _ in range(cfg.depth):
-        attn = init_sparse_attention(cfg, generator, device)
+        if cfg.use_sparse_attn:
+            attn = init_sparse_attention(cfg, generator, device)
+        else:
+            attn = tree_to({
+                "norm_scale": torch.ones(cfg.dim),
+                "w_q": uniform((cfg.dim, cfg.dim_inner), cfg.dim),
+                "w_k": uniform((cfg.dim, cfg.dim_kv_inner), cfg.dim),
+                "w_v": uniform((cfg.dim, cfg.dim_kv_inner), cfg.dim),
+                "w_out": uniform((cfg.dim_inner, cfg.dim), cfg.dim_inner),
+            }, device)
         ff = {
             "norm_scale": torch.ones(cfg.dim),
             "w1": uniform((cfg.dim, hidden), cfg.dim),
@@ -88,6 +117,100 @@ def _logits(params, cfg: ModelConfig, x):
     return (x @ params["to_logits"].to(x.dtype)).float()
 
 
+def _full_attn_forward(params, cfg: ModelConfig, x, *, return_cache_max_len=None,
+                       use_kernels: bool = True):
+    """The full-attention layer over x [b, n, dim]: rotary q and k, then
+    ``flash_attention`` (its plain version when ``use_kernels`` is False),
+    then the output projection; with ``return_cache_max_len`` also the
+    layer's ``KVDecodeCache`` holding rows 0..n-1."""
+    b, n, _ = x.shape
+    d = cfg.dim_head
+    normed = rms_norm(x, params["norm_scale"], cfg.norm_eps)
+    q = split_heads(normed @ params["w_q"].to(x.dtype), d)
+    k = split_heads(normed @ params["w_k"].to(x.dtype), d)
+    v = split_heads(normed @ params["w_v"].to(x.dtype), d).contiguous()
+    q, k = rotate_qk(q, k, cfg.rope_theta)
+    attn = flash_attention if use_kernels else flash_attention_plain
+    out = attn(q.contiguous(), k.contiguous(), v, causal=cfg.causal)
+    out = merge_heads(out) @ params["w_out"].to(x.dtype)
+    if return_cache_max_len is None:
+        return out
+    kv = x.new_zeros((b, cfg.kv_heads, return_cache_max_len, 2 * d))
+    kv[:, :, :n, :d] = k
+    kv[:, :, :n, d:] = v
+    return out, KVDecodeCache(kv=kv)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """float32 q [b, kvh, g, d] . k [b, kvh, L, d]^T, k a strided view of
+    the cache.  On the card a bf16 product goes to ``bmm`` with a float32
+    output, which reads the view in place; copying it would move the whole
+    cache a second time every step."""
+    if q.dtype == torch.float32:
+        return q @ k.transpose(-1, -2)
+    if q.is_cuda:
+        out = torch.bmm(q.flatten(0, 1), k.flatten(0, 1).transpose(1, 2),
+                        out_dtype=torch.float32)
+        return out.unflatten(0, q.shape[:2])
+    return q.float() @ k.float().transpose(-1, -2)
+
+
+def _full_qkv_weight(params, dtype) -> torch.Tensor:
+    """The full-attention layer's fused q|k|v projection [dim, (h + 2 kvh) d]."""
+    return torch.cat([params["w_q"], params["w_k"], params["w_v"]], dim=1).to(dtype)
+
+
+def _full_attn_decode(params, cfg: ModelConfig, x, cache: KVDecodeCache, t):
+    """One full-attention decode step over x [b, 1, dim] at position ``t``,
+    an int or a [b] tensor of per-row positions (the ragged step).  Writes
+    the rotated k and v at row t (row t[i]) of the cache in place and
+    returns x + attn_out.  At an int t it attends over rows 0..t
+    only, which equals JAX's masked attention over every row; a ragged step
+    attends over all rows under the mask ``row <= t[i]``, as JAX does."""
+    b = x.shape[0]
+    d, kvh, g, heads = cfg.dim_head, cfg.kv_heads, cfg.num_grouped_queries, cfg.heads
+    normed = rms_norm(x, params["norm_scale"], cfg.norm_eps)
+    w = params.get("w_qkv")
+    if w is None:
+        w = _full_qkv_weight(params, x.dtype)
+    proj = (normed @ w)[:, 0]
+    q = proj[:, :cfg.dim_inner].reshape(b, heads, d)
+    k = proj[:, cfg.dim_inner:cfg.dim_inner + cfg.dim_kv_inner].reshape(b, kvh, d)
+    v = proj[:, cfg.dim_inner + cfg.dim_kv_inner:].reshape(b, kvh, d)
+    qk = torch.cat([q, k], dim=1)[:, :, None]
+    ragged = torch.is_tensor(t)
+    if ragged:
+        rot = rotate_at_row_offsets(qk, t, cfg.rope_theta)[:, :, 0]
+    else:
+        rot = rotate_at_offset(qk, t, cfg.rope_theta)[:, :, 0]
+    kv_row = torch.cat([rot[:, heads:], v], dim=-1)              # [b, kvh, 2d]
+    kv = cache.kv
+    if ragged:
+        rows = torch.arange(b, device=x.device)[:, None]
+        kv[rows, torch.arange(kvh, device=x.device)[None, :], t.long()[:, None]] = kv_row
+        live = kv
+    else:
+        kv[:, :, t] = kv_row
+        live = kv[:, :, :t + 1]
+    sim = _scores(rot[:, :heads].reshape(b, kvh, g, d), live[..., :d]) * d ** -0.5
+    if ragged:
+        valid = torch.arange(kv.shape[2], device=x.device) <= t[:, None]
+        sim = sim.masked_fill(~valid[:, None, None, :], mask_value(torch.float32))
+    attn = torch.softmax(sim, dim=-1).to(x.dtype)
+    out = (attn @ live[..., d:]).reshape(b, 1, heads * d)
+    return x + out @ params["w_out"].to(x.dtype)
+
+
+def init_layer_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
+                     device="cuda") -> LayerCache:
+    """An empty cache of one layer for decoding from scratch: the structured
+    sparse cache, or the full model's ``KVDecodeCache``."""
+    if cfg.use_sparse_attn:
+        return init_decode_cache(cfg, batch, max_len, dtype, device)
+    return KVDecodeCache(kv=torch.zeros((batch, cfg.kv_heads, max_len, 2 * cfg.dim_head),
+                                        dtype=dtype, device=device))
+
+
 def transformer_forward(
     params, cfg: ModelConfig, ids: torch.Tensor, *,
     return_cache_max_len: Optional[int] = None, use_kernels: bool = True,
@@ -96,15 +219,22 @@ def transformer_forward(
     """Forward over token ids [b, n] -> float32 logits [b, n, vocab]; with
     ``return_cache_max_len`` also the ``ModelCache`` (prefill), whose
     ``seq_len`` is the largest true length.  ``use_kernels`` and
-    ``true_len`` as in ``sparse_attention_forward``."""
+    ``true_len`` as in ``sparse_attention_forward``; the full model's
+    attention is causal, so its rows up to each true length need no
+    ``true_len`` (JAX ignores it there too)."""
     _check_model(cfg)
     x = params["token_emb"][ids].to(_compute_dtype(cfg))
     caches = []
     for layer in params["layers"]:
-        res = sparse_attention_forward(
-            layer["attn"], cfg, x, return_cache_max_len=return_cache_max_len,
-            use_kernels=use_kernels, true_len=true_len,
-        )
+        if cfg.use_sparse_attn:
+            res = sparse_attention_forward(
+                layer["attn"], cfg, x, return_cache_max_len=return_cache_max_len,
+                use_kernels=use_kernels, true_len=true_len,
+            )
+        else:
+            res = _full_attn_forward(layer["attn"], cfg, x,
+                                     return_cache_max_len=return_cache_max_len,
+                                     use_kernels=use_kernels)
         if return_cache_max_len is None:
             attn_out = res
         else:
@@ -213,10 +343,20 @@ def fuse_decode_params(params: dict, cfg: ModelConfig) -> dict:
     and FF in the compute dtype (``fuse_decode_layer``), and, where the
     whole-model decode applies, its stacked weights under ``"mega"``
     (``pack_mega_params``).  Returns a new params dict that the decode step
-    reads the packed weights from; packing again is a no-op."""
+    reads the packed weights from; packing again is a no-op.  The
+    full-attention model gets every layer's fused q|k|v projection in the
+    compute dtype under ``"w_qkv"``: JAX returns its params unchanged there
+    because XLA hoists the step's concatenation out of the jitted loop,
+    which an eager step would pay in every layer at every step."""
+    dtype = _compute_dtype(cfg)
+    if not cfg.use_sparse_attn:
+        if all("w_qkv" in layer["attn"] for layer in params["layers"]):
+            return params
+        return {**params, "layers": [
+            {**layer, "attn": {**layer["attn"], "w_qkv": _full_qkv_weight(layer["attn"], dtype)}}
+            for layer in params["layers"]]}
     if all("decode_fused" in layer["attn"] for layer in params["layers"]):
         return params
-    dtype = _compute_dtype(cfg)
     packed = {**params, "layers": [fuse_decode_layer(layer, dtype)
                                    for layer in params["layers"]]}
     if _mega_applies(cfg):
@@ -288,10 +428,15 @@ def transformer_decode_step(
     default (fused at b <= 8, split above); "mega", "fused" or "split"
     forces one.  ``use_kernels=False`` runs the route's plain versions (see
     ``sparse_attention_decode``).  Params packed by ``fuse_decode_params``
-    save the per-step packing.
+    save the per-step packing.  The full-attention model has one route,
+    plain PyTorch attention over its ``KVDecodeCache``: ``route`` must be
+    None and ``use_kernels`` changes nothing.
     """
     _check_model(cfg)
     t = cache.seq_len
+    if not cfg.use_sparse_attn:
+        return _full_decode_layers(params, cfg, token, cache.layers, t, route), \
+            ModelCache(layers=cache.layers, seq_len=t + 1)
     if _mega_route(cfg, token.shape[0], route):
         mp = params.get("mega") or pack_mega_params(params, cfg)
         logits = transformer_decode_step_mega(mp, cfg, token, *cache_tensors(cache), t,
@@ -326,8 +471,15 @@ def transformer_decode_step_ragged(
     None or "fused" takes the ragged fused pair, "split" JAX's XLA branches
     with the block-gather kernel (its ``NSA_NO_FUSED_DECODE=1``); the
     whole-model kernel takes one position only and never runs here.
-    ``use_kernels=False`` runs the plain versions."""
+    ``use_kernels=False`` runs the plain versions.  The full-attention
+    model takes no page table and no route."""
     _check_model(cfg)
+    if not cfg.use_sparse_attn:
+        if page_table is not None:
+            raise NotImplementedError("paged KV serving is sparse-attention only")
+        t = seq_lens.to(device=params["token_emb"].device, dtype=torch.int32)
+        return _full_decode_layers(params, cfg, tokens, layer_caches, t, route), \
+            tuple(layer_caches)
     if route not in (None, "fused", "split"):
         raise ValueError(f"the ragged step's route must be None, 'fused' or 'split', "
                          f"got {route!r}")
@@ -343,9 +495,23 @@ def transformer_decode_step_ragged(
     return _logits(params, cfg, x)[:, 0], tuple(new_layers)
 
 
+def _full_decode_layers(params, cfg: ModelConfig, tokens, layer_caches, t, route):
+    """The full-attention model's decode step through every layer, caches
+    written in place; returns float32 logits [b, vocab]."""
+    if route is not None:
+        raise ValueError(f"the full-attention model has one decode route, got {route!r}")
+    x = params["token_emb"][tokens][:, None].to(_compute_dtype(cfg))    # [b, 1, dim]
+    for layer, lc in zip(params["layers"], layer_caches):
+        x = _full_attn_decode(layer["attn"], cfg, x, lc, t)
+        x = x + ff_apply_gelu(layer["ff"], cfg, x)
+    return _logits(params, cfg, x)[:, 0]
+
+
 def default_max_len(cfg: ModelConfig, need: int) -> int:
-    """Cache length for ``need`` tokens: a multiple of the compression
-    stride, the selection block and 128."""
+    """Cache length for ``need`` tokens: a multiple of 128 and, for the
+    sparse model, of the compression stride and the selection block."""
+    if not cfg.use_sparse_attn:
+        return round_up_mult(need, 128)
     nsa = cfg.nsa
     return round_up_mult(need, max(nsa.compress_block_sliding_stride,
                                    nsa.selection_block_size, 128))

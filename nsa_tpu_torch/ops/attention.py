@@ -1,5 +1,7 @@
 """Plain PyTorch attention primitives (``nsa_tpu/ops/attention.py``): the
-oracles that the port's kernels are checked against.
+oracles that the port's kernels are checked against, and the dense
+attention of the full-attention baseline (``full_attention``,
+``full_attention_chunked``).
 
 Logits are computed in float32 from the working-dtype inputs (the JAX
 package's ``preferred_element_type=float32``); softmax weights are cast
@@ -44,6 +46,83 @@ def attend(
     if not return_sim:
         return out
     return out, sim.reshape(b, h, i, -1)
+
+
+def full_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Dense attention with GQA. q [b, h, i, d], k/v [b, kvh, j, d]; when
+    causal, the queries are the LAST i positions of the j keys."""
+    i, j = q.shape[-2], k.shape[-2]
+    mask = None
+    if causal and i > 1:
+        qi = torch.arange(i, device=q.device) + (j - i)
+        mask = qi[:, None] >= torch.arange(j, device=q.device)[None, :]
+    return attend(q, k, v, mask=mask, scale=scale)
+
+
+def attention_by_query_chunks(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """Dense GQA softmax attention in the flash kernel's numerics, ``chunk``
+    query rows at a time (causal: against the keys up to the chunk's last
+    row only), so the logits never exceed [b, h, chunk, n_k].  Query row r
+    sits at key position r (the FIRST keys).  q is scaled in float32 before
+    the dot, logits are float32, masked columns get exactly zero weight, the
+    float32 weights are kept through P.V and the row sum is clamped at
+    1e-30; the output is in q's dtype."""
+    b, h, n, d = q.shape
+    kvh, n_k = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = d ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    for c0 in range(0, n, chunk):
+        c1 = min(n, c0 + chunk)
+        k_end = min(n_k, c1) if causal else n_k
+        qc = (q[:, :, c0:c1].float() * scale).reshape(b, kvh, g, c1 - c0, d)
+        s = torch.einsum("bhgid,bhjd->bhgij", qc, k[:, :, :k_end].float())
+        valid = None
+        if causal:
+            valid = (torch.arange(c0, c1, device=q.device)[:, None]
+                     >= torch.arange(k_end, device=q.device)[None, :])
+            s = s.masked_fill(~valid, -1e30)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        if valid is not None:
+            p = p.masked_fill(~valid, 0.0)
+        o = torch.einsum("bhgij,bhjd->bhgid", p, v[:, :, :k_end].float())
+        o = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        out[:, :, c0:c1] = o.reshape(b, h, c1 - c0, d).to(q.dtype)
+    return out
+
+
+def full_attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """Dense attention evaluated per query chunk (exact, memory-bounded):
+    ``full_attention`` up to ``chunk`` queries, as in JAX, and
+    ``attention_by_query_chunks`` above, where query row r sits at position
+    r of the keys (the FIRST positions, as the flash kernel counts them),
+    which equals ``full_attention`` when q and k have the same length.
+    Above ``chunk`` the softmax weights stay float32 through P.V, where
+    JAX's ``attend`` casts them to the input dtype first: the same in
+    float32, not bit for bit in bf16."""
+    if q.shape[2] <= chunk:
+        return full_attention(q, k, v, causal=causal, scale=scale)
+    return attention_by_query_chunks(q, k, v, causal=causal, scale=scale, chunk=chunk)
 
 
 def _shift_tiles(x: torch.Tensor, amt: int) -> torch.Tensor:

@@ -48,6 +48,7 @@ SIGNATURES = {
     "nsa_decode_attend_fused_ragged": [_p] * 17 + [_i] * 11 + [_f, _f, _p],
     "nsa_decode_attend_fused_paged": [_p] * 18 + [_i] * 12 + [_f, _f, _p],
     "nsa_paged_gather": [_p] * 3 + [_i] * 5 + [_p],
+    "nsa_flash_attention": [_p] * 4 + [_i] * 6 + [_f, _p],
     # the whole-model decode: a host array of pointers and of ints (see
     # csrc/nsa_decode_mega.cu for their order), their lengths, scale, eps
     "nsa_decode_mega": [_p, _i, _p, _i, _f, _f, _p],

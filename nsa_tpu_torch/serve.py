@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine over the structured sparse KV cache
-(``nsa_tpu/serve.py``).
+"""Continuous-batching serving engine over the structured sparse KV cache,
+or the full-attention model's kv cache (``nsa_tpu/serve.py``).
 
 * a fixed pool of cache slots ([max_batch] leading dim on every cache
   leaf), each slot with its own sequence length;
@@ -16,9 +16,10 @@
   sampled token fed back on the device, with one [B, steps] readback.
 
 The engine allocates its caches on the params' device, so params on the
-card serve on the card.  Not ported: the ``mesh`` argument (serving over a
-(data, heads) mesh waits for the port's parallelism, ``ROADMAP.md``) and
-the full-attention model, which the port does not have yet.
+card serve on the card.  The full-attention model serves on the dense pool
+only; its paged pool raises, as in JAX.  Not ported: the ``mesh`` argument
+(serving over a (data, heads) mesh waits for the port's parallelism,
+``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -37,11 +38,12 @@ from .models.transformer import (
     _compute_dtype,
     _sample_from_logits,
     fuse_decode_params,
+    init_layer_cache,
     transformer_decode_step_ragged,
     transformer_prefill,
 )
 from .ops.common import round_up_mult
-from .ops.nsa import NSADecodeCache, _ckv_width, init_decode_cache
+from .ops.nsa import NSADecodeCache, _ckv_width
 
 
 def ragged_decode_step(params, cfg: ModelConfig, tokens, cache_layers, seq_lens, *,
@@ -156,7 +158,7 @@ class Request:
 
 
 class ContinuousBatchingEngine:
-    """Slot-based continuous batching for NSA decode."""
+    """Slot-based continuous batching for NSA (or full-attention) decode."""
 
     def __init__(
         self,
@@ -183,7 +185,7 @@ class ContinuousBatchingEngine:
         request's whole lifetime of pages, so no request runs out mid-flight;
         when the pool is full, pending requests wait.  ``route`` is the
         ragged step's (``transformer_decode_step_ragged``); the paged pool
-        takes the fused route only.  Sampling at ``temperature > 0`` draws
+        takes the fused route only, and the sparse model only.  Sampling at ``temperature > 0`` draws
         its noise from ``torch.Generator``s seeded with ``seed``."""
         if mesh is not None:
             raise NotImplementedError("serving over a device mesh is not ported yet "
@@ -207,6 +209,8 @@ class ContinuousBatchingEngine:
         self.paged = paged_pool_pages is not None
         nsa = cfg.nsa
         if self.paged:
+            if not cfg.use_sparse_attn:
+                raise NotImplementedError("the paged KV pool is sparse-attention only")
             if route == "split":
                 raise NotImplementedError("the paged KV pool takes the fused route only")
             stride = nsa.compress_block_sliding_stride
@@ -235,8 +239,8 @@ class ContinuousBatchingEngine:
             self._free_pages: deque = deque(range(paged_pool_pages))
             self._slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
         else:
-            self.cache_layers = tuple(init_decode_cache(cfg, max_batch, max_len, dtype,
-                                                        self.device)
+            self.cache_layers = tuple(init_layer_cache(cfg, max_batch, max_len, dtype,
+                                                       self.device)
                                       for _ in range(cfg.depth))
         self.seq_lens = np.zeros(max_batch, np.int32)
         self.slot_req: List[Optional[Request]] = [None] * max_batch

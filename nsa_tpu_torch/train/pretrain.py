@@ -230,8 +230,8 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if args.full_attention:
-        raise NotImplementedError("the full-attention model is not ported yet (ROADMAP.md, "
-                                  "modules queue item 1)")
+        raise NotImplementedError("training the full-attention model is not ported yet "
+                                  "(ROADMAP.md, modules queue item 1b)")
 
     ckpt_dir = args.ckpt_dir or f"ckpt/sparse_{args.compressor}_seq{args.seq_len}"
     model_cfg = reference_model_config(compressor=args.compressor).replace(

@@ -24,7 +24,11 @@ carry one more ulp downstream: 2^-6 of the largest value (two bf16 ulps);
 the ring shift and the kv row write are copies, bit-equal.  The ragged
 and paged decode kernels are held to the same 2^-6; the paged attend
 kernel equals the ragged one bit for bit on the same logical cache, and
-the block gather is a copy.
+the block gather is a copy.  The flash attention kernel rounds its softmax
+weights to bf16 for the P.V product, where its plain version keeps them
+float32, and both round the output once: element by element, 2^-7 of the
+plain output plus 2^-8 of the same attention over |v|
+(``flash.flash_attention_tolerance``: each term twice its source).
 """
 
 import pytest
@@ -38,11 +42,13 @@ from nsa_tpu_torch.models.transformer import (
     stack_decode_caches,
     transformer_decode_step,
     transformer_decode_step_mega,
+    transformer_forward,
     transformer_loss,
     transformer_prefill,
 )
 from nsa_tpu_torch.models.transformer import transformer_decode_step_ragged
 from nsa_tpu_torch.ops.cuda import (
+    flash,
     nsa_decode,
     nsa_decode_fused,
     nsa_decode_mega,
@@ -551,3 +557,54 @@ def test_model_ragged_step_kernels_match_plain(gen, route):
             token, seq = want.argmax(-1), seq + 1
     ran = [fn.launches - n for fn, n in zip(counted, before)]
     assert ran == ([0, 4, 0, 0] if route == "split" else [4, 0, 0, 0])
+
+
+@pytest.mark.parametrize("G,n,causal", [(2, 300, True), (2, 300, False), (2, 3900, True),
+                                        (2, 3900, False), (1, 300, True), (4, 130, True)])
+def test_flash_attention_kernel_matches_plain(gen, G, n, causal):
+    b, kvh, d = 2, 2, 64
+    q, k, v = randn(gen, b, kvh * G, n, d), randn(gen, b, kvh, n, d), randn(gen, b, kvh, n, d)
+    before = flash.flash_attention.launches
+    got = flash.flash_attention(q, k, v, causal=causal)
+    want = flash.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    tol = flash.flash_attention_tolerance(q, k, v, want, causal=causal)
+    assert ((got.float() - want.float()).abs() <= tol).all()
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    q, k = randn(gen, 1, 4, 64, 64), randn(gen, 1, 2, 64, 64)
+    with pytest.raises(ValueError):
+        flash.flash_attention(randn(gen, 1, 4, 64, 32), randn(gen, 1, 2, 64, 32),
+                              randn(gen, 1, 2, 64, 32))
+    with pytest.raises(ValueError):
+        flash.flash_attention(randn(gen, 1, 6, 64, 64), k, k)       # 3 heads per KV head
+    with pytest.raises(TypeError):
+        flash.flash_attention(q.float(), k.float(), k.float())
+    with pytest.raises(NotImplementedError):
+        flash.flash_attention(q.requires_grad_(), k, k)
+
+
+def test_full_model_prefill_and_decode_kernels_match_plain(gen):
+    """The full-attention model at the reference widths, two layers: the
+    prefill through the flash kernel against its plain version, then one
+    decode step from each cache, within chip_smoke.py's 2% of the logits'
+    scale."""
+    cfg = reference_model_config(use_sparse_attn=False).replace(depth=2, dtype="bfloat16")
+    params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cuda"),
+                     dtype=torch.bfloat16)
+    ids = torch.randint(0, 256, (3, 333), generator=gen, device="cuda")
+    before = flash.flash_attention.launches
+    with torch.inference_mode():
+        got, cache = transformer_prefill(params, cfg, ids, 384)
+        want, plain = transformer_forward(params, cfg, ids, return_cache_max_len=384,
+                                          use_kernels=False)
+        assert flash.flash_attention.launches == before + cfg.depth
+        assert max_err(got, want) <= 0.02 * want.abs().max().item()
+        token = want[:, -1].argmax(-1)
+        step, _ = transformer_decode_step(params, cfg, token, cache)
+        step_p, _ = transformer_decode_step(params, cfg, token, plain)
+    assert torch.isfinite(step).all()
+    assert max_err(step, step_p) <= 0.02 * step_p.abs().max().item()

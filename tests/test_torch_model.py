@@ -150,4 +150,4 @@ def test_random_init_layout_matches_jax():
     np.testing.assert_array_equal(port["layers"][1]["attn"]["gate_b"].numpy(),
                                   np.asarray(params["layers"][1]["attn"]["gate_b"]))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tt.transformer_forward(port, t_tiny(use_sparse_attn=False), torch.zeros(1, 4, dtype=torch.long))
+        tt.transformer_forward(port, t_tiny(ff_kind="swiglu"), torch.zeros(1, 4, dtype=torch.long))

@@ -9,7 +9,7 @@ cases mirror ``tests/test_serve.py``: one request and an exact-bucket
 prompt, concurrent requests, continuous admission, ``steps_per_sync`` 1 and
 3, the capacity tail, stop bytes, pool exhaustion, the paged pool's
 capacity, oversize rejection, and what the port does not take (a mesh, the
-full-attention model) raising.  Greedy tokens compare exactly; sampling at
+full-attention model on the paged pool) raising.  Greedy tokens compare exactly; sampling at
 temperature > 0 must repeat under the same seed.  Float32 on the CPU, the
 tiny test configuration.
 """
@@ -165,13 +165,14 @@ def test_oversize_requests_rejected():
 
 
 def test_unported_options_raise():
-    """A mesh, the full-attention model and a paged pool on the split route
-    raise NotImplementedError."""
+    """A mesh, the full-attention model on the paged pool and a paged pool on
+    the split route raise NotImplementedError."""
     _, port = model_params()
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine(port, t_tiny(), max_len=64, mesh=object())
     with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(port, t_tiny(use_sparse_attn=False), max_len=64)
+        ContinuousBatchingEngine(port, t_tiny(use_sparse_attn=False), max_len=64,
+                                 paged_pool_pages=8, page_tokens=8)
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine(port, t_tiny(), max_len=64, paged_pool_pages=8,
                                  page_tokens=8, route="split")
