@@ -12,11 +12,18 @@ Phases, each printing its name and seconds as it ends:
              read into bf16 tensors on the card; its config is the cell's.
 4. kernels - each kernel against its plain PyTorch version at the benchmark
              cell's shapes (bs 64, max_len 4096, prefill n 3900), inputs from
-             a seeded generator, with kernel, plain and bound times.
+             a seeded generator, with kernel, plain and bound times; the
+             prefill forward twice: on seeded random selections and on the
+             selections (and rq, rk, v) that layer 0 of the trained model's
+             prefill of seeded ids makes, element by element
+             (``fine_sliding_tolerance``) with a control that leaves each
+             row's first selected block out, the union sizes per 16- and
+             64-row tile, and ``flex_attention`` timed beside it.
 5. main    - the port's main path through its entry points: prefill of
              64 x 3900 seeded tokens, then 100 greedy decode steps with the
              4096-row cache; launch counts read around exactly that run; the
-             first decode step's logits held against the plain versions'.
+             prefill's logits held against the plain path's, and the first
+             decode step's logits against the plain versions'.
 6. measure - decode and prefill tok/s over 3 more timed runs each
              (``measure_decode``, ``measure_prefill``).
 7. profile - ``torch.profiler`` over one prefill and 5 decode steps: device
@@ -145,6 +152,7 @@ from nsa_tpu_torch.ops.cuda import (  # noqa: E402
     paged_gather,
     runtime,
 )
+from nsa_tpu_torch.ops import nsa as nsa_layer  # noqa: E402
 from nsa_tpu_torch.ops.nsa import _ckv_width, fuse_decode_layer  # noqa: E402
 from nsa_tpu_torch import bench as port_bench  # noqa: E402
 from nsa_tpu_torch import serve  # noqa: E402
@@ -161,10 +169,11 @@ from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
 # about twice each phase's longest time on the H100 (61 s build of the eight
-# kernels, 12 s small phase, 79 s train on the slower host, 19 s serve, 5.2 s
-# kernels with the plain flash attention at full size, 20.6 s full), at least
-# 10 s for the phases of a few seconds, whose time is host noise; 512 s in all
-BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 12, "main": 10,
+# kernels, 12 s small phase, 79 s train on the slower host, 19 s serve, 35 s
+# kernels with the plain flash attention at full size and flex_attention's
+# compile, 20.6 s full, 5.7 s main with its two plain prefills), at least
+# 10 s for the phases of a few seconds, whose time is host noise; 575 s in all
+BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 70, "main": 15,
             "measure": 20, "profile": 50, "small": 30, "serve": 40, "full": 50,
             "train": 160}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
@@ -186,10 +195,13 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak, same source
 # bf16 keeps 8 significant bits (unit roundoff 2^-9).  The plain decode
 # versions round their softmax weights to bf16 before the weighted sum and
-# round the output; the kernels keep the weights in float32 (so does the
-# plain prefill forward, which then differs by sum order and the output's
-# rounding).  On outputs that are convex combinations of values |v| <= ~5
-# that is <= ~2 * 2^-9 * 5 = 0.02.
+# round the output; the kernels keep the weights in float32.  On outputs
+# that are convex combinations of values |v| <= ~5 that is <= ~2 * 2^-9 * 5
+# = 0.02.  The prefill forward (row 1) is held element by element instead
+# (``nsa_prefill.fine_sliding_tolerance``): 2^-7 |plain| for the outputs'
+# two bf16 roundings plus 2^-8 of the same branch's attention over |v| for
+# the kernel's bf16 softmax weights in P.V, each term twice its source; a
+# control with each row's first selected block left out must fail it.
 TOL_OUT = 0.03
 TOL_LSE = 1e-3               # float32 both ways, same bf16 inputs: sum order only
 TIE = 1e-6                   # selection scores closer than this count as ties
@@ -337,32 +349,219 @@ def needed_keys(sel_idx, sel_mask, cfg):
     return fine, band
 
 
-def kernel_prefill(gen, flush, cfg):
+def union_sizes(sel_idx, sel_mask, sel_block, rows):
+    """Mean and largest number of distinct blocks over tiles of ``rows``
+    query rows: the valid selections at or before each row's own block, and
+    each row's own block (the union the prefill kernel streams; within 16
+    rows at most 16 S + 1 blocks)."""
+    b, kvh, n, S = sel_idx.shape
+    nblk, tiles = -(-n // sel_block), -(-n // rows)
+    pos = torch.arange(n, device=sel_idx.device)
+    q_blk, tile = pos // sel_block, pos // rows
+    idx = sel_idx.long()
+    ok = sel_mask & (idx >= 0) & (idx <= q_blk[:, None])
+    base = (torch.arange(b * kvh, device=sel_idx.device).reshape(b, kvh, 1, 1) * tiles
+            + tile[:, None]) * nblk
+    hit = torch.zeros(b * kvh * tiles * nblk, dtype=torch.bool, device=sel_idx.device)
+    hit[(base + idx)[ok]] = True
+    hit[(base[..., 0] + q_blk).flatten()] = True
+    u = hit.reshape(b, kvh, tiles, nblk).sum(-1).float()
+    return {"mean": u.mean().item(), "max": u.max().item()}
+
+
+def without_first_block(sel_idx, sel_mask, sel_block):
+    """The selection mask with each row's first valid slot before its own
+    block cleared, and every slot naming the same block: the selections of a
+    kernel that left one block out of every row that has one."""
+    n = sel_idx.shape[2]
+    q_blk = (torch.arange(n, device=sel_idx.device) // sel_block)[:, None]
+    idx = sel_idx.long()
+    cand = sel_mask & (idx >= 0) & (idx < q_blk)
+    first = idx.gather(-1, cand.int().argmax(-1, keepdim=True))
+    return sel_mask & ~(cand.any(-1, keepdim=True) & (idx == first))
+
+
+def flex_block_masks(sel_idx, sel_mask, sel_block, window, heads, block=128):
+    """The fine and sliding branches' ``BlockMask``s for ``flex_attention``,
+    built from the rows' block membership: each 128 x 128 block that holds a
+    kept (row, key) is a partial block under the ``mask_mod``."""
+    from torch.nn.attention.flex_attention import BlockMask
+
+    b, kvh, n, _ = sel_idx.shape
+    dev, G, nblk = sel_idx.device, heads // kvh, -(-n // sel_block)
+    pos = torch.arange(n, device=dev)
+    q_blk = pos // sel_block
+    idx = sel_idx.long()
+    ok = sel_mask & (idx >= 0) & (idx <= q_blk[:, None])
+    member = torch.zeros((b, kvh, n, nblk), dtype=torch.bool, device=dev)
+    member.scatter_(-1, torch.where(ok, idx, q_blk[:, None]), True)
+    member.scatter_(-1, q_blk[:, None].expand(b, kvh, n, 1), True)
+
+    def fine(bb, hh, qi, ki):
+        return (ki <= qi) & member[bb, hh // G, qi, ki // sel_block]
+
+    def band(bb, hh, qi, ki):
+        return (ki <= qi) & (qi - ki <= window)
+
+    nb, per = -(-n // block), block // sel_block
+    padded = torch.zeros((b, kvh, nb * block, nb * per), dtype=torch.bool, device=dev)
+    padded[:, :, :n, :nblk] = member
+    qb = torch.arange(nb, device=dev)
+    causal = qb[None, :] <= qb[:, None]                                   # [q block, kv block]
+    fine_blocks = padded.reshape(b, kvh, nb, block, nb, per).any(5).any(3) & causal
+    band_blocks = causal & (qb[None, :] >= (qb[:, None] * block - window) // block)
+
+    def block_mask(any_blocks, mask_mod):
+        return BlockMask.from_kv_blocks(
+            any_blocks.sum(-1, dtype=torch.int32),
+            torch.argsort(any_blocks.to(torch.int8), dim=-1, descending=True,
+                          stable=True).to(torch.int32),
+            BLOCK_SIZE=block, mask_mod=mask_mod, seq_lengths=(n, n))
+
+    return (block_mask(fine_blocks.repeat_interleave(G, dim=1), fine),
+            block_mask(band_blocks[None, None], band))
+
+
+def flex_prefill(rq, rk, v, sel_idx, sel_mask, sel_block, window, scale):
+    """Row 1's library yardstick: ``flex_attention`` under ``torch.compile``
+    for each branch with its log-sum-exp, the fine branch through a
+    selection-lookup ``mask_mod`` and the sliding one through a band; the
+    block masks are built here, outside the timed call.  The port never
+    calls it."""
+    from torch.nn.attention.flex_attention import flex_attention
+
+    fine_mask, band_mask = flex_block_masks(sel_idx, sel_mask, sel_block, window, rq.shape[1])
+    attend = torch.compile(flex_attention)
+
+    def run():
+        fo, flse = attend(rq, rk, v, block_mask=fine_mask, scale=scale, enable_gqa=True,
+                          return_lse=True)
+        so, slse = attend(rq, rk, v, block_mask=band_mask, scale=scale, enable_gqa=True,
+                          return_lse=True)
+        return fo, so, flse, slse
+
+    return run
+
+
+def check_prefill(name, inputs, flush, cfg):
+    """Row 1 on one set of inputs: both outputs against the plain version
+    element by element (``fine_sliding_tolerance``), both log-sum-exps
+    within TOL_LSE, and a control (the plain fine output with each row's
+    first valid selected block left out, on 2 sequences) that must fail the
+    rule; the union sizes per 16- and 64-row tile; kernel, plain, bound and
+    flex_attention times."""
     nsa = cfg.nsa
     G, d = cfg.num_grouped_queries, cfg.dim_head
     Bs, window, scale = nsa.selection_block_size, nsa.sliding_window_size, d ** -0.5
-    rq, rk, v, sel_idx, sel_mask = prefill_inputs(gen, cfg, BATCH, PROMPT)
+    rq, rk, v, sel_idx, sel_mask = inputs
     args = (rq, rk, v, sel_idx, sel_mask, Bs, window, scale)
 
     got = nsa_prefill.prefill_fwd(*args)
     want = nsa_prefill.fine_sliding_plain(*args)
+    tols = nsa_prefill.fine_sliding_tolerance(*args, want)
     torch.cuda.synchronize()
-    errs = [max_err(x, y) for x, y in zip(got, want)]
-    print(f"  prefill_fwd max|err| fine {errs[0]:.5f} sliding {errs[1]:.5f} "
-          f"(tol {TOL_OUT}), lse {errs[2]:.2e} {errs[3]:.2e} (tol {TOL_LSE})", flush=True)
-    check(errs[0] <= TOL_OUT and errs[1] <= TOL_OUT, "prefill_fwd outputs disagree")
-    check(errs[2] <= TOL_LSE and errs[3] <= TOL_LSE, "prefill_fwd LSEs disagree")
-    check(all(torch.isfinite(x.float()).all().item() for x in got), "prefill_fwd non-finite")
+    ratios = [((x.float() - y.float()).abs() / t).max().item()
+              for x, y, t in zip(got[:2], want[:2], tols)]
+    lse = [max_err(x, y) for x, y in zip(got[2:], want[2:])]
+    two = (rq[:2], rk[:2], v[:2], sel_idx[:2])
+    wrong = nsa_prefill.fine_sliding_plain(
+        *two, without_first_block(sel_idx[:2], sel_mask[:2], Bs), Bs, window, scale)[0]
+    control = ((wrong.float() - want[0][:2].float()).abs() / tols[0][:2]).max().item()
+    del tols, wrong
+    unions = {f"u{r}": union_sizes(sel_idx, sel_mask, Bs, r) for r in (16, 64)}
+    print(f"  {name}: max |err| / bound fine {ratios[0]:.4f} sliding {ratios[1]:.4f} (<= 1: "
+          f"2^-7 |plain| + 2^-8 attention over |v|), lse max|err| {lse[0]:.2e} {lse[1]:.2e} "
+          f"(tol {TOL_LSE}); each row's first selected block left out: {control:.2f} (must be "
+          f"> 1); union blocks per 16 rows {unions['u16']}, per 64 rows {unions['u64']}",
+          flush=True)
+    check(control > 1.0, f"{name}: the prefill rule passes a kernel that leaves out a block")
+    check(all(torch.isfinite(x.float()).all().item() for x in got)
+          and max(ratios) <= 1.0, f"{name}: outputs disagree with the plain version")
+    check(max(lse) <= TOL_LSE, f"{name}: log-sum-exps disagree with the plain version")
 
     flops = sum(needed_keys(sel_idx, sel_mask, cfg)) * G * 4 * d
     bms, by = bound_ms(nbytes(rq, rk, v, sel_idx, sel_mask, *got), flops)
     ms = timed_ms(lambda: nsa_prefill.prefill_fwd(*args), 10, flush)
     plain = timed_ms(lambda: nsa_prefill.fine_sliding_plain(*args), 2, flush)
-    return {"name": "prefill_fwd", "route": "cuda",
-            "source": "nsa_tpu_torch/csrc/nsa_prefill.cu",
+    t0 = time.perf_counter()
+    library = flex_prefill(*args)
+    lib_err = max(max_err(x, y) for x, y in zip(library()[:2], want[:2]))
+    setup = time.perf_counter() - t0
+    lib = timed_ms(library, 10, flush)
+    print(f"  {name} {ms:.4f} ms (bound {bms:.4f} ms by {by}: {ms / bms:.2f}x), plain "
+          f"{plain:.3f} ms, flex_attention (both branches) {lib:.4f} ms, its outputs vs plain "
+          f"max|err| {lib_err:.5f} (block masks and compile {setup:.1f}s)", flush=True)
+    return {"name": name, "route": "cuda", "source": "nsa_tpu_torch/csrc/nsa_prefill.cu",
             "replaces": "nsa_tpu/ops/pallas/nsa_prefill.py:315",
-            "max_abs_err": max(errs[0], errs[1]), "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "max_abs_err": max(max_err(x, y) for x, y in zip(got[:2], want[:2])), "ms": ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "unions": unions}
+
+
+def trained_prefill_inputs(params, cfg):
+    """Row 1's inputs as layer 0 of the serving cell's prefill gives them
+    with the trained weights (seeded prompt ids): rq, rk, v and the
+    selections, recorded around the kernel's wrapper."""
+    recorded, real = [], nsa_prefill.prefill_fwd
+
+    def recording(*a, **k):
+        if not recorded:
+            recorded.append([x.clone() for x in a[:5]])
+        return real(*a, **k)
+
+    recording.launches = 0
+    ids = seeded_ids(BATCH, PROMPT, cfg.vocab_size, SEED, DEVICE)
+    nsa_prefill.prefill_fwd = recording
+    try:
+        transformer_prefill(params, cfg, ids, MAX_LEN)
+    finally:
+        nsa_prefill.prefill_fwd = real
+    return recorded[0]
+
+
+def kernel_prefill(gen, flush, cfg, params):
+    """Row 1 at the serving cell on seeded random selections (close to the
+    worst case for the union) and on the trained weights' own (the user's
+    case)."""
+    random = check_prefill("prefill_fwd", prefill_inputs(gen, cfg, BATCH, PROMPT), flush, cfg)
+    trained = check_prefill("prefill_fwd_trained", trained_prefill_inputs(params, cfg), flush,
+                            cfg)
+    return random, trained
+
+
+def prefill_logits_vs_plain(params, cfg, ids):
+    """The kernel path's prefill logits against the plain path's, the plain
+    path run on the kernel path's selections layer by layer.  Selection is
+    the same plain code on both paths, but its top-k flips where a layer's
+    input moves by a bf16 rounding, and a flipped block moves that row's
+    logits by more than the kernels' rounding does (with the parent
+    commit's kernel as with this one: 8-10 of the 249,600 positions at the
+    serving cell).  Returns the largest error, the largest plain logit and
+    how many positions exceed the tolerance on the plain path's own
+    selections."""
+    real = nsa_layer.nsa_fine_sliding_attention
+    recorded, feed = [], None
+
+    def record(*a, **k):
+        recorded.append(a[3:5])
+        return real(*a, **k)
+
+    def replay(*a, **k):
+        return real(*a[:3], *next(feed), *a[5:], **k)
+
+    try:
+        nsa_layer.nsa_fine_sliding_attention = record
+        got = transformer_forward(params, cfg, ids)
+        feed = iter(recorded)
+        nsa_layer.nsa_fine_sliding_attention = replay
+        want = transformer_forward(params, cfg, ids, use_kernels=False)
+    finally:
+        nsa_layer.nsa_fine_sliding_attention = real
+    err, top = max_err(got, want), want.abs().max().item()
+    del want, recorded
+    own = transformer_forward(params, cfg, ids, use_kernels=False)
+    flipped = int(((got - own).abs().amax(-1) > TOL_LOGITS_REL * max(top, 1.0)).sum())
+    return err, top, flipped
 
 
 def kernel_prefill_bwd(gen, flush, cfg):
@@ -1840,7 +2039,7 @@ def main():
 
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
-        kernels = [kernel_prefill(gen, flush, cfg), *kernel_decode(gen, flush, cfg),
+        kernels = [*kernel_prefill(gen, flush, cfg, params), *kernel_decode(gen, flush, cfg),
                    *kernel_prefill_bwd(gen, flush, cfg),
                    *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0]),
                    kernel_decode_mega(gen, flush, cfg, fuse_decode_params(params, cfg),
@@ -1884,6 +2083,12 @@ def main():
         check(launches == want, f"main-path launches {launches}, expected {want}")
         check(tuple(logits.shape) == (BATCH, PROMPT, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()), "prefill logits not finite/shaped")
+        pre_err, pre_scale, flipped = prefill_logits_vs_plain(params, cfg, ids)
+        print(f"  prefill logits kernels vs plain on the same selections max|err| {pre_err:.4f} "
+              f"(tol {TOL_LOGITS_REL} x max|logit| {pre_scale:.2f}); on the plain path's own "
+              f"selections {flipped} of {BATCH * PROMPT} positions differ by more", flush=True)
+        check(pre_err <= TOL_LOGITS_REL * max(pre_scale, 1.0),
+              "kernel-path prefill logits disagree with the plain path")
         check(tuple(tokens.shape) == (BATCH, GEN) and int(tokens.min()) >= 0
               and int(tokens.max()) < cfg.vocab_size, "generated tokens malformed")
 
@@ -1949,7 +2154,7 @@ def main():
                          else paged_launches if k["name"] == "decode_attend_fused_paged"
                          else split_launches if k["name"] == "paged_gather"
                          else dense_launches if k["name"].endswith("_ragged")
-                         else launches)[k["name"]]
+                         else launches)[k["name"].removesuffix("_trained")]
     print(json.dumps({"main": {
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,
         "measure_decode_tok_s": tps, "measure_prefill_tok_s": prefill_tps, "peak_bytes": peak,

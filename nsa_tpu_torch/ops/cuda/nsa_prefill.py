@@ -38,6 +38,7 @@ import torch
 
 from ..common import mask_value
 from . import runtime
+from .flash import TOL_ABS_V_REL, TOL_OUT_REL
 
 KERNEL_MAX_SEL = 16   # selected blocks per row the kernels take (csrc kMaxSel)
 
@@ -128,6 +129,21 @@ def fine_sliding_plain(
         so, slse = _masked_attend(qg, rk[:, :, bpos], v[:, :, bpos], bok, scale)
         parts.append((fo, so, flse, slse))
     return tuple(torch.cat(p, dim=2) for p in zip(*parts))
+
+
+def fine_sliding_tolerance(rq, rk, v, sel_idx, sel_mask, sel_block: int, window: int,
+                           scale: float, want) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 bounds, element by element, on |``prefill_fwd`` -
+    ``fine_sliding_plain``| for the fine and the sliding output on the same
+    bf16 inputs, ``want`` being the plain version's outputs: the forward
+    kernel rounds its softmax weights to bf16 for P.V as the flash kernel
+    does, so the rule is flash's (``flash.TOL_OUT_REL``): ``TOL_OUT_REL``
+    |want| + ``TOL_ABS_V_REL`` times the same branch's attention over |v|.
+    The log-sum-exps are float32 both ways and are held to 1e-3 apart."""
+    abs_v = fine_sliding_plain(rq.float(), rk.float(), v.float().abs(), sel_idx, sel_mask,
+                               sel_block, window, scale)
+    return tuple(TOL_OUT_REL * w.float().abs() + TOL_ABS_V_REL * a
+                 for w, a in zip(want[:2], abs_v[:2]))
 
 
 def _check_kernel_shapes(rq, rk, sel_idx):

@@ -10,10 +10,14 @@ nsa_tpu (the card's machine has neither).  Run there with
 (``--noconftest`` because tests/conftest.py configures JAX.)
 
 Shapes are small but keep the kernels' dim_head of 64.  Tolerances are
-stated in bf16: the plain versions round softmax weights and outputs to
-bf16 (unit roundoff 2^-9) where the kernels keep float32, so outputs agree
-to 0.03 absolute on values of order 1-5; log-sum-exps are float32 both
-ways (1e-3).  The backward kernels and their plain versions both compute in
+stated in bf16: the plain decode versions round softmax weights and outputs
+to bf16 (unit roundoff 2^-9) where the kernels keep float32, so outputs
+agree to 0.03 absolute on values of order 1-5; log-sum-exps are float32
+both ways (1e-3).  The prefill forward kernel rounds its softmax weights to
+bf16 for P.V where its plain version keeps them float32, and both round the
+outputs once: element by element, 2^-7 of the plain output plus 2^-8 of
+the same branch's attention over |v|
+(``nsa_prefill.fine_sliding_tolerance``: each term twice its source).  The backward kernels and their plain versions both compute in
 float32 and round dq, dk, dv to bf16 at the end: one bf16 ulp of the
 largest value (2^-7 of it); d_gates and the deltas stay float32 (1e-4 of
 the largest value: sum order and expf).  The fused decode kernels and their
@@ -80,6 +84,23 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def check_prefill_kernel(rq, rk, v, sel_idx, sel_mask, Bs, window, scale=0.125):
+    """One launch of the forward kernel against its plain version: both
+    outputs within ``fine_sliding_tolerance`` element by element, both
+    log-sum-exps within TOL_LSE."""
+    args = (rq, rk, v, sel_idx, sel_mask, Bs, window, scale)
+    before = nsa_prefill.prefill_fwd.launches
+    got = nsa_prefill.prefill_fwd(*args)
+    want = nsa_prefill.fine_sliding_plain(*args)
+    torch.cuda.synchronize()
+    assert nsa_prefill.prefill_fwd.launches == before + 1
+    tols = nsa_prefill.fine_sliding_tolerance(*args, want)
+    for x, y, tol in zip(got[:2], want[:2], tols):
+        assert x.dtype == torch.bfloat16 and torch.isfinite(x.float()).all()
+        assert ((x.float() - y.float()).abs() <= tol).all()
+    assert max_err(got[2], want[2]) <= TOL_LSE and max_err(got[3], want[3]) <= TOL_LSE
+
+
 @pytest.mark.parametrize("G,n,S", [(2, 300, 4), (1, 77, 2), (4, 130, 16)])
 def test_prefill_kernel_matches_plain(gen, G, n, S):
     b, kvh, d, Bs, window = 2, 2, 64, 16, 64
@@ -88,14 +109,40 @@ def test_prefill_kernel_matches_plain(gen, G, n, S):
     sel_idx = torch.randint(0, W, (b, kvh, n, S), generator=gen, device="cuda",
                             dtype=torch.int32)
     sel_mask = torch.rand((b, kvh, n, S), generator=gen, device="cuda") < 0.7
-    args = (rq, rk, v, sel_idx, sel_mask, Bs, window, 0.125)
-    before = nsa_prefill.prefill_fwd.launches
-    got = nsa_prefill.prefill_fwd(*args)
-    want = nsa_prefill.fine_sliding_plain(*args)
-    torch.cuda.synchronize()
-    assert nsa_prefill.prefill_fwd.launches == before + 1
-    assert max_err(got[0], want[0]) <= TOL_OUT and max_err(got[1], want[1]) <= TOL_OUT
-    assert max_err(got[2], want[2]) <= TOL_LSE and max_err(got[3], want[3]) <= TOL_LSE
+    check_prefill_kernel(rq, rk, v, sel_idx, sel_mask, Bs, window)
+
+
+@pytest.mark.parametrize("pattern,G,n,S,Bs,window", [
+    ("shared", 2, 300, 4, 16, 64),       # every row of a 16-row block selects the same blocks
+    ("distinct", 2, 300, 4, 16, 64),     # every row selects other blocks than its neighbours
+    ("random", 8, 200, 16, 16, 64),      # the widest tile: 16 rows x 8 heads, 16 slots
+    ("random", 2, 120, 2, 4, 8),         # the tiny config's blocks: 4 to a 16-key sub-tile
+    ("random", 2, 77, 4, 16, 64),
+    ("random", 2, 3900, 4, 16, 64),
+    ("random", 1, 150, 3, 24, 20),       # a block size that is no divisor of 16
+])
+def test_prefill_kernel_selection_patterns_match_plain(gen, pattern, G, n, S, Bs, window):
+    """Selections from the whole range (future blocks, the row's own block,
+    duplicates, invalid slots), shared by each 16-row group (the fewest
+    union blocks) or spread so no two rows of a tile share a block (the
+    most)."""
+    b, kvh, d = 2, 2, 64
+    rq, rk, v = randn(gen, b, kvh * G, n, d), randn(gen, b, kvh, n, d), randn(gen, b, kvh, n, d)
+    W = -(-n // Bs)
+    shape = (b, kvh, n, S)
+    if pattern == "shared":
+        sel_idx = torch.randint(0, W, (b, kvh, -(-n // 16), S), generator=gen, device="cuda",
+                                dtype=torch.int32).repeat_interleave(16, dim=2)[:, :, :n].contiguous()
+        sel_mask = torch.ones(shape, dtype=torch.bool, device="cuda")
+    elif pattern == "distinct":
+        rows = torch.arange(n, device="cuda")[:, None]
+        slots = torch.arange(S, device="cuda")[None, :]
+        sel_idx = ((rows * S + slots) % W).to(torch.int32).expand(shape).contiguous()
+        sel_mask = torch.ones(shape, dtype=torch.bool, device="cuda")
+    else:
+        sel_idx = torch.randint(0, W, shape, generator=gen, device="cuda", dtype=torch.int32)
+        sel_mask = torch.rand(shape, generator=gen, device="cuda") < 0.7
+    check_prefill_kernel(rq, rk, v, sel_idx, sel_mask, Bs, window)
 
 
 @pytest.mark.parametrize("G,n,S", [(2, 300, 4), (1, 77, 2), (4, 130, 16), (8, 64, 3)])
@@ -557,6 +604,20 @@ def test_model_ragged_step_kernels_match_plain(gen, route):
             token, seq = want.argmax(-1), seq + 1
     ran = [fn.launches - n for fn, n in zip(counted, before)]
     assert ran == ([0, 4, 0, 0] if route == "split" else [4, 0, 0, 0])
+
+
+@pytest.mark.parametrize("G,n,n_k,causal", [(2, 300, 170, True), (1, 77, 300, False),
+                                            (4, 130, 200, True)])
+def test_flash_attention_kernel_other_key_lengths_match_plain(gen, G, n, n_k, causal):
+    """n_k != n: query row r at key position r, as the wrapper takes it."""
+    b, kvh, d = 2, 2, 64
+    q, k, v = randn(gen, b, kvh * G, n, d), randn(gen, b, kvh, n_k, d), randn(gen, b, kvh, n_k, d)
+    got = flash.flash_attention(q, k, v, causal=causal)
+    want = flash.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    tol = flash.flash_attention_tolerance(q, k, v, want, causal=causal)
+    assert ((got.float() - want.float()).abs() <= tol).all()
 
 
 @pytest.mark.parametrize("G,n,causal", [(2, 300, True), (2, 300, False), (2, 3900, True),

@@ -105,12 +105,17 @@ def test_decode_attend_plain_matches_pallas(t):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("n,sel_block,window,S", [(40, 8, 12, 2), (70, 16, 20, 3), (9, 4, 8, 1)])
-def test_fine_sliding_plain_matches_pallas(n, sel_block, window, S):
+@pytest.mark.parametrize("n,sel_block,window,S,G", [
+    pytest.param(40, 8, 12, 2, 2, id="40-8-12-2"), pytest.param(70, 16, 20, 3, 2, id="70-16-20-3"),
+    pytest.param(9, 4, 8, 1, 2, id="9-4-8-1"),
+    pytest.param(70, 8, 12, 16, 8, id="70-8-12-16-G8"),   # the CUDA kernel's widest tile
+])
+def test_fine_sliding_plain_matches_pallas(n, sel_block, window, S, G):
     """Random selections, including duplicates, the row's own block, future
     blocks and invalid slots: the kernel's masked-union semantics."""
     rs = np.random.RandomState(n)
-    b, h, kvh, d = 2, 4, 2, 16
+    b, kvh, d = 2, 2, 16
+    h = kvh * G
     rq, rk, v = rnd(rs, b, h, n, d), rnd(rs, b, kvh, n, d), rnd(rs, b, kvh, n, d)
     W = -(-n // sel_block)
     sel_idx = rs.randint(0, W, (b, kvh, n, S)).astype(np.int32)
