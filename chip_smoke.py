@@ -81,7 +81,15 @@ Phases, each printing its name and seconds as it ends:
              steps, with the device time of copies a step (none of the cache).
 
 The kernels phase also holds the two backward kernels against their plain
-versions at the training cell's shapes (bs 16, n 4096), the two fused
+versions at the training cell's shapes (bs 16, n 4096) on seeded random
+selections and on those layer 0 of the trained weights' forward of a seeded
+micro-batch makes: dq, dk, dv element by element
+(``prefill_bwd_tolerance``) with a dropped-block control, d_gates and the
+deltas, each kernel bit-equal on a second launch, rows per inverted list
+and union blocks per 16 rows, ptxas's registers and spills at G = 2, and
+``flex_attention``'s backward (dq, dk, dv of both branches) timed beside
+them; the train phase prints the same sizes for its random-init model's
+selections and rows 4-5's share of the profiled micro-step.  It holds the two fused
 decode kernels at the small-batch cell's (bs 8, layer 0's trained weights,
 seeded activations and caches; the select kernel at an emission step and
 at the step before it), the whole-model decode kernel there (bs 8, all
@@ -169,11 +177,12 @@ from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
 # about twice each phase's longest time on the H100 (61 s build of the eight
-# kernels, 12 s small phase, 79 s train on the slower host, 19 s serve, 35 s
+# kernels, 12 s small phase, 79 s train on the slower host, 19 s serve, 63 s
 # kernels with the plain flash attention at full size and flex_attention's
-# compile, 20.6 s full, 5.7 s main with its two plain prefills), at least
-# 10 s for the phases of a few seconds, whose time is host noise; 575 s in all
-BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 70, "main": 15,
+# compiles, forward and backward, 20.6 s full, 5.7 s main with its two plain
+# prefills), at least 10 s for the phases of a few seconds, whose time is
+# host noise; 635 s in all
+BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 130, "main": 15,
             "measure": 20, "profile": 50, "small": 30, "serve": 40, "full": 50,
             "train": 160}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
@@ -209,17 +218,20 @@ TIE = 1e-6                   # selection scores closer than this count as ties
 # one bf16 rounding (2^-8 relative) between the paths; through the residual
 # stream that stays within ~1% of the logits' scale.
 TOL_LOGITS_REL = 0.02
-# backward kernels against their plain versions, same bf16 inputs, float32
-# arithmetic both ways: dq, dk, dv are rounded to bf16 at the end by both, so
-# they differ by at most one bf16 ulp of the largest value (2^-7 of it, the
-# top binade's ulp with 8 significant bits); d_gates and the deltas stay
-# float32 and differ by sum order over <= 64 terms and expf (1e-4 of the max).
-TOL_BWD_BF16 = 2.0 ** -7
+# The backward kernels (rows 4 and 5) against their plain versions, same
+# bf16 inputs: dq, dk, dv element by element (``nsa_prefill.
+# prefill_bwd_tolerance``), 2^-7 |plain| for the outputs' two bf16 roundings
+# plus 2^-8 of the same sum over absolute values for the kernels' bf16
+# tensor-core operands (P in dV; dS as a bf16 pair in dQ and dK), each term
+# twice its source, with a dropped-block control that must fail it;
+# d_gates and the deltas stay float32 and differ by sum order and exp2
+# (1e-4 of the max).
 TOL_BWD_F32 = 1e-4
 # One micro-batch, bf16 compute, relative L2 error per gradient tensor.
 # Kernels vs the kernel forward with the plain backward (the two backward
-# kernels alone): dq, dk, dv differ by <= one bf16 ulp (2^-8 relative) per
-# element, carried back through the earlier layers: 0.05.  Kernels vs the
+# kernels alone): dq, dk, dv differ by about one bf16 ulp (2^-8 relative) per
+# element (dv by up to as much again for P's bf16 rounding), carried back
+# through the earlier layers: 0.05.  Kernels vs the
 # plain path: the two forwards also differ by one rounding of their bf16
 # outputs, and gradients that are net sums over all 65k positions with heavy
 # cancellation (k_pos, the compressors' first bias, gate_b: norms 1e-7 to
@@ -267,6 +279,11 @@ ALL_KERNELS = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.
                nsa_decode_ragged.decode_attend_fused_ragged,
                nsa_decode_ragged.decode_attend_fused_paged, paged_gather.paged_gather,
                flash.flash_attention)
+
+# the kernels the backward of the fine + sliding attention launches (rows 4
+# and 5, and the dkv kernel's pre-pass and last pass)
+BWD_KERNELS = ("bwd_dq_kernel", "bwd_dkv_kernel", "list_rows_kernel", "exclusive_scan_kernel",
+               "list_sort_kernel", "plan_kernel", "items_kernel", "dkv_reduce_kernel")
 
 PHASES = []
 
@@ -369,18 +386,6 @@ def union_sizes(sel_idx, sel_mask, sel_block, rows):
     return {"mean": u.mean().item(), "max": u.max().item()}
 
 
-def without_first_block(sel_idx, sel_mask, sel_block):
-    """The selection mask with each row's first valid slot before its own
-    block cleared, and every slot naming the same block: the selections of a
-    kernel that left one block out of every row that has one."""
-    n = sel_idx.shape[2]
-    q_blk = (torch.arange(n, device=sel_idx.device) // sel_block)[:, None]
-    idx = sel_idx.long()
-    cand = sel_mask & (idx >= 0) & (idx < q_blk)
-    first = idx.gather(-1, cand.int().argmax(-1, keepdim=True))
-    return sel_mask & ~(cand.any(-1, keepdim=True) & (idx == first))
-
-
 def flex_block_masks(sel_idx, sel_mask, sel_block, window, heads, block=128):
     """The fine and sliding branches' ``BlockMask``s for ``flex_attention``,
     built from the rows' block membership: each 128 x 128 block that holds a
@@ -465,7 +470,8 @@ def check_prefill(name, inputs, flush, cfg):
     lse = [max_err(x, y) for x, y in zip(got[2:], want[2:])]
     two = (rq[:2], rk[:2], v[:2], sel_idx[:2])
     wrong = nsa_prefill.fine_sliding_plain(
-        *two, without_first_block(sel_idx[:2], sel_mask[:2], Bs), Bs, window, scale)[0]
+        *two, nsa_prefill.without_first_block(sel_idx[:2], sel_mask[:2], Bs), Bs, window,
+        scale)[0]
     control = ((wrong.float() - want[0][:2].float()).abs() / tols[0][:2]).max().item()
     del tols, wrong
     unions = {f"u{r}": union_sizes(sel_idx, sel_mask, Bs, r) for r in (16, 64)}
@@ -498,10 +504,9 @@ def check_prefill(name, inputs, flush, cfg):
             "unions": unions}
 
 
-def trained_prefill_inputs(params, cfg):
-    """Row 1's inputs as layer 0 of the serving cell's prefill gives them
-    with the trained weights (seeded prompt ids): rq, rk, v and the
-    selections, recorded around the kernel's wrapper."""
+def layer0_prefill_inputs(params, cfg, run):
+    """Row 1's inputs as layer 0 of ``run(params, cfg)`` gives them: rq,
+    rk, v and the selections, recorded around the kernel's wrapper."""
     recorded, real = [], nsa_prefill.prefill_fwd
 
     def recording(*a, **k):
@@ -510,13 +515,23 @@ def trained_prefill_inputs(params, cfg):
         return real(*a, **k)
 
     recording.launches = 0
-    ids = seeded_ids(BATCH, PROMPT, cfg.vocab_size, SEED, DEVICE)
     nsa_prefill.prefill_fwd = recording
     try:
-        transformer_prefill(params, cfg, ids, MAX_LEN)
+        run(params, cfg)
     finally:
         nsa_prefill.prefill_fwd = real
     return recorded[0]
+
+
+def serving_prefill(params, cfg):
+    """The serving cell's prefill of seeded prompt ids."""
+    ids = seeded_ids(BATCH, PROMPT, cfg.vocab_size, SEED, DEVICE)
+    transformer_prefill(params, cfg, ids, MAX_LEN)
+
+
+def training_forward(params, cfg):
+    """The forward of one seeded micro-batch at the training cell."""
+    transformer_forward(params, cfg, seeded_ids(MICRO, SEQ, cfg.vocab_size, SEED, DEVICE))
 
 
 def kernel_prefill(gen, flush, cfg, params):
@@ -524,8 +539,8 @@ def kernel_prefill(gen, flush, cfg, params):
     worst case for the union) and on the trained weights' own (the user's
     case)."""
     random = check_prefill("prefill_fwd", prefill_inputs(gen, cfg, BATCH, PROMPT), flush, cfg)
-    trained = check_prefill("prefill_fwd_trained", trained_prefill_inputs(params, cfg), flush,
-                            cfg)
+    trained = check_prefill("prefill_fwd_trained",
+                            layer0_prefill_inputs(params, cfg, serving_prefill), flush, cfg)
     return random, trained
 
 
@@ -564,14 +579,88 @@ def prefill_logits_vs_plain(params, cfg, ids):
     return err, top, flipped
 
 
-def kernel_prefill_bwd(gen, flush, cfg):
-    """Both backward kernels against their plain versions at the training
-    cell's shapes; seeded inputs and cotangents, the forward from the kernel."""
+def list_sizes(sel_idx, sel_mask, sel_block):
+    """Mean and largest number of rows per inverted list: for each (batch,
+    KV head, block) the rows whose valid selection names the block before
+    the row's own block, each row once (the lists row 5 walks)."""
+    b, kvh, n, S = sel_idx.shape
+    nblk = -(-n // sel_block)
+    q_blk = (torch.arange(n, device=sel_idx.device) // sel_block)[:, None]
+    idx = sel_idx.long()
+    ok = sel_mask & (idx >= 0) & (idx < q_blk)
+    member = torch.zeros((b, kvh, n, nblk + 1), dtype=torch.bool, device=sel_idx.device)
+    member.scatter_(-1, torch.where(ok, idx, nblk), True)
+    rows = member[..., :nblk].sum(2).float()
+    return {"mean": rows.mean().item(), "max": rows.max().item()}
+
+
+def selection_stats(sel_idx, sel_mask, sel_block):
+    """What the backward kernels' designs depend on: rows per inverted list
+    (row 5) and union blocks per 16 query rows (row 4)."""
+    return {"rows_per_list": list_sizes(sel_idx, sel_mask, sel_block),
+            "u16": union_sizes(sel_idx, sel_mask, sel_block, 16)}
+
+
+def ptxas_usage(log, kernel):
+    """(registers, spill store bytes, spill load bytes) that ptxas reports
+    for the first entry function whose name holds ``kernel``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            regs = spill = None
+            for nxt in lines[i + 1:i + 6]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "spill stores" in nxt:
+                    words = nxt.replace(",", "").split()
+                    spill = (int(words[words.index("spill") - 2]), int(words[-4]))
+                if "Used" in nxt and "registers" in nxt:
+                    words = nxt.replace(",", "").split()
+                    regs = int(words[words.index("registers") - 1])
+            return regs, spill
+    return None, None
+
+
+def flex_backward(inputs, fo_grad, so_grad, sel_block, window, scale, flush, iters=10):
+    """Rows 4 and 5's library yardstick: ``torch.autograd.grad`` through
+    ``flex_prefill`` (``flex_attention`` for both branches under
+    ``torch.compile``), dq, dk and dv; no d_gates.  A first forward and
+    backward compile both; then the median device ms of the backward alone
+    (each timed call on a forward run before it, L2 flushed) and the first
+    call's gradients."""
+    with torch.inference_mode(False), torch.enable_grad():
+        rq, rk, v = (x.clone().requires_grad_() for x in inputs[:3])
+        run = flex_prefill(rq, rk, v, *(x.clone() for x in inputs[3:]), sel_block, window,
+                           scale)
+        cot = (fo_grad.clone(), so_grad.clone())
+        grads = torch.autograd.grad(run()[:2], (rq, rk, v), cot)
+        events = []
+        for _ in range(iters):
+            outs = run()[:2]
+            with torch.inference_mode():
+                flush.zero_()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            torch.autograd.grad(outs, (rq, rk, v), cot)
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+    ts = sorted(s.elapsed_time(e) for s, e in events)
+    return ts[len(ts) // 2], grads
+
+
+def check_prefill_bwd(name, inputs, gen, flush, cfg, log):
+    """Rows 4 and 5 on one set of inputs at the training cell: the forward
+    kernel's outputs, seeded cotangents; dq, dk, dv against the plain
+    versions element by element (``prefill_bwd_tolerance``) with a control
+    (the plain backward with each row's first selected block left out, on
+    2 sequences) that must fail the rule; d_gates and the deltas within
+    TOL_BWD_F32; each kernel bit-equal on a second launch; the lists' and
+    unions' sizes; kernel, plain, bound and flex_attention backward times."""
     nsa = cfg.nsa
     G, d = cfg.num_grouped_queries, cfg.dim_head
     Bs, window, scale = nsa.selection_block_size, nsa.sliding_window_size, d ** -0.5
-    rq, rk, v, sel_idx, sel_mask = prefill_inputs(gen, cfg, MICRO, SEQ)
-    sel = (rq, rk, v, sel_idx, sel_mask)
+    rq, rk, v, sel_idx, sel_mask = sel = inputs
     fo, so, flse, slse = nsa_prefill.prefill_fwd(*sel, Bs, window, scale)
     dfo = torch.randn(fo.shape, generator=gen, device=DEVICE).to(torch.bfloat16)
     dso = torch.randn(so.shape, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -579,26 +668,42 @@ def kernel_prefill_bwd(gen, flush, cfg):
     got_q = nsa_prefill.prefill_bwd_dq(*dq_args)
     want_q = nsa_prefill.prefill_bwd_dq_plain(*dq_args)
     # the dkv kernel and its plain version read the same (plain) deltas
-    dkv_args = (*sel, flse, slse, want_q[2], want_q[3], dfo, dso, Bs, window, scale)
+    terms = (flse, slse, want_q[2], want_q[3], dfo, dso)
+    dkv_args = (*sel, *terms, Bs, window, scale)
     got_kv = nsa_prefill.prefill_bwd_dkv(*dkv_args)
     want_kv = nsa_prefill.prefill_bwd_dkv_plain(*dkv_args)
-    again = nsa_prefill.prefill_bwd_dkv(*dkv_args)
+    again = (*nsa_prefill.prefill_bwd_dq(*dq_args), *nsa_prefill.prefill_bwd_dkv(*dkv_args))
     torch.cuda.synchronize()
-    errs = {}
-    for name, x, y, tol in (("dq", got_q[0], want_q[0], TOL_BWD_BF16),
-                            ("d_gates", got_q[1], want_q[1], TOL_BWD_F32),
-                            ("fine_delta", got_q[2], want_q[2], TOL_BWD_F32),
-                            ("sliding_delta", got_q[3], want_q[3], TOL_BWD_F32),
-                            ("dk", got_kv[0], want_kv[0], TOL_BWD_BF16),
-                            ("dv", got_kv[1], want_kv[1], TOL_BWD_BF16)):
-        err, top = max_err(x, y), y.float().abs().max().item()
-        errs[name] = err
-        print(f"  prefill_bwd {name}: max|err| {err:.3e} (tol {tol:.3g} x max|plain| "
-              f"{top:.3f})", flush=True)
-        check(torch.isfinite(x.float()).all().item() and err <= tol * top,
-              f"prefill_bwd {name} disagrees with its plain version")
-    check(torch.equal(got_kv[0], again[0]) and torch.equal(got_kv[1], again[1]),
-          "prefill_bwd_dkv is not deterministic")
+    want = (want_q[0], *want_kv)
+    tols = nsa_prefill.prefill_bwd_tolerance(*sel, *terms, Bs, window, scale, want)
+    ratios = {k: ((x.float() - y.float()).abs() / t).max().item()
+              for k, x, y, t in zip(("dq", "dk", "dv"), (got_q[0], *got_kv), want, tols)}
+    f32 = {k: max_err(x, y) / y.float().abs().max().item()
+           for k, x, y in zip(("d_gates", "fine_delta", "sliding_delta"), got_q[1:], want_q[1:])}
+    two = [x[:2] for x in sel]
+    dropped = nsa_prefill.without_first_block(two[3], two[4], Bs)
+    wrong = (nsa_prefill.prefill_bwd_dq_plain(*two[:4], dropped,
+                                              *[x[:2] for x in dq_args[5:11]], *dq_args[11:])[0],
+             *nsa_prefill.prefill_bwd_dkv_plain(*two[:4], dropped,
+                                                *[x[:2] for x in dkv_args[5:11]], *dkv_args[11:]))
+    control = [((x.float() - y[:2].float()).abs() / t[:2]).max().item()
+               for x, y, t in zip(wrong, want, tols)]
+    del tols, wrong
+    stats = selection_stats(sel_idx, sel_mask, Bs)
+    print(f"  {name}: max |err| / bound dq {ratios['dq']:.4f} dk {ratios['dk']:.4f} dv "
+          f"{ratios['dv']:.4f} (<= 1: 2^-7 |plain| + 2^-8 of the sum over absolute values); "
+          f"max |err| / max |plain| d_gates {f32['d_gates']:.2e} deltas {f32['fine_delta']:.2e} "
+          f"{f32['sliding_delta']:.2e} (tol {TOL_BWD_F32}); each row's first selected block left "
+          f"out: dq {control[0]:.2f} dk {control[1]:.2f} dv {control[2]:.2f} (dq and dk or dv "
+          f"must be > 1); rows per inverted list {stats['rows_per_list']}, union blocks per 16 "
+          f"rows {stats['u16']}", flush=True)
+    check(control[0] > 1.0 and max(control[1:]) > 1.0,
+          f"{name}: the backward rule passes a kernel that leaves out a block")
+    check(all(torch.isfinite(x.float()).all().item() for x in (*got_q, *got_kv))
+          and max(ratios.values()) <= 1.0, f"{name}: dq, dk or dv disagree with the plain version")
+    check(max(f32.values()) <= TOL_BWD_F32, f"{name}: d_gates or a delta disagrees")
+    check(all(torch.equal(x, y) for x, y in zip((*got_q, *got_kv), again)),
+          f"{name}: a backward kernel is not deterministic")
 
     fine, band = needed_keys(sel_idx, sel_mask, cfg)
     common = nbytes(*sel, flse, slse, dfo, dso)
@@ -606,18 +711,48 @@ def kernel_prefill_bwd(gen, flush, cfg):
     # (row, key, head) of each branch
     bq, byq = bound_ms(common + nbytes(fo, so, *got_q), (fine + band) * G * 6 * d)
     bkv, bykv = bound_ms(common + nbytes(got_q[2], got_q[3], *got_kv), (fine + band) * G * 8 * d)
+    t0 = time.perf_counter()
+    lib, lib_out = flex_backward(sel, dfo, dso, Bs, window, scale, flush)
+    lib_err = max(max_err(x, y) for x, y in zip(lib_out, want))
+    setup = time.perf_counter() - t0
+    del lib_out
     out = []
-    for name, fn, plain, args, bms, by, err, line in (
+    for kname, fn, plain, args, bms, by, err, line in (
             ("prefill_bwd_dq", nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dq_plain,
-             dq_args, bq, byq, max(errs["dq"], errs["d_gates"]), 657),
+             dq_args, bq, byq, max_err(got_q[0], want_q[0]), 657),
             ("prefill_bwd_dkv", nsa_prefill.prefill_bwd_dkv, nsa_prefill.prefill_bwd_dkv_plain,
-             dkv_args, bkv, bykv, max(errs["dk"], errs["dv"]), 677)):
-        out.append({"name": name, "route": "cuda", "source": "nsa_tpu_torch/csrc/nsa_prefill_bwd.cu",
+             dkv_args, bkv, bykv, max(max_err(x, y) for x, y in zip(got_kv, want_kv)), 677)):
+        ms = timed_ms(lambda: fn(*args), 10, flush)
+        regs, spill = ptxas_usage(log, ("bwd_dq_kernelILi2E" if kname.endswith("dq")
+                                        else "bwd_dkv_kernelILi2E"))
+        print(f"  {kname + name.removeprefix('prefill_bwd')} {ms:.4f} ms (bound {bms:.4f} ms by "
+              f"{by}: {ms / bms:.2f}x); registers {regs}, spill stores / loads {spill} bytes at "
+              f"G = 2", flush=True)
+        out.append({"name": kname + name.removeprefix("prefill_bwd"), "route": "cuda",
+                    "source": "nsa_tpu_torch/csrc/nsa_prefill_bwd.cu",
                     "replaces": f"nsa_tpu/ops/pallas/nsa_prefill.py:{line}",
-                    "max_abs_err": err, "ms": timed_ms(lambda: fn(*args), 10, flush),
+                    "max_abs_err": err, "ms": ms,
                     "plain_ms": timed_ms(lambda: plain(*args), 2, flush),
-                    "bound_ms": bms, "bound_by": by, "library_ms": None})
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                    "library": "flex_attention backward of both branches (dq, dk, dv; no "
+                               "d_gates), rows 4 and 5 together",
+                    "registers_g2": regs, "spill_bytes_g2": spill, **stats})
+    print(f"  {name}: flex_attention backward (dq, dk, dv of both branches together, no d_gates) "
+          f"{lib:.4f} ms against rows 4 + 5 {out[0]['ms'] + out[1]['ms']:.4f} ms; its gradients "
+          f"vs plain max|err| {lib_err:.5f} (block masks, compiles and timing {setup:.1f}s)",
+          flush=True)
     return out
+
+
+def kernel_prefill_bwd(gen, flush, cfg, params, log):
+    """Rows 4 and 5 at the training cell on seeded random selections and on
+    the trained weights' own (layer 0 of a seeded micro-batch's forward)."""
+    random = check_prefill_bwd("prefill_bwd", prefill_inputs(gen, cfg, MICRO, SEQ), gen, flush,
+                               cfg, log)
+    trained = check_prefill_bwd("prefill_bwd_trained",
+                                layer0_prefill_inputs(params, cfg, training_forward), gen,
+                                flush, cfg, log)
+    return [*random, *trained]
 
 
 def check_selection(info_k, info_p, scores, num_sel, n_slide, label):
@@ -1958,6 +2093,11 @@ def train_phase(smi):
         loss = transformer_loss(params, cfg, ids, use_kernels=use_kernels)
         return loss.item(), torch.autograd.grad(loss, leaves)
 
+    with torch.no_grad():
+        stats = selection_stats(*layer0_prefill_inputs(params, cfg, training_forward)[3:],
+                                cfg.nsa.selection_block_size)
+    print(f"  layer 0 of the random-init model at {MICRO}x{SEQ}: rows per inverted list "
+          f"{stats['rows_per_list']}, union blocks per 16 rows {stats['u16']}", flush=True)
     lk, gk = loss_and_grads(True)
     lp, gp = loss_and_grads(False)
     kernel_bwd = nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv
@@ -1977,9 +2117,12 @@ def train_phase(smi):
         errs = {key: rel_l2(a, b) for (key, _), a, b in zip(tree_items(params), gk, other)}
         worst = max(errs, key=errs.get)
         grad_errs[label] = errs[worst]
+        k_pos = max(v for k, v in errs.items() if "k_pos" in k)   # the net sum nearest its gate
+        grad_errs[label + " k_pos"] = k_pos
         print(f"  gradients, kernels vs {label}: rel L2 max {errs[worst]:.3e} at {worst} "
               f"(tol {tol}), median {sorted(errs.values())[len(errs) // 2]:.3e} "
-              f"over {len(errs)} tensors", flush=True)
+              f"over {len(errs)} tensors; k_pos (largest over the layers) {k_pos:.3e}",
+              flush=True)
         check(errs[worst] <= tol, f"kernel-path gradients disagree with the {label}")
     del gk, gp, gh
 
@@ -1998,12 +2141,25 @@ def train_phase(smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = _report(prof, f"one training micro-step {MICRO}x{SEQ}", wall)[0]
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+    bwd_ms = sum(_dev_us(e) for e in device
+                 if "nsa::" in e.key and any(k in e.key for k in BWD_KERNELS)) / 1e3
+    device_ms = sum(_dev_us(e) for e in device) / 1e3
+    print(f"  rows 4-5 (with the dkv pre-pass) in the micro-step: {bwd_ms:.3f} ms of "
+          f"{device_ms:.3f} ms device time ({100 * bwd_ms / device_ms:.1f}%); {smi}", flush=True)
     return launches, {"train_s": train_s, "train_peak_bytes": peak,
                       "train_losses": losses, "measure_train_tok_s": tps,
                       "grad_rel_l2_max": grad_errs["plain path"],
                       "grad_rel_l2_max_bwd_only": grad_errs["kernel forward + plain backward"],
+                      "k_pos_rel_l2": grad_errs["plain path k_pos"],
+                      "k_pos_rel_l2_bwd_only": grad_errs["kernel forward + plain backward k_pos"],
                       "loss_kernels": lk, "loss_plain": lp,
-                      "train_micro_step_device_busy": busy}
+                      "train_micro_step_device_busy": busy,
+                      "train_micro_step_device_ms": device_ms, "train_rows45_ms": bwd_ms,
+                      "train_init_selections": stats}
 
 
 def main():
@@ -2040,7 +2196,7 @@ def main():
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
         kernels = [*kernel_prefill(gen, flush, cfg, params), *kernel_decode(gen, flush, cfg),
-                   *kernel_prefill_bwd(gen, flush, cfg),
+                   *kernel_prefill_bwd(gen, flush, cfg, params, lib.log),
                    *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0]),
                    kernel_decode_mega(gen, flush, cfg, fuse_decode_params(params, cfg),
                                       SMALL_BATCHES[0]),

@@ -32,6 +32,7 @@ kernel path against them on the card.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -146,6 +147,19 @@ def fine_sliding_tolerance(rq, rk, v, sel_idx, sel_mask, sel_block: int, window:
                  for w, a in zip(want[:2], abs_v[:2]))
 
 
+def without_first_block(sel_idx, sel_mask, sel_block: int):
+    """The selection mask with each row's first valid slot before its own
+    block cleared, and every slot naming the same block: the selections of a
+    kernel that left one block out of every row that has one.  The control
+    each kernel's elementwise rule must fail."""
+    n = sel_idx.shape[2]
+    q_blk = (torch.arange(n, device=sel_idx.device) // sel_block)[:, None]
+    idx = sel_idx.long()
+    cand = sel_mask & (idx >= 0) & (idx < q_blk)
+    first = idx.gather(-1, cand.int().argmax(-1, keepdim=True))
+    return sel_mask & ~(cand.any(-1, keepdim=True) & (idx == first))
+
+
 def _check_kernel_shapes(rq, rk, sel_idx):
     b, h, n, d = rq.shape
     kvh = rk.shape[1]
@@ -191,21 +205,25 @@ def prefill_fwd(rq, rk, v, sel_idx, sel_mask, sel_block: int, window: int, scale
 prefill_fwd.launches = 0
 
 
-def _bwd_terms(qs, do, keys, vals, ok, lse, delta):
+def _bwd_terms(qs, do, keys, vals, ok, lse, delta, absolute=False):
     """One branch's backward terms, as the Pallas ``branch_ds``.
     qs [b, kvh, G, m, d] scaled float queries; do [b, kvh, G, m, d]; keys,
     vals [b, kvh, m, J, d] float; ok broadcastable to [b, kvh, G, m, J];
-    lse, delta [b, kvh, G, m] -> s, p, dS [b, kvh, G, m, J]."""
+    lse, delta [b, kvh, G, m] -> s, p, dS [b, kvh, G, m, J]; with
+    ``absolute`` p (|dP| + |delta|) in place of dS."""
     s = torch.einsum("bhgmd,bhmjd->bhgmj", qs, keys)
     p = torch.where(ok, torch.exp(torch.clamp(s - lse[..., None], max=30.0)), 0.0)
     dp = torch.einsum("bhgmd,bhmjd->bhgmj", do.float(), vals)
+    if absolute:
+        return s, p, p * (dp.abs() + delta.abs()[..., None])
     return s, p, p * (dp - delta[..., None])
 
 
 def _bwd_chunks(rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, dso,
-                sel_block, window, scale, chunk):
+                sel_block, window, scale, chunk, absolute=False):
     """Per chunk of query rows: (c0, c1, blocks, scaled q, dfo, dso, fine
-    (pos, p, dS, s), band (pos, p, dS)) with the terms in float32."""
+    (pos, p, dS, s), band (pos, p, dS)) with the terms in float32 (with
+    ``absolute``, p (|dP| + |delta|) in place of dS)."""
     b, h, n, d = rq.shape
     kvh = rk.shape[1]
     G = h // kvh
@@ -219,9 +237,10 @@ def _bwd_chunks(rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, dso,
         dfo_c, dso_c = rows(dfo, c0, c1), rows(dso, c0, c1)
         blocks, fpos, fok, bpos, bok = _row_keys(sel_idx, sel_mask, c0, c1, n, sel_block, window)
         s, pf, dsf = _bwd_terms(qs, dfo_c, _take(rk, fpos).float(), _take(v, fpos).float(),
-                                fok[:, :, None], rows(flse, c0, c1), rows(fdel, c0, c1))
+                                fok[:, :, None], rows(flse, c0, c1), rows(fdel, c0, c1),
+                                absolute)
         _, ps, dss = _bwd_terms(qs, dso_c, rk[:, :, bpos].float(), v[:, :, bpos].float(),
-                                bok, rows(slse, c0, c1), rows(sdel, c0, c1))
+                                bok, rows(slse, c0, c1), rows(sdel, c0, c1), absolute)
         yield c0, c1, blocks, qs, dfo_c, dso_c, (fpos, pf, dsf, s), (bpos, ps, dss)
 
 
@@ -253,22 +272,65 @@ def prefill_bwd_dq_plain(rq, rk, v, sel_idx, sel_mask, fo, so, flse, slse, dfo, 
     return torch.cat(dqs, dim=2).to(rq.dtype), dg, fdel, sdel
 
 
-def prefill_bwd_dkv_plain(rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, dso,
-                          sel_block: int, window: int, scale: float, chunk: int = 128):
-    """The plain version of ``prefill_bwd_dkv``: each chunk's key gradients
-    scattered into float32 buffers with ``index_add_``."""
+def _dkv_sums(rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, dso,
+              sel_block, window, scale, chunk, absolute=False):
+    """Float32 dk, dv [b, kvh, n, d] scattered chunk by chunk with
+    ``index_add_``; with ``absolute`` the same sums over p (|dP| + |delta|)
+    |scale q| and p |do|."""
     b, kvh, n, d = rk.shape
     dk = torch.zeros((b * kvh * n, d), dtype=torch.float32, device=rk.device)
     dv = torch.zeros_like(dk)
     base = (torch.arange(b * kvh, device=rk.device) * n).reshape(b, kvh, 1, 1)
+    f = torch.abs if absolute else (lambda x: x)
     for c0, c1, _, qs, dfo_c, dso_c, fine, band in _bwd_chunks(
             rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, dso,
-            sel_block, window, scale, chunk):
+            sel_block, window, scale, chunk, absolute):
         for pos, p, ds, do in ((fine[0], fine[1], fine[2], dfo_c), (band[0], band[1], band[2], dso_c)):
             pos = (base + pos.expand(b, kvh, *pos.shape[-2:])).flatten()
-            dk.index_add_(0, pos, torch.einsum("bhgmj,bhgmd->bhmjd", ds, qs).reshape(-1, d))
-            dv.index_add_(0, pos, torch.einsum("bhgmj,bhgmd->bhmjd", p, do.float()).reshape(-1, d))
-    return (dk.reshape(b, kvh, n, d).to(rk.dtype), dv.reshape(b, kvh, n, d).to(v.dtype))
+            dk.index_add_(0, pos, torch.einsum("bhgmj,bhgmd->bhmjd", ds, f(qs)).reshape(-1, d))
+            dv.index_add_(0, pos, torch.einsum("bhgmj,bhgmd->bhmjd", p, f(do.float())
+                                               ).reshape(-1, d))
+    return dk.reshape(b, kvh, n, d), dv.reshape(b, kvh, n, d)
+
+
+def prefill_bwd_dkv_plain(rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, dso,
+                          sel_block: int, window: int, scale: float, chunk: int = 128):
+    """The plain version of ``prefill_bwd_dkv``: each chunk's key gradients
+    scattered into float32 buffers with ``index_add_``."""
+    dk, dv = _dkv_sums(rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, dso,
+                       sel_block, window, scale, chunk)
+    return dk.to(rk.dtype), dv.to(v.dtype)
+
+
+def prefill_bwd_tolerance(rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, dso,
+                          sel_block: int, window: int, scale: float, want, chunk: int = 128):
+    """The float32 bounds, element by element, on |kernel - plain| for dq,
+    dk and dv on the same bf16 inputs, ``want`` being the plain versions'
+    (dq, dk, dv).  The kernels take their products on the tensor cores with
+    bf16 operands where the plain versions keep float32: dS = p (dP - delta)
+    in dQ = dS.K and dK = dS^T.Q, and P in dV = P^T.dO.  Row 1's rule in the
+    same form: ``TOL_OUT_REL`` |want| for the two bf16 roundings of each
+    output, plus ``TOL_ABS_V_REL`` times the same sum over absolute values,
+    each term twice its source (an operand's rounding is 2^-9 relative):
+    scale sum p (|dP| + |delta|) |k| for dq, scale sum p (|dP| + |delta|)
+    |q| for dk, sum p |dO| for dv.  p (|dP| + |delta|) bounds |dS| and also
+    covers the float32 sums of dP and delta, which the two sides take in
+    another order: where they cancel (a branch of one key) dS is 0 in the
+    plain version but only about 2^-23 |dP| in the kernel.  The deltas and
+    d_gates stay float32 both ways and are held to 1e-4 of their largest
+    value."""
+    b, h, n, d = rq.shape
+    parts = []
+    for c0, c1, _, _, _, _, fine, band in _bwd_chunks(
+            rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, dso,
+            sel_block, window, scale, chunk, absolute=True):
+        aq = torch.einsum("bhgmj,bhmjd->bhgmd", fine[2], _take(rk, fine[0]).float().abs())
+        aq = aq + torch.einsum("bhgmj,bhmjd->bhgmd", band[2], rk[:, :, band[0]].float().abs())
+        parts.append((aq * scale).reshape(b, h, c1 - c0, d))
+    sums = (torch.cat(parts, dim=2),
+            *_dkv_sums(rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, dso,
+                       sel_block, window, scale, chunk, absolute=True))
+    return tuple(TOL_OUT_REL * w.float().abs() + TOL_ABS_V_REL * a for w, a in zip(want, sums))
 
 
 def prefill_bwd_dq(rq, rk, v, sel_idx, sel_mask, fo, so, flse, slse, dfo, dso,
@@ -336,9 +398,14 @@ def prefill_bwd_dkv(rq, rk, v, sel_idx, sel_mask, flse, slse, fdel, sdel, dfo, d
     dk = torch.empty_like(rk)
     dv = torch.empty_like(v)
     with torch.cuda.device(rq.device):
-        runtime.library().call(
-            "nsa_prefill_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), b, kvh, G, n, S,
-            sel_block, window, scale, runtime.stream_of(rq),
+        lib = runtime.library()
+        size = ctypes.c_longlong()
+        lib.call("nsa_prefill_bwd_dkv_workspace", b, kvh, n, S, sel_block, window,
+                 ctypes.addressof(size))
+        work = torch.empty(size.value, dtype=torch.uint8, device=rq.device)
+        lib.call(
+            "nsa_prefill_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
+            size.value, b, kvh, G, n, S, sel_block, window, scale, runtime.stream_of(rq),
         )
     prefill_bwd_dkv.launches += 1
     return dk, dv

@@ -34,12 +34,14 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signature of every exported kernel launcher (all return cudaError_t)
 SIGNATURES = {
     "nsa_prefill_fwd": [_p] * 9 + [_i] * 7 + [_f, _p],
     "nsa_prefill_bwd_dq": [_p] * 15 + [_i] * 7 + [_f, _p],
-    "nsa_prefill_bwd_dkv": [_p] * 13 + [_i] * 7 + [_f, _p],
+    "nsa_prefill_bwd_dkv": [_p] * 14 + [_ll] + [_i] * 7 + [_f, _p],
+    # its workspace's bytes at given shapes, written to a long long
+    "nsa_prefill_bwd_dkv_workspace": [_i] * 6 + [_p],
     "nsa_decode_select": [_p] * 5 + [_i] * 13 + [_f, _p],
     "nsa_decode_attend": [_p] * 6 + [_i] * 10 + [_f, _p],
     "nsa_decode_select_emit": [_p] * 15 + [_i] * 16 + [_f, _p],

@@ -17,10 +17,13 @@ both ways (1e-3).  The prefill forward kernel rounds its softmax weights to
 bf16 for P.V where its plain version keeps them float32, and both round the
 outputs once: element by element, 2^-7 of the plain output plus 2^-8 of
 the same branch's attention over |v|
-(``nsa_prefill.fine_sliding_tolerance``: each term twice its source).  The backward kernels and their plain versions both compute in
-float32 and round dq, dk, dv to bf16 at the end: one bf16 ulp of the
-largest value (2^-7 of it); d_gates and the deltas stay float32 (1e-4 of
-the largest value: sum order and expf).  The fused decode kernels and their
+(``nsa_prefill.fine_sliding_tolerance``: each term twice its source).  The
+backward kernels round P to bf16 for dV = P^T.dO and keep dS as a bf16
+pair for dQ and dK, where the plain versions keep float32: dq, dk, dv
+element by element within 2^-7 of the plain value plus 2^-8 of the same
+sum over absolute values (``nsa_prefill.prefill_bwd_tolerance``), with a
+dropped-block control that must fail; d_gates and the deltas stay float32
+(1e-4 of the largest value: sum order and exp2).  The fused decode kernels and their
 plain versions round at the same points (the emitted ckv row, the combined
 attention output, the layer's y, the FF's hidden row and output) from
 float32 sums taken in another order, so a rounding can flip by one ulp and
@@ -112,22 +115,12 @@ def test_prefill_kernel_matches_plain(gen, G, n, S):
     check_prefill_kernel(rq, rk, v, sel_idx, sel_mask, Bs, window)
 
 
-@pytest.mark.parametrize("pattern,G,n,S,Bs,window", [
-    ("shared", 2, 300, 4, 16, 64),       # every row of a 16-row block selects the same blocks
-    ("distinct", 2, 300, 4, 16, 64),     # every row selects other blocks than its neighbours
-    ("random", 8, 200, 16, 16, 64),      # the widest tile: 16 rows x 8 heads, 16 slots
-    ("random", 2, 120, 2, 4, 8),         # the tiny config's blocks: 4 to a 16-key sub-tile
-    ("random", 2, 77, 4, 16, 64),
-    ("random", 2, 3900, 4, 16, 64),
-    ("random", 1, 150, 3, 24, 20),       # a block size that is no divisor of 16
-])
-def test_prefill_kernel_selection_patterns_match_plain(gen, pattern, G, n, S, Bs, window):
+def selections(gen, pattern, b, kvh, n, S, Bs):
     """Selections from the whole range (future blocks, the row's own block,
-    duplicates, invalid slots), shared by each 16-row group (the fewest
-    union blocks) or spread so no two rows of a tile share a block (the
-    most)."""
-    b, kvh, d = 2, 2, 64
-    rq, rk, v = randn(gen, b, kvh * G, n, d), randn(gen, b, kvh, n, d), randn(gen, b, kvh, n, d)
+    duplicates, invalid slots) at random, shared by each 16-row group (the
+    fewest union blocks), spread so no two rows of a tile share a block (the
+    most), or blocks 0 .. S-1 for every row (a sink: the longest lists of
+    rows per block)."""
     W = -(-n // Bs)
     shape = (b, kvh, n, S)
     if pattern == "shared":
@@ -139,38 +132,98 @@ def test_prefill_kernel_selection_patterns_match_plain(gen, pattern, G, n, S, Bs
         slots = torch.arange(S, device="cuda")[None, :]
         sel_idx = ((rows * S + slots) % W).to(torch.int32).expand(shape).contiguous()
         sel_mask = torch.ones(shape, dtype=torch.bool, device="cuda")
+    elif pattern == "sink":
+        sel_idx = torch.arange(S, dtype=torch.int32, device="cuda").expand(shape).contiguous()
+        sel_mask = torch.ones(shape, dtype=torch.bool, device="cuda")
     else:
         sel_idx = torch.randint(0, W, shape, generator=gen, device="cuda", dtype=torch.int32)
         sel_mask = torch.rand(shape, generator=gen, device="cuda") < 0.7
-    check_prefill_kernel(rq, rk, v, sel_idx, sel_mask, Bs, window)
+    return sel_idx, sel_mask
+
+
+@pytest.mark.parametrize("pattern,G,n,S,Bs,window", [
+    ("shared", 2, 300, 4, 16, 64),       # every row of a 16-row block selects the same blocks
+    ("distinct", 2, 300, 4, 16, 64),     # every row selects other blocks than its neighbours
+    ("random", 8, 200, 16, 16, 64),      # the widest tile: 16 rows x 8 heads, 16 slots
+    ("random", 2, 120, 2, 4, 8),         # the tiny config's blocks: 4 to a 16-key sub-tile
+    ("random", 2, 77, 4, 16, 64),
+    ("random", 2, 3900, 4, 16, 64),
+    ("random", 1, 150, 3, 24, 20),       # a block size that is no divisor of 16
+])
+def test_prefill_kernel_selection_patterns_match_plain(gen, pattern, G, n, S, Bs, window):
+    b, kvh, d = 2, 2, 64
+    rq, rk, v = randn(gen, b, kvh * G, n, d), randn(gen, b, kvh, n, d), randn(gen, b, kvh, n, d)
+    check_prefill_kernel(rq, rk, v, *selections(gen, pattern, b, kvh, n, S, Bs), Bs, window)
+
+
+def check_prefill_backward(gen, rq, rk, v, sel_idx, sel_mask, Bs, window, scale=0.125):
+    """Both backward kernels against their plain versions on the forward
+    kernel's outputs and seeded cotangents: dq, dk, dv element by element
+    within ``prefill_bwd_tolerance``, d_gates and the deltas within 1e-4 of
+    their largest value; the plain backward with each row's first selected
+    block left out fails the rule on dq and on dk or dv; a second launch of
+    each kernel is bit-equal; each call counts one launch."""
+    sel = (rq, rk, v, sel_idx, sel_mask)
+    fo, so, flse, slse = nsa_prefill.prefill_fwd(*sel, Bs, window, scale)
+    dfo, dso = randn(gen, *fo.shape), randn(gen, *so.shape)
+    dq_args = (*sel, fo, so, flse, slse, dfo, dso, Bs, window, scale)
+    before = (nsa_prefill.prefill_bwd_dq.launches, nsa_prefill.prefill_bwd_dkv.launches)
+    got_q = nsa_prefill.prefill_bwd_dq(*dq_args)
+    want_q = nsa_prefill.prefill_bwd_dq_plain(*dq_args)
+    # the dkv kernel and its plain version read the same (plain) deltas
+    terms = (flse, slse, want_q[2], want_q[3], dfo, dso)
+    dkv_args = (*sel, *terms, Bs, window, scale)
+    got_kv = nsa_prefill.prefill_bwd_dkv(*dkv_args)
+    want_kv = nsa_prefill.prefill_bwd_dkv_plain(*dkv_args)
+    assert (nsa_prefill.prefill_bwd_dq.launches,
+            nsa_prefill.prefill_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    again_q = nsa_prefill.prefill_bwd_dq(*dq_args)
+    again_kv = nsa_prefill.prefill_bwd_dkv(*dkv_args)
+    torch.cuda.synchronize()
+    assert (nsa_prefill.prefill_bwd_dq.launches,
+            nsa_prefill.prefill_bwd_dkv.launches) == (before[0] + 2, before[1] + 2)
+    want = (want_q[0], *want_kv)
+    tols = nsa_prefill.prefill_bwd_tolerance(*sel, *terms, Bs, window, scale, want)
+    for x, y, tol in zip((got_q[0], *got_kv), want, tols):
+        assert x.dtype == torch.bfloat16 and torch.isfinite(x.float()).all()
+        assert ((x.float() - y.float()).abs() <= tol).all()
+    for x, y in zip(got_q[1:], want_q[1:]):
+        assert max_err(x, y) <= 1e-4 * y.float().abs().max().item()
+    assert all(torch.equal(x, y) for x, y in zip((*got_q, *got_kv), (*again_q, *again_kv)))
+    dropped = nsa_prefill.without_first_block(sel_idx, sel_mask, Bs)
+    assert bool((dropped != sel_mask).any())
+    wrong = (nsa_prefill.prefill_bwd_dq_plain(rq, rk, v, sel_idx, dropped, *dq_args[5:])[0],
+             *nsa_prefill.prefill_bwd_dkv_plain(rq, rk, v, sel_idx, dropped, *dkv_args[5:]))
+    r = [((x.float() - y.float()).abs() / t).max().item() for x, y, t in zip(wrong, want, tols)]
+    assert r[0] > 1.0 and max(r[1:]) > 1.0
 
 
 @pytest.mark.parametrize("G,n,S", [(2, 300, 4), (1, 77, 2), (4, 130, 16), (8, 64, 3)])
 def test_prefill_backward_kernels_match_plain(gen, G, n, S):
     """Random selections with duplicates, own-block and future slots."""
-    b, kvh, d, Bs, window, scale = 2, 2, 64, 16, 64, 0.125
+    b, kvh, d, Bs, window = 2, 2, 64, 16, 64
     rq, rk, v = randn(gen, b, kvh * G, n, d), randn(gen, b, kvh, n, d), randn(gen, b, kvh, n, d)
     sel_idx = torch.randint(0, -(-n // Bs), (b, kvh, n, S), generator=gen, device="cuda",
                             dtype=torch.int32)
     sel_mask = torch.rand((b, kvh, n, S), generator=gen, device="cuda") < 0.7
-    sel = (rq, rk, v, sel_idx, sel_mask)
-    fo, so, flse, slse = nsa_prefill.prefill_fwd(*sel, Bs, window, scale)
-    dfo, dso = randn(gen, b, kvh * G, n, d), randn(gen, b, kvh * G, n, d)
-    dq_args = (*sel, fo, so, flse, slse, dfo, dso, Bs, window, scale)
-    before = (nsa_prefill.prefill_bwd_dq.launches, nsa_prefill.prefill_bwd_dkv.launches)
-    got_q = nsa_prefill.prefill_bwd_dq(*dq_args)
-    want_q = nsa_prefill.prefill_bwd_dq_plain(*dq_args)
-    dkv_args = (*sel, flse, slse, want_q[2], want_q[3], dfo, dso, Bs, window, scale)
-    got_kv = nsa_prefill.prefill_bwd_dkv(*dkv_args)
-    want_kv = nsa_prefill.prefill_bwd_dkv_plain(*dkv_args)
-    again = nsa_prefill.prefill_bwd_dkv(*dkv_args)
-    torch.cuda.synchronize()
-    assert (nsa_prefill.prefill_bwd_dq.launches,
-            nsa_prefill.prefill_bwd_dkv.launches) == (before[0] + 1, before[1] + 2)
-    for x, y, tol in zip((*got_q, *got_kv), (*want_q, *want_kv),
-                         (2.0 ** -7, 1e-4, 1e-4, 1e-4, 2.0 ** -7, 2.0 ** -7)):
-        assert max_err(x, y) <= tol * y.float().abs().max().item()
-    assert torch.equal(got_kv[0], again[0]) and torch.equal(got_kv[1], again[1])
+    check_prefill_backward(gen, rq, rk, v, sel_idx, sel_mask, Bs, window)
+
+
+@pytest.mark.parametrize("pattern,G,n,S,Bs,window", [
+    ("shared", 2, 300, 4, 16, 64),
+    ("distinct", 2, 300, 4, 16, 64),
+    ("sink", 2, 1200, 4, 16, 64),        # lists of ~1200 rows: key tiles split over work items
+    ("random", 8, 200, 16, 16, 64),      # 2 rows x 8 heads a row tile, 16 slots
+    ("random", 2, 120, 2, 4, 8),         # the tiny config's blocks: 4 to a key tile
+    ("random", 1, 150, 3, 24, 20),       # own-block rows past the band; tiles over two blocks
+    ("random", 2, 77, 4, 16, 64),
+    ("random", 2, 4096, 4, 16, 64),
+])
+def test_prefill_backward_selection_patterns_match_plain(gen, pattern, G, n, S, Bs, window):
+    b, kvh, d = 2, 2, 64
+    rq, rk, v = randn(gen, b, kvh * G, n, d), randn(gen, b, kvh, n, d), randn(gen, b, kvh, n, d)
+    check_prefill_backward(gen, rq, rk, v, *selections(gen, pattern, b, kvh, n, S, Bs), Bs,
+                           window)
 
 
 def test_model_loss_grads_kernels_match_plain(gen, monkeypatch):

@@ -62,17 +62,6 @@ def kernel_numerics(rq, rk, v, sel_idx, sel_mask, sel_block, window, scale):
     return fo, so
 
 
-def without_first_block(sel_idx, sel_mask, sel_block):
-    """The selection mask with each row's first valid slot before its own
-    block cleared, and every slot naming the same block."""
-    n = sel_idx.shape[2]
-    q_blk = (torch.arange(n) // sel_block)[:, None]
-    idx = sel_idx.long()
-    cand = sel_mask & (idx >= 0) & (idx < q_blk)
-    first = idx.gather(-1, cand.int().argmax(-1, keepdim=True))
-    return sel_mask & ~(cand.any(-1, keepdim=True) & (idx == first))
-
-
 def worst(got, want, tols):
     return max(((x.float() - y.float()).abs() / t).max().item()
                for x, y, t in zip(got, want, tols))
@@ -95,7 +84,7 @@ def test_a_dropped_block_fails_the_rule(G, n, S, sel_block, window):
     args = (rq, rk, v, sel_idx, sel_mask, sel_block, window, SCALE)
     want = t_pre.fine_sliding_plain(*args)
     tols = t_pre.fine_sliding_tolerance(*args, want)
-    dropped = without_first_block(sel_idx, sel_mask, sel_block)
+    dropped = t_pre.without_first_block(sel_idx, sel_mask, sel_block)
     assert bool((dropped != sel_mask).any())
     wrong = t_pre.fine_sliding_plain(rq, rk, v, sel_idx, dropped, sel_block, window, SCALE)
     assert worst(wrong[:1], want[:1], tols[:1]) > 1.0
