@@ -66,7 +66,8 @@ Phases, each printing its name and seconds as it ends:
              back on the free list; no host sync inside a multi-token window
              (``torch.cuda.set_sync_debug_mode("error")``); new tokens/s,
              requests/s, wall time, kv pool MiB, peak memory, and a profile of
-             5 ragged steps at 16 slots.
+             5 ragged steps at 16 slots with rows 8-10's device time and
+             their share of the step's.
 11. full   - the full-attention baseline (``ckpt_export/full_attn_seq4096.npz``
              in bf16) at the serving cell: prefill of 64 x 3900 seeded tokens
              through the flash attention kernel, then 100 greedy decode steps
@@ -100,7 +101,13 @@ and attend kernels at seeded mixed positions (t = 0, emitting and
 non-emitting rows before and after the first full compression window, t up
 to 4095), and at one position against the one-position pair; the paged
 attend kernel under a seeded permutation page table of 64-row pages, bit
-for bit the ragged one; the block gather of the ragged split route; and the
+for bit the ragged one; the attend kernels' rounded attention output
+element by element (``nsa_decode_ragged.attend_tolerance``) and their
+output within TOL_FUSED, the plain version with each row's first selected
+block left out failing both, a second launch bit for bit; rows 8-10 timed
+as device time from the profiler launch by launch, with the event-timed
+figure and the host time of a call beside it; the attend kernel's grid,
+shared memory and ptxas registers; the block gather of the ragged split route; and the
 flash attention kernel of the full-attention baseline at the serving cell's
 shapes (q [64, 8, 3900, 64], k / v [64, 4, 3900, 64], causal), with
 ``torch.nn.functional.scaled_dot_product_attention`` timed beside it as its
@@ -163,6 +170,7 @@ from nsa_tpu_torch.ops.cuda import (  # noqa: E402
 from nsa_tpu_torch.ops import nsa as nsa_layer  # noqa: E402
 from nsa_tpu_torch.ops.nsa import _ckv_width, fuse_decode_layer  # noqa: E402
 from nsa_tpu_torch import bench as port_bench  # noqa: E402
+from nsa_tpu_torch import kernel_times  # noqa: E402
 from nsa_tpu_torch import serve  # noqa: E402
 from nsa_tpu_torch.train import pretrain  # noqa: E402
 from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -280,6 +288,11 @@ ALL_KERNELS = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.
                nsa_decode_ragged.decode_attend_fused_paged, paged_gather.paged_gather,
                flash.flash_attention)
 
+# the device kernels of rows 8 and 9 (10 is row 9's kernel over the page
+# pool), as the engine's ragged step launches them on the dense pool
+RAGGED_STEP_KERNELS = {"row 8": ("emit_partial_ragged_kernel", "select_emit_ragged_kernel"),
+                       "row 9": ("attend_persistent_kernel",)}
+
 # the kernels the backward of the fine + sliding attention launches (rows 4
 # and 5, and the dkv kernel's pre-pass and last pass)
 BWD_KERNELS = ("bwd_dq_kernel", "bwd_dkv_kernel", "list_rows_kernel", "exclusive_scan_kernel",
@@ -306,17 +319,7 @@ def timed_ms(fn, iters, flush):
     """Median device ms of fn(), L2 flushed before each launch.  Every
     function timed here has run once before, for its comparison: that run is
     its warm-up."""
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    ts = sorted(s.elapsed_time(e) for s, e in events)
-    return ts[len(ts) // 2]
+    return kernel_times.event_ms(fn, iters, flush)
 
 
 def bound_ms(nbytes, flops):
@@ -601,12 +604,12 @@ def selection_stats(sel_idx, sel_mask, sel_block):
             "u16": union_sizes(sel_idx, sel_mask, sel_block, 16)}
 
 
-def ptxas_usage(log, kernel):
+def ptxas_usage(log, kernel, also=""):
     """(registers, spill store bytes, spill load bytes) that ptxas reports
-    for the first entry function whose name holds ``kernel``."""
+    for the first entry function whose name holds ``kernel`` and ``also``."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
+        if "Compiling entry function" in line and kernel in line and also in line:
             regs = spill = None
             for nxt in lines[i + 1:i + 6]:
                 if "Compiling entry function" in nxt:
@@ -1059,15 +1062,6 @@ def mega_phase_us(mp, cfg, token, caches, t):
             "lm_head": us[5 * L].item(), "span": (marks[-1] - marks[0]).item() / 1e3}
 
 
-def ragged_positions(gen, b):
-    """Per-row positions: t = 0; before the first full compression window
-    5 (no emission), 7 and 15 (emitting); 4095 (emitting) and 4094, 3999
-    (emitting) and 3998; the rest seeded uniform in [16, 4096)."""
-    fixed = torch.tensor([0, 5, 7, 15, 4095, 4094, DECODE_T, DECODE_T - 1], device=DEVICE)
-    rest = torch.randint(16, MAX_LEN, (b - len(fixed),), generator=gen, device=DEVICE)
-    return torch.cat([fixed, rest]).int()
-
-
 def ragged_attend_rows(info, t, cfg):
     """kv rows the attention of each (row, head) needs at its own t."""
     nsa = cfg.nsa
@@ -1079,7 +1073,41 @@ def ragged_attend_rows(info, t, cfg):
                for i, ti in enumerate(t.tolist()))
 
 
-def kernel_decode_ragged(gen, flush, cfg, params, b):
+def breakdown(name, fn, flush):
+    """A kernel's device time from the profiler, launch by launch, with the
+    event-timed figure and the host time beside it (rows 8-10, whose wrapper
+    host time the L2 flush may not hide); printed, and returned as the keys
+    of its kernels-line entry ("ms" is the device time)."""
+    r = kernel_times.launch_breakdown(fn, flush)
+    print(f"  {name}: device {r['device_ms']:.4f} ms in {len(r['launches'])} launch(es) "
+          f"{[round(x['ms'], 4) for x in r['launches']]}, gaps "
+          f"{[round(x, 4) for x in r['gaps_ms']]}"
+          f" ms, span {r['span_ms']:.4f} ms; event-timed {r['event_ms']:.4f} ms; host "
+          f"{r['host_ms']:.4f} ms a call", flush=True)
+    return {"ms": r["device_ms"], "event_ms": r["event_ms"], "host_ms": r["host_ms"],
+            "launch_ms": [x["ms"] for x in r["launches"]], "gap_ms": r["gaps_ms"]}
+
+
+ATTEND_PHASES = ("attention", "w_out + residual", "norm + ff w1", "ff w2")
+
+
+def attend_phase_us(fn, flush, iters=5):
+    """Where a launch of the one-launch attend kernel goes: block 0's global
+    timer at the start and after each grid sync (``phase_ns``), as the
+    median microseconds of each phase over ``iters`` launches, L2 flushed
+    before each; the last phase ends where the block holding ff w2's first
+    tile ends its share."""
+    runs = []
+    for _ in range(iters):
+        marks = torch.zeros(nsa_decode_ragged.PHASE_MARKS, dtype=torch.int64, device=DEVICE)
+        flush.zero_()
+        fn(marks)
+        torch.cuda.synchronize()
+        runs.append(((marks[1:] - marks[:-1]).double() / 1e3).tolist())
+    return {name: sorted(r[i] for r in runs)[iters // 2] for i, name in enumerate(ATTEND_PHASES)}
+
+
+def kernel_decode_ragged(gen, flush, cfg, params, b, log):
     """Rows 8-11 at ``b`` slots of MAX_LEN rows: layer 0's trained weights,
     packed; seeded queries, caches, residual stream and mixed positions."""
     nsa = cfg.nsa
@@ -1102,7 +1130,7 @@ def kernel_decode_ragged(gen, flush, cfg, params, b):
 
     q, ckv, ring, kv_new = randn(b, kvh, g, d), randn(b, kvh, Wc, 2 * d), \
         randn(b, kvh, Bc, 2 * d), randn(b, kvh, 1, 2 * d)
-    t = ragged_positions(gen, b)
+    t = kernel_times.ragged_positions(gen, b, DEVICE)
     num_cb = t // stride
     kw = dict(max_blocks=MAX_LEN // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
               n_slide=n_slide, scale=scale)
@@ -1157,7 +1185,8 @@ def kernel_decode_ragged(gen, flush, cfg, params, b):
            "source": "nsa_tpu_torch/csrc/nsa_decode_ragged.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:1059",
            "max_abs_err": max(err_c, err_row),
-           "ms": timed_ms(lambda: R.decode_select_emit_ragged(*work, **kw), 50, flush),
+           **breakdown("decode_select_emit_ragged",
+                       lambda: R.decode_select_emit_ragged(*work, **kw), flush),
            "plain_ms": timed_ms(lambda: R.decode_select_emit_ragged_plain(*work, **kw), 10, flush),
            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
@@ -1168,12 +1197,20 @@ def kernel_decode_ragged(gen, flush, cfg, params, b):
     x = randn(b, 1, dim)
     akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
                eps=cfg.norm_eps)
+    tkw = {k: v for k, v in akw.items() if k != "eps"}
     args = (kv_row, info_p, c_p, gates, x, fp["w_out"], t, ff)
-    kv_k, kv_p = kv.clone(), kv.clone()
-    out_k = R.decode_attend_fused_ragged(rq, kv_k, *args, **akw)
+    kv_k, kv_p, kv_2 = kv.clone(), kv.clone(), kv.clone()
+    comb_k, comb_2 = torch.empty_like(rq), torch.empty_like(rq)
+    out_k = R.decode_attend_fused_ragged(rq, kv_k, *args, attn_out=comb_k, **akw)
+    out_2 = R.decode_attend_fused_ragged(rq, kv_2, *args, attn_out=comb_2, **akw)
     out_p = R.decode_attend_fused_ragged_plain(rq, kv_p, *args, **akw)
+    # the control: the plain version with each row's first selected block left out
+    dropped = R.without_first_selected(info_p, num_sel, n_slide)
+    out_c = R.decode_attend_fused_ragged_plain(rq, kv.clone(), kv_row, dropped, *args[2:],
+                                               **akw)
     torch.cuda.synchronize()
     err_a, top = max_err(out_k, out_p), out_p.float().abs().max().item()
+    err_ctl = max_err(out_c, out_p)
     written = torch.zeros(b, MAX_LEN, dtype=torch.bool, device=DEVICE)
     written[rows, t.long()] = True
     written = written[:, None, :, None].expand_as(kv)
@@ -1182,9 +1219,31 @@ def kernel_decode_ragged(gen, flush, cfg, params, b):
           "decode_attend_fused_ragged: the kv cache is not the old one with each row's t written")
     check(err_a <= TOL_FUSED * top and bool(torch.isfinite(out_k.float()).all()),
           "decode_attend_fused_ragged disagrees")
+    check(err_ctl > TOL_FUSED * top,
+          "decode_attend_fused_ragged: the dropped-block control passes the output gate")
+    want, tol = R.attend_tolerance(rq, kv_p, info_p, c_p, gates, t, **tkw)
+    wrong, _ = R.attend_tolerance(rq, kv_p, dropped, c_p, gates, t, **tkw)
+    ratio = ((comb_k.float() - want.float()).abs() / tol).max().item()
+    ratio_ctl = ((wrong.float() - want.float()).abs() / tol).max().item()
+    check(ratio <= 1.0, "decode_attend_fused_ragged: the attention output breaks attend_tolerance")
+    check(ratio_ctl > 1.0, "decode_attend_fused_ragged: the dropped-block control passes "
+          "attend_tolerance")
+    same2 = torch.equal(out_2, out_k) and torch.equal(comb_2, comb_k) and torch.equal(kv_2, kv_k)
+    check(same2, "decode_attend_fused_ragged: a second launch gives other bits")
     print(f"  decode_attend_fused_ragged {b} slots (FF inside): max|err| {err_a:.5f} (tol "
-          f"{TOL_FUSED:g} x max {top:.3f}); each row's kv row t written, bit-equal; no other "
-          f"row changed", flush=True)
+          f"{TOL_FUSED:g} x max {top:.3f}), the dropped-block control {err_ctl:.5f} (must "
+          f"exceed it); attention output worst |err| / attend_tolerance {ratio:.4f} (<= 1), the "
+          f"control {ratio_ctl:.1f} (> 1); each row's kv row t written, bit-equal; no other "
+          f"row changed; a second launch bit-equal: {same2}", flush=True)
+    plan = R.attend_plan(rq, dim, ff[1].shape[1], sel_block=Bs, num_sel=num_sel,
+                         n_slide=n_slide)
+    regs, spill = ptxas_usage(log, f"attend_persistent_kernelILi{g}E", "DenseRows")
+    print(f"  decode_attend_fused_ragged launch: grid {plan['grid']}, {plan['blocks_per_sm']} "
+          f"block(s) fit an SM, weight tiles {plan['slice_bytes']} B on the largest block "
+          f"({plan['slice_total'] / plan['grid']:.0f} B mean, {plan['slice_total']} B in all), "
+          f"work space {plan['work_bytes']} B, shared memory {plan['smem_bytes']} B a block "
+          f"(card limit {plan['smem_optin']}); ptxas: {regs} registers, spills "
+          f"(stores, loads) {spill}", flush=True)
     kv_rows = ragged_attend_rows(info_p, t, cfg)
     hid4 = ff[1].shape[1]
     att_bytes = (nbytes(rq, info_p, c_p, gates, x, kv_row, fp["w_out"], *ff, out_k, t)
@@ -1195,11 +1254,16 @@ def kernel_decode_ragged(gen, flush, cfg, params, b):
            "source": "nsa_tpu_torch/csrc/nsa_decode_ragged.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:1317",
            "max_abs_err": err_a,
-           "ms": timed_ms(lambda: R.decode_attend_fused_ragged(rq, kv_k, *args, **akw), 50,
-                          flush),
+           **breakdown("decode_attend_fused_ragged",
+                       lambda: R.decode_attend_fused_ragged(rq, kv_k, *args, **akw), flush),
            "plain_ms": timed_ms(lambda: R.decode_attend_fused_ragged_plain(rq, kv_p, *args,
                                                                            **akw), 10, flush),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "plan": plan, "registers": regs, "spill_bytes": spill,
+           "phase_us": attend_phase_us(lambda m: R.decode_attend_fused_ragged(
+               rq, kv_k, *args, phase_ns=m, **akw), flush)}
+    print(f"  decode_attend_fused_ragged us per phase (the card's global timer, median of 5): "
+          f"{ {k: round(v, 2) for k, v in att['phase_us'].items()} }", flush=True)
 
     # ---- row 10: the paged attend under a permutation table ----------------
     n_pg = MAX_LEN // PAGE_TOKENS
@@ -1209,11 +1273,12 @@ def kernel_decode_ragged(gen, flush, cfg, params, b):
         .transpose(1, 2).reshape(-1, kvh, PAGE_TOKENS, 2 * d)
     trash = pool[-1].clone()
     pool_k, pool_p = pool.clone(), pool.clone()
-    out_g = R.decode_attend_fused_paged(rq, pool_k, table, *args, **akw)
+    comb_g = torch.empty_like(rq)
+    out_g = R.decode_attend_fused_paged(rq, pool_k, table, *args, attn_out=comb_g, **akw)
     out_gp = R.decode_attend_fused_paged_plain(rq, pool_p, table, *args, **akw)
     torch.cuda.synchronize()
     logical = pool_k[table.long()].transpose(1, 2).reshape(b, kvh, MAX_LEN, 2 * d)
-    same = torch.equal(out_g, out_k)
+    same = torch.equal(out_g, out_k) and torch.equal(comb_g, comb_k)
     check(same and torch.equal(logical, kv_k) and torch.equal(pool_k[-1], trash),
           "decode_attend_fused_paged is not bit-equal to the ragged kernel on the same "
           "logical cache")
@@ -1221,16 +1286,17 @@ def kernel_decode_ragged(gen, flush, cfg, params, b):
     check(err_g <= TOL_FUSED * top_g and torch.equal(pool_k, pool_p),
           "decode_attend_fused_paged disagrees with its plain version")
     print(f"  decode_attend_fused_paged {b} slots, pages of {PAGE_TOKENS} rows under a "
-          f"permutation table: output bit-equal to the ragged kernel's: {same}; its pool through "
-          f"the table equals the ragged kernel's kv; max|err| vs plain {err_g:.5f} (tol "
-          f"{TOL_FUSED:g} x max {top_g:.3f})", flush=True)
+          f"permutation table: output and attention output bit-equal to the ragged kernel's: "
+          f"{same}; its pool through the table equals the ragged kernel's kv; max|err| vs plain "
+          f"{err_g:.5f} (tol {TOL_FUSED:g} x max {top_g:.3f})", flush=True)
     bms, by = bound_ms(att_bytes + nbytes(table), att_flops)
     pag = {"name": "decode_attend_fused_paged", "route": "cuda",
            "source": "nsa_tpu_torch/csrc/nsa_decode_ragged.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:1608",
            "max_abs_err": err_g,
-           "ms": timed_ms(lambda: R.decode_attend_fused_paged(rq, pool_k, table, *args, **akw),
-                          50, flush),
+           **breakdown("decode_attend_fused_paged",
+                       lambda: R.decode_attend_fused_paged(rq, pool_k, table, *args, **akw),
+                       flush),
            "plain_ms": timed_ms(lambda: R.decode_attend_fused_paged_plain(
                rq, pool_p, table, *args, **akw), 10, flush),
            "bound_ms": bms, "bound_by": by, "library_ms": None}
@@ -1825,8 +1891,19 @@ def serve_phase(params, cfg, smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, records = _report(prof, f"5 ragged decode steps, {SERVE_SLOTS} slots", wall, per=5)
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+    device_ms = sum(_dev_us(e) for e in device) / 1e3 / 5
+    rows_ms = {row: sum(_dev_us(e) for e in device if any(k in e.key for k in names)) / 1e3 / 5
+               for row, names in RAGGED_STEP_KERNELS.items()}
+    print(f"  rows 8-10 in a ragged step: row 8 {rows_ms['row 8']:.4f} ms, row 9 "
+          f"{rows_ms['row 9']:.4f} ms, of {device_ms:.4f} ms device time "
+          f"({100 * sum(rows_ms.values()) / device_ms:.1f}%); {smi}", flush=True)
     m.update({"ragged_step_device_busy": busy, "ragged_step_device_records": records,
-              "ragged_step_ms_profiled": wall / 5 * 1e3})
+              "ragged_step_ms_profiled": wall / 5 * 1e3, "ragged_step_device_ms": device_ms,
+              "ragged_step_rows_ms": rows_ms})
     del eng
     torch.cuda.empty_cache()
     return runs["dense"]["launches"], runs["paged"]["launches"], split_launches, m
@@ -2200,7 +2277,7 @@ def main():
                    *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0]),
                    kernel_decode_mega(gen, flush, cfg, fuse_decode_params(params, cfg),
                                       SMALL_BATCHES[0]),
-                   *kernel_decode_ragged(gen, flush, cfg, params, SERVE_SLOTS),
+                   *kernel_decode_ragged(gen, flush, cfg, params, SERVE_SLOTS, lib.log),
                    kernel_flash(gen, flush, cfg)]
         del flush
         torch.cuda.empty_cache()

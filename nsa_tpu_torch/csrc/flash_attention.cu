@@ -38,9 +38,7 @@
 // diagonal and the ragged last tile.  The blocks of one (batch, KV head)
 // are adjacent, so the few KV heads in flight keep their K/V in L2; within
 // them the late query tiles, which carry the most keys, start first.
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up at run time
-
-#include "common.cuh"
+#include "hopper_common.cuh"
 
 namespace nsa {
 namespace {
@@ -72,41 +70,6 @@ struct Smem {                   // every tile 1024-byte aligned (the swizzle ato
   bf16 v[kStages][kBk * kD];
   uint64_t k_full[kStages], v_full[kStages], empty[kStages];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// Arrive once and expect `bytes` from TMA on the barrier's current phase.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Spin until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 // One box of a 3-d tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -182,12 +145,6 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : NSA_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Two floats as a bf16 pair, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // A consumer warpgroup: 64 rows of query head g of the block's tile.
@@ -372,30 +329,6 @@ __global__ void __launch_bounds__(Shape<G>::kThreads, 1)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::kConsumerRegs) : "memory");
     consume<G>(sm, q, o, bh, qt, live, n, n_k, causal != 0, scale);
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no link against libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                          cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
 }
 
 // A [heads, rows, 64] bf16 tensor as box_rows x 64 boxes in the 128-byte swizzle;

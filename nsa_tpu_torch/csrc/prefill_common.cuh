@@ -1,11 +1,11 @@
 // Device pieces shared by the prefill forward (csrc/nsa_prefill.cu) and the
-// prefill backward (csrc/nsa_prefill_bwd.cu): the m16n8k16 tensor-core
-// helpers, the mbarrier ring, and a query tile's key stream (the sorted
+// prefill backward (csrc/nsa_prefill_bwd.cu): the mma A-operand packing, the
+// mbarrier ring, and a query tile's key stream (the sorted
 // union of its rows' blocks, then the band and the union streamed through
 // shared memory, each key once per tile).
 #pragma once
 
-#include "common.cuh"
+#include "hopper_common.cuh"
 
 namespace nsa {
 namespace {
@@ -41,71 +41,6 @@ struct Stage {
   uint64_t full[kStages];    // the stage's keys and metadata are in (one warp loads it)
   uint64_t empty[kStages];   // every warp is done with the stage
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// Arrive (release): this thread's earlier shared-memory writes are seen by
-// whoever waits for the phase.
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Arrive once this thread's earlier cp.async copies have landed.
-__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// Spin until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a . b for one m16n8k16 tile: a 16 x 16 bf16 (row), b 16 x 8 bf16
-// (col), d 16 x 8 float32.  In the fragments lane = 4 * grp + tq owns rows
-// grp and grp + 8 and columns 2 tq, 2 tq + 1 of every 8-wide tile.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two floats as a bf16 pair, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // A 16 x 16 accumulator (two 8-wide tiles) as an mma A operand in bf16.
 __device__ __forceinline__ void pack_a(const float (&p0)[4], const float (&p1)[4],

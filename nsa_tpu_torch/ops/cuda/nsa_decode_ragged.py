@@ -16,7 +16,10 @@ kernel over a paged kv pool.
 
 Each wrapper launches its CUDA kernel (``csrc/nsa_decode_ragged.cu``) for
 CUDA tensors, raises on what the kernel does not take, and runs the plain
-PyTorch version beside it for CPU tensors.  Neither reads a position back
+PyTorch version beside it for CPU tensors.  The two attend kernels are one
+cooperative launch of one block per SM that holds column tiles of w_out and
+the FF's matrices in shared memory (``attend_plan`` gives the sizes; the
+wrapper raises when they do not fit).  Neither reads a position back
 to the host: the kernels decide per row on the device, and the plain
 versions compute every row's candidate and keep it where the row's
 position says so, at the scalar plain versions' rounding points.
@@ -24,6 +27,8 @@ position says so, at the scalar plain versions' rounding points.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -140,8 +145,71 @@ def decode_attend_fused_paged_plain(rq, kv_pool, page_table, kv_new, info, c_out
                             n_slide=n_slide, scale=scale, eps=eps, page_table=page_table)
 
 
-def _attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out, t, ff, *,
-                 sel_block, window, num_sel, n_slide, scale, eps):
+def without_first_selected(info, num_sel: int, n_slide: int) -> torch.Tensor:
+    """info [b, kvh * INFO_WIDTH] with each (row, KV head)'s first valid
+    selected block marked invalid: the selections of a kernel that left one
+    block out of the fine branch of every row that has one.  The control the
+    attend kernels' gates must fail."""
+    b = info.shape[0]
+    rows = info.reshape(b, -1, INFO_WIDTH).clone()
+    v0 = num_sel + n_slide
+    valid = rows[..., v0:v0 + num_sel] != 0
+    first = torch.zeros_like(valid).scatter_(-1, valid.int().argmax(-1, keepdim=True), True)
+    rows[..., v0:v0 + num_sel] = (valid & ~first).int()
+    return rows.reshape(b, -1)
+
+
+def attend_tolerance(rq, kv, info, c_out, gates, t, *, sel_block: int, window: int,
+                     num_sel: int, n_slide: int, scale: float, page_table=None):
+    """The rule that holds the attend kernels' combined attention output
+    (``attn_out``) to the plain version's, element by element: returns (the
+    plain output rounded to the cache dtype, the bound).  2^-7 of |plain| for
+    the two bf16 roundings (2 x 2^-9), plus 2^-15 of the same combine taken
+    over absolute values (|g_c c_out| + |g_f| fine(|v|) + |g_s| sliding(|v|))
+    for the float32 sums of up to (num_sel + n_slide) * sel_block terms in
+    another order (144 x 2^-24 = 2^-16.8 of it at the reference model); each
+    term twice its source.  ``kv`` holds each row's new row t."""
+    b, kvh, g, d = rq.shape
+    kw = dict(sel_block=sel_block, window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
+              weights_dtype=torch.float32, page_table=page_table)
+    rows = info.reshape(b, kvh, INFO_WIDTH)
+    plain = nsa_decode.attend_combined_plain(rq, kv, rows, c_out, gates, t, **kw).to(kv.dtype)
+    abs_v = torch.cat([kv[..., :d], kv[..., d:].abs()], dim=-1)
+    mag = nsa_decode.attend_combined_plain(rq, abs_v, rows, c_out.abs(), gates.abs(), t, **kw)
+    return plain, 2.0 ** -7 * plain.float().abs() + 2.0 ** -15 * mag
+
+
+PLAN_KEYS = ("grid", "blocks_per_sm", "slice_bytes", "slice_total", "work_bytes",
+             "smem_bytes", "smem_optin")
+
+
+@functools.lru_cache(maxsize=None)
+def _attend_plan(device: int, kvh: int, g: int, dim: int, hid4: int, sel_block: int,
+                 num_sel: int, n_slide: int, paged: bool) -> dict:
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    with torch.cuda.device(device):
+        runtime.library().call("nsa_decode_attend_ragged_plan", 0, kvh, g, dim, hid4, sel_block,
+                               num_sel, n_slide, int(paged), ctypes.addressof(out))
+    return dict(zip(PLAN_KEYS, out))
+
+
+def attend_plan(rq, dim: int, hid4: int, *, sel_block: int, num_sel: int, n_slide: int,
+                paged: bool = False) -> dict:
+    """The ragged / paged attend kernel's launch on rq's card: the grid (one
+    block per SM), how many such blocks fit on an SM (0: the kernel refuses
+    to launch), the largest block's and all blocks' bytes of weight tiles
+    (w_out, ff w1, ff w2 in 8-column tiles), the work space and the shared
+    memory a block takes, and the card's limit a block."""
+    kvh, g = rq.shape[1], rq.shape[2]
+    return dict(_attend_plan(rq.device.index, kvh, g, dim, hid4, sel_block, num_sel, n_slide,
+                             paged))
+
+
+PHASE_MARKS = 5     # phase_ns: the start, after each grid sync, the end (see the source)
+
+
+def _attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out, t, ff,
+                 attn_out, phase_ns, *, sel_block, window, num_sel, n_slide, scale, eps):
     """Check the operands of the ragged or (with ``page_table``) paged attend
     kernel and launch it; returns the layer output."""
     b, kvh, g, d = rq.shape
@@ -180,34 +248,68 @@ def _attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out,
     else:
         ptrs += [0] * 5
     ptrs.append(runtime.check("t", t, i32, (b,)))
-    part = torch.empty((b, kvh, dim), dtype=f32, device=rq.device)   # per-head projections
-    hbuf = torch.empty((b, max(hid4, 1)), dtype=bf, device=rq.device)  # the FF's hidden row
+    plan = attend_plan(rq, dim, hid4, sel_block=sel_block, num_sel=num_sel, n_slide=n_slide,
+                       paged=page_table is not None)
+    if plan["blocks_per_sm"] < 1:
+        raise ValueError(
+            f"{name} kernel: a block of its {plan['grid']} needs {plan['smem_bytes']} bytes of "
+            f"shared memory ({plan['slice_bytes']} of weight tiles, the largest share of "
+            f"{plan['slice_total']}, and {plan['work_bytes']} of work space); the card "
+            f"allows {plan['smem_optin']}")
+    if attn_out is None:        # the rounded attention output, between phases (a) and (b)
+        attn_out = torch.empty_like(rq)
+    ptrs.append(runtime.check("attn_out", attn_out, bf, (b, kvh, g, d)))
+    marks = 0 if phase_ns is None else runtime.check("phase_ns", phase_ns, torch.int64,
+                                                     (PHASE_MARKS,))
+    y = torch.empty_like(x)                                            # x + attn, rounded
+    hbuf = torch.empty((b, max(hid4, 1)), dtype=bf, device=rq.device)  # the FF's hidden rows
     out = torch.empty_like(x)
     rows = ((kv.shape[2],) if page_table is None
             else (kv.shape[2], page_table.shape[1]))       # max_len | page, max_pages
     with torch.cuda.device(rq.device):
         runtime.library().call(
-            name, *ptrs, part.data_ptr(), hbuf.data_ptr(), out.data_ptr(), b, kvh, g, *rows,
+            name, *ptrs, y.data_ptr(), hbuf.data_ptr(), out.data_ptr(), marks, b, kvh, g, *rows,
             dim, hid4, sel_block, window, num_sel, n_slide, INFO_WIDTH, scale, eps,
             runtime.stream_of(rq),
         )
     return out
 
 
+def _combined_plain(rq, kv, info, c_out, gates, t, page_table, *, sel_block, window, num_sel,
+                    n_slide, scale, eps):
+    """The plain combined attention output, rounded to the cache dtype: what
+    the kernels write to ``attn_out``."""
+    b, kvh = rq.shape[:2]
+    return nsa_decode.attend_combined_plain(
+        rq, kv, info.reshape(b, kvh, INFO_WIDTH), c_out, gates, t, sel_block=sel_block,
+        window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
+        weights_dtype=torch.float32, page_table=page_table).to(kv.dtype)
+
+
 def decode_attend_fused_ragged(rq, kv, kv_new, info, c_out, gates, x, w_out, t, ff=(), *,
                                sel_block: int, window: int, num_sel: int, n_slide: int,
-                               scale: float, eps: float = 1e-6) -> torch.Tensor:
+                               scale: float, eps: float = 1e-6, attn_out=None,
+                               phase_ns=None) -> torch.Tensor:
     """As ``decode_attend_fused``, with t [b] int32 (one position per row):
     row t[i] of batch row i of kv [b, kvh, max_len, 2d] is written in place.
-    Returns ``x + attn`` [b, 1, dim], with the FF applied when given."""
+    Returns ``x + attn`` [b, 1, dim], with the FF applied when given.  For
+    checks and measurements: with ``attn_out`` ([b, kvh, g, d] bf16) the
+    combined attention output, rounded as the projection takes it, is
+    written there too; ``phase_ns`` (5 int64 on the card, not written on the
+    CPU) receives the card's global timer at the kernel's start, after each
+    grid sync, and where the block holding the last product's first tile
+    ends."""
     kw = dict(sel_block=sel_block, window=window, num_sel=num_sel, n_slide=n_slide,
               scale=scale, eps=eps)
     ff = tuple(ff)
     if runtime.on_cpu(rq, kv, kv_new, info, c_out, gates, x, w_out, t, *ff):
-        return decode_attend_fused_ragged_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t,
-                                                ff, **kw)
+        out = decode_attend_fused_ragged_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t,
+                                               ff, **kw)
+        if attn_out is not None:
+            attn_out.copy_(_combined_plain(rq, kv, info, c_out, gates, t, None, **kw))
+        return out
     out = _attend_call("nsa_decode_attend_fused_ragged", rq, kv, None, kv_new, info, c_out,
-                       gates, x, w_out, t, ff, **kw)
+                       gates, x, w_out, t, ff, attn_out, phase_ns, **kw)
     decode_attend_fused_ragged.launches += 1
     return out
 
@@ -217,7 +319,8 @@ decode_attend_fused_ragged.launches = 0
 
 def decode_attend_fused_paged(rq, kv_pool, page_table, kv_new, info, c_out, gates, x, w_out, t,
                               ff=(), *, sel_block: int, window: int, num_sel: int, n_slide: int,
-                              scale: float, eps: float = 1e-6) -> torch.Tensor:
+                              scale: float, eps: float = 1e-6, attn_out=None,
+                              phase_ns=None) -> torch.Tensor:
     """``decode_attend_fused_ragged`` over a page pool kv_pool [P, kvh, PAGE,
     2d] and page_table [b, max_pages] int32 (PAGE a multiple of sel_block
     and 8): row t[i] goes to page ``page_table[i, t[i] // PAGE]`` in place."""
@@ -228,10 +331,13 @@ def decode_attend_fused_paged(rq, kv_pool, page_table, kv_new, info, c_out, gate
     if page % sel_block or page % 8:
         raise ValueError(f"the page ({page} rows) must be a multiple of sel_block and 8")
     if runtime.on_cpu(rq, kv_pool, page_table, kv_new, info, c_out, gates, x, w_out, t, *ff):
-        return decode_attend_fused_paged_plain(rq, kv_pool, page_table, kv_new, info, c_out,
-                                               gates, x, w_out, t, ff, **kw)
+        out = decode_attend_fused_paged_plain(rq, kv_pool, page_table, kv_new, info, c_out,
+                                              gates, x, w_out, t, ff, **kw)
+        if attn_out is not None:
+            attn_out.copy_(_combined_plain(rq, kv_pool, info, c_out, gates, t, page_table, **kw))
+        return out
     out = _attend_call("nsa_decode_attend_fused_paged", rq, kv_pool, page_table, kv_new, info,
-                       c_out, gates, x, w_out, t, ff, **kw)
+                       c_out, gates, x, w_out, t, ff, attn_out, phase_ns, **kw)
     decode_attend_fused_paged.launches += 1
     return out
 

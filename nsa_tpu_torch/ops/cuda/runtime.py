@@ -47,8 +47,10 @@ SIGNATURES = {
     "nsa_decode_select_emit": [_p] * 15 + [_i] * 16 + [_f, _p],
     "nsa_decode_attend_fused": [_p] * 16 + [_i] * 12 + [_f, _f, _p],
     "nsa_decode_select_emit_ragged": [_p] * 17 + [_i] * 13 + [_f, _p],
-    "nsa_decode_attend_fused_ragged": [_p] * 17 + [_i] * 11 + [_f, _f, _p],
-    "nsa_decode_attend_fused_paged": [_p] * 18 + [_i] * 12 + [_f, _f, _p],
+    "nsa_decode_attend_fused_ragged": [_p] * 19 + [_i] * 11 + [_f, _f, _p],
+    "nsa_decode_attend_fused_paged": [_p] * 20 + [_i] * 12 + [_f, _f, _p],
+    # the two kernels' launch plan, written to an int array (see the source)
+    "nsa_decode_attend_ragged_plan": [_i] * 9 + [_p],
     "nsa_paged_gather": [_p] * 3 + [_i] * 5 + [_p],
     "nsa_flash_attention": [_p] * 4 + [_i] * 6 + [_f, _p],
     # the whole-model decode: a host array of pointers and of ints (see

@@ -31,10 +31,15 @@ carry one more ulp downstream: 2^-6 of the largest value (two bf16 ulps);
 the ring shift and the kv row write are copies, bit-equal.  The ragged
 and paged decode kernels are held to the same 2^-6; the paged attend
 kernel equals the ragged one bit for bit on the same logical cache, and
-the block gather is a copy.  The flash attention kernel rounds its softmax
-weights to bf16 for the P.V product, where its plain version keeps them
-float32, and both round the output once: element by element, 2^-7 of the
-plain output plus 2^-8 of the same attention over |v|
+the block gather is a copy.  The attend kernels' rounded attention output
+is held element by element (``nsa_decode_ragged.attend_tolerance``: 2^-7
+of |plain| for its two bf16 roundings plus 2^-15 of the same combine over
+absolute values for float32 sums in another order), with a control that
+leaves each row's first selected block out and must fail.  The flash
+attention kernel rounds its softmax weights to bf16 for the P.V product,
+where its plain version keeps them float32, and both round the output
+once: element by element, 2^-7 of the plain output plus 2^-8 of the same
+attention over |v|
 (``flash.flash_attention_tolerance``: each term twice its source).
 """
 
@@ -614,6 +619,107 @@ def test_decode_attend_ragged_and_paged_kernels_match_plain(gen):
     assert torch.equal(out_g, out_k)
     logical = pool[table.long()].transpose(1, 2).reshape(b, kvh, max_len, 2 * d)
     assert torch.equal(logical, kv_k)
+
+
+def ragged_attend_case(gen, b, kvh, G, dim, hid4, with_ff, max_len=1024):
+    """Inputs of the ragged attend kernels at b rows: RAGGED_T's positions
+    first, then seeded ones; info and c_out from the plain select."""
+    d, stride, Bs, window, num_sel = 64, 8, 16, 64, 4
+    n_slide = -(-window // Bs) + 1
+    Wc = _ckv_width(max_len, stride, Bs // stride)
+    rest = torch.randint(0, max_len, (max(b - len(RAGGED_T), 0),), generator=gen,
+                         device="cuda")
+    t = torch.cat([torch.tensor(RAGGED_T[:b], device="cuda"), rest]).int()
+    q, ckv, mem_kv = randn(gen, b, kvh, G, d), randn(gen, b, kvh, Wc, 2 * d), \
+        randn(gen, 2, kvh, 1, d)
+    c_out, info = nsa_decode.decode_select_plain(
+        q, ckv, mem_kv, t, t // stride, max_blocks=max_len // Bs, stride=stride, sel_block=Bs,
+        num_sel=num_sel, n_slide=n_slide, scale=0.125, weights_dtype=torch.float32)
+    ff = ()
+    if with_ff:
+        ff = (1.0 + 0.1 * torch.randn(dim, generator=gen, device="cuda"),
+              (randn(gen, dim, hid4) * dim ** -0.5).to(torch.bfloat16),
+              0.1 * torch.randn(hid4, generator=gen, device="cuda"),
+              (randn(gen, hid4, dim) * hid4 ** -0.5).to(torch.bfloat16),
+              0.1 * torch.randn(dim, generator=gen, device="cuda"))
+    akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=0.125)
+    gates = torch.rand((b, kvh, G, 3), generator=gen, device="cuda").to(torch.bfloat16)
+    w_out = (randn(gen, kvh * G * d, dim) * (kvh * G * d) ** -0.5).to(torch.bfloat16)
+    return (randn(gen, b, kvh, G, d), randn(gen, b, kvh, max_len, 2 * d),
+            (randn(gen, b, kvh, 1, 2 * d), info.reshape(b, -1), c_out, gates,
+             randn(gen, b, 1, dim), w_out, t, ff), akw)
+
+
+@pytest.mark.parametrize("b,kvh,G,dim,hid4,with_ff,page", [
+    (1, 4, 2, 512, 2048, True, 64),       # the engine's widths, one row
+    (5, 2, 1, 256, 512, True, 16),
+    (16, 4, 2, 512, 2048, True, 64),      # the engine's cell
+    (17, 2, 4, 256, 1024, False, 16),     # a ragged second row tile, no FF
+    (40, 4, 8, 512, 2048, True, 64),      # three row tiles, more items than SMs
+    (16, 4, 8, 512, 2048, False, 16),
+])
+def test_decode_attend_ragged_persistent_kernel_cases(gen, b, kvh, G, dim, hid4, with_ff, page):
+    """The one-launch attend kernels against their plain versions: the
+    output within 2^-6 of its largest value, the rounded attention output
+    within ``attend_tolerance`` element by element (each row's first selected
+    block left out must fail it), the kv rows written; the paged kernel
+    under a permuted table of ``page``-row pages bit for bit the ragged one;
+    a second launch bit for bit the first."""
+    rq, kv, args, akw = ragged_attend_case(gen, b, kvh, G, dim, hid4, with_ff)
+    kv_new, info, c_out, gates, x, w_out, t, ff = args
+    kv_k, kv_p, kv_2 = kv.clone(), kv.clone(), kv.clone()
+    comb, comb_2 = torch.empty_like(rq), torch.empty_like(rq)
+    before = nsa_decode_ragged.decode_attend_fused_ragged.launches
+    out_k = nsa_decode_ragged.decode_attend_fused_ragged(rq, kv_k, *args, attn_out=comb, **akw)
+    out_2 = nsa_decode_ragged.decode_attend_fused_ragged(rq, kv_2, *args, attn_out=comb_2,
+                                                         **akw)
+    out_p = nsa_decode_ragged.decode_attend_fused_ragged_plain(rq, kv_p, *args, **akw)
+    torch.cuda.synchronize()
+    assert nsa_decode_ragged.decode_attend_fused_ragged.launches == before + 2
+    assert out_k.shape == (b, 1, dim) and torch.isfinite(out_k.float()).all()
+    assert max_err(out_k, out_p) <= TOL_FUSED * out_p.float().abs().max().item()
+    assert torch.equal(kv_k, kv_p)
+    assert torch.equal(out_2, out_k) and torch.equal(comb_2, comb) and torch.equal(kv_2, kv_k)
+    want, tol = nsa_decode_ragged.attend_tolerance(rq, kv_p, info, c_out, gates, t, **akw)
+    assert ((comb.float() - want.float()).abs() <= tol).all()
+    dropped = nsa_decode_ragged.without_first_selected(info, akw["num_sel"], akw["n_slide"])
+    if bool((dropped != info).any()):
+        wrong, _ = nsa_decode_ragged.attend_tolerance(rq, kv_p, dropped, c_out, gates, t, **akw)
+        assert not ((wrong.float() - want.float()).abs() <= tol).all()
+
+    max_len = kv.shape[2]
+    n_pg = max_len // page
+    table = torch.randperm(b * n_pg, generator=gen, device="cuda").reshape(b, n_pg).int()
+    pool = randn(gen, b * n_pg + 1, kvh, page, kv.shape[3])
+    pool[table.reshape(-1).long()] = kv.reshape(b, kvh, n_pg, page, -1).transpose(1, 2) \
+        .reshape(-1, kvh, page, kv.shape[3])
+    trash = pool[-1].clone()
+    comb_g = torch.empty_like(rq)
+    out_g = nsa_decode_ragged.decode_attend_fused_paged(rq, pool, table, *args, attn_out=comb_g,
+                                                        **akw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_g, out_k) and torch.equal(comb_g, comb)
+    assert torch.equal(pool[table.long()].transpose(1, 2).reshape(b, kvh, max_len, -1), kv_k)
+    assert torch.equal(pool[-1], trash)
+
+
+def test_attend_ragged_refuses_slices_that_do_not_fit(gen):
+    """An FF whose hidden rows do not fit a block's shared memory: the
+    wrapper raises with the sizes, and nothing runs."""
+    rq, kv, args, akw = ragged_attend_case(gen, 2, 2, 2, 256, 16384, True)
+    plan = nsa_decode_ragged.attend_plan(rq, 256, 16384, sel_block=16, num_sel=4, n_slide=5)
+    assert plan["blocks_per_sm"] == 0 and plan["smem_bytes"] > plan["smem_optin"]
+    kv_k = kv.clone()
+    before = nsa_decode_ragged.decode_attend_fused_ragged.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        nsa_decode_ragged.decode_attend_fused_ragged(rq, kv_k, *args, **akw)
+    torch.cuda.synchronize()
+    assert nsa_decode_ragged.decode_attend_fused_ragged.launches == before
+    assert torch.equal(kv_k, kv)
+    engine = nsa_decode_ragged.attend_plan(randn(gen, 16, 4, 2, 64), 512, 2048, sel_block=16,
+                                           num_sel=4, n_slide=5)
+    assert engine["blocks_per_sm"] >= 1 and engine["grid"] == torch.cuda.get_device_properties(
+        0).multi_processor_count
 
 
 def test_paged_gather_kernel_matches_plain(gen):
