@@ -65,9 +65,10 @@ Phases, each printing its name and seconds as it ends:
              the split route (depth block-gather launches a step); every page
              back on the free list; no host sync inside a multi-token window
              (``torch.cuda.set_sync_debug_mode("error")``); new tokens/s,
-             requests/s, wall time, kv pool MiB, peak memory, and a profile of
-             5 ragged steps at 16 slots with rows 8-10's device time and
-             their share of the step's.
+             requests/s, wall time, kv pool MiB, peak memory, how many
+             ragged steps have an emitting slot and how many slots emit a
+             step, and a profile of 5 ragged steps at 16 slots with rows
+             8-10's device time and their share of the step's.
 11. full   - the full-attention baseline (``ckpt_export/full_attn_seq4096.npz``
              in bf16) at the serving cell: prefill of 64 x 3900 seeded tokens
              through the flash attention kernel, then 100 greedy decode steps
@@ -95,11 +96,18 @@ decode kernels at the small-batch cell's (bs 8, layer 0's trained weights,
 seeded activations and caches; the select kernel at an emission step and
 at the step before it), the whole-model decode kernel there (bs 8, all
 layers' trained weights, seeded tokens and full-length caches, an emission
-step and the step before it), and the serving engine's four kernels at 16
+step and the step before it; the plain version with one emission chunk
+left out must fail the emitted-row gate; every layer's attention output
+held element by element to ``attend_tolerance`` on the kernel's own inputs,
+a control with each row's first selected block left out failing it; its
+launch plan, ptxas registers and time by phase and layer), and the serving
+engine's four kernels at 16
 slots of 4096 rows with layer 0's trained weights: the ragged select-emit
 and attend kernels at seeded mixed positions (t = 0, emitting and
 non-emitting rows before and after the first full compression window, t up
-to 4095), and at one position against the one-position pair; the paged
+to 4095; the select-emit's second launch bit for bit, its dropped-chunk
+control failing the emitted-row gate), and at one position against the
+one-position pair; the paged
 attend kernel under a seeded permutation page table of 64-row pages, bit
 for bit the ragged one; the attend kernels' rounded attention output
 element by element (``nsa_decode_ragged.attend_tolerance``) and their
@@ -118,6 +126,7 @@ the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; nothing catches it.  Imports nothing of JAX or ``nsa_tpu``.
 """
 
+import contextlib
 import faulthandler
 import json
 import math
@@ -921,14 +930,24 @@ def kernel_decode_fused(gen, flush, cfg, params, b):
     return sel, att
 
 
-def kernel_decode_mega(gen, flush, cfg, packed, b):
+def kernel_decode_mega(gen, flush, cfg, packed, b, log):
     """Row 12 at bs ``b``: the whole model's trained weights (packed);
     seeded tokens and caches at full length; an emission step and the step
     before it.  The rows a step writes (kv row t, the ring's new row, the
     emitted ckv row) come from bf16 roundings of float32 sums that the two
     versions take in another order, so they are held within TOL_FUSED of the
     largest value; every other cache row, and the ring's shifted rows, must
-    be bit-equal to what was there."""
+    be bit-equal to what was there.  Two controls, the plain version with
+    one emission chunk left out (``dropped_emission_chunk``) and with each
+    (row, head)'s first selected block left out in every layer
+    (``dropped_selected_block``): the first must fail the emitted-row gate;
+    the second the logits gate and the written rows' do not see (their
+    ratios are printed), so a finer gate holds every layer's rounded
+    attention output, element by element, to the plain combine on the
+    kernel's own inputs of that layer (``inspect``, ``attend_tolerance``, as
+    for rows 9-10), and the same inputs with each row's first selected block
+    left out must fail it at every layer.  Also the launch plan, ptxas's
+    registers and the time by phase and layer."""
     nsa = cfg.nsa
     L, kvh, d, stride = cfg.depth, cfg.kv_heads, cfg.dim_head, nsa.compress_block_sliding_stride
     Bc, Bs, window = nsa.compress_block_size, nsa.selection_block_size, nsa.sliding_window_size
@@ -936,6 +955,7 @@ def kernel_decode_mega(gen, flush, cfg, packed, b):
     Wc = _ckv_width(MAX_LEN, stride, nsa.num_compress_per_fine)
     mp = packed["mega"]
     dev = DEVICE
+    tkw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=d ** -0.5)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -951,11 +971,13 @@ def kernel_decode_mega(gen, flush, cfg, packed, b):
         infos.append(out[1])
         return out
 
-    times, plain_times, errs, phases = {}, {}, [], {}
+    times, plain_times, errs, phases, controls, timed = {}, {}, [], {}, {}, {}
     for t in (DECODE_T, DECODE_T - 1):           # an emission step, then one without
         num_cb, emit = t // stride, nsa_decode_fused.emits(t, stride)
         caches = [(kv.clone(), ckv.clone(), ring.clone()) for _ in range(2)]
-        lg_k, tok_k, *_ = transformer_decode_step_mega(mp, cfg, token, *caches[0], t, greedy=True)
+        insp = {}
+        lg_k, tok_k, *_ = transformer_decode_step_mega(mp, cfg, token, *caches[0], t, greedy=True,
+                                                       inspect=insp)
         infos.clear()
         nsa_decode_mega.decode_select_emit_plain = recording_select
         try:
@@ -992,6 +1014,61 @@ def kernel_decode_mega(gen, flush, cfg, packed, b):
             e, m = max_err(a_, b_), b_.float().abs().max().item()
             check(e <= TOL_FUSED * m, f"decode_step_mega t={t}: {name} disagrees")
             row_errs.append(e)
+        # the controls, on the plain version: one emission chunk left out (at
+        # the emission step), each row's first selected block left out
+        for name, ctl in (("emission chunk", dropped_emission_chunk),
+                          ("selected block", dropped_selected_block)):
+            if name == "emission chunk" and not emit:
+                continue
+            work = (kv.clone(), ckv.clone(), ring.clone())
+            with ctl():
+                lg_c, *_ = transformer_decode_step_mega(mp, cfg, token, *work, t, greedy=True,
+                                                        use_kernels=False)
+            torch.cuda.synchronize()
+            if name == "emission chunk":
+                e_c = max_err(work[1][..., slot, :], caches[1][1][..., slot, :])
+                m_c = caches[1][1][..., slot, :].float().abs().max().item()
+                check(e_c > TOL_FUSED * m_c,
+                      f"decode_step_mega t={t}: the dropped-chunk control passes the emitted-row "
+                      f"gate")
+            else:
+                # the logits gate and the written rows' are too coarse to see
+                # one block of each row's selection (the trained fine
+                # branch's gate is ~0.12): their ratios are printed; the
+                # finer gate below, on each layer's attention output, must
+                # see it
+                controls[(t, "selected block, kv rows t")] = max_err(
+                    work[0][..., t, :], caches[1][0][..., t, :]) / (
+                    TOL_FUSED * caches[1][0][..., t, :].float().abs().max().item())
+                e_c, m_c = max_err(lg_c, lg_p), top
+                name = "selected block, logits"
+            controls[(t, name)] = e_c / (TOL_FUSED * m_c)
+        # the finer gate: every layer's rounded attention output, element by
+        # element, against the plain combine on the kernel's own inputs of
+        # that layer (attend_tolerance, as for rows 9-10), with the control
+        # that leaves each row's first selected block out, which must fail it
+        ratios, ratios_ctl = [], []
+        for l in range(L):
+            inputs = (insp["rq"][l], caches[0][0][l], insp["info"][l], insp["c_out"][l],
+                      insp["gates"][l], t)
+            want, tol = nsa_decode_ragged.attend_tolerance(*inputs, **tkw)
+            dropped = nsa_decode_ragged.without_first_selected(insp["info"][l], num_sel, n_slide)
+            wrong, _ = nsa_decode_ragged.attend_tolerance(inputs[0], inputs[1], dropped,
+                                                          *inputs[3:], **tkw)
+            ratios.append(((insp["attn_out"][l].float() - want.float()).abs() / tol).max().item())
+            ratios_ctl.append(((wrong.float() - want.float()).abs() / tol).max().item())
+        check(max(ratios) <= 1.0, f"decode_step_mega t={t}: a layer's attention output breaks "
+              f"attend_tolerance")
+        check(min(ratios_ctl) > 1.0, f"decode_step_mega t={t}: the dropped-block control passes "
+              f"attend_tolerance at a layer")
+        controls[(t, "selected block, attention outputs (min over layers)")] = min(ratios_ctl)
+        print(f"  decode_step_mega bs {b} t={t}: each layer's attention output worst |err| / "
+              f"attend_tolerance {[round(r, 4) for r in ratios]} (<= 1), the dropped-block "
+              f"control {[round(r, 1) for r in ratios_ctl]} (> 1)", flush=True)
+        print(f"  decode_step_mega bs {b} t={t}: controls over their gate "
+              f"{ {k[1]: round(v, 2) for k, v in controls.items() if k[0] == t} } (the emission "
+              f"chunk's and the attention outputs' > 1; logits and kv rows t printed only)",
+              flush=True)
         print(f"  decode_step_mega bs {b} t={t} (emits: {emit}): logits max|err| {err:.5f} (tol "
               f"{TOL_FUSED:g} x max {top:.3f}); argmax equal on "
               f"{int((tok_k[:, 0] == tok_p[:, 0]).sum())}/{b} rows ({int(near.sum())} near-ties); "
@@ -999,16 +1076,23 @@ def kernel_decode_mega(gen, flush, cfg, packed, b):
               f"{row_errs[2]:.5f}; every other cache row bit-equal", flush=True)
         errs.append(max(err, *row_errs))
         work = (kv.clone(), ckv.clone(), ring.clone())
-        times[t] = timed_ms(lambda: transformer_decode_step_mega(
-            mp, cfg, token, *work, t, greedy=True), 20, flush)
+        # device time from the profiler (the call's launches: the token's
+        # cast and the kernel), as for rows 8-10: the wrapper's host time now
+        # exceeds the kernel's, and the event-timed figure reads it
+        timed[t] = breakdown(f"decode_step_mega t={t}", lambda: transformer_decode_step_mega(
+            mp, cfg, token, *work, t, greedy=True), flush)
+        times[t] = timed[t]["ms"]
         plain_times[t] = timed_ms(lambda: transformer_decode_step_mega(
             mp, cfg, token, *work, t, greedy=True, use_kernels=False), 3, flush)
         if emit:
             emit_infos = list(infos)
         phases[t] = mega_phase_us(mp, cfg, token, work, t)
         print(f"  decode_step_mega bs {b} t={t}: us per phase (mean over layers): "
-              f"{ {k: round(v, 2) for k, v in phases[t].items()} }", flush=True)
+              f"{ {k: round(v, 2) for k, v in phases[t].items() if k != 'by_layer'} }; "
+              f"layer by layer {phases[t]['by_layer']}", flush=True)
     amort = (times[DECODE_T] + (stride - 1) * times[DECODE_T - 1]) / stride
+    amort_event = (timed[DECODE_T]["event_ms"]
+                   + (stride - 1) * timed[DECODE_T - 1]["event_ms"]) / stride
     amort_plain = (plain_times[DECODE_T] + (stride - 1) * plain_times[DECODE_T - 1]) / stride
 
     # the bound of the amortised step: each layer's weights, the live ckv
@@ -1033,33 +1117,83 @@ def kernel_decode_mega(gen, flush, cfg, packed, b):
                   + rows * g * 4 * d)
     emit_flops = L * b * kvh * 2 * (Bc * d * hid + hid * d) * 2
     bms, by = bound_ms(step_bytes + emit_bytes / stride, step_flops + emit_flops / stride)
-    print(f"  decode_step_mega bs {b}: {times[DECODE_T]:.4f} ms emitting, "
+    print(f"  decode_step_mega bs {b}: device {times[DECODE_T]:.4f} ms emitting, "
           f"{times[DECODE_T - 1]:.4f} ms not, {amort:.4f} ms amortised over {stride} steps "
-          f"(bound {bms:.5f} ms, by {by}); plain {amort_plain:.4f} ms", flush=True)
+          f"(event-timed {amort_event:.4f}; bound {bms:.5f} ms, by {by}); plain "
+          f"{amort_plain:.4f} ms", flush=True)
+    plan = nsa_decode_mega.launch_plan(DEVICE, [
+        L, b, kvh, cfg.num_grouped_queries, MAX_LEN, Wc, Bc, nsa.num_compressed_mem_kv,
+        mp["w1k"].shape[3], cfg.dim, cfg.vocab_size, mp["fw1"].shape[2], 0, 1, 0, stride, Bs,
+        num_sel, n_slide, window, nsa_decode.INFO_WIDTH])
+    regs, spill = ptxas_usage(log, f"mega_kernelILi{cfg.num_grouped_queries}E")
+    print(f"  decode_step_mega launch: grid {plan['grid']}, {plan['blocks_per_sm']} block(s) fit "
+          f"an SM, weight tiles {plan['slice_bytes']} B on the largest block "
+          f"({plan['slice_total']} B in all), work space {plan['work_bytes']} B, shared memory "
+          f"{plan['smem_bytes']} B a block (card limit {plan['smem_optin']}); ptxas: {regs} "
+          f"registers, spills (stores, loads) {spill}", flush=True)
     return {"name": "decode_step_mega", "route": "cuda",
             "source": "nsa_tpu_torch/csrc/nsa_decode_mega.cu",
             "replaces": "nsa_tpu/ops/pallas/nsa_megakernel.py:1234",
             "max_abs_err": max(errs), "ms": amort, "plain_ms": amort_plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "ms_emit_step": times[DECODE_T], "ms_other_step": times[DECODE_T - 1],
-            "phase_us_emit_step": phases[DECODE_T], "phase_us_other_step": phases[DECODE_T - 1]}
+            "event_ms": amort_event, "host_ms_other_step": timed[DECODE_T - 1]["host_ms"],
+            "phase_us_emit_step": phases[DECODE_T], "phase_us_other_step": phases[DECODE_T - 1],
+            "plan": plan, "registers": regs, "spill_bytes": spill,
+            "controls_over_gate": {f"t={k[0]} {k[1]}": v for k, v in controls.items()}}
 
 
-MEGA_PHASES = ("norm+qkvg", "select+emission", "attend+w_out", "residual+ff1", "ff2")
+@contextlib.contextmanager
+def dropped_emission_chunk(chunk=0):
+    """The plain select-emit versions with the emission's hidden chunk
+    ``chunk`` left out (``emission_plain(..., drop_chunk=)``): a kernel that
+    lost one emission item.  The control the emitted-row gates must fail."""
+    real = nsa_decode_fused.emission_plain
+
+    def dropped(*a, **k):
+        return real(*a, drop_chunk=chunk, **k)
+
+    nsa_decode_fused.emission_plain = nsa_decode_ragged.emission_plain = dropped
+    try:
+        yield
+    finally:
+        nsa_decode_fused.emission_plain = nsa_decode_ragged.emission_plain = real
+
+
+@contextlib.contextmanager
+def dropped_selected_block():
+    """The plain whole-model decode with each (row, KV head)'s first valid
+    selected block left out of every layer's attention
+    (``without_first_selected``).  The control the logits gate must fail."""
+    real = nsa_decode_mega.decode_attend_fused_plain
+    kw_names = ("num_sel", "n_slide")
+
+    def dropped(rq, kv, kv_new, info, *a, **k):
+        info = nsa_decode_ragged.without_first_selected(info, *(k[n] for n in kw_names))
+        return real(rq, kv, kv_new, info, *a, **k)
+
+    nsa_decode_mega.decode_attend_fused_plain = dropped
+    try:
+        yield
+    finally:
+        nsa_decode_mega.decode_attend_fused_plain = real
 
 
 def mega_phase_us(mp, cfg, token, caches, t):
     """Where one launch's time goes: the kernel's global-timer marks after
-    each grid sync, as microseconds per phase (the mean over the layers),
-    the LM head, and the span from the first mark to the last."""
+    each grid sync, as microseconds per phase (the mean over the layers, and
+    layer by layer), the LM head, and the span from the first mark to the
+    last."""
     L = cfg.depth
     marks = torch.zeros(nsa_decode_mega.phase_marks(L, 1), dtype=torch.int64, device=DEVICE)
     transformer_decode_step_mega(mp, cfg, token, *caches, t, greedy=True, phase_ns=marks)
     torch.cuda.synchronize()
     us = (marks[1:] - marks[:-1]).double().cpu() / 1e3
-    per_layer = us[:5 * L].reshape(L, 5).mean(0)
-    return {**{name: per_layer[i].item() for i, name in enumerate(MEGA_PHASES)},
-            "lm_head": us[5 * L].item(), "span": (marks[-1] - marks[0]).item() / 1e3}
+    by_layer = us[:5 * L].reshape(L, 5)
+    per_layer = by_layer.mean(0)
+    return {**{name: per_layer[i].item() for i, name in enumerate(nsa_decode_mega.PHASE_NAMES)},
+            "lm_head": us[5 * L].item(), "span": (marks[-1] - marks[0]).item() / 1e3,
+            "by_layer": [[round(v, 2) for v in row] for row in by_layer.tolist()]}
 
 
 def ragged_attend_rows(info, t, cfg):
@@ -1139,11 +1273,16 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
     slot = num_cb.long().clamp(max=Wc - 1)
 
     # ---- row 8: the ragged select-emit at mixed positions ------------------
-    caches = [(ckv.clone(), ring.clone()) for _ in range(2)]
+    caches = [(ckv.clone(), ring.clone()) for _ in range(4)]
     c_k, info_k = R.decode_select_emit_ragged(q, *caches[0], kv_new, mem_kv, *weights, t,
+                                              num_cb, **kw)
+    c_2, info_2 = R.decode_select_emit_ragged(q, *caches[2], kv_new, mem_kv, *weights, t,
                                               num_cb, **kw)
     c_p, info_p = R.decode_select_emit_ragged_plain(q, *caches[1], kv_new, mem_kv, *weights, t,
                                                     num_cb, **kw)
+    with dropped_emission_chunk():     # the control: one emission chunk left out
+        R.decode_select_emit_ragged_plain(q, *caches[3], kv_new, mem_kv, *weights, t, num_cb,
+                                          **kw)
     _, scores = nsa_decode.select_scores_plain(q, ckv, mem_kv, num_cb, t, stride=stride,
                                                sel_block=Bs, scale=scale)
     torch.cuda.synchronize()
@@ -1163,15 +1302,24 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
               f"decode_select_emit_ragged: the {label} wrote a non-emitting row's slot")
     row_k, row_p = caches[0][0][rows, :, slot][emit], caches[1][0][rows, :, slot][emit]
     err_row, top_row = max_err(row_k, row_p), row_p.float().abs().max().item()
+    err_ctl = max_err(caches[3][0][rows, :, slot][emit], row_p)
     check(err_c <= TOL_FUSED * top_c and bool(torch.isfinite(c_k.float()).all()),
           "decode_select_emit_ragged: c_out disagrees")
     check(err_row <= TOL_FUSED * top_row, "decode_select_emit_ragged: an emitted row disagrees")
+    check(err_ctl > TOL_FUSED * top_row,
+          "decode_select_emit_ragged: the dropped-chunk control passes the emitted-row gate")
+    same2 = (torch.equal(c_2, c_k) and torch.equal(info_2, info_k)
+             and torch.equal(caches[2][0], caches[0][0]) and torch.equal(caches[2][1], caches[0][1]))
+    check(same2, "decode_select_emit_ragged: a second launch gives other bits")
     n_emit = int(emit.sum())
+    eplan = R.device_emit_plan(q, ring, fp["w1k"])
     print(f"  decode_select_emit_ragged {b} slots at t={t.tolist()} ({n_emit} emit): max|err| "
           f"c_out {err_c:.5f} (tol {TOL_FUSED:g} x max {top_c:.3f}); ids equal on "
           f"{b * kvh - ties}/{b * kvh} rows, {ties} differ only by ties within {TIE}; emitted "
-          f"rows max|err| {err_row:.5f} (tol {TOL_FUSED:g} x max {top_row:.3f}); ring "
-          f"bit-equal; every other ckv row unchanged", flush=True)
+          f"rows max|err| {err_row:.5f} (tol {TOL_FUSED:g} x max {top_row:.3f}), the "
+          f"dropped-chunk control {err_ctl:.5f} (must exceed it); ring bit-equal; every other "
+          f"ckv row unchanged; a second launch bit-equal: {same2}; emission launch "
+          f"{eplan['blocks']} blocks of {eplan['smem_bytes']} B shared memory", flush=True)
     work = (q, ckv.clone(), ring.clone(), kv_new, mem_kv, *weights, t, num_cb)
     live = int(num_cb.sum())
     sel_bytes = (nbytes(q, mem_kv, c_p, info_p, kv_new, t, num_cb) + 2 * nbytes(ring)
@@ -1184,7 +1332,8 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
     sel = {"name": "decode_select_emit_ragged", "route": "cuda",
            "source": "nsa_tpu_torch/csrc/nsa_decode_ragged.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:1059",
-           "max_abs_err": max(err_c, err_row),
+           "max_abs_err": max(err_c, err_row), "emit_plan": eplan,
+           "control_over_gate": err_ctl / (TOL_FUSED * top_row),
            **breakdown("decode_select_emit_ragged",
                        lambda: R.decode_select_emit_ragged(*work, **kw), flush),
            "plain_ms": timed_ms(lambda: R.decode_select_emit_ragged_plain(*work, **kw), 10, flush),
@@ -1770,6 +1919,27 @@ def check_engine_launches(launches, depth, steps, waves, attend, label):
     check(launches == want, f"{label} launches {launches}, expected {want}")
 
 
+@contextlib.contextmanager
+def emitting_slots(cfg):
+    """Records, for every ragged select-emit call of the layer, how many of
+    its slots emit (a device tensor each, so no host sync inside a
+    window); the engine's step calls it once a layer."""
+    real = nsa_layer.decode_select_emit_ragged
+    stride = cfg.nsa.compress_block_sliding_stride
+    counts = []
+
+    def recording(*a, **k):
+        t, num_cb = a[12], a[13]
+        counts.append(nsa_decode_ragged.ragged_emits(t, num_cb, stride).sum())
+        return real(*a, **k)
+
+    nsa_layer.decode_select_emit_ragged = recording
+    try:
+        yield counts
+    finally:
+        nsa_layer.decode_select_emit_ragged = real
+
+
 def kv_pool_mib(eng):
     return sum(lc.kv.numel() * lc.kv.element_size() for lc in eng.cache_layers) / 2**20
 
@@ -1845,9 +2015,20 @@ def serve_phase(params, cfg, smi):
              "decode_attend_fused_paged")):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        toks, eng, wall, launches, steps, waves, windows, held = run_engine(
-            params, cfg, reqs, steps_per_sync=SERVE_SYNC, **kw)
+        with emitting_slots(cfg) as emitting:
+            toks, eng, wall, launches, steps, waves, windows, held = run_engine(
+                params, cfg, reqs, steps_per_sync=SERVE_SYNC, **kw)
         peak = torch.cuda.max_memory_allocated()
+        emit_counts = torch.stack(emitting[::L]).cpu() if emitting else torch.zeros(0)
+        m[f"{label}_emitting_slots"] = {
+            "steps": len(emit_counts), "steps_with_an_emitting_slot": int((emit_counts > 0).sum()),
+            "mean_emitting_slots": emit_counts.float().mean().item() if len(emit_counts) else 0.0,
+            "histogram": torch.bincount(emit_counts.long(), minlength=1).tolist()}
+        print(f"  serve {label}: ragged steps with an emitting slot "
+              f"{m[f'{label}_emitting_slots']['steps_with_an_emitting_slot']} of "
+              f"{len(emit_counts)}; emitting slots a step: mean "
+              f"{m[f'{label}_emitting_slots']['mean_emitting_slots']:.3f}, steps by count "
+              f"{m[f'{label}_emitting_slots']['histogram']}", flush=True)
         check_engine_launches(launches, L, steps, waves, attend, f"{label} pool")
         if label == "paged":
             check(sorted(eng._free_pages) == list(range(POOL_PAGES))
@@ -2276,7 +2457,7 @@ def main():
                    *kernel_prefill_bwd(gen, flush, cfg, params, lib.log),
                    *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0]),
                    kernel_decode_mega(gen, flush, cfg, fuse_decode_params(params, cfg),
-                                      SMALL_BATCHES[0]),
+                                      SMALL_BATCHES[0], lib.log),
                    *kernel_decode_ragged(gen, flush, cfg, params, SERVE_SLOTS, lib.log),
                    kernel_flash(gen, flush, cfg)]
         del flush

@@ -1,8 +1,10 @@
-// Device code shared by the fused decode kernels (nsa_decode_fused.cu) and
-// the whole-model decode kernel (nsa_decode_mega.cu): the small-batch
-// products that read a weight matrix once for all batch rows, the
-// compressed-block emission, the ring shift, attention with the head's
-// share of the output projection, and the FF's two products.  Each body is
+// Device code shared by the fused decode kernels (nsa_decode_fused.cu), the
+// ragged ones (nsa_decode_ragged.cu) and, for the emitted row and the ring
+// shift, the whole-model decode kernel (nsa_decode_mega.cu): the
+// small-batch products on the CUDA cores that read a weight matrix once for
+// all batch rows, the compressed-block emission, the ring shift, attention
+// with the head's share of the output projection, and the FF's two
+// products.  Each body is
 // one work item of a block of kThreads threads (an item is a block of the
 // fused kernels' grids, and one step of the whole-model kernel's grid-stride
 // loops), out of the dynamic shared memory it is handed.  The column width

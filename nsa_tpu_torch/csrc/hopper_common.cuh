@@ -1,7 +1,8 @@
 // Hopper pieces shared by the kernels that use the tensor cores or TMA
-// (nsa_prefill.cu, nsa_prefill_bwd.cu, flash_attention.cu,
-// nsa_decode_ragged.cu): shared-memory addresses, mbarriers, ldmatrix, the
-// m16n8k16 mma, bulk tensor copies, and the tensor-map encoder.
+// (nsa_prefill.cu, nsa_prefill_bwd.cu, flash_attention.cu, and through
+// decode_tc_common.cuh nsa_decode_ragged.cu and nsa_decode_mega.cu):
+// shared-memory addresses, mbarriers, ldmatrix, the m16n8k16 mma, bulk
+// tensor copies, and the tensor-map encoder.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is looked up at run time

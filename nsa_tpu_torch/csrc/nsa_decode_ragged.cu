@@ -8,24 +8,30 @@
 //   decode_attend_fused_ragged  (_attend_fused_ragged_kernel, :1223 -> pallas_call :1317)
 //   decode_attend_fused_paged   (_attend_fused_paged_kernel, :1507 -> pallas_call :1608)
 //
-// decode_select_emit_ragged.  What bounds it on this card: bytes, as for the
-// scalar pair (see nsa_decode_fused.cu): each (row, KV head) reads its live
-// compressed rows, the emission the compressor's weights (~4.4 MB per KV
-// head at the reference model).  The design is the scalar pair's, with the
-// position read per row from a device vector t [b] (int32) and num_cb [b],
-// so a step needs no position from the host and no host sync.  Launch 1
-// always runs, one block per (KV head, 64 compressor hidden columns).  Warp
-// 0 lists the rows that emit this step (t - num_cb * stride + 1 == stride)
-// with a ballot, in row order; a block with no emitting row returns at
-// once, and the others run the emission body over the listed rows only,
-// each at its own position (window rows before position 0 zeroed), reading
-// the weights once per 8 emitting rows.  Launch 2, one block per (batch
-// row, KV head), reads the old ring and the new token into shared memory
-// before it writes the shifted ring (launch 1 has finished reading it:
-// launches on one stream run in order); on an emitting row it sums the
-// partials in chunk order into ckv[min(num_cb, Wc - 1)]; then it runs the
-// selection body at the row's own t and num_cb, which reads only ckv rows
-// below num_cb.
+// decode_select_emit_ragged.  What bounds it on this card: bytes on the
+// steps that emit: the four compressors' weights (17.6 MB at the reference
+// model, 5.3 us at 3.35 TB/s), read once per 16 emitting rows; each (row,
+// KV head) reads its live compressed rows for the selection.  The position
+// is read per row from a device vector t [b] (int32) and num_cb [b], so a
+// step needs no position from the host and no host sync.  Launch 1 always
+// runs, one block per (KV head, half, 64 compressor hidden columns), so
+// all 128 of them at the reference model read weight bytes.  Warp 0 lists
+// the rows that emit this step (t - num_cb * stride + 1 == stride) with a
+// ballot, in row order; a block with no emitting row returns at once, and
+// the others run the tensor-core emission body (emit_tc_body,
+// decode_tc_common.cuh, shared with the whole-model kernel) over the
+// listed rows as 16-row tiles, each row at its own position (window rows
+// before position 0 zeroed): the window tile times its 64 columns of w1k
+// or w1v, streamed by TMA through a 4-stage mbarrier ring, + b1, relu,
+// rounded; times its 64 rows of w2: float32 partials.  Launch 2, one block
+// per (batch row, KV head), reads the old ring and the new token into
+// shared memory before it writes the shifted ring (launch 1 has finished
+// reading it: launches on one stream run in order); on an emitting row it
+// sums the partials in chunk order into ckv[min(num_cb, Wc - 1)]; then it
+// runs the selection body at the row's own t and num_cb, which reads only
+// ckv rows below num_cb.  Launch 2 is bound by the selection body's
+// latency (a chain of staging, reductions and the top-k of one block per
+// (row, KV head), 64 blocks at 16 slots), not by its bytes.
 //
 // decode_attend_fused_ragged / _paged.  What bounds them on this card: not
 // bytes (the weights, 4.5 MB at the reference model with the FF, and the
@@ -66,31 +72,32 @@
 
 #include <algorithm>
 
-#include "decode_fused_common.cuh"
-#include "hopper_common.cuh"
+#include "decode_tc_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace nsa {
 namespace {
 
-constexpr int kEmitColsR = 64;    // compressor hidden columns per emission block
-
-// Launch 1: the emitting rows' partials, one block per (KV head, chunk).
-// Dynamic shared memory: the emission body's, then the row list [b].
-__global__ void emit_partial_ragged_kernel(const bf16* __restrict__ ring,
-                                           const bf16* __restrict__ kv_new,
-                                           const bf16* __restrict__ pos_kv,
-                                           const bf16* __restrict__ w1k,
-                                           const float* __restrict__ b1k,
-                                           const bf16* __restrict__ w1v,
-                                           const float* __restrict__ b1v,
-                                           const bf16* __restrict__ w2, const int* __restrict__ tvec,
-                                           const int* __restrict__ ncb, float* __restrict__ partial,
-                                           int b, int kvh, int Bc, int hid, int stride) {
+// Launch 1: the emitting rows' partials on the tensor cores, one block per
+// (KV head, half, 64 compressor hidden columns) (emit_tc_body).  Dynamic
+// shared memory: 1024-byte alignment slack, the body's, then the row list
+// [b].
+__global__ void __launch_bounds__(kThreads)
+    emit_partial_ragged_kernel(const bf16* __restrict__ ring, const bf16* __restrict__ kv_new,
+                               const bf16* __restrict__ pos_kv, const float* __restrict__ b1k,
+                               const float* __restrict__ b1v, const int* __restrict__ tvec,
+                               const int* __restrict__ ncb, float* __restrict__ partial, int b,
+                               int kvh, int Bc, int hid, int stride,
+                               const __grid_constant__ CUtensorMap m_w1k,
+                               const __grid_constant__ CUtensorMap m_w1v,
+                               const __grid_constant__ CUtensorMap m_w2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int n_emit;
-  int* rows = reinterpret_cast<int*>(smem_raw + emit_smem_bytes<kEmitColsR>(Bc));
+  __shared__ __align__(8) uint64_t bars[kEmitBars];
+  unsigned char* base =
+      smem_raw + ((kEmitAlign - (smem_u32(smem_raw) & (kEmitAlign - 1))) & (kEmitAlign - 1));
+  int* rows = reinterpret_cast<int*>(base + emit_tc_smem_bytes(Bc * kD));
   if (threadIdx.x < 32) {           // warp 0: the emitting rows, in row order
     const int lane = threadIdx.x;
     int n = 0;
@@ -103,11 +110,16 @@ __global__ void emit_partial_ragged_kernel(const bf16* __restrict__ ring,
     }
     if (lane == 0) n_emit = n;
   }
+  emit_ring_init(bars);
   __syncthreads();
   if (n_emit == 0) return;
-  emit_partial_body<kEmitColsR>(ring, kv_new, kv_new + kD, kvh * 2 * kD, 2 * kD, pos_kv, w1k, b1k,
-                                w1v, b1v, w2, partial, b, kvh, Bc, hid, 0, blockIdx.x, smem_raw,
-                                rows, n_emit, tvec);
+  EmitRing er{bars, 0u, 0u};
+  emit_tc_body(ring, kv_new, kv_new + kD, kvh * 2 * kD, 2 * kD, pos_kv, b1k, b1v, &m_w1k, &m_w1v,
+               &m_w2, 0, partial, b, kvh, Bc, hid, 0, blockIdx.x, er, base, rows, n_emit, tvec);
+}
+
+size_t emit_launch_smem(int b, int Bc) {
+  return kEmitAlign + emit_tc_smem_bytes(Bc * kD) + sizeof(int) * b;
 }
 
 // Launch 2: one block per (batch row, KV head): the ring shift, the emitted
@@ -133,46 +145,17 @@ __global__ void select_emit_ragged_kernel(const bf16* __restrict__ q, bf16* ckv,
     emit_row_body(partial, b2, ckv + ((size_t)bh * Wc + slot) * 2 * kD, nchunks, b, bi, bh % kvh);
   }
   __syncthreads();
-  select_body<G>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb, stride, sel_block, num_sel,
-                 n_slide, max_blocks, info_width, scale, bh, smem_raw);
+  select_body<G, bf16, true>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb, stride,
+                             sel_block, num_sel, n_slide, max_blocks, info_width, scale, bh,
+                             smem_raw);
 }
 
 // ---------------------------------------------------------------------------
 // The attend kernels: one cooperative launch (see the note at the top).
 // ---------------------------------------------------------------------------
-constexpr int kTileCols = 8;               // columns of a weight tile: one mma n8
-constexpr int kBoxRows = 64;               // rows of a TMA box of a weight tile (1 KB)
-constexpr int kTileRowBytes = kTileCols * 2;
-constexpr int kRowTile = 16;               // batch rows of an mma row tile
-constexpr int kWarps = kThreads / 32;
 constexpr int kProducts = 3;               // w_out, ff w1, ff w2
 
-// Which block holds which weight tiles, and the shared memory that takes.
-// Product q has tiles[q] tiles of rows[q] x 8 columns; tile i lives on block
-// (off[q] + i) % grid, after the block's tiles of the products before q.
-struct Plan {
-  int grid;
-  int rows[kProducts];
-  int tiles[kProducts];
-  int off[kProducts];
-  int slice_bytes;                         // the largest block's tiles
-  int slice_total;                         // every block's tiles
-  int work_bytes;                          // attention, or the staged rows + partials
-  int smem_bytes;                          // all of it, + alignment slack
-};
-
-__host__ __device__ __forceinline__ int plan_first(const Plan& p, int q, int g) {
-  return ((g - p.off[q]) % p.grid + p.grid) % p.grid;
-}
-
-__host__ __device__ __forceinline__ int plan_count(const Plan& p, int q, int g) {
-  const int i0 = plan_first(p, q, g);
-  return i0 < p.tiles[q] ? (p.tiles[q] - i0 + p.grid - 1) / p.grid : 0;
-}
-
-__host__ __device__ __forceinline__ int plan_bytes(const Plan& p, int q, int g) {
-  return plan_count(p, q, g) * p.rows[q] * kTileRowBytes;
-}
+using Plan = TilePlan<kProducts>;
 
 template <int G>
 Plan make_plan(int kvh, int dim, int hid4, int J, int grid) {
@@ -187,12 +170,7 @@ Plan make_plan(int kvh, int dim, int hid4, int J, int grid) {
   p.off[0] = 0;                            // w2's tiles after w_out's, w1's after both
   p.off[2] = p.tiles[0] % grid;
   p.off[1] = (p.tiles[0] + p.tiles[2]) % grid;
-  for (int g = 0; g < grid; ++g) {
-    int s = 0;
-    for (int q = 0; q < kProducts; ++q) s += plan_bytes(p, q, g);
-    p.slice_bytes = std::max(p.slice_bytes, s);
-    p.slice_total += s;
-  }
+  plan_slices(p);
   const int kmax = std::max(p.rows[0], std::max(dim, hid4));
   const size_t stage = (size_t)kRowTile * (kmax + 8) * sizeof(bf16) +
                        sizeof(float) * kWarps * std::max(kvh, 1) * 32 * 4;
@@ -241,54 +219,6 @@ __device__ __forceinline__ void mark(const AttendArgs<Rows>& a, int k, int block
   }
 }
 
-// Rows [r0, r0 + 16) of src [b, K] bf16 into As [16][K + 8] (rows past b
-// zero); ends with a barrier.
-__device__ void stage_rows(bf16* As, const bf16* src, int b, int K, int r0) {
-  const int vec = K / 8, lda = K + 8;
-  for (int i = threadIdx.x; i < kRowTile * vec; i += blockDim.x) {
-    const int m = i / vec, c = i % vec;
-    bf16* dst = As + m * lda + 8 * c;
-    if (r0 + m < b)
-      cp_async16(dst, src + (size_t)(r0 + m) * K + 8 * c);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-}
-
-// This warp's share of As[:, k0:k1) . W[k0:k1, 0:8) for one 8-column tile W
-// [K][8] in shared memory: the k-steps k0 + 16 (warp + 8 j), summed in order
-// on the tensor cores, into red[0:128) as [16 rows][8 columns].
-__device__ __forceinline__ void warp_partial(const bf16* As, int lda, const bf16* W, int k0,
-                                             int k1, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k = k0 + 16 * warp; k < k1; k += 16 * kWarps) {
-    uint32_t a[4], bb[2];
-    ldmatrix_x4(a, As + (lane & 15) * lda + k + (lane >> 4) * 8);
-    ldmatrix_x2_trans(bb, W + (k + (lane & 15)) * kTileCols);
-    mma_bf16(acc, a, bb);
-  }
-  const int grp = lane >> 2, tq = lane & 3;
-  red[grp * 8 + 2 * tq] = acc[0];
-  red[grp * 8 + 2 * tq + 1] = acc[1];
-  red[(grp + 8) * 8 + 2 * tq] = acc[2];
-  red[(grp + 8) * 8 + 2 * tq + 1] = acc[3];
-}
-
-// Thread o < 128's element of a tile: the warps' partials in warp order.
-__device__ __forceinline__ float warp_sum_in_order(const float* red, int o) {
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += red[w * 128 + o];
-  return s;
-}
-
-__device__ __forceinline__ float ldcg_bf16(const bf16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
-
 template <int G, typename Rows>
 __global__ void __launch_bounds__(kThreads, 1)
     attend_persistent_kernel(const AttendArgs<Rows> a, const __grid_constant__ CUtensorMap m_out,
@@ -304,12 +234,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = blockIdx.x;
   const CUtensorMap* maps[kProducts] = {&m_out, &m_w1, &m_w2};
   int count[kProducts], first[kProducts], at[kProducts];   // at: the product's tiles, in bf16
-  for (int q = 0, o = 0; q < kProducts; ++q) {
-    count[q] = plan_count(p, q, g);
-    first[q] = plan_first(p, q, g);
-    at[q] = o;
-    o += count[q] * p.rows[q] * kTileCols;
-  }
+  plan_slice(p, g, first, count, at);
 
   // ---- every weight tile of this block in flight, before the attention --
   mark(a, 0);
@@ -356,7 +281,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // ---- (b) y = x + the heads' shares of comb . w_out, in head order ------
   {
-    const int K = p.rows[0], Kh = G * kD, lda = K + 8;
+    const int K = p.rows[0], lda = K + 8;
     bf16* As = reinterpret_cast<bf16*>(work);
     float* red = reinterpret_cast<float*>(work + (size_t)kRowTile * lda * sizeof(bf16));
     bf16* dst = a.hid4 ? a.y : a.out;
@@ -364,16 +289,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int rt = 0; rt < nrt && count[0]; ++rt) {
       stage_rows(As, a.comb, a.b, K, rt * kRowTile);
       for (int j = 0; j < count[0]; ++j) {
-        const bf16* W = wsm + at[0] + j * K * kTileCols;
-        for (int h = 0; h < a.kvh; ++h)
-          warp_partial(As, lda, W, h * Kh, (h + 1) * Kh, red + (h * kWarps + warp) * 128);
-        __syncthreads();
         const int row = rt * kRowTile + m, col = (first[0] + j * p.grid) * kTileCols + n;
-        if (o < 128 && row < a.b) {
-          float y = __bfloat162float(a.x[(size_t)row * a.dim + col]);
-          for (int h = 0; h < a.kvh; ++h) y += warp_sum_in_order(red + h * kWarps * 128, o);
-          dst[(size_t)row * a.dim + col] = __float2bfloat16(y);
-        }
+        const bool mine = o < 128 && row < a.b;
+        const float x = mine ? __bfloat162float(a.x[(size_t)row * a.dim + col]) : 0.f;
+        const float y = tile_dot(As, lda, wsm + at[0] + j * K * kTileCols, K, a.kvh, x, red);
+        if (mine) dst[(size_t)row * a.dim + col] = __float2bfloat16(y);
         __syncthreads();
       }
     }
@@ -393,25 +313,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (count[1]) mbar_wait(&bars[1], 0);
     for (int rt = 0; rt < nrt && count[1]; ++rt) {
       stage_rows(As, a.y, a.b, K, rt * kRowTile);
-      for (int r = warp; r < kRowTile; r += kWarps) {   // RMSNorm, in place
-        bf16* yr = As + r * lda;
-        float ss = 0.f;
-        for (int c = lane; c < K; c += 32) {
-          const float v = __bfloat162float(yr[c]);
-          ss += v * v;
-        }
-        const float inv = rsqrtf(warp_sum(ss) / K + a.eps);
-        for (int c = lane; c < K; c += 32)
-          yr[c] = __float2bfloat16(__bfloat162float(yr[c]) * inv * a.ff_norm[c]);
-      }
-      __syncthreads();
+      norm_rows(As, K, a.ff_norm, a.eps);
       for (int j = 0; j < count[1]; ++j) {
-        warp_partial(As, lda, wsm + at[1] + j * K * kTileCols, 0, K, red + warp * 128);
-        __syncthreads();
+        const float v = tile_dot(As, lda, wsm + at[1] + j * K * kTileCols, K, 1, 0.f, red);
         const int row = rt * kRowTile + m, col = (first[1] + j * p.grid) * kTileCols + n;
         if (o < 128 && row < a.b) {
-          const float hv = round_bf16(round_bf16(warp_sum_in_order(red, o)) +
-                                      round_bf16(a.ff_b1[col]));
+          const float hv = round_bf16(round_bf16(v) + round_bf16(a.ff_b1[col]));
           a.hbuf[(size_t)row * a.hid4 + col] =
               __float2bfloat16(0.5f * hv * (1.f + erff(hv * 0.7071067811865476f)));
         }
@@ -431,13 +338,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int rt = 0; rt < nrt && count[2]; ++rt) {
       stage_rows(As, a.hbuf, a.b, K, rt * kRowTile);
       for (int j = 0; j < count[2]; ++j) {
-        warp_partial(As, lda, wsm + at[2] + j * K * kTileCols, 0, K, red + warp * 128);
-        __syncthreads();
+        const float v = tile_dot(As, lda, wsm + at[2] + j * K * kTileCols, K, 1, 0.f, red);
         const int row = rt * kRowTile + m, col = (first[2] + j * p.grid) * kTileCols + n;
         if (o < 128 && row < a.b) {
           const size_t i = (size_t)row * a.dim + col;
-          const float ov = round_bf16(round_bf16(warp_sum_in_order(red, o)) +
-                                      round_bf16(a.ff_b2[col]));
+          const float ov = round_bf16(round_bf16(v) + round_bf16(a.ff_b2[col]));
           a.out[i] = __float2bfloat16(ldcg_bf16(a.y + i) + ov);
         }
         __syncthreads();
@@ -445,63 +350,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   mark(a, 4, p.off[2]);
-}
-
-// A [K, N] row-major bf16 matrix as boxes of 64 rows x 8 columns.  A map
-// holds only the address, the sizes and the strides, so the maps of the
-// last few matrices are kept and reused (the weights of every layer).
-bool encode_tiles(CUtensorMap* map, const void* w, int K, int N) {
-  struct Entry {
-    const void* w;
-    int K, N;
-    CUtensorMap map;
-  };
-  constexpr int kKept = 64;
-  static Entry kept[kKept] = {};
-  static int next = 0;
-  for (const Entry& e : kept)
-    if (e.w == w && e.K == K && e.N == N) {
-      *map = e.map;
-      return true;
-    }
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
-  const cuuint64_t strides[1] = {(cuuint64_t)N * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)kTileCols, (cuuint32_t)kBoxRows};
-  const cuuint32_t elem[2] = {1u, 1u};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  kept[next] = Entry{w, K, N, *map};
-  next = (next + 1) % kKept;
-  return true;
-}
-
-// The plan at one block per SM, and how many such blocks fit on an SM (0:
-// the shared memory a block needs exceeds what the card allows).
-// The SM count and shared-memory limit of a device, read once.
-constexpr int kMaxDevices = 64;
-
-cudaError_t device_limits(int* sms, int* smem_optin) {
-  static int cache[kMaxDevices][2] = {};
-  int dev = 0;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (cache[dev][0] == 0) {
-    if ((e = cudaDeviceGetAttribute(&cache[dev][0], cudaDevAttrMultiProcessorCount, dev)) !=
-            cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&cache[dev][1], cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                    dev)) != cudaSuccess) {
-      cache[dev][0] = 0;
-      return e;
-    }
-  }
-  *sms = cache[dev][0];
-  *smem_optin = cache[dev][1];
-  return cudaSuccess;
 }
 
 // The plan at one block per SM, and how many such blocks fit on an SM (0:
@@ -587,11 +435,17 @@ cudaError_t launch_select_emit_ragged(const bf16* q, bf16* ckv, bf16* ring, cons
                                       int sel_block, int num_sel, int n_slide, int max_blocks,
                                       int info_width, float scale, cudaStream_t stream) {
   cudaError_t e;
-  const int nchunks = hid / kEmitColsR;
-  const size_t shmem_e = emit_smem_bytes<kEmitColsR>(Bc) + sizeof(int) * b;
+  const int nchunks = hid / kEmitCols, K = Bc * kD;
+  const size_t shmem_e = emit_launch_smem(b, Bc);
+  CUtensorMap maps[3] = {};
+  if (!encode_tiles(&maps[0], w1k, kvh * K, hid, kEmitCols) ||
+      !encode_tiles(&maps[1], w1v, kvh * K, hid, kEmitCols) ||
+      !encode_tiles(&maps[2], w2, kvh * hid, 2 * kD, kEmitCols))
+    return cudaErrorInvalidValue;
   if ((e = set_smem((const void*)emit_partial_ragged_kernel, shmem_e)) != cudaSuccess) return e;
-  emit_partial_ragged_kernel<<<kvh * nchunks, kThreads, shmem_e, stream>>>(
-      ring, kv_new, pos_kv, w1k, b1k, w1v, b1v, w2, tvec, ncb, partial, b, kvh, Bc, hid, stride);
+  emit_partial_ragged_kernel<<<kvh * 2 * nchunks, kThreads, shmem_e, stream>>>(
+      ring, kv_new, pos_kv, b1k, b1v, tvec, ncb, partial, b, kvh, Bc, hid, stride, maps[0],
+      maps[1], maps[2]);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const int Wf = Wc / (sel_block / stride);
@@ -676,6 +530,19 @@ extern "C" int nsa_decode_attend_fused_paged(
       kv_new, info, c_out, gates, x, w_out, ff_norm, ff_w1, ff_b1, ff_w2, ff_b2, t, comb, y,
       hbuf, out, phase_ns, b, kvh, dim, hid4, sel_block, window, num_sel, n_slide, info_width,
       scale, eps, stream);
+}
+
+// The emission launch of nsa_decode_select_emit_ragged on the current
+// device, written to out[3]: blocks, dynamic shared memory a block, the
+// card's limit a block.  Returns a cudaError_t.
+extern "C" int nsa_decode_emit_plan(int b, int kvh, int Bc, int hid, int* out) {
+  int sms = 0, optin = 0;
+  const cudaError_t e = nsa::device_limits(&sms, &optin);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = kvh * 2 * (hid / nsa::kEmitCols);
+  out[1] = (int)nsa::emit_launch_smem(b, Bc);
+  out[2] = optin;
+  return 0;
 }
 
 // The attend kernels' launch plan on the current device (paged 0: the

@@ -2,20 +2,25 @@
 
     python -m nsa_tpu_torch.kernel_times [--json PATH]
 
-Times the per-layer and whole-model decode kernels (rows 6-10 and 12 of
-``PERF.md``'s kernel table) on the trained reference weights
-(``ckpt_export/sparse_mlp_seq4096.npz``, layer 0 for the per-layer ones),
-seeded activations and full-length caches: the fused pair (rows 6-7) and
-the whole-model kernel (row 12) at bs 8, the engine's ragged select-emit,
-ragged attend and paged attend (rows 8-10) at 16 slots of 4096 rows at
-mixed positions.  For each it prints the event-timed median (L2 flushed
+Times the decode kernels (rows 2, 3, 6-12 of ``PERF.md``'s kernel table)
+on the trained reference weights (``ckpt_export/sparse_mlp_seq4096.npz``,
+layer 0 for the per-layer ones), seeded activations and full-length
+caches: the fused pair (rows 6-7) and the whole-model kernel (row 12) at
+bs 8, the engine's ragged select-emit, ragged attend and paged attend
+(rows 8-10) at 16 slots of 4096 rows at mixed positions, the split pair
+(rows 2-3) at bs 64 and the block gather (row 11) at 16 slots.  For each it prints the event-timed median (L2 flushed
 before each call), the device time of every launch the call makes with the
 gaps between them (``torch.profiler``, one profile a call, medians over
 the calls), the host time of the call, and a SHA-256 of the outputs and
 the caches it writes, so that two trees run on one card compare bit for
-bit.  The script uses only the wrappers' public signatures, so a copy of
-it runs in an older checkout of the port too: run it there and here in one
-chip call, in turns, to compare two versions of a kernel.  Needs the card.
+bit.  Beside them, for each kernel launch of every case, the grid, block,
+registers per thread and shared memory that the profiler's trace records,
+the whole-model kernel's time by phase and by layer (its ``phase_ns``
+marks, median of 5 launches, an emission step and the step before it),
+and its greedy decode tok/s at bs 8 and bs 1 (``mega_tok_s``).
+The script uses only the wrappers' public signatures, so a copy of it runs
+in an older checkout of the port too: run it there and here in one chip
+call, in turns, to compare two versions of a kernel.  Needs the card.
 """
 
 from __future__ import annotations
@@ -24,11 +29,12 @@ import argparse
 import hashlib
 import json
 import os
+import tempfile
 import time
 
 import torch
 
-MAX_LEN, DECODE_T, SLOTS, SMALL_B, PAGE = 4096, 3999, 16, 8, 64
+MAX_LEN, DECODE_T, SLOTS, SMALL_B, SPLIT_B, PAGE = 4096, 3999, 16, 8, 64, 64
 SEED = 0
 
 
@@ -92,6 +98,117 @@ def event_ms(fn, iters, flush) -> float:
     torch.cuda.synchronize()
     ts = sorted(s.elapsed_time(e) for s, e in pairs)
     return ts[len(ts) // 2]
+
+
+LAUNCH_KEYS = ("grid", "block", "registers per thread", "shared memory", "blocks per SM")
+
+
+def launch_args(fn) -> list:
+    """Each kernel that ``fn()`` launches, in order, with the launch
+    arguments the profiler's trace records for it (``LAUNCH_KEYS``; shared
+    memory is static + dynamic bytes a block)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    return [{"name": e["name"][:60], **{k: e.get("args", {}).get(k) for k in LAUNCH_KEYS}}
+            for e in kernels]
+
+
+def mega_phase_table(params, cfg, iters: int = 5, device="cuda") -> dict:
+    """The whole-model kernel's time by phase and by layer at bs 8 with
+    full-length seeded caches, at an emission step (DECODE_T) and the step
+    before it: block 0's global-timer marks after each grid sync
+    (``phase_ns``), microseconds, the median of ``iters`` launches, L2 not
+    flushed (a step follows a step)."""
+    from .models.transformer import fuse_decode_params, transformer_decode_step_mega
+    from .ops.cuda import nsa_decode_mega
+    from .ops.nsa import _ckv_width
+
+    nsa = cfg.nsa
+    L, kvh, d, b = cfg.depth, cfg.kv_heads, cfg.dim_head, SMALL_B
+    Wc = _ckv_width(MAX_LEN, nsa.compress_block_sliding_stride, nsa.num_compress_per_fine)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    mp = fuse_decode_params(params, cfg)["mega"]
+    caches = (randn(L, b, kvh, MAX_LEN, 2 * d), randn(L, b, kvh, Wc, 2 * d),
+              randn(L, b, kvh, nsa.compress_block_size, 2 * d))
+    token = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=device)
+    names = getattr(nsa_decode_mega, "PHASE_NAMES",
+                    ("norm+qkvg", "select+emission", "attend+w_out", "residual+ff1", "ff2"))
+    out = {}
+    for t in (DECODE_T, DECODE_T - 1):
+        runs = []
+        for _ in range(iters):
+            marks = torch.zeros(nsa_decode_mega.phase_marks(L, 1), dtype=torch.int64,
+                                device=device)
+            transformer_decode_step_mega(mp, cfg, token, *caches, t, greedy=True, phase_ns=marks)
+            torch.cuda.synchronize()
+            runs.append(((marks[1:] - marks[:-1]).double() / 1e3).cpu())
+        us = torch.stack(runs).median(0).values
+        per_layer = us[:5 * L].reshape(L, 5)
+        out[t] = {"phases": list(names), "us_by_layer": per_layer.tolist(),
+                  "us_mean": per_layer.mean(0).tolist(), "lm_head_us": us[5 * L].item(),
+                  "span_us": us.sum().item()}
+        print(f"decode_step_mega bs {b} t={t} us by phase ({', '.join(names)}), layer by layer: "
+              + "; ".join(f"L{l} " + " ".join(f"{v:.2f}" for v in row)
+                          for l, row in enumerate(per_layer.tolist()))
+              + f"; mean {[round(v, 2) for v in out[t]['us_mean']]}; lm head "
+              f"{out[t]['lm_head_us']:.2f}; span {out[t]['span_us']:.2f}", flush=True)
+    return out
+
+
+def mega_tok_s(params, cfg, b: int, iters: int = 5, device="cuda") -> float:
+    """Greedy decode tok/s of the whole-model kernel at bs ``b`` on the
+    cell's cache (seeded full-length caches; the 100 positions from the
+    cell's prompt length 3900 on), 25 tokens a launch as ``measure_decode``
+    takes them: b x 100 over the median of ``iters`` timed runs (CUDA
+    events), after a warm-up run."""
+    from .models.transformer import fuse_decode_params, transformer_decode_step_mega
+    from .ops.nsa import _ckv_width
+
+    nsa = cfg.nsa
+    L, kvh, d = cfg.depth, cfg.kv_heads, cfg.dim_head
+    Wc = _ckv_width(MAX_LEN, nsa.compress_block_sliding_stride, nsa.num_compress_per_fine)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    mp = fuse_decode_params(params, cfg)["mega"]
+    caches = (randn(L, b, kvh, MAX_LEN, 2 * d), randn(L, b, kvh, Wc, 2 * d),
+              randn(L, b, kvh, nsa.compress_block_size, 2 * d))
+    token = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=device)
+    start, gen_len, per = DECODE_T + 1 - 100, 100, 25
+
+    def run():
+        tok = token
+        for t in range(start, start + gen_len, per):
+            _, toks, *_ = transformer_decode_step_mega(mp, cfg, tok, *caches, t, greedy=True,
+                                                       steps=per)
+            tok = toks[:, -1]
+
+    run()
+    ms = []
+    for _ in range(iters):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        run()
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+    return b * gen_len / (sorted(ms)[iters // 2] / 1e3)
 
 
 def digest(*tensors) -> str:
@@ -192,6 +309,26 @@ def cases(params, cfg, device="cuda"):
                                                                **akw), *st
         out["decode_attend_fused_paged"] = (clones(pool), patt)
 
+    # rows 2 and 3 (the split route, bs 64) and 11 (the ragged split route's
+    # block gather at 16 slots), whose code this script's A/B also holds
+    from .ops.cuda import paged_gather
+
+    b = SPLIT_B
+    q, ckv, rq = randn(b, kvh, g, d), randn(b, kvh, Wc, 2 * d), randn(b, kvh, g, d)
+    kv = randn(b, kvh, MAX_LEN, 2 * d)
+    gates = torch.sigmoid(randn(b, kvh, g, 3).float()).to(torch.bfloat16)
+    c_p, info_p = nsa_decode.decode_select_plain(q, ckv, fp["mem_kv"], DECODE_T,
+                                                 DECODE_T // stride, **skw)
+    out["decode_select"] = (lambda: (), lambda st, q=q, ckv=ckv: nsa_decode.decode_select(
+        q, ckv, fp["mem_kv"], DECODE_T, DECODE_T // stride, **skw))
+    tkw = {k: v for k, v in akw.items() if k != "eps"}
+    out["decode_attend"] = (lambda: (), lambda st, rq=rq, kv=kv, info=info_p, c=c_p, gt=gates: (
+        nsa_decode.decode_attend(rq, kv, info, c, gt, DECODE_T, **tkw),))
+    idx = info_p[..., :num_sel + n_slide][:SLOTS].contiguous()
+    kv16 = kv[:SLOTS]
+    out["paged_gather"] = (lambda: (), lambda st, kv16=kv16, idx=idx: (
+        paged_gather.paged_gather(kv16, idx, Bs),))
+
     mp = fuse_decode_params(params, cfg)["mega"]
     b = SMALL_B
     caches = (randn(L, b, kvh, MAX_LEN, 2 * d), randn(L, b, kvh, Wc, 2 * d),
@@ -229,12 +366,20 @@ def main(argv=None):
             state = setup()
             r = launch_breakdown(lambda: run(state), flush, args.iters)
             r["sha256"] = bits
+            r["launch_args"] = launch_args(lambda: run(state))
             res["kernels"][name] = r
             print(f"{name}: event {r['event_ms']:.4f} ms, device {r['device_ms']:.4f} ms over "
                   f"{len(r['launches'])} launches, span {r['span_ms']:.4f} ms, host "
                   f"{r['host_ms']:.4f} ms; " + ", ".join(
                       f"{x['name'][:40]} {x['ms']:.4f}" for x in r["launches"])
                   + f"; gaps {[round(x, 4) for x in r['gaps_ms']]}; bits {bits}", flush=True)
+            for x in r["launch_args"]:
+                print("  launch " + ", ".join(f"{k} {x[k]}" for k in ("name", *LAUNCH_KEYS)),
+                      flush=True)
+        res["mega_phases"] = mega_phase_table(params, cfg)
+        res["mega_tok_s"] = {b: mega_tok_s(params, cfg, b) for b in (SMALL_B, 1)}
+        print(f"decode_step_mega greedy tok/s, 25 tokens a launch: "
+              f"{ {b: round(v, 1) for b, v in res['mega_tok_s'].items()} }", flush=True)
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(res, fh, indent=1)

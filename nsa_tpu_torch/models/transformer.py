@@ -384,19 +384,19 @@ def _mega_kw(cfg: ModelConfig) -> dict:
 
 def transformer_decode_step_mega(mp: dict, cfg: ModelConfig, token: torch.Tensor, kv, ckv,
                                  ring, t: int, greedy: bool = False, steps: int = 1, *,
-                                 use_kernels: bool = True, phase_ns=None):
+                                 use_kernels: bool = True, phase_ns=None, inspect=None):
     """Whole-model decode through ``decode_step_mega``: (logits [b, vocab]
     float32, kv, ckv, ring), or with ``greedy=True`` (logits, tokens [b,
     steps], kv, ckv, ring) with the argmax taken in the kernel, ``steps``
     tokens per launch.  ``mp`` from ``pack_mega_params``; the caches
     stacked (``stack_decode_caches``) or per layer, updated in place.
     ``use_kernels=False`` runs the plain version on any device;
-    ``phase_ns`` as in ``decode_step_mega``."""
+    ``phase_ns`` and ``inspect`` as in ``decode_step_mega``."""
     if not use_kernels:
         return decode_step_mega_plain(mp, kv, ckv, ring, token, t, steps=steps, greedy=greedy,
                                       **_mega_kw(cfg))
     return decode_step_mega(mp, kv, ckv, ring, token, t, steps=steps, greedy=greedy,
-                            phase_ns=phase_ns, **_mega_kw(cfg))
+                            phase_ns=phase_ns, inspect=inspect, **_mega_kw(cfg))
 
 
 def _mega_route(cfg: ModelConfig, b: int, route: Optional[str]) -> bool:

@@ -40,12 +40,15 @@ def emits(t: int, stride: int) -> bool:
     return (t + 1) % stride == 0
 
 
-def emission_plain(shifted, t, pos_kv, w1k, b1k, w1v, b1v, w2, b2, dtype) -> torch.Tensor:
+def emission_plain(shifted, t, pos_kv, w1k, b1k, w1v, b1v, w2, b2, dtype,
+                   drop_chunk=None) -> torch.Tensor:
     """The GroupedMLP compression of the window [t+1-Bc, t+1) that the
     shifted ring [b, kvh, Bc, 2d] holds, rows before the sequence start
     zeroed, plus the intra-block positions: the candidate row [b, kvh, 2d]
     in ``dtype``, rounded where the Pallas kernels round.  ``t`` is an int
-    or a [b] tensor."""
+    or a [b] tensor.  ``drop_chunk`` c leaves the hidden columns [64 c, 64 c
+    + 64) of both halves out of the second product: a kernel that lost one
+    emission item, the control the emitted-row gates must fail."""
     b, kvh, Bc, d2 = shifted.shape
     d = d2 // 2
     row_pos = torch.arange(Bc, device=shifted.device) + (per_row(t) + 1 - Bc)   # [(b,) Bc]
@@ -55,6 +58,8 @@ def emission_plain(shifted, t, pos_kv, w1k, b1k, w1v, b1v, w2, b2, dtype) -> tor
     def mlp(x, w1, b1, w2_, b2_):
         hid = torch.einsum("bhi,hio->bho", x.reshape(b, kvh, Bc * d).float(), w1.float())
         hid = torch.relu(hid + b1.float()[None]).to(dtype)
+        if drop_chunk is not None:
+            hid[..., drop_chunk * EMIT_COLS:(drop_chunk + 1) * EMIT_COLS] = 0
         out = torch.einsum("bho,hoe->bhe", hid.float(), w2_.float()) + b2_.float()[None]
         return out.to(dtype)
 

@@ -23,7 +23,9 @@ logits are rounded to the model dtype before the float32 cast and the
 argmax, whose ties go to the lowest index.
 
 The wrapper runs the plain version for CPU tensors only; on CUDA tensors
-it launches the kernel or raises.
+it launches the kernel or raises, also when its launch plan (``mega_plan``:
+one block per SM, each holding its 8-column tiles of every product in
+shared memory beside its work space) does not fit the card.
 """
 
 from __future__ import annotations
@@ -38,13 +40,17 @@ from ..common import rms_norm
 from ..rotary import apply_rotary, rope_frequencies
 from . import runtime
 from .nsa_decode import INFO_WIDTH
-from .nsa_decode_fused import decode_attend_fused_plain, decode_select_emit_plain
+from .nsa_decode_fused import EMIT_COLS, decode_attend_fused_plain, decode_select_emit_plain
+from .nsa_decode_ragged import EMIT_ALIGN, STATIC_SMEM, check_plan, emit_tc_smem_bytes
 
-MAX_BATCH = 16      # the kernel's batch limit (JAX's megakernel asserts b <= 16)
+MAX_BATCH = 16      # the kernel's batch limit (JAX's megakernel asserts b <= 16): one row tile
 MAX_DEPTH = 16      # layers the kernel's cache pointer table holds
-# column chunks of the kernel's products (csrc/nsa_decode_mega.cu): the
-# widths they must divide
-PROJ_COLS, EMIT_COLS, FF1_COLS, FF2_COLS, LOGIT_COLS = 8, 32, 16, 4, 2
+# the kernel's weight tiles (csrc/decode_tc_common.cuh): 8 columns, loaded in
+# boxes of 64 rows; product widths must be multiples of the first, depths of
+# the second
+TILE_COLS, BOX_ROWS = 8, 64
+# what phase_ns's marks close, layer by layer (csrc/nsa_decode_mega.cu)
+PHASE_NAMES = ("norm+qkvg", "select+attend+emission", "w_out+ring", "norm+ff1", "ff2")
 
 # stacked per-layer weights of pack_mega_params, in the kernel's order
 LAYER_LEAVES = ("attn_norm", "w_qkvg", "gate_b", "mem_kv", "pos_kv", "b1k", "b1v", "b2c",
@@ -115,11 +121,97 @@ def decode_step_mega_plain(mp: dict, kv: Caches, ckv: Caches, ring: Caches,
     return logits, kv, ckv, ring
 
 
+# the products' order in the kernel's plan, and the order in which their
+# tiles are dealt to the blocks (ff w2's, the largest, first)
+QKVG, WOUT, FW1, FW2, HEAD = range(5)
+PLACEMENT = (FW2, WOUT, HEAD, QKVG, FW1)
+PLAN_KEYS = ("grid", "blocks_per_sm", "slice_bytes", "slice_total", "work_bytes",
+             "smem_bytes", "smem_optin")
+_THREADS, _WARPS, _SEL_TILE, _HALF_ROW, _FULL_ROW = 256, 8, 512, 72, 136
+
+
+def _select_smem(g: int, Wc: int, M: int, Wf: int, d: int = 64) -> int:
+    """select_body's shared memory (csrc/decode_common.cuh)."""
+    outs = g * d
+    parts = max(1, _THREADS // outs)
+    return 2 * _SEL_TILE * _HALF_ROW + 4 * (g * Wc + g * M + Wf + g * d + parts * outs + 32)
+
+
+def _attend_smem(g: int, J: int, d: int = 64) -> int:
+    """attend_body's shared memory (csrc/decode_common.cuh)."""
+    outs = g * d
+    parts = max(1, _THREADS // outs)
+    return 2 * J * _FULL_ROW + 4 * (2 * g * J + g * d + 2 * parts * outs + 32) + 4 * 2 * J
+
+
+def mega_plan(*, kvh: int, g: int, dim: int, hid4: int, vocab: int, Wc: int, M: int, Bc: int,
+              sel_block: int, stride: int, num_sel: int, n_slide: int, grid: int,
+              smem_optin: int, d: int = 64) -> dict:
+    """The whole-model kernel's launch plan at one block per SM (``grid``
+    SMs): the q|k|v|gate, w_out, ff w1, ff w2 and LM-head products in
+    8-column tiles, tile i of a product on block (off + i) % grid, the
+    products' tiles dealt in turn (``PLACEMENT``); the largest block's and
+    all blocks' tile bytes, the work space a block (the largest of the
+    selection, the attention, the emission, the ring shift and the staged
+    rows of a product), the dynamic shared memory a block (1024 bytes of
+    alignment slack, the tiles, the work space, each on a 1024-byte
+    boundary for the emission's swizzled boxes), and ``fits`` when that and
+    the kernel's static shared memory stay within ``smem_optin``.  The same
+    arithmetic as ``make_mega_plan`` in csrc/nsa_decode_mega.cu."""
+    h = kvh * g
+    P = h * d + 2 * kvh * d + 3 * h
+    rows = (dim, h * d, dim, hid4, dim)
+    tiles = (P // TILE_COLS, dim // TILE_COLS, hid4 // TILE_COLS, dim // TILE_COLS,
+             vocab // TILE_COLS)
+    off, nxt = [0] * 5, 0
+    for q in PLACEMENT:
+        off[q] = nxt % grid
+        nxt += tiles[q]
+    per_block = []
+    for blk in range(grid):
+        total = 0
+        for q in range(5):
+            i0 = (blk - off[q]) % grid
+            count = (tiles[q] - i0 + grid - 1) // grid if i0 < tiles[q] else 0
+            total += count * rows[q] * 2 * TILE_COLS
+        per_block.append(total)
+    J = (num_sel + n_slide) * sel_block
+    stage = 16 * (max(dim, h * d, hid4) + 8) * 2 + 4 * _WARPS * max(kvh, 1) * 128
+    work = max(_select_smem(g, Wc, M, Wc // (sel_block // stride), d), _attend_smem(g, J, d),
+               emit_tc_smem_bytes(Bc, d), Bc * 2 * d * 2, stage)
+    work = -(-work // 16) * 16
+    slice_bytes = max(per_block)
+    smem = EMIT_ALIGN + -(-slice_bytes // EMIT_ALIGN) * EMIT_ALIGN + work
+    return {"grid": grid, "slice_bytes": slice_bytes, "slice_total": sum(per_block),
+            "work_bytes": work, "smem_bytes": smem, "smem_optin": smem_optin,
+            "fits": smem + STATIC_SMEM <= smem_optin}
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(device: int, ints: tuple) -> dict:
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    with torch.cuda.device(device):
+        runtime.library().call("nsa_decode_mega_plan", (ctypes.c_int * len(ints))(*ints),
+                               len(ints), ctypes.addressof(out))
+    plan = dict(zip(PLAN_KEYS, out))
+    return {**plan, "fits": plan["blocks_per_sm"] >= 1}
+
+
 @functools.lru_cache(maxsize=None)
 def _inv_freq(d: int, theta: float, device: str) -> torch.Tensor:
     """rotary's inverse frequencies, once per device: the plain version's
     ``rope_frequencies`` values, so both rotate by the same angles."""
     return rope_frequencies(d, theta, torch.device(device))
+
+
+def launch_plan(device, ints) -> dict:
+    """The kernel's plan on ``device`` for the C entry's ints (see
+    ``decode_step_mega``; the plan does not depend on t, steps or greedy),
+    as its C entry computes it: ``PLAN_KEYS``, and ``fits`` (at least one
+    block an SM)."""
+    index = torch.device(device).index
+    return dict(_device_plan(torch.cuda.current_device() if index is None else index,
+                             tuple(int(x) for x in ints)))
 
 
 def _scratch(device, spec):
@@ -138,7 +230,8 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
                      t: int, *, steps: int = 1, greedy: bool = False, heads: int,
                      stride: int, sel_block: int, num_sel: int, n_slide: int, window: int,
                      scale: float, eps: float, theta: float,
-                     phase_ns: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+                     phase_ns: Optional[torch.Tensor] = None,
+                     inspect: Optional[dict] = None) -> Tuple[torch.Tensor, ...]:
     """Whole-model decode at position ``t`` -> (logits [b, vocab] float32,
     kv, ckv, ring), or with ``greedy=True`` (logits, tokens [b, steps]
     int32, kv, ckv, ring): ``tokens[:, i]`` is the token sampled after
@@ -151,7 +244,12 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
     only when greedy.  ``phase_ns``, an int64 CUDA tensor of at least
     ``phase_marks(L, steps)`` values, receives the card's global timer (ns)
     at the kernel's start and after each of its grid syncs (where the time
-    goes; not written on the CPU)."""
+    goes; not written on the CPU).  ``inspect``, a dict, receives on the
+    card the kernel's own intermediates of every layer of the last step:
+    ``rq`` and ``c_out`` [L, b, kvh, g, d], ``gates`` [L, b, kvh, g, 3],
+    ``info`` [L, b, kvh * INFO_WIDTH] and ``attn_out`` [L, b, kvh, g, d], the
+    attention output rounded as ``w_out`` takes it (for the checks that
+    hold each layer's attention to its plain version)."""
     kw = dict(heads=heads, stride=stride, sel_block=sel_block, num_sel=num_sel,
               n_slide=n_slide, window=window, scale=scale, eps=eps, theta=theta)
     kvs, ckvs, rings = _layers(kv), _layers(ckv), _layers(ring)
@@ -178,14 +276,15 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
     npf = sel_block // stride
     if d != 64 or g not in (1, 2, 4, 8) or L > MAX_DEPTH or npf < 2 or Wc % npf \
             or max_len % sel_block or 2 * num_sel + n_slide > INFO_WIDTH \
-            or P % PROJ_COLS or hid % EMIT_COLS or hid4 % FF1_COLS or dim % FF2_COLS \
-            or vocab % LOGIT_COLS:
+            or P % TILE_COLS or vocab % TILE_COLS or dim % BOX_ROWS or hid4 % BOX_ROWS \
+            or hid % EMIT_COLS:
         raise ValueError(
             f"decode_step_mega kernel takes dim_head 64, g in 1/2/4/8, <= {MAX_DEPTH} layers, "
-            f"sel_block/stride >= 2 dividing the ckv width, widths divisible by its column "
-            f"chunks ({PROJ_COLS} projection, {EMIT_COLS} compressor, {FF1_COLS} FF hidden, "
-            f"{FF2_COLS} model, {LOGIT_COLS} vocab); got d={d}, g={g}, L={L}, npf={npf}, "
-            f"Wc={Wc}, P={P}, hid={hid}, hid4={hid4}, dim={dim}, vocab={vocab}")
+            f"sel_block/stride >= 2 dividing the ckv width, projection and vocab widths "
+            f"divisible by its {TILE_COLS}-column tiles, model and FF widths by its "
+            f"{BOX_ROWS}-row boxes and a compressor width by {EMIT_COLS}; got d={d}, g={g}, "
+            f"L={L}, npf={npf}, Wc={Wc}, P={P}, hid={hid}, hid4={hid4}, dim={dim}, "
+            f"vocab={vocab}")
     bf, f32 = torch.bfloat16, torch.float32
     for name, x, shape in (("kv", kvs, (b, kvh, max_len, 2 * d)),
                            ("ckv", ckvs, (b, kvh, Wc, 2 * d)),
@@ -211,16 +310,19 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
     tok_in = token.to(device=dev, dtype=torch.int32).contiguous()
     logits = torch.empty((b, vocab), dtype=f32, device=dev)
     tokens = torch.empty((b, steps), dtype=torch.int32, device=dev)
+    ints = [L, b, kvh, g, max_len, Wc, Bc, M, hid, dim, vocab, hid4, t, steps, int(greedy),
+            stride, sel_block, num_sel, n_slide, window, INFO_WIDTH]
+    check_plan("decode_step_mega", launch_plan(dev, ints[:12] + [0, 1, 0] + ints[15:]))
     nchunks = hid // EMIT_COLS
     scratch = _scratch(dev, [
         (b * P, bf),                       # proj: the fused projection, rounded
-        (b * h * d, bf), (b * h * d, bf),  # q, rq
-        (b * h * 3, bf),                   # gates
+        (b * h * d, bf), (L * b * h * d, bf),           # q; rq of every layer
+        (L * b * h * 3, bf),               # gates of every layer
         (b * kvh * 2 * d, bf), (b * kvh * 2 * d, bf),   # the new row: unrotated, rotated
-        (b * h * d, bf),                   # c_out
-        (b * kvh * INFO_WIDTH, torch.int32),            # info
+        (L * b * h * d, bf),               # c_out of every layer
+        (L * b * kvh * INFO_WIDTH, torch.int32),        # info of every layer
         (kvh * nchunks * b * 2 * d, f32),  # the emission's partial sums
-        (b * kvh * dim, f32),              # the heads' partial projections
+        (L * b * h * d, bf),               # comb: every layer's attention output, rounded
         (b * dim, bf), (b * dim, bf),      # x (the residual stream), y (x + attention)
         (b * hid4, bf),                    # the FF's hidden row
     ])
@@ -232,8 +334,6 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
         if phase_ns.numel() < phase_marks(L, steps) or phase_ns.device != dev:
             raise ValueError(f"phase_ns needs {phase_marks(L, steps)} int64 values on {dev}")
     ptrs.append(0 if phase_ns is None else phase_ns.data_ptr())
-    ints = [L, b, kvh, g, max_len, Wc, Bc, M, hid, dim, vocab, hid4, t, steps, int(greedy),
-            stride, sel_block, num_sel, n_slide, window, INFO_WIDTH]
     with torch.cuda.device(dev):
         runtime.library().call(
             "nsa_decode_mega", (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
@@ -241,6 +341,11 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
             runtime.stream_of(kvs[0]),
         )
     decode_step_mega.launches += 1
+    if inspect is not None:
+        inspect.update(rq=scratch[2].view(L, b, kvh, g, d), gates=scratch[3].view(L, b, kvh, g, 3),
+                       c_out=scratch[6].view(L, b, kvh, g, d),
+                       info=scratch[7].view(L, b, kvh * INFO_WIDTH),
+                       attn_out=scratch[9].view(L, b, kvh, g, d))
     if greedy:
         return logits, tokens, kv, ckv, ring
     return logits, kv, ckv, ring

@@ -16,7 +16,10 @@ kernel over a paged kv pool.
 
 Each wrapper launches its CUDA kernel (``csrc/nsa_decode_ragged.cu``) for
 CUDA tensors, raises on what the kernel does not take, and runs the plain
-PyTorch version beside it for CPU tensors.  The two attend kernels are one
+PyTorch version beside it for CPU tensors.  The select-emit kernel's
+emission runs on the tensor cores, one block per (KV head, half, 64
+compressor hidden columns) (``emit_plan`` gives its shared memory; the
+wrapper raises when it does not fit).  The two attend kernels are one
 cooperative launch of one block per SM that holds column tiles of w_out and
 the FF's matrices in shared memory (``attend_plan`` gives the sizes; the
 wrapper raises when they do not fit).  Neither reads a position back
@@ -42,6 +45,61 @@ def ragged_emits(t: torch.Tensor, num_cb: torch.Tensor, stride: int) -> torch.Te
     """[b] bool: whether each row's step completes a compressed block (JAX's
     ``run_fill + 1 == Bc``)."""
     return t - num_cb * stride + 1 == stride
+
+
+# the tensor-core emission body (csrc/decode_tc_common.cuh): w1 stages in
+# its ring, w1 rows a stage holds, batch rows of its mma tile
+EMIT_STAGES, EMIT_KTILE, ROW_TILE = 8, 64, 16
+EMIT_ALIGN = 1024   # the alignment of its shared memory (the 128-byte swizzle's boxes)
+STATIC_SMEM = 256   # a bound on the static shared memory of the kernels with a plan
+
+
+def emit_tc_smem_bytes(Bc: int, d: int = 64) -> int:
+    """Shared memory of the tensor-core emission body at a window of Bc
+    rows: its w1 stages, w2's tile, the 16-row window tile [16][Bc d + 8]
+    and the hidden tile [16][72], in bf16."""
+    K = Bc * d
+    return (EMIT_STAGES * EMIT_KTILE * EMIT_COLS * 2 + EMIT_COLS * d * 2
+            + ROW_TILE * (K + 8) * 2 + ROW_TILE * (EMIT_COLS + 8) * 2)
+
+
+EMIT_PLAN_KEYS = ("blocks", "smem_bytes", "smem_optin")
+
+
+def emit_plan(b: int, kvh: int, Bc: int, hid: int, smem_optin: int) -> dict:
+    """The emission launch of ``decode_select_emit_ragged``: one block per
+    (KV head, half, 64 compressor hidden columns), each taking 1024 bytes of
+    alignment slack (its swizzled TMA boxes start on a 1024-byte boundary),
+    the body's shared memory and the list of the b rows; ``fits`` when that
+    and the kernel's static shared memory stay within ``smem_optin``, the
+    card's limit a block."""
+    smem = EMIT_ALIGN + emit_tc_smem_bytes(Bc) + 4 * b
+    return {"blocks": kvh * 2 * (hid // EMIT_COLS), "smem_bytes": smem, "smem_optin": smem_optin,
+            "fits": smem + STATIC_SMEM <= smem_optin}
+
+
+def check_plan(name: str, plan: dict) -> dict:
+    """Raise when a launch plan does not fit the card (no fallback)."""
+    if not plan["fits"]:
+        raise ValueError(f"{name} kernel: a block needs {plan['smem_bytes']} bytes of shared "
+                         f"memory and {STATIC_SMEM} of static; the card allows "
+                         f"{plan['smem_optin']} ({plan})")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _device_emit_plan(device: int, b: int, kvh: int, Bc: int, hid: int) -> dict:
+    out = (ctypes.c_int * len(EMIT_PLAN_KEYS))()
+    with torch.cuda.device(device):
+        runtime.library().call("nsa_decode_emit_plan", b, kvh, Bc, hid, ctypes.addressof(out))
+    vals = dict(zip(EMIT_PLAN_KEYS, out))
+    return {**vals, "fits": vals["smem_bytes"] + STATIC_SMEM <= vals["smem_optin"]}
+
+
+def device_emit_plan(q, ring, w1k) -> dict:
+    """``emit_plan`` as the kernel's C entry computes it on q's card."""
+    return dict(_device_emit_plan(q.device.index, q.shape[0], q.shape[1], ring.shape[2],
+                                  w1k.shape[2]))
 
 
 def decode_select_emit_ragged_plain(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v,
@@ -103,6 +161,7 @@ def decode_select_emit_ragged(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1
         runtime.check("t", t, i32, (b,)),
         runtime.check("num_cb", num_cb, i32, (b,)),
     ]
+    check_plan("decode_select_emit_ragged", device_emit_plan(q, ring, w1k))
     c_out = torch.empty_like(q)
     info = torch.empty((b, kvh * INFO_WIDTH), dtype=i32, device=q.device)
     # per (head, hidden chunk) partial sums of the emitting rows' compressor

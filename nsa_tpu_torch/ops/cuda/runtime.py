@@ -51,11 +51,15 @@ SIGNATURES = {
     "nsa_decode_attend_fused_paged": [_p] * 20 + [_i] * 12 + [_f, _f, _p],
     # the two kernels' launch plan, written to an int array (see the source)
     "nsa_decode_attend_ragged_plan": [_i] * 9 + [_p],
+    # the ragged emission launch's blocks and shared memory, written to an int array
+    "nsa_decode_emit_plan": [_i] * 4 + [_p],
     "nsa_paged_gather": [_p] * 3 + [_i] * 5 + [_p],
     "nsa_flash_attention": [_p] * 4 + [_i] * 6 + [_f, _p],
     # the whole-model decode: a host array of pointers and of ints (see
     # csrc/nsa_decode_mega.cu for their order), their lengths, scale, eps
     "nsa_decode_mega": [_p, _i, _p, _i, _f, _f, _p],
+    # its launch plan for the same ints, written to an int array
+    "nsa_decode_mega_plan": [_p, _i, _p],
 }
 
 

@@ -448,13 +448,13 @@ def test_model_decode_step_fused_route_matches_plain(gen):
             nsa_decode.decode_select.launches) == (before[0] + 4, before[1] + 4, before[2])
 
 
-@pytest.mark.parametrize("b", [3, 9])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 16])
 def test_decode_step_mega_kernel_matches_plain(gen, b):
     """Two layers at the reference widths, random weights from a seed, at
     t = 199 (emits) and 200: the whole-model kernel against its plain
     version, logits within 2^-6 of the largest, the in-kernel argmax
     equal except at near-ties, and every cache row but the step's own
-    bit-equal (b = 9 takes two of the kernel's 8-row groups); then one
+    bit-equal (b 1 to 16 rows of the kernel's one 16-row tile); then one
     launch of 4 greedy tokens against 4 launches of one, bit for bit."""
     cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
     params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cuda"),
@@ -521,6 +521,36 @@ def test_mega_wrapper_refuses_what_the_kernel_does_not_take(gen):
                                          greedy=True)
         with pytest.raises(TypeError):                      # bf16 caches only
             transformer_decode_step_mega(mp, cfg, token, kv.float(), ckv, ring, 20)
+        before = nsa_decode_mega.decode_step_mega.launches
+        L, dim = mp["fw1"].shape[:2]
+        for hid4 in (2000, 16384):     # not a multiple of 64; a plan that does not fit
+            wide = dict(mp, fw1=torch.zeros(L, dim, hid4, dtype=torch.bfloat16, device="cuda"),
+                        fb1=torch.zeros(L, 1, hid4, dtype=torch.bfloat16, device="cuda"),
+                        fw2=torch.zeros(L, hid4, dim, dtype=torch.bfloat16, device="cuda"))
+            with pytest.raises(ValueError, match="64-row boxes" if hid4 == 2000 else
+                               "shared memory"):
+                transformer_decode_step_mega(wide, cfg, token, kv, ckv, ring, 20)
+        assert nsa_decode_mega.decode_step_mega.launches == before
+
+
+def test_mega_plan_on_the_card_is_the_python_plan(gen):
+    """The C entry's launch plan equals ``mega_plan`` at the reference
+    model and at G 1, 4, 8, on this card's SM count and limit."""
+    nsa = reference_model_config().nsa
+    for kvh, g in ((4, 2), (8, 1), (2, 4), (1, 8)):
+        ints = [6, 8, kvh, g, 4096, 512, nsa.compress_block_size, nsa.num_compressed_mem_kv,
+                1024, 512, 256, 2048, 0, 1, 0, nsa.compress_block_sliding_stride,
+                nsa.selection_block_size, nsa.num_selected_blocks, 5, nsa.sliding_window_size,
+                nsa_decode.INFO_WIDTH]
+        dev = nsa_decode_mega.launch_plan("cuda", ints)
+        want = nsa_decode_mega.mega_plan(
+            kvh=kvh, g=g, dim=512, hid4=2048, vocab=256, Wc=512, M=nsa.num_compressed_mem_kv,
+            Bc=nsa.compress_block_size, sel_block=nsa.selection_block_size,
+            stride=nsa.compress_block_sliding_stride, num_sel=nsa.num_selected_blocks,
+            n_slide=5, grid=dev["grid"], smem_optin=dev["smem_optin"])
+        assert dev["fits"] and want["fits"]
+        assert {k: dev[k] for k in want if k != "fits"} == {k: want[k] for k in want
+                                                            if k != "fits"}, (kvh, g)
 
 
 RAGGED_T = [7, 199, 200, 1023, 0, 3]     # 7, 199, 1023 emit (stride 8); 0 and 3 before Bc
@@ -569,6 +599,91 @@ def test_decode_select_emit_ragged_kernel_matches_plain(gen, uniform):
         assert torch.equal(info_s, info_k) and torch.equal(caches[2][1], caches[0][1])
         assert max_err(c_s, c_k) <= TOL_FUSED * c_s.float().abs().max().item()
         assert max_err(caches[2][0], caches[0][0]) <= TOL_FUSED * caches[2][0].float().abs().max()
+
+
+def emitting_positions(b, n_emit, gen):
+    """b positions below 1024 of which exactly n_emit complete a compressed
+    block (stride 8), the first of them t = 7 (a window that starts before
+    position 0), in a seeded order."""
+    ts = [7 + 8 * (13 * i % 127) if i < n_emit else 2 + 8 * (11 * i % 127) for i in range(b)]
+    order = torch.randperm(b, generator=gen, device="cuda").cpu()
+    return torch.tensor(ts, dtype=torch.int32)[order].cuda()
+
+
+@pytest.mark.parametrize("b,n_emit,G", [(16, 0, 2), (16, 1, 2), (16, 5, 1), (16, 16, 4),
+                                        (17, 17, 8), (40, 33, 2)])
+def test_decode_select_emit_ragged_emission_cases(gen, b, n_emit, G, monkeypatch):
+    """The tensor-core emission at the reference compressor (Bc 16, 1024
+    hidden columns) with 0, 1, 5 and 16 of 16 rows emitting, all 17 of 17
+    (a second 16-row tile) and 33 of 40; G 1, 2, 4, 8: emitted rows within
+    2^-6 of the largest value, every other ckv row untouched, the ring
+    bit-equal, a second launch bit-equal, and the plain version with one
+    hidden chunk left out failing the emitted-row gate."""
+    kvh, d, M, Bc, hid = 2, 64, 1, 16, 1024
+    stride, Bs, window, num_sel, max_len = 8, 16, 64, 4, 1024
+    n_slide = -(-window // Bs) + 1
+    Wc = _ckv_width(max_len, stride, Bs // stride)
+    q, ckv, mem_kv = randn(gen, b, kvh, G, d), randn(gen, b, kvh, Wc, 2 * d), randn(gen, 2, kvh, M, d)
+    ring, kv_new = randn(gen, b, kvh, Bc, 2 * d), randn(gen, b, kvh, 1, 2 * d)
+    weights = fused_weights(gen, kvh, Bc, d, hid)
+    kw = dict(max_blocks=max_len // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
+              n_slide=n_slide, scale=0.125)
+    t = emitting_positions(b, n_emit, gen)
+    num_cb = t // stride
+    emit = nsa_decode_ragged.ragged_emits(t, num_cb, stride)
+    assert int(emit.sum()) == n_emit
+    runs = []
+    for use_kernel in (True, True, False, False):
+        c, r = ckv.clone(), ring.clone()
+        if use_kernel:
+            out = nsa_decode_ragged.decode_select_emit_ragged(q, c, r, kv_new, mem_kv, *weights, t,
+                                                              num_cb, **kw)
+        else:
+            if len(runs) == 3:            # the control: one hidden chunk left out
+                real = nsa_decode_fused.emission_plain
+                monkeypatch.setattr(nsa_decode_ragged, "emission_plain",
+                                    lambda *a, **k: real(*a, drop_chunk=hid // 128, **k))
+            out = nsa_decode_ragged.decode_select_emit_ragged_plain(
+                q, c, r, kv_new, mem_kv, *weights, t, num_cb, **kw)
+        runs.append((*out, c, r))
+    torch.cuda.synchronize()
+    (c_k, info_k, ckv_k, ring_k), second, (c_p, info_p, ckv_p, ring_p), control = runs
+    assert all(torch.equal(x, y) for x, y in zip(runs[0], second))
+    assert max_err(c_k, c_p) <= TOL_OUT and torch.equal(info_k, info_p)
+    assert torch.equal(ring_k, ring_p)
+    rows = torch.arange(b, device="cuda")
+    slot = num_cb.long().clamp(max=Wc - 1)
+    others = (torch.arange(Wc, device="cuda")[None] != slot[:, None])[:, None, :, None] \
+        .expand_as(ckv)
+    assert torch.equal(ckv_k[others], ckv[others])
+    assert torch.equal(ckv_k[rows, :, slot][~emit], ckv[rows, :, slot][~emit])
+    if n_emit:
+        row_k, row_p = ckv_k[rows, :, slot][emit], ckv_p[rows, :, slot][emit]
+        bound = TOL_FUSED * row_p.float().abs().max().item()
+        assert max_err(row_k, row_p) <= bound
+        assert max_err(control[2][rows, :, slot][emit], row_p) > bound
+
+
+def test_select_emit_ragged_refuses_a_window_that_does_not_fit(gen):
+    """A 128-row compression window needs a 16 x 8192 tile: the wrapper
+    raises before launching, as the plan says; the reference window fits
+    and its plan is the pure-Python one."""
+    b, kvh, d, Bc, hid = 2, 2, 64, 128, 128
+    q, ring, kv_new = randn(gen, b, kvh, 2, d), randn(gen, b, kvh, Bc, 2 * d), \
+        randn(gen, b, kvh, 1, 2 * d)
+    ckv = randn(gen, b, kvh, 136, 2 * d)
+    weights = fused_weights(gen, kvh, Bc, d, hid)
+    t = torch.full((b,), 127, dtype=torch.int32, device="cuda")
+    kw = dict(max_blocks=64, stride=64, sel_block=128, num_sel=4, n_slide=2, scale=0.125)
+    before = nsa_decode_ragged.decode_select_emit_ragged.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        nsa_decode_ragged.decode_select_emit_ragged(q, ckv, ring, kv_new, randn(gen, 2, kvh, 1, d),
+                                                    *weights, t, t // 64, **kw)
+    assert nsa_decode_ragged.decode_select_emit_ragged.launches == before
+    small = randn(gen, b, kvh, 16, 2 * d)
+    dev = nsa_decode_ragged.device_emit_plan(q, small, weights[1])
+    assert dev["fits"]
+    assert dev == nsa_decode_ragged.emit_plan(b, kvh, 16, hid, dev["smem_optin"])
 
 
 def test_decode_attend_ragged_and_paged_kernels_match_plain(gen):
