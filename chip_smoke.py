@@ -65,9 +65,10 @@ Phases, each printing its name and seconds as it ends:
              the split route (depth block-gather launches a step); every page
              back on the free list; no host sync inside a multi-token window
              (``torch.cuda.set_sync_debug_mode("error")``); new tokens/s,
-             requests/s, wall time, kv pool MiB, peak memory, how many
+             requests/s, wall time, kv pool MiB, peak memory; how many
              ragged steps have an emitting slot and how many slots emit a
-             step, and a profile of 5 ragged steps at 16 slots with rows
+             step (counted in one more, untimed run of the dense pool); and
+             a profile of 5 ragged steps at 16 slots with rows
              8-10's device time and their share of the step's.
 11. full   - the full-attention baseline (``ckpt_export/full_attn_seq4096.npz``
              in bf16) at the serving cell: prefill of 64 x 3900 seeded tokens
@@ -99,8 +100,10 @@ layers' trained weights, seeded tokens and full-length caches, an emission
 step and the step before it; the plain version with one emission chunk
 left out must fail the emitted-row gate; every layer's attention output
 held element by element to ``attend_tolerance`` on the kernel's own inputs,
-a control with each row's first selected block left out failing it; its
-launch plan, ptxas registers and time by phase and layer), and the serving
+a control with each row's first selected block left out failing it; every
+layer's selection held to the plain one on the kernel's own query, ids
+equal but ties, a selection one rank short failing it, its c_out, emitted
+row, queries and gates within TOL_FUSED; its launch plan, ptxas registers and time by phase and layer), and the serving
 engine's four kernels at 16
 slots of 4096 rows with layer 0's trained weights: the ragged select-emit
 and attend kernels at seeded mixed positions (t = 0, emitting and
@@ -128,6 +131,7 @@ exits non-zero; nothing catches it.  Imports nothing of JAX or ``nsa_tpu``.
 
 import contextlib
 import faulthandler
+import inspect
 import json
 import math
 import os
@@ -772,17 +776,10 @@ def check_selection(info_k, info_p, scores, num_sel, n_slide, label):
     trailing ids equal; selected ids equal except where the scores tie
     within TIE; validity equal on the rows whose ids agree.  Returns the
     number of rows that differ by ties."""
-    n_slots = num_sel + n_slide
-    check(torch.equal(info_k[..., num_sel:n_slots], info_p[..., num_sel:n_slots]),
-          f"{label} trailing ids disagree")
-    ids_k, ids_p = info_k[..., :num_sel].long(), info_p[..., :num_sel].long()
-    gap = (scores.gather(-1, ids_k) - scores.gather(-1, ids_p)).abs()
-    differ = ids_k != ids_p
-    check(bool((gap[differ] <= TIE).all()), f"{label} picks a block that is not a tie")
-    same_rows = ~differ.any(-1)
-    vk, vp = info_k[..., n_slots:n_slots + num_sel], info_p[..., n_slots:n_slots + num_sel]
-    check(torch.equal(vk[same_rows], vp[same_rows]), f"{label} validity disagrees")
-    return differ.any(-1).sum().item()
+    faults, ties = nsa_decode.selection_faults(info_k, info_p, scores, num_sel=num_sel,
+                                               n_slide=n_slide, tie=TIE)
+    check(not faults, f"{label}: {'; '.join(faults)}")
+    return ties
 
 
 def attend_rows(vp, t, Bs, n_slide, window, bkvh):
@@ -930,6 +927,69 @@ def kernel_decode_fused(gen, flush, cfg, params, b):
     return sel, att
 
 
+def mega_selection_gate(mp, insp, start, after, plain, t, cfg):
+    """Each layer's selection of the whole-model kernel, held as row 8's
+    is: the plain select-emit on the kernel's own query and new row of that
+    layer (``inspect``; the caches as they were before the step) must pick
+    the same ids except ties within TIE, give c_out and the emitted ckv row
+    within TOL_FUSED of the largest value, and the kernel's selection one
+    rank short (``with_next_ranked``) must fail at every layer.  The
+    kernel's queries, rotated queries, gates and c_out are also held within
+    TOL_FUSED to the plain run's own of the same layer (``plain``: its
+    selections, (q, c_out) and (rq, gates) a layer); the ids of the two
+    runs, whose queries differ by roundings, are counted, not gated."""
+    nsa = cfg.nsa
+    L, b, kvh = cfg.depth, insp["q"].shape[1], cfg.kv_heads
+    stride, Bs = nsa.compress_block_sliding_stride, nsa.selection_block_size
+    num_sel, n_slide = nsa.num_selected_blocks, -(-nsa.sliding_window_size // Bs) + 1
+    kw = dict(max_len=MAX_LEN, stride=stride, sel_block=Bs, num_sel=num_sel, n_slide=n_slide,
+              scale=cfg.dim_head ** -0.5)
+    gkw = dict(num_sel=num_sel, n_slide=n_slide, tie=TIE)
+    slot = min(t // stride, after[1].shape[3] - 1)
+    emit = nsa_decode_fused.emits(t, stride)
+    infos, plain_sel, plain_att = plain
+    own, cross, ties, departs, fails, same_ids = [], [], [], [], 0, 0
+
+    def ratio(got, want):
+        return max_err(got, want) / (TOL_FUSED * want.float().abs().max().item())
+
+    for l in range(L):
+        info_k = insp["info"][l].reshape(b, kvh, -1)
+        c_p, info_p, ckv_p, scores = nsa_decode_mega.layer_select_emit_plain(
+            mp, l, insp["q"][l], start[1][l], start[2][l], after[2][l][..., -1:, :], t, **kw)
+        faults, n_ties = nsa_decode.selection_faults(info_k, info_p, scores, **gkw)
+        departs += [f"layer {l}: {x}" for x in faults]
+        wrong = nsa_decode.with_next_ranked(info_k, scores, num_sel)
+        fails += bool(nsa_decode.selection_faults(wrong, info_p, scores, **gkw)[0])
+        ties.append(n_ties)
+        own.append(max(ratio(insp["c_out"][l], c_p),
+                       ratio(after[1][l][..., slot, :], ckv_p[..., slot, :]) if emit else 0.0))
+        q_p, cp_run = plain_sel[l]
+        rq_p, gates_p = plain_att[l]
+        cross.append(max(ratio(insp["q"][l], q_p), ratio(insp["rq"][l], rq_p),
+                         ratio(insp["gates"][l], gates_p.reshape(insp["gates"][l].shape)),
+                         ratio(insp["c_out"][l], cp_run)))
+        same_ids += int((info_k[..., :num_sel] == infos[l].reshape(b, kvh, -1)[..., :num_sel])
+                        .all(-1).sum())
+    print(f"  decode_step_mega bs {b} t={t}: each layer's selection on the kernel's query: ids "
+          f"equal on {[b * kvh - x for x in ties]} of {b * kvh} (row, head)s, the rest ties "
+          f"within {TIE} (faults: {departs or 'none'}); the one-rank-short control fails at {fails}/{L} layers; c_out and "
+          f"emitted row worst |err| / (TOL_FUSED x max) {[round(r, 3) for r in own]}; q, rq, "
+          f"gates, c_out against the plain run's {[round(r, 3) for r in cross]} (<= 1); ids "
+          f"equal to the plain run's on {same_ids}/{L * b * kvh} (row, head)s (counted)",
+          flush=True)
+    check(not departs, f"decode_step_mega t={t}: the selection departs from the plain one on "
+          f"the kernel's query: {departs}")
+    check(max(own) <= 1.0, f"decode_step_mega t={t}: a layer's c_out or emitted row departs from "
+          f"the plain select-emit on the kernel's query")
+    check(max(cross) <= 1.0, f"decode_step_mega t={t}: a layer's q, rq, gates or c_out departs "
+          f"from the plain run's")
+    check(fails == L, f"decode_step_mega t={t}: the selection one rank short passes the "
+          f"selection gate at {L - fails} of {L} layers")
+    return {"selection_ties": ties, "control_fails": fails, "own_ratio": max(own),
+            "cross_ratio": max(cross), "ids_equal_to_plain_run": same_ids}
+
+
 def kernel_decode_mega(gen, flush, cfg, packed, b, log):
     """Row 12 at bs ``b``: the whole model's trained weights (packed);
     seeded tokens and caches at full length; an emission step and the step
@@ -946,7 +1006,9 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
     attention output, element by element, to the plain combine on the
     kernel's own inputs of that layer (``inspect``, ``attend_tolerance``, as
     for rows 9-10), and the same inputs with each row's first selected block
-    left out must fail it at every layer.  Also the launch plan, ptxas's
+    left out must fail it at every layer.  Each layer's selection, c_out,
+    gates and emitted row are held too (``mega_selection_gate``), with a
+    selection one rank short as the control.  Also the launch plan, ptxas's
     registers and the time by phase and layer."""
     nsa = cfg.nsa
     L, kvh, d, stride = cfg.depth, cfg.kv_heads, cfg.dim_head, nsa.compress_block_sliding_stride
@@ -963,28 +1025,40 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
     kv, ckv, ring = randn(L, b, kvh, MAX_LEN, 2 * d), randn(L, b, kvh, Wc, 2 * d), \
         randn(L, b, kvh, Bc, 2 * d)
     token = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=dev)
-    infos = []                   # the plain version's selections, for the bound
+    # the plain run's own per-layer values: the selections (also for the
+    # bound), the queries and compressed outputs; the rotated queries and
+    # gates its attend takes
+    infos, plain_sel, plain_att = [], [], []
     real_select = nsa_decode_mega.decode_select_emit_plain
+    real_attend = nsa_decode_mega.decode_attend_fused_plain
 
     def recording_select(*a, **k):
         out = real_select(*a, **k)
         infos.append(out[1])
+        plain_sel.append((a[0], out[0]))
         return out
 
-    times, plain_times, errs, phases, controls, timed = {}, {}, [], {}, {}, {}
+    def recording_attend(rq, kv_l, kv_row, info, c_out, gates, *a, **k):
+        plain_att.append((rq, gates))
+        return real_attend(rq, kv_l, kv_row, info, c_out, gates, *a, **k)
+
+    times, plain_times, errs, phases, controls, timed, sel_gates = {}, {}, [], {}, {}, {}, {}
     for t in (DECODE_T, DECODE_T - 1):           # an emission step, then one without
         num_cb, emit = t // stride, nsa_decode_fused.emits(t, stride)
         caches = [(kv.clone(), ckv.clone(), ring.clone()) for _ in range(2)]
         insp = {}
         lg_k, tok_k, *_ = transformer_decode_step_mega(mp, cfg, token, *caches[0], t, greedy=True,
                                                        inspect=insp)
-        infos.clear()
+        for rec in (infos, plain_sel, plain_att):
+            rec.clear()
         nsa_decode_mega.decode_select_emit_plain = recording_select
+        nsa_decode_mega.decode_attend_fused_plain = recording_attend
         try:
             lg_p, tok_p, *_ = transformer_decode_step_mega(mp, cfg, token, *caches[1], t,
                                                            greedy=True, use_kernels=False)
         finally:
             nsa_decode_mega.decode_select_emit_plain = real_select
+            nsa_decode_mega.decode_attend_fused_plain = real_attend
         torch.cuda.synchronize()
         err, top = max_err(lg_k, lg_p), lg_p.abs().max().item()
         check(bool(torch.isfinite(lg_k).all()) and err <= TOL_FUSED * top,
@@ -1065,6 +1139,10 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
         print(f"  decode_step_mega bs {b} t={t}: each layer's attention output worst |err| / "
               f"attend_tolerance {[round(r, 4) for r in ratios]} (<= 1), the dropped-block "
               f"control {[round(r, 1) for r in ratios_ctl]} (> 1)", flush=True)
+        sel_gate = mega_selection_gate(mp, insp, (kv, ckv, ring), caches[0], (infos, plain_sel,
+                                                                             plain_att), t, cfg)
+        controls[(t, "selection one rank short (layers failing)")] = sel_gate["control_fails"]
+        sel_gates[t] = sel_gate
         print(f"  decode_step_mega bs {b} t={t}: controls over their gate "
               f"{ {k[1]: round(v, 2) for k, v in controls.items() if k[0] == t} } (the emission "
               f"chunk's and the attention outputs' > 1; logits and kv rows t printed only)",
@@ -1140,7 +1218,8 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
             "event_ms": amort_event, "host_ms_other_step": timed[DECODE_T - 1]["host_ms"],
             "phase_us_emit_step": phases[DECODE_T], "phase_us_other_step": phases[DECODE_T - 1],
             "plan": plan, "registers": regs, "spill_bytes": spill,
-            "controls_over_gate": {f"t={k[0]} {k[1]}": v for k, v in controls.items()}}
+            "controls_over_gate": {f"t={k[0]} {k[1]}": v for k, v in controls.items()},
+            "selection_gates": {f"t={k}": v for k, v in sel_gates.items()}}
 
 
 @contextlib.contextmanager
@@ -1923,14 +2002,16 @@ def check_engine_launches(launches, depth, steps, waves, attend, label):
 def emitting_slots(cfg):
     """Records, for every ragged select-emit call of the layer, how many of
     its slots emit (a device tensor each, so no host sync inside a
-    window); the engine's step calls it once a layer."""
+    window); the engine's step calls it once a layer.  It adds launches:
+    the run it wraps is not timed."""
     real = nsa_layer.decode_select_emit_ragged
+    signature = inspect.signature(real)
     stride = cfg.nsa.compress_block_sliding_stride
     counts = []
 
     def recording(*a, **k):
-        t, num_cb = a[12], a[13]
-        counts.append(nsa_decode_ragged.ragged_emits(t, num_cb, stride).sum())
+        args = signature.bind(*a, **k).arguments
+        counts.append(nsa_decode_ragged.ragged_emits(args["t"], args["num_cb"], stride).sum())
         return real(*a, **k)
 
     nsa_layer.decode_select_emit_ragged = recording
@@ -2015,20 +2096,9 @@ def serve_phase(params, cfg, smi):
              "decode_attend_fused_paged")):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        with emitting_slots(cfg) as emitting:
-            toks, eng, wall, launches, steps, waves, windows, held = run_engine(
-                params, cfg, reqs, steps_per_sync=SERVE_SYNC, **kw)
+        toks, eng, wall, launches, steps, waves, windows, held = run_engine(
+            params, cfg, reqs, steps_per_sync=SERVE_SYNC, **kw)
         peak = torch.cuda.max_memory_allocated()
-        emit_counts = torch.stack(emitting[::L]).cpu() if emitting else torch.zeros(0)
-        m[f"{label}_emitting_slots"] = {
-            "steps": len(emit_counts), "steps_with_an_emitting_slot": int((emit_counts > 0).sum()),
-            "mean_emitting_slots": emit_counts.float().mean().item() if len(emit_counts) else 0.0,
-            "histogram": torch.bincount(emit_counts.long(), minlength=1).tolist()}
-        print(f"  serve {label}: ragged steps with an emitting slot "
-              f"{m[f'{label}_emitting_slots']['steps_with_an_emitting_slot']} of "
-              f"{len(emit_counts)}; emitting slots a step: mean "
-              f"{m[f'{label}_emitting_slots']['mean_emitting_slots']:.3f}, steps by count "
-              f"{m[f'{label}_emitting_slots']['histogram']}", flush=True)
         check_engine_launches(launches, L, steps, waves, attend, f"{label} pool")
         if label == "paged":
             check(sorted(eng._free_pages) == list(range(POOL_PAGES))
@@ -2052,6 +2122,21 @@ def serve_phase(params, cfg, smi):
     same = all(np.array_equal(a, b) for a, b in zip(runs["dense"]["tokens"],
                                                     runs["paged"]["tokens"]))
     print(f"  every request's tokens equal on the dense and the paged pool: {same}", flush=True)
+    # the emitting slots a ragged step, counted in one more dense run (the
+    # count adds launches to every step, so the timed runs above go without)
+    with emitting_slots(cfg) as emitting:
+        counted, *_ = run_engine(params, cfg, reqs, steps_per_sync=SERVE_SYNC)
+    check(all(np.array_equal(a, b) for a, b in zip(counted, runs["dense"]["tokens"])),
+          "the counted engine run gives other tokens")
+    emit_counts = torch.stack(emitting[::L]).cpu() if emitting else torch.zeros(0)
+    m["emitting_slots"] = {
+        "steps": len(emit_counts), "steps_with_an_emitting_slot": int((emit_counts > 0).sum()),
+        "mean_emitting_slots": emit_counts.float().mean().item() if len(emit_counts) else 0.0,
+        "histogram": torch.bincount(emit_counts.long(), minlength=1).tolist()}
+    print(f"  serve: ragged steps with an emitting slot "
+          f"{m['emitting_slots']['steps_with_an_emitting_slot']} of {len(emit_counts)}; "
+          f"emitting slots a step: mean {m['emitting_slots']['mean_emitting_slots']:.3f}, steps "
+          f"by count {m['emitting_slots']['histogram']}", flush=True)
     check(same, "the dense and the paged engine give different tokens")
 
     # a profile of 5 ragged steps at 16 slots (the mix's first 16 admitted)

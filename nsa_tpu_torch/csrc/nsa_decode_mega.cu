@@ -113,10 +113,10 @@ struct MegaArgs {
   int* tok_out;                   // [b, steps] (greedy)
   // scratch
   bf16* proj;                     // [b, P]
-  // (rq, gates, c_out, info and comb keep every layer's, [L, ...], so that a
-  // check can hold each layer's attention to its plain version on the
-  // kernel's own inputs)
-  bf16* q;                        // [b, kvh, G, kD] unrotated
+  // (q, rq, gates, c_out, info and comb keep every layer's, [L, ...], so
+  // that a check can hold each layer's selection and attention to their
+  // plain versions on the kernel's own inputs)
+  bf16* q;                        // [L, b, kvh, G, kD] unrotated
   bf16* rq;                       // [L, b, kvh, G, kD] rotated
   bf16* gates;                    // [L, b, kvh, G, 3]
   bf16* kvn_unrot;                // [b, kvh, 2kD] the new token's k || v
@@ -176,8 +176,8 @@ __device__ void argmax_rows(const float* logits, int b, int vocab, int* toks, in
 }
 
 // Phase 2's staging for (row, KV head) bh: the queries, rotated queries,
-// gates and the new token's rows, from the rounded projection; rq and the
-// gates into layer l's slices.
+// gates and the new token's rows, from the rounded projection; q, rq and
+// the gates into layer l's slices.
 template <int G>
 __device__ __forceinline__ void stage_head(const MegaArgs& a, int l, int t, int bh) {
   const int h = a.kvh * G, din = h * kD, dkv = a.kvh * kD;
@@ -197,7 +197,7 @@ __device__ __forceinline__ void stage_head(const MegaArgs& a, int l, int t, int 
   };
   for (int i = threadIdx.x; i < G * kD; i += blockDim.x) {
     const int col = hi * G * kD + i, e = i % kD;
-    a.q[(size_t)bh * G * kD + i] = pr[col];
+    a.q[(lbh + bh) * G * kD + i] = pr[col];
     a.rq[(lbh + bh) * G * kD + i] = rotate(pr + col - (e & 1), e);
   }
   for (int i = threadIdx.x; i < 3 * G; i += blockDim.x) {
@@ -385,12 +385,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       // on the blocks after the selection's (all blocks if there are none)
       for (int item = g; item < nsel; item += gridDim.x) {
         stage_head<G>(a, l, t, item);
-        const size_t lbh = (size_t)l * nsel;   // layer l's slices of rq, gates, c_out, info
+        const size_t lbh = (size_t)l * nsel;   // layer l's slices of q, rq, gates, c_out, info
+        const bf16* q = a.q + lbh * G * kD;
         bf16* rq = a.rq + lbh * G * kD;
         bf16* c_out = a.c_out + lbh * G * kD;
         bf16* gates = a.gates + lbh * 3 * G;
         int* info = a.info + lbh * a.info_width;
-        select_body<G, float, true>(a.q, a.ckv[l], a.mem_kv + (size_t)l * 2 * a.kvh * a.M * kD,
+        select_body<G, float, true>(q, a.ckv[l], a.mem_kv + (size_t)l * 2 * a.kvh * a.M * kD,
                                     c_out, info, a.kvh, a.Wc, a.M, t, num_cb, a.stride,
                                     a.sel_block, a.num_sel, a.n_slide, max_blocks,
                                     a.info_width, a.scale, item, work);

@@ -22,7 +22,7 @@
 // decode_tc_common.cuh, shared with the whole-model kernel) over the
 // listed rows as 16-row tiles, each row at its own position (window rows
 // before position 0 zeroed): the window tile times its 64 columns of w1k
-// or w1v, streamed by TMA through a 4-stage mbarrier ring, + b1, relu,
+// or w1v, streamed by TMA through an 8-stage mbarrier ring, + b1, relu,
 // rounded; times its 64 rows of w2: float32 partials.  Launch 2, one block
 // per (batch row, KV head), reads the old ring and the new token into
 // shared memory before it writes the shifted ring (launch 1 has finished

@@ -122,6 +122,43 @@ def decode_select_plain(q, ckv, mem_kv, t, num_cb, *, max_blocks: int,
     return c_out, info
 
 
+def selection_faults(info_k, info_p, scores, *, num_sel: int, n_slide: int,
+                     tie: float) -> Tuple[list, int]:
+    """How a selection's info rows [..., INFO_WIDTH] depart from the plain
+    version's on the same scores [..., blocks]: trailing ids unequal, a
+    selected id that differs where the two ids' scores are more than ``tie``
+    apart, validity unequal on rows whose ids agree.  Returns (the faults
+    found, empty when none; the rows whose ids differ only by ties)."""
+    n_slots = num_sel + n_slide
+    faults = []
+    if not torch.equal(info_k[..., num_sel:n_slots], info_p[..., num_sel:n_slots]):
+        faults.append("trailing ids disagree")
+    ids_k, ids_p = info_k[..., :num_sel].long(), info_p[..., :num_sel].long()
+    gap = (scores.gather(-1, ids_k) - scores.gather(-1, ids_p)).abs()
+    differ = ids_k != ids_p
+    if not bool((gap[differ] <= tie).all()):
+        faults.append(f"{int((gap[differ] > tie).sum())} selected ids are not ties")
+    same_rows = ~differ.any(-1)
+    v0 = n_slots
+    if not torch.equal(info_k[..., v0:v0 + num_sel][same_rows],
+                       info_p[..., v0:v0 + num_sel][same_rows]):
+        faults.append("validity disagrees")
+    return faults, int(differ.any(-1).sum())
+
+
+def with_next_ranked(info, scores, num_sel: int) -> torch.Tensor:
+    """info rows [..., INFO_WIDTH] with each row's lowest-scoring selected id
+    replaced by the best-scoring block it left out: the selections of a
+    kernel one rank short.  The control a selection gate must fail."""
+    info = info.clone()
+    ids = info[..., :num_sel].long()
+    picked = scores.gather(-1, ids)
+    left = scores.scatter(-1, ids, float("-inf"))
+    worst = picked.argmin(-1, keepdim=True)
+    info[..., :num_sel] = ids.scatter(-1, worst, left.argmax(-1, keepdim=True)).to(info.dtype)
+    return info
+
+
 def decode_select(q, ckv, mem_kv, t: int, num_cb: int, *, max_blocks: int,
                   stride: int, sel_block: int, num_sel: int, n_slide: int,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -39,7 +39,7 @@ import torch
 from ..common import rms_norm
 from ..rotary import apply_rotary, rope_frequencies
 from . import runtime
-from .nsa_decode import INFO_WIDTH
+from .nsa_decode import INFO_WIDTH, select_scores_plain
 from .nsa_decode_fused import EMIT_COLS, decode_attend_fused_plain, decode_select_emit_plain
 from .nsa_decode_ragged import EMIT_ALIGN, STATIC_SMEM, check_plan, emit_tc_smem_bytes
 
@@ -119,6 +119,30 @@ def decode_step_mega_plain(mp: dict, kv: Caches, ckv: Caches, ring: Caches,
     if greedy:
         return logits, torch.stack(picked, 1), kv, ckv, ring
     return logits, kv, ckv, ring
+
+
+def layer_select_emit_plain(mp: dict, l: int, q: torch.Tensor, ckv: torch.Tensor,
+                            ring: torch.Tensor, kv_new: torch.Tensor, t: int, *, max_len: int,
+                            stride: int, sel_block: int, num_sel: int, n_slide: int,
+                            scale: float):
+    """Layer ``l``'s selection, compressed attention and emission as the
+    plain version takes them, on given inputs: q [b, kvh, g, d] unrotated,
+    ckv and ring as they were before the step (left unchanged), kv_new [b,
+    kvh, 1, 2d] the new unrotated k || v.  Fed the kernel's own q and new
+    row (``inspect``), it holds each layer's selection to the plain one.
+    Returns (c_out, info [b, kvh, INFO_WIDTH], ckv after the step, the
+    selection scores [b, kvh, blocks])."""
+    b, kvh = q.shape[:2]
+    after = ckv.clone()
+    num_cb = t // stride
+    c_out, info = decode_select_emit_plain(
+        q, after, ring.clone(), kv_new, mp["mem_kv"][l], mp["pos_kv"][l], mp["w1k"][l],
+        mp["b1k"][l], mp["w1v"][l], mp["b1v"][l], mp["w2c"][l], mp["b2c"][l], t, num_cb,
+        max_blocks=max_len // sel_block, stride=stride, sel_block=sel_block, num_sel=num_sel,
+        n_slide=n_slide, scale=scale)
+    _, scores = select_scores_plain(q, ckv, mp["mem_kv"][l], num_cb, t, stride=stride,
+                                    sel_block=sel_block, scale=scale)
+    return c_out, info.reshape(b, kvh, INFO_WIDTH), after, scores
 
 
 # the products' order in the kernel's plan, and the order in which their
@@ -246,10 +270,10 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
     at the kernel's start and after each of its grid syncs (where the time
     goes; not written on the CPU).  ``inspect``, a dict, receives on the
     card the kernel's own intermediates of every layer of the last step:
-    ``rq`` and ``c_out`` [L, b, kvh, g, d], ``gates`` [L, b, kvh, g, 3],
-    ``info`` [L, b, kvh * INFO_WIDTH] and ``attn_out`` [L, b, kvh, g, d], the
-    attention output rounded as ``w_out`` takes it (for the checks that
-    hold each layer's attention to its plain version)."""
+    ``q``, ``rq`` and ``c_out`` [L, b, kvh, g, d], ``gates`` [L, b, kvh, g,
+    3], ``info`` [L, b, kvh * INFO_WIDTH] and ``attn_out`` [L, b, kvh, g, d],
+    the attention output rounded as ``w_out`` takes it (for the checks that
+    hold each layer's selection and attention to their plain versions)."""
     kw = dict(heads=heads, stride=stride, sel_block=sel_block, num_sel=num_sel,
               n_slide=n_slide, window=window, scale=scale, eps=eps, theta=theta)
     kvs, ckvs, rings = _layers(kv), _layers(ckv), _layers(ring)
@@ -316,7 +340,7 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
     nchunks = hid // EMIT_COLS
     scratch = _scratch(dev, [
         (b * P, bf),                       # proj: the fused projection, rounded
-        (b * h * d, bf), (L * b * h * d, bf),           # q; rq of every layer
+        (L * b * h * d, bf), (L * b * h * d, bf),       # q and rq of every layer
         (L * b * h * 3, bf),               # gates of every layer
         (b * kvh * 2 * d, bf), (b * kvh * 2 * d, bf),   # the new row: unrotated, rotated
         (L * b * h * d, bf),               # c_out of every layer
@@ -342,7 +366,8 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
         )
     decode_step_mega.launches += 1
     if inspect is not None:
-        inspect.update(rq=scratch[2].view(L, b, kvh, g, d), gates=scratch[3].view(L, b, kvh, g, 3),
+        inspect.update(q=scratch[1].view(L, b, kvh, g, d), rq=scratch[2].view(L, b, kvh, g, d),
+                       gates=scratch[3].view(L, b, kvh, g, 3),
                        c_out=scratch[6].view(L, b, kvh, g, d),
                        info=scratch[7].view(L, b, kvh * INFO_WIDTH),
                        attn_out=scratch[9].view(L, b, kvh, g, d))

@@ -448,14 +448,42 @@ def test_model_decode_step_fused_route_matches_plain(gen):
             nsa_decode.decode_select.launches) == (before[0] + 4, before[1] + 4, before[2])
 
 
+def check_mega_selections(mp, cfg, insp, pre, post, t):
+    """Each layer's selection of a whole-model kernel step against the plain
+    select-emit on the kernel's own query and new row of that layer (the
+    caches ``pre`` as they were before the step, ``post`` after it)."""
+    nsa = cfg.nsa
+    Bs, stride = nsa.selection_block_size, nsa.compress_block_sliding_stride
+    num_sel, n_slide = nsa.num_selected_blocks, -(-nsa.sliding_window_size // Bs) + 1
+    b, kvh = insp["q"].shape[1:3]
+    gate = dict(num_sel=num_sel, n_slide=n_slide, tie=1e-6)
+    slot = min(t // stride, post[1].shape[3] - 1)
+    for l in range(cfg.depth):
+        c_p, info_p, ckv_p, scores = nsa_decode_mega.layer_select_emit_plain(
+            mp, l, insp["q"][l], pre[1][l], pre[2][l], post[2][l][..., -1:, :], t,
+            max_len=pre[0].shape[3], stride=stride, sel_block=Bs, num_sel=num_sel,
+            n_slide=n_slide, scale=cfg.dim_head ** -0.5)
+        info_k = insp["info"][l].reshape(b, kvh, -1)
+        assert nsa_decode.selection_faults(info_k, info_p, scores, **gate)[0] == [], (t, l)
+        wrong = nsa_decode.with_next_ranked(info_k, scores, num_sel)
+        assert nsa_decode.selection_faults(wrong, info_p, scores, **gate)[0], (t, l)
+        assert max_err(insp["c_out"][l], c_p) <= TOL_FUSED * c_p.float().abs().max().item()
+        row_k, row_p = post[1][l][..., slot, :], ckv_p[..., slot, :]
+        assert max_err(row_k, row_p) <= TOL_FUSED * row_p.float().abs().max().item(), (t, l)
+
+
 @pytest.mark.parametrize("b", [1, 3, 8, 9, 16])
 def test_decode_step_mega_kernel_matches_plain(gen, b):
     """Two layers at the reference widths, random weights from a seed, at
     t = 199 (emits) and 200: the whole-model kernel against its plain
     version, logits within 2^-6 of the largest, the in-kernel argmax
     equal except at near-ties, and every cache row but the step's own
-    bit-equal (b 1 to 16 rows of the kernel's one 16-row tile); then one
-    launch of 4 greedy tokens against 4 launches of one, bit for bit."""
+    bit-equal (b 1 to 16 rows of the kernel's one 16-row tile); each
+    layer's selection against the plain one on the kernel's own query and
+    new row (``inspect``), ids equal except ties, a selection one rank short
+    failing that gate, c_out and the emitted row within 2^-6 of the
+    largest; then one launch of 4 greedy tokens against 4 launches of one,
+    bit for bit."""
     cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
     params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cuda"),
                      dtype=torch.bfloat16)
@@ -469,9 +497,12 @@ def test_decode_step_mega_kernel_matches_plain(gen, b):
         token = first
         before = nsa_decode_mega.decode_step_mega.launches
         for t in (199, 200):
-            got, tok_k, *_ = transformer_decode_step_mega(mp, cfg, token, *kern, t, greedy=True)
+            pre, insp = [x.clone() for x in kern], {}
+            got, tok_k, *_ = transformer_decode_step_mega(mp, cfg, token, *kern, t, greedy=True,
+                                                          inspect=insp)
             want, tok_p, *_ = transformer_decode_step_mega(mp, cfg, token, *plain, t, greedy=True,
                                                            use_kernels=False)
+            check_mega_selections(mp, cfg, insp, pre, kern, t)
             top = want.abs().max().item()
             assert torch.isfinite(got).all() and max_err(got, want) <= TOL_FUSED * top
             top2 = want.topk(2, dim=-1).values
@@ -534,23 +565,49 @@ def test_mega_wrapper_refuses_what_the_kernel_does_not_take(gen):
 
 
 def test_mega_plan_on_the_card_is_the_python_plan(gen):
-    """The C entry's launch plan equals ``mega_plan`` at the reference
-    model and at G 1, 4, 8, on this card's SM count and limit."""
+    """The C entry's launch plan equals ``mega_plan``, whether it fits or
+    not, at G 1, 2, 4, 8 over model, FF and vocabulary widths and
+    compression windows, on this card's SM count and limit; the reference
+    model's fits."""
     nsa = reference_model_config().nsa
+    seen = set()
     for kvh, g in ((4, 2), (8, 1), (2, 4), (1, 8)):
-        ints = [6, 8, kvh, g, 4096, 512, nsa.compress_block_size, nsa.num_compressed_mem_kv,
-                1024, 512, 256, 2048, 0, 1, 0, nsa.compress_block_sliding_stride,
-                nsa.selection_block_size, nsa.num_selected_blocks, 5, nsa.sliding_window_size,
-                nsa_decode.INFO_WIDTH]
-        dev = nsa_decode_mega.launch_plan("cuda", ints)
-        want = nsa_decode_mega.mega_plan(
-            kvh=kvh, g=g, dim=512, hid4=2048, vocab=256, Wc=512, M=nsa.num_compressed_mem_kv,
-            Bc=nsa.compress_block_size, sel_block=nsa.selection_block_size,
-            stride=nsa.compress_block_sliding_stride, num_sel=nsa.num_selected_blocks,
-            n_slide=5, grid=dev["grid"], smem_optin=dev["smem_optin"])
-        assert dev["fits"] and want["fits"]
-        assert {k: dev[k] for k in want if k != "fits"} == {k: want[k] for k in want
-                                                            if k != "fits"}, (kvh, g)
+        for dim, hid4, vocab, Bc in ((512, 2048, 256, 16), (256, 1024, 256, 16),
+                                     (1024, 4096, 1024, 16), (512, 8192, 256, 16),
+                                     (512, 16384, 256, 16), (512, 2048, 32768, 16),
+                                     (512, 2048, 256, 64), (512, 2048, 256, 128)):
+            ints = [6, 8, kvh, g, 4096, 512, Bc, nsa.num_compressed_mem_kv, 1024, dim, vocab,
+                    hid4, 0, 1, 0, nsa.compress_block_sliding_stride, nsa.selection_block_size,
+                    nsa.num_selected_blocks, 5, nsa.sliding_window_size, nsa_decode.INFO_WIDTH]
+            dev = nsa_decode_mega.launch_plan("cuda", ints)
+            want = nsa_decode_mega.mega_plan(
+                kvh=kvh, g=g, dim=dim, hid4=hid4, vocab=vocab, Wc=512,
+                M=nsa.num_compressed_mem_kv, Bc=Bc, sel_block=nsa.selection_block_size,
+                stride=nsa.compress_block_sliding_stride, num_sel=nsa.num_selected_blocks,
+                n_slide=5, grid=dev["grid"], smem_optin=dev["smem_optin"])
+            case = (kvh, g, dim, hid4, vocab, Bc)
+            assert dev["fits"] == want["fits"], case
+            assert {k: dev[k] for k in want if k != "fits"} == {k: want[k] for k in want
+                                                                if k != "fits"}, case
+            seen.add(want["fits"])
+            if (dim, hid4, vocab, Bc) == (512, 2048, 256, 16):
+                assert want["fits"], case
+    assert seen == {True, False}
+
+
+def test_emit_plan_on_the_card_is_the_python_plan(gen):
+    """The C entry's emission plan equals ``emit_plan``, whether it fits
+    or not, over batch, KV heads, compression windows and widths."""
+    device, seen = torch.cuda.current_device(), set()
+    for b in (1, 16, 17, 40):
+        for kvh in (1, 4, 8):
+            for Bc in (4, 16, 32, 64, 128):
+                for hid in (512, 1024, 2048):
+                    dev = nsa_decode_ragged._device_emit_plan(device, b, kvh, Bc, hid)
+                    want = nsa_decode_ragged.emit_plan(b, kvh, Bc, hid, dev["smem_optin"])
+                    assert dev == want, (b, kvh, Bc, hid)
+                    seen.add(want["fits"])
+    assert seen == {True, False}
 
 
 RAGGED_T = [7, 199, 200, 1023, 0, 3]     # 7, 199, 1023 emit (stride 8); 0 and 3 before Bc

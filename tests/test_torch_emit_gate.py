@@ -12,14 +12,28 @@ out (``emission_plain(..., drop_chunk=c)``) to fail that gate.  Here, on
 the CPU, in bf16: the plain emission summed in the kernels' chunk order
 passes the gate, and the dropped-chunk control fails it.  Inputs come from
 numpy seeds; no JAX.
+
+Row 12's selection gate: ``chip_smoke.py`` feeds each layer's own query
+and new row of the whole-model kernel (``inspect``) to
+``layer_select_emit_plain`` and holds the kernel's selection to it with
+``selection_faults`` (ids equal except ties), with ``with_next_ranked`` (a
+selection one rank short) as the control that must fail.  Here: fed the
+plain step's own inputs of each layer, ``layer_select_emit_plain`` gives
+that step's selection, compressed output and emitted row bit for bit, the
+gate passes it and fails the control, and a swap of two tied blocks passes.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nsa_tpu_torch.ops.cuda import nsa_decode_fused, nsa_decode_mega, nsa_decode_ragged
+from nsa_tpu_torch import tiny_test_config
+from nsa_tpu_torch.models.transformer import (_mega_kw, init_transformer, pack_mega_params,
+                                              transformer_decode_step_mega)
+from nsa_tpu_torch.ops.cuda import nsa_decode, nsa_decode_fused, nsa_decode_mega, nsa_decode_ragged
+from nsa_tpu_torch.ops.cuda.nsa_decode import INFO_WIDTH, selection_faults, with_next_ranked
 from nsa_tpu_torch.ops.cuda.nsa_decode_fused import EMIT_COLS, emission_plain
+from nsa_tpu_torch.ops.nsa import _ckv_width
 
 TOL = 2.0 ** -6             # chip_smoke.py's TOL_FUSED, of the largest value
 OPTIN = 232448              # an H100's shared memory a block (227 KB)
@@ -151,3 +165,66 @@ def test_mega_plan_refuses_what_does_not_fit(change):
     assert not plan["fits"]
     with pytest.raises(ValueError, match="shared memory"):
         nsa_decode_ragged.check_plan("decode_step_mega", plan)
+
+
+SEL_KEYS = ("stride", "sel_block", "num_sel", "n_slide", "scale")
+
+
+@pytest.mark.parametrize("seed,t", [(0, 41), (1, 40)])       # 41 emits (stride 2), 40 not
+def test_layer_select_emit_plain_gives_the_plain_steps_own(monkeypatch, seed, t):
+    """Two layers of the tiny model, seeded caches of 64 rows, b = 3: each
+    layer's selection, compressed output and ckv after the step, from the
+    step's own query and new row, bit for bit; the selection gate passes
+    it and fails the selection one rank short."""
+    cfg = tiny_test_config()
+    mp = pack_mega_params(init_transformer(cfg, torch.Generator().manual_seed(seed),
+                                           device="cpu"), cfg)
+    kw = _mega_kw(cfg)
+    nsa, L, b, kvh, d, max_len = cfg.nsa, cfg.depth, 3, cfg.kv_heads, cfg.dim_head, 64
+    Wc = _ckv_width(max_len, nsa.compress_block_sliding_stride, nsa.num_compress_per_fine)
+    rng = np.random.default_rng(seed)
+    kv, ckv, ring = (torch.from_numpy(rng.standard_normal((L, b, kvh, n, 2 * d))
+                                      .astype(np.float32))
+                     for n in (max_len, Wc, nsa.compress_block_size))
+    token = torch.from_numpy(rng.integers(0, cfg.vocab_size, b))
+    seen, real = [], nsa_decode_mega.decode_select_emit_plain
+
+    def recording(q, ckv_l, ring_l, kv_new, *a, **k):
+        out = real(q, ckv_l, ring_l, kv_new, *a, **k)
+        seen.append((q.clone(), kv_new.clone(), *out))
+        return out
+
+    monkeypatch.setattr(nsa_decode_mega, "decode_select_emit_plain", recording)
+    after = [x.clone() for x in (kv, ckv, ring)]
+    transformer_decode_step_mega(mp, cfg, token, *after, t, use_kernels=False)
+    monkeypatch.undo()
+    assert len(seen) == L
+    sel = {k: kw[k] for k in SEL_KEYS}
+    for l, (q, kv_new, c_step, info_step) in enumerate(seen):
+        c_out, info, ckv_l, scores = nsa_decode_mega.layer_select_emit_plain(
+            mp, l, q, ckv[l], ring[l], kv_new, t, max_len=max_len, **sel)
+        info_step = info_step.reshape(b, kvh, INFO_WIDTH)
+        assert torch.equal(c_out, c_step) and torch.equal(info, info_step)
+        assert torch.equal(ckv_l, after[1][l])
+        gate = dict(num_sel=kw["num_sel"], n_slide=kw["n_slide"], tie=1e-6)
+        assert selection_faults(info, info_step, scores, **gate) == ([], 0)
+        faults, _ = selection_faults(with_next_ranked(info, scores, kw["num_sel"]), info_step,
+                                     scores, **gate)
+        assert faults, l
+
+
+def test_selection_gate_lets_tied_blocks_swap():
+    """Blocks 1 and 3 tie: picking 3 for 1 is no fault (one row differs by
+    a tie); picking 2 for 1 is one."""
+    num_sel, n_slide = 2, 1
+    scores = torch.tensor([[[0.1, 0.5, 0.2, 0.5, 0.9]]])
+    info = torch.zeros(1, 1, INFO_WIDTH, dtype=torch.int32)
+    info[..., :3] = torch.tensor([4, 1, 4])
+    info[..., 3:5] = 1
+    tied, wrong = info.clone(), info.clone()
+    tied[..., 1], wrong[..., 1] = 3, 2
+    gate = dict(num_sel=num_sel, n_slide=n_slide, tie=1e-6)
+    assert selection_faults(tied, info, scores, **gate) == ([], 1)
+    assert selection_faults(wrong, info, scores, **gate)[0]
+    assert torch.equal(with_next_ranked(info, scores, num_sel)[..., :2],
+                       torch.tensor([[[4, 3]]], dtype=torch.int32))
