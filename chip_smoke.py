@@ -617,12 +617,14 @@ def selection_stats(sel_idx, sel_mask, sel_block):
             "u16": union_sizes(sel_idx, sel_mask, sel_block, 16)}
 
 
-def ptxas_usage(log, kernel, also=""):
+def ptxas_usage(log, kernel, *also):
     """(registers, spill store bytes, spill load bytes) that ptxas reports
-    for the first entry function whose name holds ``kernel`` and ``also``."""
+    for the first entry function whose name holds ``kernel`` and each of
+    ``also``."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line and also in line:
+        if "Compiling entry function" in line and kernel in line \
+                and all(a in line for a in also):
             regs = spill = None
             for nxt in lines[i + 1:i + 6]:
                 if "Compiling entry function" in nxt:
@@ -793,9 +795,14 @@ def attend_rows(vp, t, Bs, n_slide, window, bkvh):
     return vp.sum().item() * Bs + bkvh * trail_rows
 
 
-def kernel_decode_fused(gen, flush, cfg, params, b):
+def kernel_decode_fused(gen, flush, cfg, params, b, log):
     """Rows 6 and 7 at bs ``b``: layer 0's trained weights, packed; seeded
-    queries, caches and residual stream."""
+    queries, caches and residual stream.  Row 6 on an emission step and the
+    step before it, row 7 with the FF inside, each held as rows 8-9 are:
+    the emitted row and the output within TOL_FUSED of the largest value,
+    the rounded attention output element by element under
+    ``attend_tolerance``, each with a control that must fail; a second
+    launch bit for bit; device time from the profiler."""
     nsa = cfg.nsa
     kvh, g, d, dim = cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head, cfg.dim
     stride, Bs, Bc, window = nsa.compress_block_sliding_stride, nsa.selection_block_size, \
@@ -808,6 +815,7 @@ def kernel_decode_fused(gen, flush, cfg, params, b):
     fp, ffp = layer["attn"]["decode_fused"], layer["ff"]["decode_fused"]
     weights = (fp["pos_kv"], fp["w1k"], fp["b1k"], fp["w1v"], fp["b1v"], fp["w2"], fp["b2"])
     ff = tuple(ffp[k] for k in ("norm_scale", "w1", "b1", "w2", "b2"))
+    F = nsa_decode_fused
     dev = DEVICE
 
     def randn(*shape):
@@ -818,18 +826,22 @@ def kernel_decode_fused(gen, flush, cfg, params, b):
     mem_kv = fp["mem_kv"]
     kw = dict(max_blocks=MAX_LEN // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
               n_slide=n_slide, scale=scale)
-    times, plain_times, errs, outs = {}, {}, [], {}
+    steps, plain_times, errs, outs = {}, {}, [], {}
     for t in (DECODE_T, DECODE_T - 1):          # an emission step, then one without
         num_cb = t // stride
-        caches = [(ckv.clone(), ring.clone()) for _ in range(2)]
-        c_k, info_k = nsa_decode_fused.decode_select_emit(q, *caches[0], kv_new, mem_kv,
-                                                          *weights, t, num_cb, **kw)
-        c_p, info_p = nsa_decode_fused.decode_select_emit_plain(q, *caches[1], kv_new, mem_kv,
-                                                                *weights, t, num_cb, **kw)
+        caches = [(ckv.clone(), ring.clone()) for _ in range(4)]
+        c_k, info_k = F.decode_select_emit(q, *caches[0], kv_new, mem_kv, *weights, t, num_cb,
+                                           **kw)
+        c_2, info_2 = F.decode_select_emit(q, *caches[2], kv_new, mem_kv, *weights, t, num_cb,
+                                           **kw)
+        c_p, info_p = F.decode_select_emit_plain(q, *caches[1], kv_new, mem_kv, *weights, t,
+                                                 num_cb, **kw)
+        with dropped_emission_chunk():     # the control: one emission chunk left out
+            F.decode_select_emit_plain(q, *caches[3], kv_new, mem_kv, *weights, t, num_cb, **kw)
         _, scores = nsa_decode.select_scores_plain(q, ckv, mem_kv, num_cb, t, stride=stride,
                                                    sel_block=Bs, scale=scale)
         torch.cuda.synchronize()
-        emit = nsa_decode_fused.emits(t, stride)
+        emit = F.emits(t, stride)
         err_c = max_err(c_k, c_p)
         ties = check_selection(info_k.reshape(b, kvh, -1), info_p.reshape(b, kvh, -1), scores,
                                num_sel, n_slide, f"decode_select_emit t={t}")
@@ -844,30 +856,40 @@ def kernel_decode_fused(gen, flush, cfg, params, b):
         row_k, row_p = caches[0][0][:, :, num_cb], caches[1][0][:, :, num_cb]
         err_row = max_err(row_k, row_p)
         top_row = row_p.float().abs().max().item()
+        err_ctl = max_err(caches[3][0][:, :, num_cb], row_p)
         if emit:
             check(err_row <= TOL_FUSED * top_row and not torch.equal(row_p, ckv[:, :, num_cb]),
                   f"decode_select_emit t={t}: the emitted ckv row disagrees")
+            check(err_ctl > TOL_FUSED * top_row, f"decode_select_emit t={t}: the dropped-chunk "
+                  f"control passes the emitted-row gate")
         else:
             check(torch.equal(row_k, ckv[:, :, num_cb]) and torch.equal(row_p, ckv[:, :, num_cb]),
                   f"decode_select_emit t={t}: a row was emitted off the stride")
         check(err_c <= TOL_OUT and bool(torch.isfinite(c_k.float()).all()),
               f"decode_select_emit t={t}: c_out disagrees")
+        same2 = (torch.equal(c_2, c_k) and torch.equal(info_2, info_k)
+                 and torch.equal(caches[2][0], caches[0][0])
+                 and torch.equal(caches[2][1], caches[0][1]))
+        check(same2, f"decode_select_emit t={t}: a second launch gives other bits")
         print(f"  decode_select_emit bs {b} t={t} (emits: {emit}): max|err| c_out {err_c:.5f} "
               f"(tol {TOL_OUT}); ids equal on {b * kvh - ties}/{b * kvh} rows, {ties} differ "
               f"only by ties within {TIE}; emitted row max|err| {err_row:.5f} (tol {TOL_FUSED:g} "
-              f"x max {top_row:.3f}); ring bit-equal; other ckv rows unchanged", flush=True)
+              f"x max {top_row:.3f})" + (f", the dropped-chunk control {err_ctl:.5f} (must "
+                                         f"exceed it)" if emit else "")
+              + f"; ring bit-equal; other ckv rows unchanged; a second launch bit-equal: "
+              f"{same2}", flush=True)
         errs.append(max(err_c, err_row))
-        outs[t] = (c_p, info_p)
+        outs[t] = (c_p, info_p, err_ctl / (TOL_FUSED * top_row) if emit else None)
         work = (q, ckv.clone(), ring.clone(), kv_new, mem_kv, *weights)
-        times[t] = timed_ms(lambda: nsa_decode_fused.decode_select_emit(
-            *work, t, num_cb, **kw), 50, flush)
-        plain_times[t] = timed_ms(lambda: nsa_decode_fused.decode_select_emit_plain(
+        steps[t] = breakdown(f"decode_select_emit t={t}", lambda: F.decode_select_emit(
+            *work, t, num_cb, **kw), flush)
+        plain_times[t] = timed_ms(lambda: F.decode_select_emit_plain(
             *work, t, num_cb, **kw), 10, flush)
     # amortised over the stride: one emission step in `stride`
-    amort = (times[DECODE_T] + (stride - 1) * times[DECODE_T - 1]) / stride
+    amort = (steps[DECODE_T]["ms"] + (stride - 1) * steps[DECODE_T - 1]["ms"]) / stride
     amort_plain = (plain_times[DECODE_T] + (stride - 1) * plain_times[DECODE_T - 1]) / stride
     num_cb = DECODE_T // stride
-    c_p, info_p = outs[DECODE_T]
+    c_p, info_p, ctl_ratio = outs[DECODE_T]
     step_bytes = (nbytes(q, mem_kv, c_p, info_p, kv_new) + 2 * nbytes(ring)
                   + b * kvh * num_cb * 2 * d * 2)
     emit_bytes = nbytes(*weights) + b * kvh * 2 * d * 2
@@ -875,15 +897,19 @@ def kernel_decode_fused(gen, flush, cfg, params, b):
     step_flops = b * kvh * g * (num_cb + M) * 4 * d
     emit_flops = b * kvh * 2 * (Bc * d * hid + hid * d) * 2
     bms, by = bound_ms(step_bytes + emit_bytes / stride, step_flops + emit_flops / stride)
-    print(f"  decode_select_emit bs {b}: {times[DECODE_T]:.4f} ms emitting, "
-          f"{times[DECODE_T - 1]:.4f} ms not, {amort:.4f} ms amortised over {stride} steps "
-          f"(bound {bms:.5f} ms, by {by}); plain {amort_plain:.4f} ms", flush=True)
+    eplan = nsa_decode_ragged.device_emit_plan(q, ring, fp["w1k"])
+    print(f"  decode_select_emit bs {b}: device {steps[DECODE_T]['ms']:.4f} ms emitting, "
+          f"{steps[DECODE_T - 1]['ms']:.4f} ms not, {amort:.4f} ms amortised over {stride} "
+          f"steps (bound {bms:.5f} ms, by {by}); plain {amort_plain:.4f} ms; emission launch "
+          f"{eplan['blocks']} blocks of {eplan['smem_bytes']} B shared memory", flush=True)
     sel = {"name": "decode_select_emit", "route": "cuda",
            "source": "nsa_tpu_torch/csrc/nsa_decode_fused.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:441",
            "max_abs_err": max(errs), "ms": amort, "plain_ms": amort_plain,
-           "bound_ms": bms, "bound_by": by, "library_ms": None,
-           "ms_emit_step": times[DECODE_T], "ms_other_step": times[DECODE_T - 1]}
+           "bound_ms": bms, "bound_by": by, "library_ms": None, "emit_plan": eplan,
+           "control_over_gate": ctl_ratio,
+           "ms_emit_step": steps[DECODE_T]["ms"], "ms_other_step": steps[DECODE_T - 1]["ms"],
+           "emit_step": steps[DECODE_T], "other_step": steps[DECODE_T - 1]}
 
     # attend: both versions get the same info and c_out (the plain select's)
     t = DECODE_T
@@ -893,20 +919,48 @@ def kernel_decode_fused(gen, flush, cfg, params, b):
     x = randn(b, 1, dim)
     akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
                eps=cfg.norm_eps)
-    kv_k, kv_p = kv.clone(), kv.clone()
+    tkw = {k: v for k, v in akw.items() if k != "eps"}
+    kv_k, kv_p, kv_2 = kv.clone(), kv.clone(), kv.clone()
+    comb_k, comb_2 = torch.empty_like(rq), torch.empty_like(rq)
     args = (kv_row, info_p, c_p, gates, x, fp["w_out"], t, ff)
-    out_k = nsa_decode_fused.decode_attend_fused(rq, kv_k, *args, **akw)
-    out_p = nsa_decode_fused.decode_attend_fused_plain(rq, kv_p, *args, **akw)
+    out_k = F.decode_attend_fused(rq, kv_k, *args, attn_out=comb_k, **akw)
+    out_2 = F.decode_attend_fused(rq, kv_2, *args, attn_out=comb_2, **akw)
+    out_p = F.decode_attend_fused_plain(rq, kv_p, *args, **akw)
+    # the control: the plain version with each row's first selected block left out
+    dropped = nsa_decode_ragged.without_first_selected(info_p, num_sel, n_slide)
+    out_c = F.decode_attend_fused_plain(rq, kv.clone(), kv_row, dropped, *args[2:], **akw)
     torch.cuda.synchronize()
     err_a, top = max_err(out_k, out_p), out_p.float().abs().max().item()
+    err_ctl = max_err(out_c, out_p)
     check(torch.equal(kv_k, kv_p) and torch.equal(kv_k[:, :, t], kv_row[:, :, 0])
           and torch.equal(kv_k[:, :, :t], kv[:, :, :t])
           and torch.equal(kv_k[:, :, t + 1:], kv[:, :, t + 1:]),
           "decode_attend_fused: the kv cache is not the old one with row t written")
     check(err_a <= TOL_FUSED * top and bool(torch.isfinite(out_k.float()).all()),
           "decode_attend_fused disagrees")
+    check(err_ctl > TOL_FUSED * top,
+          "decode_attend_fused: the dropped-block control passes the output gate")
+    want, tol = nsa_decode_ragged.attend_tolerance(rq, kv_p, info_p, c_p, gates, t, **tkw)
+    wrong, _ = nsa_decode_ragged.attend_tolerance(rq, kv_p, dropped, c_p, gates, t, **tkw)
+    ratio = ((comb_k.float() - want.float()).abs() / tol).max().item()
+    ratio_ctl = ((wrong.float() - want.float()).abs() / tol).max().item()
+    check(ratio <= 1.0, "decode_attend_fused: the attention output breaks attend_tolerance")
+    check(ratio_ctl > 1.0, "decode_attend_fused: the dropped-block control passes "
+          "attend_tolerance")
+    same2 = torch.equal(out_2, out_k) and torch.equal(comb_2, comb_k) and torch.equal(kv_2, kv_k)
+    check(same2, "decode_attend_fused: a second launch gives other bits")
     print(f"  decode_attend_fused bs {b} (FF inside): max|err| {err_a:.5f} (tol {TOL_FUSED:g} x "
-          f"max {top:.3f}); kv row {t} written, bit-equal; no other row changed", flush=True)
+          f"max {top:.3f}), the dropped-block control {err_ctl:.5f} (must exceed it); attention "
+          f"output worst |err| / attend_tolerance {ratio:.4f} (<= 1), the control "
+          f"{ratio_ctl:.1f} (> 1); kv row {t} written, bit-equal; no other row changed; a "
+          f"second launch bit-equal: {same2}", flush=True)
+    plan = nsa_decode_ragged.attend_plan(rq, dim, ff[1].shape[1], sel_block=Bs,
+                                         num_sel=num_sel, n_slide=n_slide)
+    regs, spill = ptxas_usage(log, f"attend_persistent_kernelILi{g}E", "OnePosition")
+    print(f"  decode_attend_fused launch: grid {plan['grid']}, {plan['blocks_per_sm']} block(s) "
+          f"fit an SM, shared memory {plan['smem_bytes']} B a block (card limit "
+          f"{plan['smem_optin']}); ptxas: {regs} registers, spills (stores, loads) {spill}",
+          flush=True)
     vp = info_p.reshape(b, kvh, -1)[..., num_sel + n_slide:2 * num_sel + n_slide]
     rows = attend_rows(vp, t, Bs, n_slide, window, b * kvh)
     hid4 = ff[1].shape[1]
@@ -914,16 +968,21 @@ def kernel_decode_fused(gen, flush, cfg, params, b):
                        + rows * 2 * d * 2 + nbytes(kv_row),
                        rows * g * 4 * d + b * 2 * (kvh * g * d * dim + 2 * dim * hid4))
     att = {"name": "decode_attend_fused", "route": "cuda",
-           "source": "nsa_tpu_torch/csrc/nsa_decode_fused.cu",
+           "source": "nsa_tpu_torch/csrc/nsa_decode_ragged.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode_fused.py:830",
-           "max_abs_err": err_a,
-           "ms": timed_ms(lambda: nsa_decode_fused.decode_attend_fused(rq, kv_k, *args, **akw),
-                          50, flush),
-           "plain_ms": timed_ms(lambda: nsa_decode_fused.decode_attend_fused_plain(
-               rq, kv_p, *args, **akw), 10, flush),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
-    print(f"  decode_attend_fused bs {b}: {att['ms']:.4f} ms (bound {bms:.5f} ms, by {by}); "
-          f"plain {att['plain_ms']:.4f} ms", flush=True)
+           "max_abs_err": err_a, "attend_tolerance_ratio": ratio,
+           "control_over_gate": err_ctl / (TOL_FUSED * top), "control_ratio": ratio_ctl,
+           **breakdown("decode_attend_fused", lambda: F.decode_attend_fused(
+               rq, kv_k, *args, **akw), flush),
+           "plain_ms": timed_ms(lambda: F.decode_attend_fused_plain(rq, kv_p, *args, **akw),
+                                10, flush),
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "plan": plan, "registers": regs, "spill_bytes": spill,
+           "phase_us": kernel_times.attend_phase_us(lambda m: F.decode_attend_fused(
+               rq, kv_k, *args, phase_ns=m, **akw), flush)}
+    print(f"  decode_attend_fused bs {b}: device {att['ms']:.4f} ms (bound {bms:.5f} ms, by "
+          f"{by}); plain {att['plain_ms']:.4f} ms; us per phase (the card's global timer, "
+          f"median of 5): { {k: round(v, 2) for k, v in att['phase_us'].items()} }", flush=True)
     return sel, att
 
 
@@ -1301,25 +1360,6 @@ def breakdown(name, fn, flush):
             "launch_ms": [x["ms"] for x in r["launches"]], "gap_ms": r["gaps_ms"]}
 
 
-ATTEND_PHASES = ("attention", "w_out + residual", "norm + ff w1", "ff w2")
-
-
-def attend_phase_us(fn, flush, iters=5):
-    """Where a launch of the one-launch attend kernel goes: block 0's global
-    timer at the start and after each grid sync (``phase_ns``), as the
-    median microseconds of each phase over ``iters`` launches, L2 flushed
-    before each; the last phase ends where the block holding ff w2's first
-    tile ends its share."""
-    runs = []
-    for _ in range(iters):
-        marks = torch.zeros(nsa_decode_ragged.PHASE_MARKS, dtype=torch.int64, device=DEVICE)
-        flush.zero_()
-        fn(marks)
-        torch.cuda.synchronize()
-        runs.append(((marks[1:] - marks[:-1]).double() / 1e3).tolist())
-    return {name: sorted(r[i] for r in runs)[iters // 2] for i, name in enumerate(ATTEND_PHASES)}
-
-
 def kernel_decode_ragged(gen, flush, cfg, params, b, log):
     """Rows 8-11 at ``b`` slots of MAX_LEN rows: layer 0's trained weights,
     packed; seeded queries, caches, residual stream and mixed positions."""
@@ -1465,7 +1505,8 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
           f"row changed; a second launch bit-equal: {same2}", flush=True)
     plan = R.attend_plan(rq, dim, ff[1].shape[1], sel_block=Bs, num_sel=num_sel,
                          n_slide=n_slide)
-    regs, spill = ptxas_usage(log, f"attend_persistent_kernelILi{g}E", "DenseRows")
+    regs, spill = ptxas_usage(log, f"attend_persistent_kernelILi{g}E", "DenseRows",
+                              "RowPositions")
     print(f"  decode_attend_fused_ragged launch: grid {plan['grid']}, {plan['blocks_per_sm']} "
           f"block(s) fit an SM, weight tiles {plan['slice_bytes']} B on the largest block "
           f"({plan['slice_total'] / plan['grid']:.0f} B mean, {plan['slice_total']} B in all), "
@@ -1488,7 +1529,7 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
                                                                            **akw), 10, flush),
            "bound_ms": bms, "bound_by": by, "library_ms": None,
            "plan": plan, "registers": regs, "spill_bytes": spill,
-           "phase_us": attend_phase_us(lambda m: R.decode_attend_fused_ragged(
+           "phase_us": kernel_times.attend_phase_us(lambda m: R.decode_attend_fused_ragged(
                rq, kv_k, *args, phase_ns=m, **akw), flush)}
     print(f"  decode_attend_fused_ragged us per phase (the card's global timer, median of 5): "
           f"{ {k: round(v, 2) for k, v in att['phase_us'].items()} }", flush=True)
@@ -1530,32 +1571,33 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
     # ---- rows 8-9 at one position for every row, against rows 6-7 ----------
-    tu = torch.full((b,), DECODE_T, dtype=torch.int32, device=DEVICE)
-    caches = [(ckv.clone(), ring.clone()) for _ in range(2)]
-    c_r, info_r = R.decode_select_emit_ragged(q, *caches[0], kv_new, mem_kv, *weights, tu,
-                                              tu // stride, **kw)
-    c_s, info_s = nsa_decode_fused.decode_select_emit(q, *caches[1], kv_new, mem_kv, *weights,
-                                                      DECODE_T, DECODE_T // stride, **kw)
-    uargs = (kv_row, info_s, c_s, gates, x, fp["w_out"])
-    kv_r, kv_s = kv.clone(), kv.clone()
-    o_r = R.decode_attend_fused_ragged(rq, kv_r, *uargs, tu, ff, **akw)
-    o_s = nsa_decode_fused.decode_attend_fused(rq, kv_s, *uargs, DECODE_T, ff, **akw)
-    torch.cuda.synchronize()
-    bits = {"c_out": torch.equal(c_r, c_s), "info": torch.equal(info_r, info_s),
-            "ckv": torch.equal(caches[0][0], caches[1][0]),
-            "ring": torch.equal(caches[0][1], caches[1][1]),
-            "attend_out": torch.equal(o_r, o_s), "kv": torch.equal(kv_r, kv_s)}
-    uerr = max(max_err(c_r, c_s) / max(c_s.float().abs().max().item(), 1e-30),
-               max_err(caches[0][0], caches[1][0]) / caches[1][0].float().abs().max().item(),
-               max_err(o_r, o_s) / o_s.float().abs().max().item())
-    check(uerr <= TOL_FUSED and bits["ring"] and bits["kv"],
-          "rows 8-9 at one position disagree with rows 6-7")
-    check_selection(info_r.reshape(b, kvh, -1), info_s.reshape(b, kvh, -1),
-                    nsa_decode.select_scores_plain(q, ckv, mem_kv, DECODE_T // stride, DECODE_T,
-                                                   stride=stride, sel_block=Bs, scale=scale)[1],
-                    num_sel, n_slide, "ragged vs one-position select")
-    print(f"  rows 8-9 at t={DECODE_T} for every slot vs rows 6-7: max relative err {uerr:.5f} "
-          f"(tol {TOL_FUSED:g}); bit-equal: {bits}", flush=True)
+    # rows 6-7 run rows 8-9's bodies at a host position: the same bits, on an
+    # emission step and the step before it, with the FF and without
+    for tt in (DECODE_T, DECODE_T - 1):
+        tu = torch.full((b,), tt, dtype=torch.int32, device=DEVICE)
+        caches = [(ckv.clone(), ring.clone()) for _ in range(2)]
+        c_r, info_r = R.decode_select_emit_ragged(q, *caches[0], kv_new, mem_kv, *weights, tu,
+                                                  tu // stride, **kw)
+        c_s, info_s = nsa_decode_fused.decode_select_emit(q, *caches[1], kv_new, mem_kv,
+                                                          *weights, tt, tt // stride, **kw)
+        bits = {"c_out": torch.equal(c_r, c_s), "info": torch.equal(info_r, info_s),
+                "ckv": torch.equal(caches[0][0], caches[1][0]),
+                "ring": torch.equal(caches[0][1], caches[1][1])}
+        uargs = (kv_row, info_s, c_s, gates, x, fp["w_out"])
+        for label, ff_x in (("ff", ff), ("no ff", ())):
+            kv_r, kv_s = kv.clone(), kv.clone()
+            comb_r, comb_s = torch.empty_like(rq), torch.empty_like(rq)
+            o_r = R.decode_attend_fused_ragged(rq, kv_r, *uargs, tu, ff_x, attn_out=comb_r,
+                                               **akw)
+            o_s = nsa_decode_fused.decode_attend_fused(rq, kv_s, *uargs, tt, ff_x,
+                                                       attn_out=comb_s, **akw)
+            torch.cuda.synchronize()
+            bits.update({f"out ({label})": torch.equal(o_r, o_s),
+                         f"attn_out ({label})": torch.equal(comb_r, comb_s),
+                         f"kv ({label})": torch.equal(kv_r, kv_s)})
+        print(f"  rows 8-9 at t={tt} for every slot vs rows 6-7: bit-equal {bits}", flush=True)
+        check(all(bits.values()), f"rows 8-9 at one position t={tt} give other bits than rows "
+              f"6-7: {bits}")
 
     # ---- row 11: the block gather of the ragged split route ----------------
     idx = info_p.reshape(b, kvh, -1)[..., :n_slots].contiguous()
@@ -2540,7 +2582,7 @@ def main():
         flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
         kernels = [*kernel_prefill(gen, flush, cfg, params), *kernel_decode(gen, flush, cfg),
                    *kernel_prefill_bwd(gen, flush, cfg, params, lib.log),
-                   *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0]),
+                   *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0], lib.log),
                    kernel_decode_mega(gen, flush, cfg, fuse_decode_params(params, cfg),
                                       SMALL_BATCHES[0], lib.log),
                    *kernel_decode_ragged(gen, flush, cfg, params, SERVE_SLOTS, lib.log),

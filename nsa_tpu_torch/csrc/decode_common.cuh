@@ -1,13 +1,14 @@
 // Device code shared by the decode kernels of nsa_decode.cu (the split
-// route: decode_select, decode_attend), nsa_decode_fused.cu (the fused
-// route: decode_select_emit, decode_attend_fused) and nsa_decode_mega.cu
-// (the whole-model decode step): the body of one thread block's compressed
-// attention + selection, and of its fine + sliding attention with the gate
-// combine.  Each body works on one (batch row, KV head) pair, `bh`, inside a
-// block of any size that is a multiple of 32, out of the dynamic shared
-// memory it is handed.  Pointers to buffers that the whole-model kernel
-// writes during its own launch carry no __restrict__, so the compiler never
-// reads them through the non-coherent read-only path.
+// route: decode_select, decode_attend), nsa_decode_fused.cu and
+// nsa_decode_ragged.cu (the fused and ragged select-emit, the one-launch
+// attend) and nsa_decode_mega.cu (the whole-model decode step): the body of
+// one thread block's compressed attention + selection, and of its fine +
+// sliding attention with the gate combine.  Each body works on one (batch
+// row, KV head) pair, `bh`, inside a block of any size that is a multiple
+// of 32, out of the dynamic shared memory it is handed.  Pointers to
+// buffers that the whole-model kernel writes during its own launch carry no
+// __restrict__, so the compiler never reads them through the non-coherent
+// read-only path.
 #pragma once
 
 #include "common.cuh"
@@ -47,12 +48,12 @@ size_t select_smem_bytes(int Wc, int M, int Wf, int threads) {
 // the packed info row: [0, S) selected ids, [S, S + n_slide) trailing ids,
 // [S + n_slide, 2S + n_slide) validity, the rest zero.  Reads no ckv row at
 // or above num_cb.  mem_kv is bf16 (the split and fused routes) or float32
-// (the whole-model kernel, as JAX's megakernel keeps it).  kPipelined (the
-// ragged select-emit and the whole-model kernel) keeps kPipe loads of the
-// c_out sum in flight; the additions and their order are the same.
+// (the whole-model kernel, as JAX's megakernel keeps it).  The c_out sum
+// keeps kPipe loads in flight (then a tail of one at a time), adding its
+// terms in row order.
 constexpr int kPipe = 8;
 
-template <int G, typename MemT, bool kPipelined = false>
+template <int G, typename MemT>
 __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restrict__ mem_kv,
                             bf16* c_out, int* info, int kvh, int Wc, int M, int t, int num_cb,
                             int stride, int sel_block, int num_sel, int n_slide,
@@ -164,17 +165,15 @@ __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restri
       const float* p = sim + g * Wc + r0;
       float acc = 0.f;
       int r = part;
-      if (kPipelined) {
-        for (; r + (kPipe - 1) * parts < nr; r += kPipe * parts) {
-          float pv[kPipe], tv[kPipe];
+      for (; r + (kPipe - 1) * parts < nr; r += kPipe * parts) {
+        float pv[kPipe], tv[kPipe];
 #pragma unroll
-          for (int u = 0; u < kPipe; ++u) {
-            pv[u] = p[r + u * parts];
-            tv[u] = __bfloat162float(tile[(r + u * parts) * kHalfRow + e]);
-          }
-#pragma unroll
-          for (int u = 0; u < kPipe; ++u) acc += pv[u] * tv[u];
+        for (int u = 0; u < kPipe; ++u) {
+          pv[u] = p[r + u * parts];
+          tv[u] = __bfloat162float(tile[(r + u * parts) * kHalfRow + e]);
         }
+#pragma unroll
+        for (int u = 0; u < kPipe; ++u) acc += pv[u] * tv[u];
       }
       for (; r < nr; r += parts) acc += p[r] * __bfloat162float(tile[r * kHalfRow + e]);
       cacc[o] += acc;
@@ -254,10 +253,10 @@ size_t attend_smem_bytes(int J, int threads) {
 // fine + g_s * sliding.  Row t is staged from `row_t` instead of the cache
 // when `row_t` is not null (the fused route writes that row in the same
 // launch).  Returns the combined float32 output [G][kD] in shared memory,
-// visible to the whole block.  kPipelined (the whole-model kernel) keeps
-// kPipe columns' loads of the P.V sums in flight; the additions and their
-// order are the same.
-template <int G, typename Rows, bool kPipelined = false>
+// visible to the whole block.  The P.V sums keep kPipe columns' loads in
+// flight (then a tail of one at a time), adding the kept columns' terms in
+// column order.
+template <int G, typename Rows>
 __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, const bf16* c_out,
                               const bf16* gates, const bf16* row_t, int t, int sel_block,
                               int window, int num_sel, int n_slide, int info_width, float scale,
@@ -347,25 +346,23 @@ __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, co
     const int part = o / outs, g = (o % outs) / kD, e = o % kD;
     float af = 0.f, as = 0.f;
     int c = part;
-    if (kPipelined) {
-      for (; c + (kPipe - 1) * parts < J; c += kPipe * parts) {
-        int ok[kPipe];
-        float v[kPipe], pf_[kPipe], ps_[kPipe];
+    for (; c + (kPipe - 1) * parts < J; c += kPipe * parts) {
+      int ok[kPipe];
+      float v[kPipe], pf_[kPipe], ps_[kPipe];
 #pragma unroll
-        for (int u = 0; u < kPipe; ++u) {
-          const int cc = c + u * parts;
-          ok[u] = okm[cc];
-          v[u] = ok[u] ? __bfloat162float(tile[cc * kFullRow + kD + e]) : 0.f;
-          pf_[u] = sf[g * J + cc];
-          ps_[u] = ss[g * J + cc];
-        }
-#pragma unroll
-        for (int u = 0; u < kPipe; ++u)
-          if (ok[u]) {
-            af += pf_[u] * v[u];
-            as += ps_[u] * v[u];
-          }
+      for (int u = 0; u < kPipe; ++u) {
+        const int cc = c + u * parts;
+        ok[u] = okm[cc];
+        v[u] = ok[u] ? __bfloat162float(tile[cc * kFullRow + kD + e]) : 0.f;
+        pf_[u] = sf[g * J + cc];
+        ps_[u] = ss[g * J + cc];
       }
+#pragma unroll
+      for (int u = 0; u < kPipe; ++u)
+        if (ok[u]) {
+          af += pf_[u] * v[u];
+          as += ps_[u] * v[u];
+        }
     }
     for (; c < J; c += parts) {
       if (okm[c] == 0) continue;     // unstaged row: never read

@@ -1,7 +1,8 @@
 // Tensor-core pieces shared by the decode kernels that run their products on
-// Hopper's tensor cores: the engine's ragged / paged attend kernel and
-// ragged select-emit (nsa_decode_ragged.cu) and the whole-model decode
-// kernel (nsa_decode_mega.cu).
+// Hopper's tensor cores: the one-launch attend kernel (rows 7, 9 and 10)
+// and the ragged select-emit (row 8) in nsa_decode_ragged.cu, the
+// one-position select-emit (row 6) in nsa_decode_fused.cu, and the
+// whole-model decode kernel (row 12) in nsa_decode_mega.cu.
 //
 // * Weight tiles: a [K, N] row-major bf16 matrix is read as 8-column tiles
 //   [K][8] (16 bytes a row, so ldmatrix.trans reads them without bank
@@ -95,10 +96,9 @@ __device__ __forceinline__ float tile_dot(const bf16* As, int lda, const bf16* W
 }
 
 // RMSNorm of the 16 staged rows of As [16][K + 8] in place, float32, rounded
-// to bf16: warp w takes rows w, w + 8.  kPipelined (the whole-model kernel)
-// loads kPipe of the scale's values before it uses them; the operations are
-// the same.  Ends with a barrier.
-template <typename T, bool kPipelined = false>
+// to bf16: warp w takes rows w, w + 8; kPipe of the scale's values are
+// loaded before they are used.  Ends with a barrier.
+template <typename T>
 __device__ void norm_rows(bf16* As, int K, const T* scale, float eps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, lda = K + 8;
   for (int r = warp; r < kRowTile; r += kWarps) {
@@ -110,15 +110,13 @@ __device__ void norm_rows(bf16* As, int K, const T* scale, float eps) {
     }
     const float inv = rsqrtf(warp_sum(ss) / K + eps);
     int c = lane;
-    if (kPipelined) {
-      for (; c + 32 * (kPipe - 1) < K; c += 32 * kPipe) {
-        float sc[kPipe];
+    for (; c + 32 * (kPipe - 1) < K; c += 32 * kPipe) {
+      float sc[kPipe];
 #pragma unroll
-        for (int u = 0; u < kPipe; ++u) sc[u] = ldf(scale[c + 32 * u]);
+      for (int u = 0; u < kPipe; ++u) sc[u] = ldf(scale[c + 32 * u]);
 #pragma unroll
-        for (int u = 0; u < kPipe; ++u)
-          yr[c + 32 * u] = __float2bfloat16(__bfloat162float(yr[c + 32 * u]) * inv * sc[u]);
-      }
+      for (int u = 0; u < kPipe; ++u)
+        yr[c + 32 * u] = __float2bfloat16(__bfloat162float(yr[c + 32 * u]) * inv * sc[u]);
     }
     for (; c < K; c += 32)
       yr[c] = __float2bfloat16(__bfloat162float(yr[c]) * inv * ldf(scale[c]));

@@ -367,7 +367,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             stage_embed(As, a.emb, toks, a.b, K);
           else
             stage_rows(As, a.x, a.b, K, 0);
-          norm_rows<bf16, true>(As, K, a.attn_norm + (size_t)l * K, a.eps);
+          norm_rows(As, K, a.attn_norm + (size_t)l * K, a.eps);
           wait_tiles(kQkvg);
           for (int j = 0; j < count[kQkvg]; ++j) {
             const float v = tile_dot(As, lda, wsm + at[kQkvg] + j * K * kTileCols, K, 1, 0.f, red);
@@ -391,17 +391,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         bf16* c_out = a.c_out + lbh * G * kD;
         bf16* gates = a.gates + lbh * 3 * G;
         int* info = a.info + lbh * a.info_width;
-        select_body<G, float, true>(q, a.ckv[l], a.mem_kv + (size_t)l * 2 * a.kvh * a.M * kD,
-                                    c_out, info, a.kvh, a.Wc, a.M, t, num_cb, a.stride,
-                                    a.sel_block, a.num_sel, a.n_slide, max_blocks,
-                                    a.info_width, a.scale, item, work);
+        select_body<G, float>(q, a.ckv[l], a.mem_kv + (size_t)l * 2 * a.kvh * a.M * kD, c_out,
+                              info, a.kvh, a.Wc, a.M, t, num_cb, a.stride, a.sel_block,
+                              a.num_sel, a.n_slide, max_blocks, a.info_width, a.scale, item,
+                              work);
         __syncthreads();             // info and c_out, from other threads
         const DenseRows kv{a.kv[l], a.max_len};
         const bf16* row_t = a.kvn_rot + (size_t)item * 2 * kD;
         if (tid < 2 * kD / 8)        // the new token's row, written in place
           reinterpret_cast<uint4*>(kv.row(item, t))[tid] =
               reinterpret_cast<const uint4*>(row_t)[tid];
-        const float* comb = attend_body<G, DenseRows, true>(
+        const float* comb = attend_body<G>(
             rq, kv, info, c_out, gates, row_t, t, a.sel_block, a.window, a.num_sel, a.n_slide,
             a.info_width, a.scale, item, work);
         for (int i = tid; i < G * kD; i += blockDim.x)
@@ -456,7 +456,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         float* red = reinterpret_cast<float*>(work + (size_t)kRowTile * lda * sizeof(bf16));
         if (count[kFw1]) {
           stage_rows(As, a.y, a.b, K, 0);
-          norm_rows<bf16, true>(As, K, a.ff_norm + (size_t)l * K, a.eps);
+          norm_rows(As, K, a.ff_norm + (size_t)l * K, a.eps);
           wait_tiles(kFw1);
           for (int j = 0; j < count[kFw1]; ++j) {
             const int col = (first[kFw1] + j * p.grid) * kTileCols + n;
@@ -506,7 +506,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       float* red = reinterpret_cast<float*>(work + (size_t)kRowTile * lda * sizeof(bf16));
       if (count[kHead]) {
         stage_rows(As, a.x, a.b, K, 0);
-        norm_rows<bf16, true>(As, K, a.out_norm, a.eps);
+        norm_rows(As, K, a.out_norm, a.eps);
         if (s == 0) wait_tiles(kHead);
         for (int j = 0; j < count[kHead]; ++j) {
           const float v = tile_dot(As, lda, wsm + at[kHead] + j * K * kTileCols, K, 1, 0.f, red);

@@ -1,9 +1,10 @@
-// The ragged decode-step kernels for Hopper (sm_90a): the fused pair of
-// nsa_decode_fused.cu with one position per batch row, as the serving
-// engine's slot pool decodes (every slot at its own length), and the attend
-// kernel over a paged kv pool.
+// The ragged decode-step kernels for Hopper (sm_90a): the fused pair with
+// one position per batch row, as the serving engine's slot pool decodes
+// (every slot at its own length), and the one-launch attend kernel, which
+// also serves the fused route at one position and a paged kv pool.
 //
 // Replaces the TPU kernels of nsa_tpu/ops/pallas/nsa_decode_fused.py:
+//   decode_attend_fused         (_attend_fused_kernel, :734 -> pallas_call :830)
 //   decode_select_emit_ragged   (_select_emit_ragged_kernel, pallas_call :1059)
 //   decode_attend_fused_ragged  (_attend_fused_ragged_kernel, :1223 -> pallas_call :1317)
 //   decode_attend_fused_paged   (_attend_fused_paged_kernel, :1507 -> pallas_call :1608)
@@ -19,38 +20,43 @@
 // the rows that emit this step (t - num_cb * stride + 1 == stride) with a
 // ballot, in row order; a block with no emitting row returns at once, and
 // the others run the tensor-core emission body (emit_tc_body,
-// decode_tc_common.cuh, shared with the whole-model kernel) over the
-// listed rows as 16-row tiles, each row at its own position (window rows
-// before position 0 zeroed): the window tile times its 64 columns of w1k
-// or w1v, streamed by TMA through an 8-stage mbarrier ring, + b1, relu,
-// rounded; times its 64 rows of w2: float32 partials.  Launch 2, one block
-// per (batch row, KV head), reads the old ring and the new token into
-// shared memory before it writes the shifted ring (launch 1 has finished
-// reading it: launches on one stream run in order); on an emitting row it
-// sums the partials in chunk order into ckv[min(num_cb, Wc - 1)]; then it
-// runs the selection body at the row's own t and num_cb, which reads only
-// ckv rows below num_cb.  Launch 2 is bound by the selection body's
-// latency (a chain of staging, reductions and the top-k of one block per
-// (row, KV head), 64 blocks at 16 slots), not by its bytes.
+// decode_tc_common.cuh, shared with the one-position select-emit of
+// nsa_decode_fused.cu and the whole-model kernel) over the listed rows as
+// 16-row tiles, each row at its own position (window rows before position 0
+// zeroed): the window tile times its 64 columns of w1k or w1v, streamed by
+// TMA through an 8-stage mbarrier ring, + b1, relu, rounded; times its 64
+// rows of w2: float32 partials.  Launch 2, one block per (batch row, KV
+// head), reads the old ring and the new token into shared memory before it
+// writes the shifted ring (ring_shift_body; launch 1 has finished reading
+// it: launches on one stream run in order); on an emitting row it sums the
+// partials in chunk order into ckv[min(num_cb, Wc - 1)] (emit_row_body);
+// then it runs the selection body (select_body) at the row's own t and
+// num_cb, which reads only ckv rows below num_cb.  Launch 2 is bound by the
+// selection body's latency (a chain of staging, reductions and the top-k of
+// one block per (row, KV head), 64 blocks at 16 slots), not by its bytes.
 //
-// decode_attend_fused_ragged / _paged.  What bounds them on this card: not
-// bytes (the weights, 4.5 MB at the reference model with the FF, and the
-// ~2 MB of kv rows the masks keep at 16 slots take ~2 us at 3.35 TB/s) but
-// latency: the attention of b x kvh items, then three products that each
-// need every row of the one before (w_out, the FF's w1 and w2), each a few
-// MFLOP.  The design: one cooperative, persistent launch of one block per
-// SM, phases separated by grid syncs, no float atomics.  At entry each block
-// issues TMA loads of its own column tiles of w_out, ff w1 and ff w2 (8
-// columns x all K rows each, in 1 KB boxes, tile i of a product on block
-// (offset + i) % grid) into shared memory, completing on one mbarrier per
-// product, so every weight byte is read once and all of them are in flight
-// while the attention runs.  (a) Per (batch row, KV head) item, grid-stride:
-// the new token's row written in place at the row's own t, attend_body with
-// that row staged from the new token, the combined output rounded to bf16
-// into comb [b, kvh*G*64] (device scratch, or the caller's tensor).  (b) Per
-// owned w_out tile, per 16-row tile of the batch: comb's rows staged in
-// shared memory, each head's product on the tensor cores (mma.sync m16n8k16,
-// bf16 in, float32 sums; A by ldmatrix, B from the staged tile by
+// decode_attend_fused / _ragged / _paged: one kernel, templated on where a
+// row lives (DenseRows, PagedRows) and on how an item reads its position
+// (one per row from a device vector t [b], or one host scalar t for the
+// whole batch: the fused route, which then needs no device tensor for t).
+// What bounds it on this card: not bytes (the weights, 4.5 MB at the
+// reference model with the FF, and the ~2 MB of kv rows the masks keep at
+// 16 slots take ~2 us at 3.35 TB/s) but latency: the attention of b x kvh
+// items, then three products that each need every row of the one before
+// (w_out, the FF's w1 and w2), each a few MFLOP.  The design: one
+// cooperative, persistent launch of one block per SM, phases separated by
+// grid syncs, no float atomics.  At entry each block issues TMA loads of
+// its own column tiles of w_out, ff w1 and ff w2 (8 columns x all K rows
+// each, in 1 KB boxes, tile i of a product on block (offset + i) % grid)
+// into shared memory, completing on one mbarrier per product, so every
+// weight byte is read once and all of them are in flight while the
+// attention runs.  (a) Per (batch row, KV head) item, grid-stride: the new
+// token's row written in place at the row's t, attend_body with that row
+// staged from the new token, the combined output rounded to bf16 into comb
+// [b, kvh*G*64] (device scratch, or the caller's tensor).  (b) Per owned
+// w_out tile, per 16-row tile of the batch: comb's rows staged in shared
+// memory, each head's product on the tensor cores (mma.sync m16n8k16, bf16
+// in, float32 sums; A by ldmatrix, B from the staged tile by
 // ldmatrix.trans), y = x + the heads' products in head order in float32,
 // rounded once, into y (or the output without the FF).  (c) Per owned w1
 // tile: y's rows staged, RMSNorm in float32 rounded to bf16 (every block
@@ -60,14 +66,15 @@
 // output.  Within a tile each warp sums its own k-steps (warp w takes steps
 // w, w + 8, ...) and the 8 warps' partials are added in warp order, so the
 // bits depend on neither the grid nor which block owns a tile: a second
-// launch, and the paged kernel on the same logical cache, give the same
-// bits.  Without the FF the kernel stops after (b).  A grid that cannot be
-// co-resident, or slices that do not fit in shared memory, is an error and
-// never runs.  The paged kernel is the same body with one address function
-// (PagedRows): logical row r of batch row i lives in page page_table[i][r /
-// page] at row r % page.  A block of a selection never straddles a page
-// (page % sel_block == 0).  Inactive slots (t = 0, a table of trash pages)
-// decode into their own row 0 or the trash page, as on the TPU.
+// launch, the paged kernel on the same logical cache, and the one-position
+// kernel at a position every row shares give the same bits.  Without the
+// FF the kernel stops after (b).  A grid that cannot be co-resident, or
+// slices that do not fit in shared memory, is an error and never runs.
+// The paged kernel is the same body with one address function (PagedRows):
+// logical row r of batch row i lives in page page_table[i][r / page] at row
+// r % page.  A block of a selection never straddles a page (page %
+// sel_block == 0).  Inactive slots (t = 0, a table of trash pages) decode
+// into their own row 0 or the trash page, as on the TPU.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -145,9 +152,8 @@ __global__ void select_emit_ragged_kernel(const bf16* __restrict__ q, bf16* ckv,
     emit_row_body(partial, b2, ckv + ((size_t)bh * Wc + slot) * 2 * kD, nchunks, b, bi, bh % kvh);
   }
   __syncthreads();
-  select_body<G, bf16, true>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb, stride,
-                             sel_block, num_sel, n_slide, max_blocks, info_width, scale, bh,
-                             smem_raw);
+  select_body<G, bf16>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb, stride, sel_block,
+                       num_sel, n_slide, max_blocks, info_width, scale, bh, smem_raw);
 }
 
 // ---------------------------------------------------------------------------
@@ -180,7 +186,20 @@ Plan make_plan(int kvh, int dim, int hid4, int J, int grid) {
   return p;
 }
 
-template <typename Rows>
+// How an item reads its batch row's position: from a device vector t [b]
+// (the ragged and paged kernels), or one host scalar for every row (the
+// fused route).
+struct RowPositions {
+  const int* t;
+  __device__ __forceinline__ int at(int bi) const { return t[bi]; }
+};
+
+struct OnePosition {
+  int t;
+  __device__ __forceinline__ int at(int) const { return t; }
+};
+
+template <typename Rows, typename Pos>
 struct AttendArgs {
   const bf16* rq;
   Rows kv;
@@ -192,7 +211,7 @@ struct AttendArgs {
   const float* ff_norm;
   const float* ff_b1;
   const float* ff_b2;
-  const int* tvec;
+  Pos pos;
   // written during the launch and read by other blocks after a grid sync:
   // no __restrict__, read through L2 only (cp.async.cg, ld.global.cg)
   bf16* comb;                              // [b, kvh * G * kD]
@@ -210,8 +229,8 @@ struct AttendArgs {
 // product records the end of its share of it.
 constexpr int kPhaseMarks = 5;
 
-template <typename Rows>
-__device__ __forceinline__ void mark(const AttendArgs<Rows>& a, int k, int block = 0) {
+template <typename Rows, typename Pos>
+__device__ __forceinline__ void mark(const AttendArgs<Rows, Pos>& a, int k, int block = 0) {
   if (a.phase_ns != nullptr && blockIdx.x == block && threadIdx.x == 0) {
     unsigned long long ns;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
@@ -219,9 +238,10 @@ __device__ __forceinline__ void mark(const AttendArgs<Rows>& a, int k, int block
   }
 }
 
-template <int G, typename Rows>
+template <int G, typename Rows, typename Pos>
 __global__ void __launch_bounds__(kThreads, 1)
-    attend_persistent_kernel(const AttendArgs<Rows> a, const __grid_constant__ CUtensorMap m_out,
+    attend_persistent_kernel(const AttendArgs<Rows, Pos> a,
+                             const __grid_constant__ CUtensorMap m_out,
                              const __grid_constant__ CUtensorMap m_w1,
                              const __grid_constant__ CUtensorMap m_w2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -261,7 +281,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // ---- (a) attention of the (batch row, KV head) items ------------------
   constexpr int outs = G * kD;
   for (int bh = g; bh < a.b * a.kvh; bh += gridDim.x) {
-    const int t = a.tvec[bh / a.kvh];
+    const int t = a.pos.at(bh / a.kvh);
     const bf16* row_t = a.kv_new + (size_t)bh * 2 * kD;
     if (tid < 2 * kD / 8)          // the new token's row, written in place
       reinterpret_cast<uint4*>(a.kv.row(bh, t))[tid] = reinterpret_cast<const uint4*>(row_t)[tid];
@@ -356,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // the shared memory a block needs exceeds what the card allows).  The
 // kernel's shared-memory attribute and occupancy are set and read once per
 // device and size.
-template <int G, typename Rows>
+template <int G, typename Rows, typename Pos>
 cudaError_t attend_plan(int kvh, int dim, int hid4, int J, Plan* plan, int* per_sm,
                         int* smem_optin) {
   static int cached[kMaxDevices][2] = {};       // shared-memory bytes, blocks an SM
@@ -368,7 +388,7 @@ cudaError_t attend_plan(int kvh, int dim, int hid4, int J, Plan* plan, int* per_
   *per_sm = 0;
   if (plan->smem_bytes > *smem_optin) return cudaSuccess;
   if (cached[dev][0] != plan->smem_bytes) {
-    auto kern = attend_persistent_kernel<G, Rows>;
+    auto kern = attend_persistent_kernel<G, Rows, Pos>;
     if ((e = set_smem((const void*)kern, plan->smem_bytes)) != cudaSuccess) return e;
     if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached[dev][1], kern, kThreads,
                                                            plan->smem_bytes)) != cudaSuccess)
@@ -379,12 +399,12 @@ cudaError_t attend_plan(int kvh, int dim, int hid4, int J, Plan* plan, int* per_
   return cudaSuccess;
 }
 
-template <int G, typename Rows>
-cudaError_t launch_attend_persistent(AttendArgs<Rows>& a, const bf16* w_out, const bf16* w1,
-                                     const bf16* w2, cudaStream_t stream) {
+template <int G, typename Rows, typename Pos>
+cudaError_t launch_attend_persistent(AttendArgs<Rows, Pos>& a, const bf16* w_out,
+                                     const bf16* w1, const bf16* w2, cudaStream_t stream) {
   const int J = (a.num_sel + a.n_slide) * a.sel_block;
   int per_sm = 0, optin = 0;
-  cudaError_t e = attend_plan<G, Rows>(a.kvh, a.dim, a.hid4, J, &a.plan, &per_sm, &optin);
+  cudaError_t e = attend_plan<G, Rows, Pos>(a.kvh, a.dim, a.hid4, J, &a.plan, &per_sm, &optin);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;   // never a grid that waits forever
   CUtensorMap maps[kProducts] = {};
@@ -393,34 +413,34 @@ cudaError_t launch_attend_persistent(AttendArgs<Rows>& a, const bf16* w_out, con
                  !encode_tiles(&maps[2], w2, a.hid4, a.dim)))
     return cudaErrorInvalidValue;
   void* args[] = {&a, &maps[0], &maps[1], &maps[2]};
-  if ((e = cudaLaunchCooperativeKernel((const void*)attend_persistent_kernel<G, Rows>,
+  if ((e = cudaLaunchCooperativeKernel((const void*)attend_persistent_kernel<G, Rows, Pos>,
                                        dim3(a.plan.grid), dim3(kThreads), args,
                                        a.plan.smem_bytes, stream)) != cudaSuccess)
     return e;
   return cudaGetLastError();
 }
 
-template <typename Rows>
-int attend_ragged_entry(int G, const void* rq, const Rows kv, const void* kv_new,
-                        const void* info, const void* c_out, const void* gates, const void* x,
-                        const void* w_out, const void* ff_norm, const void* ff_w1,
-                        const void* ff_b1, const void* ff_w2, const void* ff_b2, const void* t,
-                        void* comb, void* y, void* hbuf, void* out, void* phase_ns, int b,
-                        int kvh, int dim, int hid4, int sel_block, int window, int num_sel,
-                        int n_slide, int info_width, float scale, float eps, void* stream) {
-  AttendArgs<Rows> a = {(const bf16*)rq, kv, (const bf16*)kv_new, (const int*)info,
-                        (const bf16*)c_out, (const bf16*)gates, (const bf16*)x,
-                        (const float*)ff_norm, (const float*)ff_b1, (const float*)ff_b2,
-                        (const int*)t, (bf16*)comb, (bf16*)y, (bf16*)hbuf, (bf16*)out,
-                        (unsigned long long*)phase_ns, b, kvh, dim, hid4, sel_block, window,
-                        num_sel, n_slide, info_width, scale, eps, Plan{}};
+template <typename Rows, typename Pos>
+int attend_entry(int G, const void* rq, const Rows kv, const void* kv_new, const void* info,
+                 const void* c_out, const void* gates, const void* x, const void* w_out,
+                 const void* ff_norm, const void* ff_w1, const void* ff_b1, const void* ff_w2,
+                 const void* ff_b2, const Pos pos, void* comb, void* y, void* hbuf, void* out,
+                 void* phase_ns, int b, int kvh, int dim, int hid4, int sel_block, int window,
+                 int num_sel, int n_slide, int info_width, float scale, float eps,
+                 void* stream) {
+  AttendArgs<Rows, Pos> a = {(const bf16*)rq, kv, (const bf16*)kv_new, (const int*)info,
+                             (const bf16*)c_out, (const bf16*)gates, (const bf16*)x,
+                             (const float*)ff_norm, (const float*)ff_b1, (const float*)ff_b2,
+                             pos, (bf16*)comb, (bf16*)y, (bf16*)hbuf, (bf16*)out,
+                             (unsigned long long*)phase_ns, b, kvh, dim, hid4, sel_block, window,
+                             num_sel, n_slide, info_width, scale, eps, Plan{}};
   const cudaStream_t s = (cudaStream_t)stream;
   const bf16 *wo = (const bf16*)w_out, *w1 = (const bf16*)ff_w1, *w2 = (const bf16*)ff_w2;
   switch (G) {
-    case 1: return (int)launch_attend_persistent<1, Rows>(a, wo, w1, w2, s);
-    case 2: return (int)launch_attend_persistent<2, Rows>(a, wo, w1, w2, s);
-    case 4: return (int)launch_attend_persistent<4, Rows>(a, wo, w1, w2, s);
-    case 8: return (int)launch_attend_persistent<8, Rows>(a, wo, w1, w2, s);
+    case 1: return (int)launch_attend_persistent<1, Rows, Pos>(a, wo, w1, w2, s);
+    case 2: return (int)launch_attend_persistent<2, Rows, Pos>(a, wo, w1, w2, s);
+    case 4: return (int)launch_attend_persistent<4, Rows, Pos>(a, wo, w1, w2, s);
+    case 8: return (int)launch_attend_persistent<8, Rows, Pos>(a, wo, w1, w2, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -493,15 +513,34 @@ extern "C" int nsa_decode_select_emit_ragged(
   return (int)cudaErrorInvalidValue;
 }
 
-// As nsa_decode_attend_fused, with t [b] int32 on the device; kv [b, kvh,
-// max_len, 128] bf16, row t[i] of batch row i written in place.  Scratch:
-// comb [b, kvh*G*64] bf16 (the rounded attention output; the caller may
-// read it), y [b, dim] bf16, hbuf [b, hid4] bf16; phase_ns null or 5 uint64
-// (the global timer at the start, after each grid sync, and where the block
-// holding the last product's first tile ends; marks 2-3 stay unwritten
-// without the FF).  One cooperative launch;
-// returns its cudaError_t (cudaErrorCooperativeLaunchTooLarge when a block's
-// weight tiles and work space do not fit, see nsa_decode_attend_ragged_plan).
+// rq [b, kvh, G, 64] bf16 (rotated); kv [b, kvh, max_len, 128] bf16 (row t
+// written in place); kv_new [b, kvh, 1, 128] bf16 (rotated k || v); info
+// [b, kvh * info_width] int32; c_out [b, kvh, G, 64] bf16; gates [b, kvh, G,
+// 3] bf16; x [b, 1, dim] bf16; w_out [kvh*G*64, dim] bf16; the FF (null
+// pointers and hid4 0 without it): norm [dim] f32, w1 [dim, hid4] bf16, b1
+// [hid4] f32, w2 [hid4, dim] bf16, b2 [dim] f32 -> out [b, 1, dim] bf16.
+// Scratch: comb [b, kvh*G*64] bf16 (the rounded attention output; the
+// caller may read it), y [b, dim] bf16, hbuf [b, hid4] bf16; phase_ns null
+// or 5 uint64 (the global timer at the start, after each grid sync, and
+// where the block holding the last product's first tile ends; marks 2-3
+// stay unwritten without the FF).  One cooperative launch; returns its
+// cudaError_t (cudaErrorCooperativeLaunchTooLarge when a block's weight
+// tiles and work space do not fit, see nsa_decode_attend_ragged_plan).
+extern "C" int nsa_decode_attend_fused(
+    const void* rq, void* kv, const void* kv_new, const void* info, const void* c_out,
+    const void* gates, const void* x, const void* w_out, const void* ff_norm, const void* ff_w1,
+    const void* ff_b1, const void* ff_w2, const void* ff_b2, void* comb, void* y, void* hbuf,
+    void* out, void* phase_ns, int b, int kvh, int G, int max_len, int dim, int hid4, int t,
+    int sel_block, int window, int num_sel, int n_slide, int info_width, float scale, float eps,
+    void* stream) {
+  return nsa::attend_entry(G, rq, nsa::DenseRows{(nsa::bf16*)kv, max_len}, kv_new, info, c_out,
+                           gates, x, w_out, ff_norm, ff_w1, ff_b1, ff_w2, ff_b2,
+                           nsa::OnePosition{t}, comb, y, hbuf, out, phase_ns, b, kvh, dim, hid4,
+                           sel_block, window, num_sel, n_slide, info_width, scale, eps, stream);
+}
+
+// As nsa_decode_attend_fused, with t [b] int32 on the device: row t[i] of
+// batch row i written in place.
 extern "C" int nsa_decode_attend_fused_ragged(
     const void* rq, void* kv, const void* kv_new, const void* info, const void* c_out,
     const void* gates, const void* x, const void* w_out, const void* ff_norm, const void* ff_w1,
@@ -509,10 +548,11 @@ extern "C" int nsa_decode_attend_fused_ragged(
     void* hbuf, void* out, void* phase_ns, int b, int kvh, int G, int max_len, int dim, int hid4,
     int sel_block, int window, int num_sel, int n_slide, int info_width, float scale, float eps,
     void* stream) {
-  return nsa::attend_ragged_entry(G, rq, nsa::DenseRows{(nsa::bf16*)kv, max_len}, kv_new, info,
-                                  c_out, gates, x, w_out, ff_norm, ff_w1, ff_b1, ff_w2, ff_b2, t,
-                                  comb, y, hbuf, out, phase_ns, b, kvh, dim, hid4, sel_block,
-                                  window, num_sel, n_slide, info_width, scale, eps, stream);
+  return nsa::attend_entry(G, rq, nsa::DenseRows{(nsa::bf16*)kv, max_len}, kv_new, info, c_out,
+                           gates, x, w_out, ff_norm, ff_w1, ff_b1, ff_w2, ff_b2,
+                           nsa::RowPositions{(const int*)t}, comb, y, hbuf, out, phase_ns, b,
+                           kvh, dim, hid4, sel_block, window, num_sel, n_slide, info_width,
+                           scale, eps, stream);
 }
 
 // As nsa_decode_attend_fused_ragged over a page pool [P, kvh, page, 128]
@@ -525,11 +565,11 @@ extern "C" int nsa_decode_attend_fused_paged(
     void* comb, void* y, void* hbuf, void* out, void* phase_ns, int b, int kvh, int G, int page,
     int max_pages, int dim, int hid4, int sel_block, int window, int num_sel, int n_slide,
     int info_width, float scale, float eps, void* stream) {
-  return nsa::attend_ragged_entry(
+  return nsa::attend_entry(
       G, rq, nsa::PagedRows{(nsa::bf16*)pool, (const int*)page_table, kvh, page, max_pages},
-      kv_new, info, c_out, gates, x, w_out, ff_norm, ff_w1, ff_b1, ff_w2, ff_b2, t, comb, y,
-      hbuf, out, phase_ns, b, kvh, dim, hid4, sel_block, window, num_sel, n_slide, info_width,
-      scale, eps, stream);
+      kv_new, info, c_out, gates, x, w_out, ff_norm, ff_w1, ff_b1, ff_w2, ff_b2,
+      nsa::RowPositions{(const int*)t}, comb, y, hbuf, out, phase_ns, b, kvh, dim, hid4,
+      sel_block, window, num_sel, n_slide, info_width, scale, eps, stream);
 }
 
 // The emission launch of nsa_decode_select_emit_ragged on the current
@@ -546,7 +586,9 @@ extern "C" int nsa_decode_emit_plan(int b, int kvh, int Bc, int hid, int* out) {
 }
 
 // The attend kernels' launch plan on the current device (paged 0: the
-// dense kernel, 1: the paged one), written to out[7]: grid, blocks that fit
+// dense kernel, 1: the paged one, both at per-row positions; the
+// one-position kernel takes the dense one's plan), written to out[7]: grid,
+// blocks that fit
 // on an SM (0: a block needs more shared memory than the card allows; the
 // kernel then refuses to launch), the largest block's weight-tile bytes,
 // all blocks' weight-tile bytes, the work space a block, the shared memory
@@ -560,8 +602,10 @@ extern "C" int nsa_decode_attend_ragged_plan(int b, int kvh, int G, int dim, int
   int per_sm = 0, optin = 0;
   cudaError_t e = cudaErrorInvalidValue;
 #define NSA_ATTEND_PLAN(GG)                                                                    \
-  e = paged ? nsa::attend_plan<GG, nsa::PagedRows>(kvh, dim, hid4, J, &p, &per_sm, &optin)    \
-            : nsa::attend_plan<GG, nsa::DenseRows>(kvh, dim, hid4, J, &p, &per_sm, &optin); \
+  e = paged ? nsa::attend_plan<GG, nsa::PagedRows, nsa::RowPositions>(kvh, dim, hid4, J, &p,  \
+                                                                      &per_sm, &optin)       \
+            : nsa::attend_plan<GG, nsa::DenseRows, nsa::RowPositions>(kvh, dim, hid4, J, &p,  \
+                                                                      &per_sm, &optin);      \
   break
   switch (G) {
     case 1: NSA_ATTEND_PLAN(1);

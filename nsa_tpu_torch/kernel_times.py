@@ -5,19 +5,23 @@
 Times the decode kernels (rows 2, 3, 6-12 of ``PERF.md``'s kernel table)
 on the trained reference weights (``ckpt_export/sparse_mlp_seq4096.npz``,
 layer 0 for the per-layer ones), seeded activations and full-length
-caches: the fused pair (rows 6-7) and the whole-model kernel (row 12) at
-bs 8, the engine's ragged select-emit, ragged attend and paged attend
-(rows 8-10) at 16 slots of 4096 rows at mixed positions, the split pair
-(rows 2-3) at bs 64 and the block gather (row 11) at 16 slots.  For each it prints the event-timed median (L2 flushed
-before each call), the device time of every launch the call makes with the
-gaps between them (``torch.profiler``, one profile a call, medians over
-the calls), the host time of the call, and a SHA-256 of the outputs and
-the caches it writes, so that two trees run on one card compare bit for
-bit.  Beside them, for each kernel launch of every case, the grid, block,
-registers per thread and shared memory that the profiler's trace records,
-the whole-model kernel's time by phase and by layer (its ``phase_ns``
-marks, median of 5 launches, an emission step and the step before it),
-and its greedy decode tok/s at bs 8 and bs 1 (``mega_tok_s``).
+caches: the fused pair (rows 6-7; row 6 on an emitting step and on the
+step before it) and the whole-model kernel (row 12) at bs 8, the fused
+pair again at bs 1, the engine's ragged select-emit, ragged attend and
+paged attend (rows 8-10) at 16 slots of 4096 rows at mixed positions, the
+split pair (rows 2-3) at bs 64 and the block gather (row 11) at 16 slots.
+For each it prints the event-timed median (L2 flushed before each call),
+the device time of every launch the call makes with the gaps between them
+(``torch.profiler``, one profile a call, medians over the calls), the host
+time of the call, and a SHA-256 of the outputs and the caches it writes,
+so that two trees run on one card compare bit for bit.  Beside them, for
+each kernel launch of every case, the grid, block, registers per thread
+and shared memory that the profiler's trace records; the one-launch
+attend kernels' time by phase (their ``phase_ns`` marks, median of 5
+launches, where the wrapper takes them); the whole-model kernel's time by
+phase and by layer (median of 5 launches, an emission step and the step
+before it); and greedy decode tok/s at bs 8 and bs 1 of the whole-model
+kernel (``mega_tok_s``) and of the fused route (``fused_tok_s``).
 The script uses only the wrappers' public signatures, so a copy of it runs
 in an older checkout of the port too: run it there and here in one chip
 call, in turns, to compare two versions of a kernel.  Needs the card.
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
 import tempfile
@@ -123,6 +128,31 @@ def launch_args(fn) -> list:
             for e in kernels]
 
 
+ATTEND_PHASES = ("attention", "w_out + residual", "norm + ff w1", "ff w2")
+
+
+def attend_phase_us(fn, flush, iters: int = 5):
+    """A one-launch attend kernel's time by phase: ``fn(marks)`` launches it
+    with ``phase_ns=marks`` (or returns None where the wrapper takes no
+    ``phase_ns``: then so does this); block 0's global timer at the start
+    and after each grid sync, as microseconds per phase, the median of
+    ``iters`` launches, L2 flushed before each.  The last phase ends where
+    the block holding ff w2's first tile ends its share."""
+    runs = []
+    for _ in range(iters):
+        marks = torch.zeros(len(ATTEND_PHASES) + 1, dtype=torch.int64, device="cuda")
+        flush.zero_()
+        if fn(marks) is None:
+            return None
+        torch.cuda.synchronize()
+        runs.append(((marks[1:] - marks[:-1]).double() / 1e3).tolist())
+    return {name: sorted(r[i] for r in runs)[iters // 2] for i, name in enumerate(ATTEND_PHASES)}
+
+
+def takes_phase_ns(fn) -> bool:
+    return "phase_ns" in inspect.signature(fn).parameters
+
+
 def mega_phase_table(params, cfg, iters: int = 5, device="cuda") -> dict:
     """The whole-model kernel's time by phase and by layer at bs 8 with
     full-length seeded caches, at an emission step (DECODE_T) and the step
@@ -211,6 +241,47 @@ def mega_tok_s(params, cfg, b: int, iters: int = 5, device="cuda") -> float:
     return b * gen_len / (sorted(ms)[iters // 2] / 1e3)
 
 
+def fused_tok_s(params, cfg, b: int, iters: int = 3, device="cuda") -> float:
+    """Greedy decode tok/s of the fused route (rows 6-7 a layer) at bs ``b``
+    on the cell's cache (seeded full-length caches; the 100 positions from
+    the cell's prompt length 3900 on), one token a step through
+    ``greedy_decode``: b x 100 over the median of ``iters`` timed runs (CUDA
+    events), after a warm-up run.  The route is host-bound, so this reads
+    the host's share too."""
+    from .models.transformer import ModelCache, fuse_decode_params, greedy_decode
+    from .ops.nsa import NSADecodeCache, _ckv_width
+
+    nsa = cfg.nsa
+    L, kvh, d = cfg.depth, cfg.kv_heads, cfg.dim_head
+    Wc = _ckv_width(MAX_LEN, nsa.compress_block_sliding_stride, nsa.num_compress_per_fine)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    packed = fuse_decode_params(params, cfg)
+    layers = tuple(NSADecodeCache(randn(b, kvh, MAX_LEN, 2 * d), randn(b, kvh, Wc, 2 * d),
+                                  randn(b, kvh, nsa.compress_block_size, 2 * d))
+                   for _ in range(L))
+    token = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=device)
+    start, gen_len = DECODE_T + 1 - 100, 100
+
+    def run():
+        greedy_decode(packed, cfg, token, ModelCache(layers=layers, seq_len=start), gen_len,
+                      route="fused")
+
+    run()
+    ms = []
+    for _ in range(iters):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        run()
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+    return b * gen_len / (sorted(ms)[iters // 2] / 1e3)
+
+
 def digest(*tensors) -> str:
     h = hashlib.sha256()
     for x in tensors:
@@ -261,29 +332,42 @@ def cases(params, cfg, device="cuda"):
     def clones(*ts):
         return lambda: tuple(x.clone() for x in ts)
 
-    out = {}
-    for b in (SMALL_B, SLOTS):
+    def inputs(b):
         q, ckv, ring, kv_new = randn(b, kvh, g, d), randn(b, kvh, Wc, 2 * d), \
             randn(b, kvh, Bc, 2 * d), randn(b, kvh, 1, 2 * d)
         rq, kv, kv_row, x = randn(b, kvh, g, d), randn(b, kvh, MAX_LEN, 2 * d), \
             randn(b, kvh, 1, 2 * d), randn(b, 1, dim)
         gates = torch.sigmoid(randn(b, kvh, g, 3).float()).to(torch.bfloat16)
-        if b == SMALL_B:                       # rows 6-7 at one position
-            for tt, name in ((DECODE_T, "decode_select_emit emitting"),
-                             (DECODE_T - 1, "decode_select_emit")):
-                def sel(st, tt=tt, q=q, kv_new=kv_new):
-                    return (*nsa_decode_fused.decode_select_emit(
-                        q, *st, kv_new, *weights, tt, tt // stride, **skw), *st)
-                out[name] = (clones(ckv, ring), sel)
-            c_p, info_p = nsa_decode.decode_select_plain(q, ckv, fp["mem_kv"], DECODE_T,
-                                                         DECODE_T // stride, **skw,
-                                                         weights_dtype=torch.float32)
-            args = (kv_row, info_p.reshape(b, -1), c_p, gates, x, fp["w_out"], DECODE_T, ff)
+        return q, ckv, ring, kv_new, rq, kv, kv_row, x, gates
 
-            def att(st, rq=rq, args=args):
-                return nsa_decode_fused.decode_attend_fused(rq, *st, *args, **akw), *st
-            out["decode_attend_fused"] = (clones(kv), att)
+    def fused_pair(b, suffix):
+        """Rows 6-7 at one position: row 6 on an emitting step and the step
+        before it, row 7 at the emitting step (``run`` takes ``phase_ns``
+        where the wrapper does, else returns None when asked for it)."""
+        q, ckv, ring, kv_new, rq, kv, kv_row, x, gates = inputs(b)
+        for tt, name in ((DECODE_T, "decode_select_emit emitting"),
+                         (DECODE_T - 1, "decode_select_emit")):
+            def sel(st, tt=tt, q=q, kv_new=kv_new):
+                return (*nsa_decode_fused.decode_select_emit(
+                    q, *st, kv_new, *weights, tt, tt // stride, **skw), *st)
+            out[name + suffix] = (clones(ckv, ring), sel)
+        c_p, info_p = nsa_decode.decode_select_plain(q, ckv, fp["mem_kv"], DECODE_T,
+                                                     DECODE_T // stride, **skw,
+                                                     weights_dtype=torch.float32)
+        args = (kv_row, info_p.reshape(b, -1), c_p, gates, x, fp["w_out"], DECODE_T, ff)
+
+        def att(st, rq=rq, args=args, **kw):
+            if kw and not takes_phase_ns(nsa_decode_fused.decode_attend_fused):
+                return None
+            return nsa_decode_fused.decode_attend_fused(rq, *st, *args, **akw, **kw), *st
+        out["decode_attend_fused" + suffix] = (clones(kv), att)
+
+    out = {}
+    for b in (SMALL_B, SLOTS):
+        if b == SMALL_B:
+            fused_pair(b, "")
             continue
+        q, ckv, ring, kv_new, rq, kv, kv_row, x, gates = inputs(b)
         tv = ragged_positions(gen, b, device)
         num_cb = tv // stride
 
@@ -295,8 +379,9 @@ def cases(params, cfg, device="cuda"):
                                                      weights_dtype=torch.float32)
         args = (kv_row, info_p.reshape(b, -1), c_p, gates, x, fp["w_out"], tv, ff)
 
-        def ratt(st, rq=rq, args=args):
-            return nsa_decode_ragged.decode_attend_fused_ragged(rq, *st, *args, **akw), *st
+        def ratt(st, rq=rq, args=args, **kw):
+            return nsa_decode_ragged.decode_attend_fused_ragged(rq, *st, *args, **akw,
+                                                                **kw), *st
         out["decode_attend_fused_ragged"] = (clones(kv), ratt)
         n_pg = MAX_LEN // PAGE
         table = torch.randperm(b * n_pg, generator=gen, device=device).reshape(b, n_pg).int()
@@ -304,9 +389,9 @@ def cases(params, cfg, device="cuda"):
         pool[table.reshape(-1).long()] = kv.reshape(b, kvh, n_pg, PAGE, 2 * d) \
             .transpose(1, 2).reshape(-1, kvh, PAGE, 2 * d)
 
-        def patt(st, rq=rq, table=table, args=args):
+        def patt(st, rq=rq, table=table, args=args, **kw):
             return nsa_decode_ragged.decode_attend_fused_paged(rq, st[0], table, *args,
-                                                               **akw), *st
+                                                               **akw, **kw), *st
         out["decode_attend_fused_paged"] = (clones(pool), patt)
 
     # rows 2 and 3 (the split route, bs 64) and 11 (the ragged split route's
@@ -339,6 +424,7 @@ def cases(params, cfg, device="cuda"):
             lg, tok, *_ = transformer_decode_step_mega(mp, cfg, token, *st, tt, greedy=True)
             return (lg, tok, *st)
         out[name] = (clones(*caches), mega)
+    fused_pair(1, " bs 1")
     return out
 
 
@@ -367,6 +453,8 @@ def main(argv=None):
             r = launch_breakdown(lambda: run(state), flush, args.iters)
             r["sha256"] = bits
             r["launch_args"] = launch_args(lambda: run(state))
+            if name.startswith("decode_attend_fused"):
+                r["phase_us"] = attend_phase_us(lambda m: run(state, phase_ns=m), flush)
             res["kernels"][name] = r
             print(f"{name}: event {r['event_ms']:.4f} ms, device {r['device_ms']:.4f} ms over "
                   f"{len(r['launches'])} launches, span {r['span_ms']:.4f} ms, host "
@@ -376,10 +464,16 @@ def main(argv=None):
             for x in r["launch_args"]:
                 print("  launch " + ", ".join(f"{k} {x[k]}" for k in ("name", *LAUNCH_KEYS)),
                       flush=True)
+            if r.get("phase_us"):
+                print(f"  us per phase (the card's global timer, median of 5): "
+                      f"{ {k: round(v, 2) for k, v in r['phase_us'].items()} }", flush=True)
         res["mega_phases"] = mega_phase_table(params, cfg)
         res["mega_tok_s"] = {b: mega_tok_s(params, cfg, b) for b in (SMALL_B, 1)}
         print(f"decode_step_mega greedy tok/s, 25 tokens a launch: "
               f"{ {b: round(v, 1) for b, v in res['mega_tok_s'].items()} }", flush=True)
+        res["fused_tok_s"] = {b: fused_tok_s(params, cfg, b) for b in (SMALL_B, 1)}
+        print(f"fused route greedy tok/s, 1 token a step: "
+              f"{ {b: round(v, 1) for b, v in res['fused_tok_s'].items()} }", flush=True)
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(res, fh, indent=1)

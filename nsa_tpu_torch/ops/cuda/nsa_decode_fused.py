@@ -13,9 +13,18 @@ layer's decode step as two kernels.
   summed over the KV heads, the residual add and, when handed the gelu FF
   params, the whole FF block: it returns the complete layer output.
 
-Each wrapper launches its CUDA kernel (``csrc/nsa_decode_fused.cu``) for
-CUDA tensors, raises on what the kernel does not take, and runs the plain
-PyTorch version beside it for CPU tensors.  The plain versions follow the
+Each wrapper launches its CUDA kernel for CUDA tensors, raises on what the
+kernel does not take, and runs the plain PyTorch version beside it for CPU
+tensors.  The two kernels are the ragged pair's designs (rows 8 and 9,
+``nsa_decode_ragged.py``) at one position that the host passes:
+``decode_select_emit`` (``csrc/nsa_decode_fused.cu``) runs the tensor-core
+emission on emitting steps only, under the ragged emission's launch plan
+(``emit_plan``; it raises when that does not fit), then the ring shift, the
+emitted row and the selection; ``decode_attend_fused`` is the one-launch
+attend kernel (``csrc/nsa_decode_ragged.cu``) with ``t`` a launch argument,
+under the same plan (``attend_plan``; it raises when that does not fit).
+At a position every row shares, the pairs give the same bits.  The plain
+versions follow the
 Pallas kernels' rounding points: softmax weights stay float32; the gates
 are cast to the query dtype; the combined attention output is rounded to
 the cache dtype before the projection, which is summed over heads and added
@@ -111,6 +120,8 @@ def decode_select_emit(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v,
                          f"sel_block/stride >= 2 dividing the ckv width and a compressor "
                          f"width divisible by {EMIT_COLS}; got d={d}, g={g}, npf={npf}, "
                          f"Wc={Wc}, hid={hid}, num_cb={num_cb}")
+    from . import nsa_decode_ragged     # (it builds on this module's plain versions)
+
     bf, f32 = torch.bfloat16, torch.float32
     ptrs = [
         runtime.check("q", q, bf, (b, kvh, g, d)),
@@ -126,6 +137,8 @@ def decode_select_emit(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v,
         runtime.check("w2", w2, bf, (kvh, hid, 2 * d)),
         runtime.check("b2", b2, f32, (kvh, 2 * d)),
     ]
+    nsa_decode_ragged.check_plan("decode_select_emit",
+                                 nsa_decode_ragged.device_emit_plan(q, ring, w1k))
     emit = emits(t, stride)
     c_out = torch.empty_like(q)
     info = torch.empty((b, kvh * INFO_WIDTH), dtype=torch.int32, device=q.device)
@@ -180,6 +193,18 @@ def attend_out_plain(rq, kv, info, c_out, gates, x, w_out, t, ff=(), *, sel_bloc
     return y.to(x.dtype)[:, None]
 
 
+def combined_plain(rq, kv, info, c_out, gates, t, page_table, *, sel_block, window, num_sel,
+                   n_slide, scale, eps):
+    """The plain combined attention output, rounded to the cache dtype: what
+    the attend kernels write to ``attn_out``.  ``t`` is an int or a [b]
+    tensor."""
+    b, kvh = rq.shape[:2]
+    return nsa_decode.attend_combined_plain(
+        rq, kv, info.reshape(b, kvh, INFO_WIDTH), c_out, gates, t, sel_block=sel_block,
+        window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
+        weights_dtype=torch.float32, page_table=page_table).to(kv.dtype)
+
+
 def decode_attend_fused_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t: int,
                               ff=(), *, sel_block: int, window: int, num_sel: int,
                               n_slide: int, scale: float, eps: float = 1e-6) -> torch.Tensor:
@@ -192,60 +217,34 @@ def decode_attend_fused_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t: i
 
 def decode_attend_fused(rq, kv, kv_new, info, c_out, gates, x, w_out, t: int, ff=(), *,
                         sel_block: int, window: int, num_sel: int, n_slide: int,
-                        scale: float, eps: float = 1e-6) -> torch.Tensor:
+                        scale: float, eps: float = 1e-6, attn_out=None,
+                        phase_ns=None) -> torch.Tensor:
     """rq [b, kvh, g, d] rotated queries; kv [b, kvh, max_len, 2d] packed
     k||v cache (row t written in place); kv_new [b, kvh, 1, 2d] the new
     token's rotated-k||v; info [b, kvh * INFO_WIDTH] and c_out [b, kvh, g, d]
     from ``decode_select_emit``; gates [b, kvh, g, 3]; x [b, 1, dim] the
     residual stream; w_out [kvh * g * d, dim]; ff () or the gelu FF's
     (norm_scale, w1, b1, w2, b2).  Returns ``x + attn`` [b, 1, dim] in
-    x.dtype, with the FF block applied when ``ff`` is given."""
+    x.dtype, with the FF block applied when ``ff`` is given.  For checks and
+    measurements, as ``decode_attend_fused_ragged`` takes them: with
+    ``attn_out`` ([b, kvh, g, d] bf16) the combined attention output,
+    rounded as the projection takes it, is written there too; ``phase_ns``
+    (5 int64 on the card, not written on the CPU) receives the card's
+    global timer at the kernel's start, after each grid sync, and where the
+    block holding the last product's first tile ends."""
     kw = dict(sel_block=sel_block, window=window, num_sel=num_sel, n_slide=n_slide,
               scale=scale, eps=eps)
     ff = tuple(ff)
     if runtime.on_cpu(rq, kv, kv_new, info, c_out, gates, x, w_out, *ff):
-        return decode_attend_fused_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t, ff,
-                                         **kw)
-    b, kvh, g, d = rq.shape
-    max_len, dim = kv.shape[2], x.shape[-1]
-    hid4 = ff[1].shape[1] if ff else 0
-    if d != 64 or g not in (1, 2, 4, 8) or max_len % sel_block or not 0 <= t < max_len \
-            or dim % 64 or hid4 % 64:
-        raise ValueError(f"decode_attend_fused kernel takes dim_head 64, g in 1/2/4/8, a "
-                         f"cache length divisible by sel_block and model and FF widths "
-                         f"divisible by 64; got d={d}, g={g}, max_len={max_len}, t={t}, "
-                         f"dim={dim}, ff hidden={hid4}")
-    bf, f32 = torch.bfloat16, torch.float32
-    ptrs = [
-        runtime.check("rq", rq, bf, (b, kvh, g, d)),
-        runtime.check("kv", kv, bf, (b, kvh, max_len, 2 * d)),
-        runtime.check("kv_new", kv_new, bf, (b, kvh, 1, 2 * d)),
-        runtime.check("info", info, torch.int32, (b, kvh * INFO_WIDTH)),
-        runtime.check("c_out", c_out, bf, (b, kvh, g, d)),
-        runtime.check("gates", gates, bf, (b, kvh, g, 3)),
-        runtime.check("x", x, bf, (b, 1, dim)),
-        runtime.check("w_out", w_out, bf, (kvh * g * d, dim)),
-    ]
-    if ff:
-        norm_scale, w1, b1, w2, b2 = ff
-        ptrs += [
-            runtime.check("ff norm_scale", norm_scale, f32, (dim,)),
-            runtime.check("ff w1", w1, bf, (dim, hid4)),
-            runtime.check("ff b1", b1, f32, (hid4,)),
-            runtime.check("ff w2", w2, bf, (hid4, dim)),
-            runtime.check("ff b2", b2, f32, (dim,)),
-        ]
-    else:
-        ptrs += [0] * 5
-    part = torch.empty((b, kvh, dim), dtype=f32, device=rq.device)   # per-head projections
-    hbuf = torch.empty((b, max(hid4, 1)), dtype=bf, device=rq.device)  # the FF's hidden row
-    out = torch.empty_like(x)
-    with torch.cuda.device(rq.device):
-        runtime.library().call(
-            "nsa_decode_attend_fused", *ptrs, part.data_ptr(), hbuf.data_ptr(),
-            out.data_ptr(), b, kvh, g, max_len, dim, hid4, t, sel_block, window, num_sel,
-            n_slide, INFO_WIDTH, scale, eps, runtime.stream_of(rq),
-        )
+        out = decode_attend_fused_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t, ff,
+                                        **kw)
+        if attn_out is not None:
+            attn_out.copy_(combined_plain(rq, kv, info, c_out, gates, t, None, **kw))
+        return out
+    from . import nsa_decode_ragged     # (it builds on this module's plain versions)
+
+    out = nsa_decode_ragged.attend_call("nsa_decode_attend_fused", rq, kv, None, kv_new, info,
+                                        c_out, gates, x, w_out, t, ff, attn_out, phase_ns, **kw)
     decode_attend_fused.launches += 1
     return out
 

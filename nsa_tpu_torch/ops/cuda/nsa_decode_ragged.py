@@ -22,7 +22,10 @@ compressor hidden columns) (``emit_plan`` gives its shared memory; the
 wrapper raises when it does not fit).  The two attend kernels are one
 cooperative launch of one block per SM that holds column tiles of w_out and
 the FF's matrices in shared memory (``attend_plan`` gives the sizes; the
-wrapper raises when they do not fit).  Neither reads a position back
+wrapper raises when they do not fit).  ``decode_select_emit`` and
+``decode_attend_fused`` launch the same designs at one host position, under
+the same plans (``attend_call`` checks and launches all three attends).
+Neither ragged kernel reads a position back
 to the host: the kernels decide per row on the device, and the plain
 versions compute every row's candidate and keep it where the row's
 position says so, at the scalar plain versions' rounding points.
@@ -38,7 +41,7 @@ import torch
 
 from . import nsa_decode, runtime
 from .nsa_decode import INFO_WIDTH
-from .nsa_decode_fused import EMIT_COLS, attend_out_plain, emission_plain
+from .nsa_decode_fused import EMIT_COLS, attend_out_plain, combined_plain, emission_plain
 
 
 def ragged_emits(t: torch.Tensor, num_cb: torch.Tensor, stride: int) -> torch.Tensor:
@@ -67,7 +70,9 @@ EMIT_PLAN_KEYS = ("blocks", "smem_bytes", "smem_optin")
 
 
 def emit_plan(b: int, kvh: int, Bc: int, hid: int, smem_optin: int) -> dict:
-    """The emission launch of ``decode_select_emit_ragged``: one block per
+    """The emission launch of ``decode_select_emit_ragged`` (and of
+    ``decode_select_emit`` on its emitting steps, which takes less shared
+    memory: no row list): one block per
     (KV head, half, 64 compressor hidden columns), each taking 1024 bytes of
     alignment slack (its swizzled TMA boxes start on a 1024-byte boundary),
     the body's shared memory and the list of the b rows; ``fits`` when that
@@ -254,7 +259,8 @@ def _attend_plan(device: int, kvh: int, g: int, dim: int, hid4: int, sel_block: 
 
 def attend_plan(rq, dim: int, hid4: int, *, sel_block: int, num_sel: int, n_slide: int,
                 paged: bool = False) -> dict:
-    """The ragged / paged attend kernel's launch on rq's card: the grid (one
+    """The one-launch attend kernel's launch on rq's card (the ragged one,
+    whose plan the one-position one shares, or the paged one): the grid (one
     block per SM), how many such blocks fit on an SM (0: the kernel refuses
     to launch), the largest block's and all blocks' bytes of weight tiles
     (w_out, ff w1, ff w2 in 8-column tiles), the work space and the shared
@@ -267,19 +273,23 @@ def attend_plan(rq, dim: int, hid4: int, *, sel_block: int, num_sel: int, n_slid
 PHASE_MARKS = 5     # phase_ns: the start, after each grid sync, the end (see the source)
 
 
-def _attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out, t, ff,
-                 attn_out, phase_ns, *, sel_block, window, num_sel, n_slide, scale, eps):
-    """Check the operands of the ragged or (with ``page_table``) paged attend
-    kernel and launch it; returns the layer output."""
+def attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out, t, ff,
+                attn_out, phase_ns, *, sel_block, window, num_sel, n_slide, scale, eps):
+    """Check the operands of the one-launch attend kernel and launch it: the
+    ragged one (``t`` a [b] tensor), the paged one (``t`` a [b] tensor and
+    ``page_table``) or the one-position one (``t`` an int, a launch
+    argument; ``decode_attend_fused``).  Returns the layer output."""
     b, kvh, g, d = rq.shape
     dim = x.shape[-1]
     hid4 = ff[1].shape[1] if ff else 0
     d2 = kv.shape[-1]
-    if d != 64 or g not in (1, 2, 4, 8) or kv.shape[2] % sel_block or dim % 64 or hid4 % 64:
+    one_position = isinstance(t, int)
+    if d != 64 or g not in (1, 2, 4, 8) or kv.shape[2] % sel_block or dim % 64 or hid4 % 64 \
+            or (one_position and not 0 <= t < kv.shape[2]):
         raise ValueError(f"{name} kernel takes dim_head 64, g in 1/2/4/8, a cache length or "
-                         f"page divisible by sel_block and model and FF widths divisible by "
-                         f"64; got d={d}, g={g}, rows={kv.shape[2]}, dim={dim}, "
-                         f"ff hidden={hid4}")
+                         f"page divisible by sel_block, model and FF widths divisible by 64 "
+                         f"and a position in the cache; got d={d}, g={g}, rows={kv.shape[2]}, "
+                         f"dim={dim}, ff hidden={hid4}, t={t if one_position else 'per row'}")
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     ptrs = [runtime.check("rq", rq, bf, (b, kvh, g, d))]
     if page_table is None:
@@ -306,7 +316,8 @@ def _attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out,
         ]
     else:
         ptrs += [0] * 5
-    ptrs.append(runtime.check("t", t, i32, (b,)))
+    if not one_position:
+        ptrs.append(runtime.check("t", t, i32, (b,)))
     plan = attend_plan(rq, dim, hid4, sel_block=sel_block, num_sel=num_sel, n_slide=n_slide,
                        paged=page_table is not None)
     if plan["blocks_per_sm"] < 1:
@@ -328,21 +339,10 @@ def _attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out,
     with torch.cuda.device(rq.device):
         runtime.library().call(
             name, *ptrs, y.data_ptr(), hbuf.data_ptr(), out.data_ptr(), marks, b, kvh, g, *rows,
-            dim, hid4, sel_block, window, num_sel, n_slide, INFO_WIDTH, scale, eps,
-            runtime.stream_of(rq),
+            dim, hid4, *((t,) if one_position else ()), sel_block, window, num_sel, n_slide,
+            INFO_WIDTH, scale, eps, runtime.stream_of(rq),
         )
     return out
-
-
-def _combined_plain(rq, kv, info, c_out, gates, t, page_table, *, sel_block, window, num_sel,
-                    n_slide, scale, eps):
-    """The plain combined attention output, rounded to the cache dtype: what
-    the kernels write to ``attn_out``."""
-    b, kvh = rq.shape[:2]
-    return nsa_decode.attend_combined_plain(
-        rq, kv, info.reshape(b, kvh, INFO_WIDTH), c_out, gates, t, sel_block=sel_block,
-        window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
-        weights_dtype=torch.float32, page_table=page_table).to(kv.dtype)
 
 
 def decode_attend_fused_ragged(rq, kv, kv_new, info, c_out, gates, x, w_out, t, ff=(), *,
@@ -365,10 +365,10 @@ def decode_attend_fused_ragged(rq, kv, kv_new, info, c_out, gates, x, w_out, t, 
         out = decode_attend_fused_ragged_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t,
                                                ff, **kw)
         if attn_out is not None:
-            attn_out.copy_(_combined_plain(rq, kv, info, c_out, gates, t, None, **kw))
+            attn_out.copy_(combined_plain(rq, kv, info, c_out, gates, t, None, **kw))
         return out
-    out = _attend_call("nsa_decode_attend_fused_ragged", rq, kv, None, kv_new, info, c_out,
-                       gates, x, w_out, t, ff, attn_out, phase_ns, **kw)
+    out = attend_call("nsa_decode_attend_fused_ragged", rq, kv, None, kv_new, info, c_out,
+                      gates, x, w_out, t, ff, attn_out, phase_ns, **kw)
     decode_attend_fused_ragged.launches += 1
     return out
 
@@ -393,10 +393,10 @@ def decode_attend_fused_paged(rq, kv_pool, page_table, kv_new, info, c_out, gate
         out = decode_attend_fused_paged_plain(rq, kv_pool, page_table, kv_new, info, c_out,
                                               gates, x, w_out, t, ff, **kw)
         if attn_out is not None:
-            attn_out.copy_(_combined_plain(rq, kv_pool, info, c_out, gates, t, page_table, **kw))
+            attn_out.copy_(combined_plain(rq, kv_pool, info, c_out, gates, t, page_table, **kw))
         return out
-    out = _attend_call("nsa_decode_attend_fused_paged", rq, kv_pool, page_table, kv_new, info,
-                       c_out, gates, x, w_out, t, ff, attn_out, phase_ns, **kw)
+    out = attend_call("nsa_decode_attend_fused_paged", rq, kv_pool, page_table, kv_new, info,
+                      c_out, gates, x, w_out, t, ff, attn_out, phase_ns, **kw)
     decode_attend_fused_paged.launches += 1
     return out
 

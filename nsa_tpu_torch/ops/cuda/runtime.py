@@ -45,7 +45,7 @@ SIGNATURES = {
     "nsa_decode_select": [_p] * 5 + [_i] * 13 + [_f, _p],
     "nsa_decode_attend": [_p] * 6 + [_i] * 10 + [_f, _p],
     "nsa_decode_select_emit": [_p] * 15 + [_i] * 16 + [_f, _p],
-    "nsa_decode_attend_fused": [_p] * 16 + [_i] * 12 + [_f, _f, _p],
+    "nsa_decode_attend_fused": [_p] * 18 + [_i] * 12 + [_f, _f, _p],
     "nsa_decode_select_emit_ragged": [_p] * 17 + [_i] * 13 + [_f, _p],
     "nsa_decode_attend_fused_ragged": [_p] * 19 + [_i] * 11 + [_f, _f, _p],
     "nsa_decode_attend_fused_paged": [_p] * 20 + [_i] * 12 + [_f, _f, _p],

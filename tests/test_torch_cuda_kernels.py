@@ -327,9 +327,11 @@ def fused_weights(gen, kvh, Bc, d, hid):
 
 
 @pytest.mark.parametrize("t", [7, 199, 200, 1023])
-def test_decode_select_emit_kernel_matches_plain(gen, t):
+def test_decode_select_emit_kernel_matches_plain(gen, t, monkeypatch):
     """t = 7 and 199 emit (stride 8), t = 7 over a window that starts
-    before position 0; t = 200 and 1023 do not."""
+    before position 0; t = 200 and 1023 do not.  The emitted row within
+    2^-6 of its largest value, where the plain version with one hidden
+    chunk left out must fail; a second launch bit for bit the first."""
     b, kvh, g, d, M, Bc, hid = 3, 2, 2, 64, 1, 16, 128
     stride, Bs, window, num_sel, max_len = 8, 16, 64, 4, 1024
     n_slide = -(-window // Bs) + 1
@@ -339,18 +341,27 @@ def test_decode_select_emit_kernel_matches_plain(gen, t):
     weights = fused_weights(gen, kvh, Bc, d, hid)
     kw = dict(max_blocks=max_len // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
               n_slide=n_slide, scale=0.125)
-    caches = [(ckv.clone(), ring.clone()) for _ in range(2)]
+    caches = [(ckv.clone(), ring.clone()) for _ in range(4)]
     before = nsa_decode_fused.decode_select_emit.launches
     c_k, info_k = nsa_decode_fused.decode_select_emit(q, caches[0][0], caches[0][1], kv_new,
                                                       mem_kv, *weights, t, t // stride, **kw)
+    c_2, info_2 = nsa_decode_fused.decode_select_emit(q, caches[2][0], caches[2][1], kv_new,
+                                                      mem_kv, *weights, t, t // stride, **kw)
     c_p, info_p = nsa_decode_fused.decode_select_emit_plain(
         q, caches[1][0], caches[1][1], kv_new, mem_kv, *weights, t, t // stride, **kw)
+    real = nsa_decode_fused.emission_plain      # the control: one hidden chunk left out
+    monkeypatch.setattr(nsa_decode_fused, "emission_plain",
+                        lambda *a, **k: real(*a, drop_chunk=0, **k))
+    nsa_decode_fused.decode_select_emit_plain(q, caches[3][0], caches[3][1], kv_new, mem_kv,
+                                              *weights, t, t // stride, **kw)
     torch.cuda.synchronize()
-    assert nsa_decode_fused.decode_select_emit.launches == before + 1
+    assert nsa_decode_fused.decode_select_emit.launches == before + 2
     assert max_err(c_k, c_p) <= TOL_OUT
     assert torch.equal(info_k, info_p)   # random scores: no ties
     assert torch.equal(caches[0][1], caches[1][1])
     assert torch.equal(caches[0][1][:, :, -1:], kv_new)
+    assert torch.equal(c_2, c_k) and torch.equal(info_2, info_k)
+    assert torch.equal(caches[2][0], caches[0][0]) and torch.equal(caches[2][1], caches[0][1])
     slot = t // stride
     for ckv_k in (caches[0][0], caches[1][0]):     # no other row changes
         assert torch.equal(torch.cat([ckv_k[:, :, :slot], ckv_k[:, :, slot + 1:]], 2),
@@ -360,15 +371,15 @@ def test_decode_select_emit_kernel_matches_plain(gen, t):
         assert torch.equal(row_k, ckv[:, :, slot]) and torch.equal(row_p, ckv[:, :, slot])
     else:
         assert not torch.equal(row_p, ckv[:, :, slot])
-        assert max_err(row_k, row_p) <= TOL_FUSED * row_p.float().abs().max().item()
+        bound = TOL_FUSED * row_p.float().abs().max().item()
+        assert max_err(row_k, row_p) <= bound
+        assert max_err(caches[3][0][:, :, slot], row_p) > bound
 
 
-@pytest.mark.parametrize("with_ff", [True, False])
-@pytest.mark.parametrize("t,b", [(0, 1), (200, 3), (1023, 9)])
-def test_decode_attend_fused_kernel_matches_plain(gen, t, b, with_ff):
-    """b = 9 takes two passes of the kernels' 8-row batch groups."""
-    kvh, g, d, stride, Bs, window, num_sel, max_len = 2, 2, 64, 8, 16, 64, 4, 1024
-    dim, hid4 = 256, 512
+def attend_fused_inputs(gen, t, b, with_ff, kvh=2, g=2, dim=256, hid4=512, max_len=1024):
+    """Inputs of the one-position attend at b rows: info and c_out from the
+    plain select at t, seeded activations and weights."""
+    d, stride, Bs, window, num_sel = 64, 8, 16, 64, 4
     n_slide = -(-window // Bs) + 1
     Wc = _ckv_width(max_len, stride, Bs // stride)
     q, ckv, mem_kv = randn(gen, b, kvh, g, d), randn(gen, b, kvh, Wc, 2 * d), randn(gen, 2, kvh, 1, d)
@@ -389,19 +400,74 @@ def test_decode_attend_fused_kernel_matches_plain(gen, t, b, with_ff):
               (randn(gen, hid4, dim) * hid4 ** -0.5).to(torch.bfloat16),
               0.1 * torch.randn(dim, generator=gen, device="cuda"))
     akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=0.125)
-    kv_k, kv_p = kv.clone(), kv.clone()
+    return rq, kv, (kv_new, info, c_out, gates, x, w_out), ff, akw
+
+
+@pytest.mark.parametrize("with_ff", [True, False])
+@pytest.mark.parametrize("t,b", [(0, 1), (200, 3), (1023, 9)])
+def test_decode_attend_fused_kernel_matches_plain(gen, t, b, with_ff):
+    """The output within 2^-6 of its largest value; the rounded attention
+    output (``attn_out``) within ``attend_tolerance`` element by element,
+    where each row's first selected block left out must fail (where a row
+    has one); a second launch bit for bit the first."""
+    rq, kv, args, ff, akw = attend_fused_inputs(gen, t, b, with_ff)
+    kv_new, info, c_out, gates = args[:4]
+    kv_k, kv_p, kv_2 = kv.clone(), kv.clone(), kv.clone()
+    comb, comb_2 = torch.empty_like(rq), torch.empty_like(rq)
     before = nsa_decode_fused.decode_attend_fused.launches
-    out_k = nsa_decode_fused.decode_attend_fused(rq, kv_k, kv_new, info, c_out, gates, x, w_out,
-                                                 t, ff, **akw)
-    out_p = nsa_decode_fused.decode_attend_fused_plain(rq, kv_p, kv_new, info, c_out, gates, x,
-                                                       w_out, t, ff, **akw)
+    out_k = nsa_decode_fused.decode_attend_fused(rq, kv_k, *args, t, ff, attn_out=comb, **akw)
+    out_2 = nsa_decode_fused.decode_attend_fused(rq, kv_2, *args, t, ff, attn_out=comb_2, **akw)
+    out_p = nsa_decode_fused.decode_attend_fused_plain(rq, kv_p, *args, t, ff, **akw)
     torch.cuda.synchronize()
-    assert nsa_decode_fused.decode_attend_fused.launches == before + 1
-    assert out_k.shape == (b, 1, dim) and torch.isfinite(out_k.float()).all()
+    assert nsa_decode_fused.decode_attend_fused.launches == before + 2
+    assert out_k.shape == (b, 1, args[4].shape[-1]) and torch.isfinite(out_k.float()).all()
     assert max_err(out_k, out_p) <= TOL_FUSED * out_p.float().abs().max().item()
     assert torch.equal(kv_k, kv_p) and torch.equal(kv_k[:, :, t], kv_new[:, :, 0])
     assert torch.equal(torch.cat([kv_k[:, :, :t], kv_k[:, :, t + 1:]], 2),
                        torch.cat([kv[:, :, :t], kv[:, :, t + 1:]], 2))
+    assert torch.equal(out_2, out_k) and torch.equal(comb_2, comb) and torch.equal(kv_2, kv_k)
+    want, tol = nsa_decode_ragged.attend_tolerance(rq, kv_p, info, c_out, gates, t, **akw)
+    assert ((comb.float() - want.float()).abs() <= tol).all()
+    dropped = nsa_decode_ragged.without_first_selected(info, akw["num_sel"], akw["n_slide"])
+    if bool((dropped != info).any()):
+        wrong, _ = nsa_decode_ragged.attend_tolerance(rq, kv_p, dropped, c_out, gates, t, **akw)
+        assert not ((wrong.float() - want.float()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("with_ff", [True, False])
+@pytest.mark.parametrize("t", [199, 200])
+def test_fused_pair_is_the_ragged_pair_at_one_position(gen, t, with_ff):
+    """Rows 6-7 and rows 8-9 with every row at t (199 emits, 200 does not)
+    give the same bits: c_out, info, ckv, ring, the output, the rounded
+    attention output and the kv cache."""
+    b, kvh, g, d, M, Bc, hid = 5, 2, 2, 64, 1, 16, 1024
+    stride, Bs, window, num_sel, max_len = 8, 16, 64, 4, 1024
+    n_slide = -(-window // Bs) + 1
+    Wc = _ckv_width(max_len, stride, Bs // stride)
+    q, ckv, mem_kv = randn(gen, b, kvh, g, d), randn(gen, b, kvh, Wc, 2 * d), randn(gen, 2, kvh, M, d)
+    ring, kv_new = randn(gen, b, kvh, Bc, 2 * d), randn(gen, b, kvh, 1, 2 * d)
+    weights = fused_weights(gen, kvh, Bc, d, hid)
+    kw = dict(max_blocks=max_len // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
+              n_slide=n_slide, scale=0.125)
+    tv = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    rq, kv, args, ff, akw = attend_fused_inputs(gen, t, b, with_ff)
+    runs = []
+    for ragged in (False, True):
+        c, r, kv_x, comb = ckv.clone(), ring.clone(), kv.clone(), torch.empty_like(rq)
+        if ragged:
+            sel = nsa_decode_ragged.decode_select_emit_ragged(q, c, r, kv_new, mem_kv, *weights,
+                                                              tv, tv // stride, **kw)
+            out = nsa_decode_ragged.decode_attend_fused_ragged(rq, kv_x, *args, tv, ff,
+                                                               attn_out=comb, **akw)
+        else:
+            sel = nsa_decode_fused.decode_select_emit(q, c, r, kv_new, mem_kv, *weights, t,
+                                                      t // stride, **kw)
+            out = nsa_decode_fused.decode_attend_fused(rq, kv_x, *args, t, ff, attn_out=comb,
+                                                       **akw)
+        runs.append((*sel, c, r, out, comb, kv_x))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    assert torch.equal(runs[0][2], ckv) == bool((t + 1) % stride)
 
 
 def test_fused_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -722,9 +788,9 @@ def test_decode_select_emit_ragged_emission_cases(gen, b, n_emit, G, monkeypatch
 
 
 def test_select_emit_ragged_refuses_a_window_that_does_not_fit(gen):
-    """A 128-row compression window needs a 16 x 8192 tile: the wrapper
-    raises before launching, as the plan says; the reference window fits
-    and its plan is the pure-Python one."""
+    """A 128-row compression window needs a 16 x 8192 tile: the ragged and
+    the one-position wrappers raise before launching, as the plan says; the
+    reference window fits and its plan is the pure-Python one."""
     b, kvh, d, Bc, hid = 2, 2, 64, 128, 128
     q, ring, kv_new = randn(gen, b, kvh, 2, d), randn(gen, b, kvh, Bc, 2 * d), \
         randn(gen, b, kvh, 1, 2 * d)
@@ -732,11 +798,16 @@ def test_select_emit_ragged_refuses_a_window_that_does_not_fit(gen):
     weights = fused_weights(gen, kvh, Bc, d, hid)
     t = torch.full((b,), 127, dtype=torch.int32, device="cuda")
     kw = dict(max_blocks=64, stride=64, sel_block=128, num_sel=4, n_slide=2, scale=0.125)
-    before = nsa_decode_ragged.decode_select_emit_ragged.launches
+    before = (nsa_decode_ragged.decode_select_emit_ragged.launches,
+              nsa_decode_fused.decode_select_emit.launches)
     with pytest.raises(ValueError, match="shared memory"):
         nsa_decode_ragged.decode_select_emit_ragged(q, ckv, ring, kv_new, randn(gen, 2, kvh, 1, d),
                                                     *weights, t, t // 64, **kw)
-    assert nsa_decode_ragged.decode_select_emit_ragged.launches == before
+    with pytest.raises(ValueError, match="shared memory"):     # row 6 takes row 8's plan
+        nsa_decode_fused.decode_select_emit(q, ckv, ring, kv_new, randn(gen, 2, kvh, 1, d),
+                                            *weights, 127, 127 // 64, **kw)
+    assert (nsa_decode_ragged.decode_select_emit_ragged.launches,
+            nsa_decode_fused.decode_select_emit.launches) == before
     small = randn(gen, b, kvh, 16, 2 * d)
     dev = nsa_decode_ragged.device_emit_plan(q, small, weights[1])
     assert dev["fits"]
@@ -877,16 +948,22 @@ def test_decode_attend_ragged_persistent_kernel_cases(gen, b, kvh, G, dim, hid4,
 
 def test_attend_ragged_refuses_slices_that_do_not_fit(gen):
     """An FF whose hidden rows do not fit a block's shared memory: the
-    wrapper raises with the sizes, and nothing runs."""
+    ragged and the one-position wrappers raise with the sizes, and nothing
+    runs."""
     rq, kv, args, akw = ragged_attend_case(gen, 2, 2, 2, 256, 16384, True)
     plan = nsa_decode_ragged.attend_plan(rq, 256, 16384, sel_block=16, num_sel=4, n_slide=5)
     assert plan["blocks_per_sm"] == 0 and plan["smem_bytes"] > plan["smem_optin"]
     kv_k = kv.clone()
-    before = nsa_decode_ragged.decode_attend_fused_ragged.launches
+    before = (nsa_decode_ragged.decode_attend_fused_ragged.launches,
+              nsa_decode_fused.decode_attend_fused.launches)
     with pytest.raises(ValueError, match="shared memory"):
         nsa_decode_ragged.decode_attend_fused_ragged(rq, kv_k, *args, **akw)
+    with pytest.raises(ValueError, match="shared memory"):     # row 7 takes row 9's plan
+        nsa_decode_fused.decode_attend_fused(rq, kv_k, *args[:6], int(args[6][0]), args[7],
+                                             **akw)
     torch.cuda.synchronize()
-    assert nsa_decode_ragged.decode_attend_fused_ragged.launches == before
+    assert (nsa_decode_ragged.decode_attend_fused_ragged.launches,
+            nsa_decode_fused.decode_attend_fused.launches) == before
     assert torch.equal(kv_k, kv)
     engine = nsa_decode_ragged.attend_plan(randn(gen, 16, 4, 2, 64), 512, 2048, sel_block=16,
                                            num_sel=4, n_slide=5)
