@@ -83,7 +83,16 @@ Phases, each printing its name and seconds as it ends:
              of its own); ``torch.profiler`` over the prefill and 5 decode
              steps, with the device time of copies a step (none of the cache).
 
-The kernels phase also holds the two backward kernels against their plain
+The kernels phase holds the split route's two decode kernels (rows 2-3)
+at the serving cell's shapes (bs 64, t = 3999, seeded inputs): c_out
+within TOL_OUT and element by element under
+``nsa_decode_ragged.select_tolerance``, with the plain c_out over all but
+the first 64 live rows as a control that must fail it, the selected ids
+equal but for ties; the attend output within TOL_OUT and under
+``attend_tolerance``, with each row's first selected block left out as a
+control that must fail it; second launches bit for bit; each kernel's
+grid, blocks an SM, shared memory and ptxas registers and spills.  It
+also holds the two backward kernels against their plain
 versions at the training cell's shapes (bs 16, n 4096) on seeded random
 selections and on those layer 0 of the trained weights' forward of a seeded
 micro-batch makes: dq, dk, dv element by element
@@ -617,28 +626,6 @@ def selection_stats(sel_idx, sel_mask, sel_block):
             "u16": union_sizes(sel_idx, sel_mask, sel_block, 16)}
 
 
-def ptxas_usage(log, kernel, *also):
-    """(registers, spill store bytes, spill load bytes) that ptxas reports
-    for the first entry function whose name holds ``kernel`` and each of
-    ``also``."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line \
-                and all(a in line for a in also):
-            regs = spill = None
-            for nxt in lines[i + 1:i + 6]:
-                if "Compiling entry function" in nxt:
-                    break
-                if "spill stores" in nxt:
-                    words = nxt.replace(",", "").split()
-                    spill = (int(words[words.index("spill") - 2]), int(words[-4]))
-                if "Used" in nxt and "registers" in nxt:
-                    words = nxt.replace(",", "").split()
-                    regs = int(words[words.index("registers") - 1])
-            return regs, spill
-    return None, None
-
-
 def flex_backward(inputs, fo_grad, so_grad, sel_block, window, scale, flush, iters=10):
     """Rows 4 and 5's library yardstick: ``torch.autograd.grad`` through
     ``flex_prefill`` (``flex_attention`` for both branches under
@@ -741,7 +728,7 @@ def check_prefill_bwd(name, inputs, gen, flush, cfg, log):
             ("prefill_bwd_dkv", nsa_prefill.prefill_bwd_dkv, nsa_prefill.prefill_bwd_dkv_plain,
              dkv_args, bkv, bykv, max(max_err(x, y) for x, y in zip(got_kv, want_kv)), 677)):
         ms = timed_ms(lambda: fn(*args), 10, flush)
-        regs, spill = ptxas_usage(log, ("bwd_dq_kernelILi2E" if kname.endswith("dq")
+        regs, spill = kernel_times.ptxas_usage(log, ("bwd_dq_kernelILi2E" if kname.endswith("dq")
                                         else "bwd_dkv_kernelILi2E"))
         print(f"  {kname + name.removeprefix('prefill_bwd')} {ms:.4f} ms (bound {bms:.4f} ms by "
               f"{by}: {ms / bms:.2f}x); registers {regs}, spill stores / loads {spill} bytes at "
@@ -956,7 +943,7 @@ def kernel_decode_fused(gen, flush, cfg, params, b, log):
           f"second launch bit-equal: {same2}", flush=True)
     plan = nsa_decode_ragged.attend_plan(rq, dim, ff[1].shape[1], sel_block=Bs,
                                          num_sel=num_sel, n_slide=n_slide)
-    regs, spill = ptxas_usage(log, f"attend_persistent_kernelILi{g}E", "OnePosition")
+    regs, spill = kernel_times.ptxas_usage(log, f"attend_persistent_kernelILi{g}E", "OnePosition")
     print(f"  decode_attend_fused launch: grid {plan['grid']}, {plan['blocks_per_sm']} block(s) "
           f"fit an SM, shared memory {plan['smem_bytes']} B a block (card limit "
           f"{plan['smem_optin']}); ptxas: {regs} registers, spills (stores, loads) {spill}",
@@ -1262,7 +1249,7 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
         L, b, kvh, cfg.num_grouped_queries, MAX_LEN, Wc, Bc, nsa.num_compressed_mem_kv,
         mp["w1k"].shape[3], cfg.dim, cfg.vocab_size, mp["fw1"].shape[2], 0, 1, 0, stride, Bs,
         num_sel, n_slide, window, nsa_decode.INFO_WIDTH])
-    regs, spill = ptxas_usage(log, f"mega_kernelILi{cfg.num_grouped_queries}E")
+    regs, spill = kernel_times.ptxas_usage(log, f"mega_kernelILi{cfg.num_grouped_queries}E")
     print(f"  decode_step_mega launch: grid {plan['grid']}, {plan['blocks_per_sm']} block(s) fit "
           f"an SM, weight tiles {plan['slice_bytes']} B on the largest block "
           f"({plan['slice_total']} B in all), work space {plan['work_bytes']} B, shared memory "
@@ -1505,7 +1492,7 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
           f"row changed; a second launch bit-equal: {same2}", flush=True)
     plan = R.attend_plan(rq, dim, ff[1].shape[1], sel_block=Bs, num_sel=num_sel,
                          n_slide=n_slide)
-    regs, spill = ptxas_usage(log, f"attend_persistent_kernelILi{g}E", "DenseRows",
+    regs, spill = kernel_times.ptxas_usage(log, f"attend_persistent_kernelILi{g}E", "DenseRows",
                               "RowPositions")
     print(f"  decode_attend_fused_ragged launch: grid {plan['grid']}, {plan['blocks_per_sm']} "
           f"block(s) fit an SM, weight tiles {plan['slice_bytes']} B on the largest block "
@@ -1625,7 +1612,14 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
     return sel, att, pag, gat
 
 
-def kernel_decode(gen, flush, cfg):
+def kernel_decode(gen, flush, cfg, log):
+    """Rows 2 and 3 at the serving cell (bs 64, t = 3999, seeded inputs):
+    row 2's c_out within TOL_OUT and element by element under
+    ``select_tolerance``, with a dropped-chunk control that must fail it,
+    its selected ids equal to the plain version's but for ties; row 3's
+    output within TOL_OUT and under ``attend_tolerance``, with a
+    dropped-block control that must fail it; second launches bit for bit;
+    each kernel's launch geometry and ptxas registers / spills."""
     nsa = cfg.nsa
     b, kvh, g, d = BATCH, cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head
     stride, Bs, window = nsa.compress_block_sliding_stride, nsa.selection_block_size, \
@@ -1636,6 +1630,7 @@ def kernel_decode(gen, flush, cfg):
     num_cb = t // stride
     Wc = _ckv_width(MAX_LEN, stride, nsa.num_compress_per_fine)
     dev = DEVICE
+    R = nsa_decode_ragged
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -1644,54 +1639,99 @@ def kernel_decode(gen, flush, cfg):
     kw = dict(max_blocks=MAX_LEN // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
               n_slide=n_slide, scale=scale)
     c_k, info_k = nsa_decode.decode_select(q, ckv, mem_kv, t, num_cb, **kw)
+    c_2, info_2 = nsa_decode.decode_select(q, ckv, mem_kv, t, num_cb, **kw)
     c_p, info_p = nsa_decode.decode_select_plain(q, ckv, mem_kv, t, num_cb, **kw)
     _, scores = nsa_decode.select_scores_plain(q, ckv, mem_kv, num_cb, t, stride=stride,
                                                sel_block=Bs, scale=scale)
+    skw = dict(stride=stride, sel_block=Bs, scale=scale)
+    want, tol = R.select_tolerance(q, ckv, mem_kv, t, num_cb, **skw)
+    # the control: c_out with the first 64 live rows left out
+    moved, live = R.without_live_chunk(ckv, num_cb)
+    wrong, _ = nsa_decode.select_scores_plain(q, moved, mem_kv, live, t,
+                                              weights_dtype=torch.float32, **skw)
     torch.cuda.synchronize()
     n_slots = num_sel + n_slide
     err_c = max_err(c_k, c_p)
     ties = check_selection(info_k, info_p, scores, num_sel, n_slide, "decode_select")
     vp = info_p[..., n_slots:n_slots + num_sel]
-    print(f"  decode_select max|err| c_out {err_c:.5f} (tol {TOL_OUT}); ids equal on "
-          f"{b * kvh - ties}/{b * kvh} rows, {ties} rows differ only by ties within {TIE}",
-          flush=True)
-    check(err_c <= TOL_OUT, "decode_select c_out disagrees")
+    ratio = ((c_k.float() - want.float()).abs() / tol).max().item()
+    ratio_ctl = ((wrong.float() - want.float()).abs() / tol).max().item()
+    same2 = torch.equal(c_2, c_k) and torch.equal(info_2, info_k)
+    plan = nsa_decode.split_plan(q, ckv, mem_kv, stride=stride, sel_block=Bs, num_sel=num_sel,
+                                 n_slide=n_slide)
+    geometry = {}
+    for name, kern in (("decode_select", f"select_kernelILi{g}E"),
+                       ("decode_attend", f"attend_kernelILi{g}E")):
+        regs, spill = kernel_times.ptxas_usage(log, kern, "nsa_decode_cu")
+        short = name.split("_")[1]
+        geometry[name] = {"grid": plan["grid"], "block": 256,
+                          "blocks_per_sm": plan[f"{short}_blocks_per_sm"],
+                          "smem_bytes": plan[f"{short}_smem_bytes"], "registers": regs,
+                          "spill_bytes": spill}
+        print(f"  {name} launch: grid {plan['grid']} of 256 threads, "
+              f"{geometry[name]['blocks_per_sm']} block(s) fit an SM, shared memory "
+              f"{geometry[name]['smem_bytes']} B a block (card limit {plan['smem_optin']}); "
+              f"ptxas: {regs} registers, spills (stores, loads) {spill}", flush=True)
+    print(f"  decode_select max|err| c_out {err_c:.5f} (tol {TOL_OUT}); worst |err| / "
+          f"select_tolerance {ratio:.4f} (<= 1), the dropped-chunk control {ratio_ctl:.1f} (> 1); "
+          f"ids equal on {b * kvh - ties}/{b * kvh} rows, {ties} rows differ only by ties within "
+          f"{TIE}; a second launch bit-equal: {same2}", flush=True)
+    check(err_c <= TOL_OUT and bool(torch.isfinite(c_k.float()).all()),
+          "decode_select c_out disagrees")
+    check(ratio <= 1.0, "decode_select: c_out breaks select_tolerance")
+    check(ratio_ctl > 1.0, "decode_select: the dropped-chunk control passes select_tolerance")
+    check(same2, "decode_select: a second launch gives other bits")
     rows_read = b * kvh * num_cb * 2 * d * 2
     bms, by = bound_ms(nbytes(q, mem_kv, c_k, info_k) + rows_read,
                        b * kvh * g * (num_cb + M) * 4 * d)
     sel = {"name": "decode_select", "route": "cuda",
            "source": "nsa_tpu_torch/csrc/nsa_decode.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode.py:195",
-           "max_abs_err": err_c,
+           "max_abs_err": err_c, "select_tolerance_ratio": ratio, "control_ratio": ratio_ctl,
            "ms": timed_ms(lambda: nsa_decode.decode_select(q, ckv, mem_kv, t, num_cb, **kw),
                           50, flush),
            "plain_ms": timed_ms(lambda: nsa_decode.decode_select_plain(
                q, ckv, mem_kv, t, num_cb, **kw), 10, flush),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           **geometry["decode_select"]}
 
     # attend: both versions get the same info, c_out and gates
     rq, kv = randn(b, kvh, g, d), randn(b, kvh, MAX_LEN, 2 * d)
     gates = torch.sigmoid(randn(b, kvh, g, 3).float()).to(torch.bfloat16)
     akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=scale)
     out_k = nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, t, **akw)
+    out_2 = nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, t, **akw)
     out_p = nsa_decode.decode_attend_plain(rq, kv, info_p, c_p, gates, t, **akw)
+    want, tol = R.attend_tolerance(rq, kv, info_p, c_p, gates, t, **akw)
+    # the control: each row's first selected block left out
+    dropped = R.without_first_selected(info_p, num_sel, n_slide)
+    wrong, _ = R.attend_tolerance(rq, kv, dropped, c_p, gates, t, **akw)
     torch.cuda.synchronize()
     err_a = max_err(out_k, out_p)
-    print(f"  decode_attend max|err| {err_a:.5f} (tol {TOL_OUT})", flush=True)
+    ratio = ((out_k.float() - want.float()).abs() / tol).max().item()
+    ratio_ctl = ((wrong.float() - want.float()).abs() / tol).max().item()
+    same2 = torch.equal(out_2, out_k)
+    print(f"  decode_attend max|err| {err_a:.5f} (tol {TOL_OUT}); worst |err| / "
+          f"attend_tolerance {ratio:.4f} (<= 1), the dropped-block control {ratio_ctl:.1f} "
+          f"(> 1); a second launch bit-equal: {same2}", flush=True)
     check(err_a <= TOL_OUT and torch.isfinite(out_k.float()).all().item(),
           "decode_attend disagrees")
+    check(ratio <= 1.0, "decode_attend: the output breaks attend_tolerance")
+    check(ratio_ctl > 1.0, "decode_attend: the dropped-block control passes attend_tolerance")
+    check(same2, "decode_attend: a second launch gives other bits")
     rows = attend_rows(vp, t, Bs, n_slide, window, b * kvh)
     bms, by = bound_ms(nbytes(rq, info_p, c_p, gates, out_k) + rows * 2 * d * 2,
                        rows * g * 4 * d)
     att = {"name": "decode_attend", "route": "cuda",
            "source": "nsa_tpu_torch/csrc/nsa_decode.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode.py:325",
-           "max_abs_err": err_a,
+           "max_abs_err": err_a, "attend_tolerance_ratio": ratio, "control_ratio": ratio_ctl,
            "ms": timed_ms(lambda: nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, t, **akw),
                           50, flush),
            "plain_ms": timed_ms(lambda: nsa_decode.decode_attend_plain(
                rq, kv, info_p, c_p, gates, t, **akw), 10, flush),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           **geometry["decode_attend"]}
     return sel, att
 
 
@@ -2580,7 +2620,7 @@ def main():
 
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
-        kernels = [*kernel_prefill(gen, flush, cfg, params), *kernel_decode(gen, flush, cfg),
+        kernels = [*kernel_prefill(gen, flush, cfg, params), *kernel_decode(gen, flush, cfg, lib.log),
                    *kernel_prefill_bwd(gen, flush, cfg, params, lib.log),
                    *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0], lib.log),
                    kernel_decode_mega(gen, flush, cfg, fuse_decode_params(params, cfg),

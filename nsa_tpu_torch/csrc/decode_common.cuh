@@ -4,11 +4,19 @@
 // attend) and nsa_decode_mega.cu (the whole-model decode step): the body of
 // one thread block's compressed attention + selection, and of its fine +
 // sliding attention with the gate combine.  Each body works on one (batch
-// row, KV head) pair, `bh`, inside a block of any size that is a multiple
-// of 32, out of the dynamic shared memory it is handed.  Pointers to
+// row, KV head) pair, `bh`, inside a block of 256 threads (kBodyWarps
+// warps), out of the dynamic shared memory it is handed.  Pointers to
 // buffers that the whole-model kernel writes during its own launch carry no
 // __restrict__, so the compiler never reads them through the non-coherent
 // read-only path.
+//
+// Both bodies are flash-decoding's split softmax inside one block: each
+// warp streams its own rows through shared memory with 16-byte cp.async
+// copies, waits only for its own copies (cp.async.wait_group, __syncwarp),
+// keeps a running max, sum and weighted v sum per query head in registers
+// (softmax_fold: shuffles, no block barrier), and one merge across the
+// warps in shared memory ends the body.  Sums are taken in a fixed order:
+// a launch's bits depend on nothing but its inputs.
 #pragma once
 
 #include "common.cuh"
@@ -19,201 +27,377 @@ namespace {
 constexpr int kD = 64;             // dim_head; each lane owns two dims
 constexpr float kScoreEps = 1e-10f;
 constexpr int kPad = 8;                 // bf16 padding of a staged row
-constexpr int kHalfRow = kD + kPad;     // staged half-row stride (144 B)
 constexpr int kFullRow = 2 * kD + kPad; // staged packed-row stride (272 B)
-constexpr int kSelTile = 512;           // rows staged per select tile
+constexpr int kBodyWarps = 8;           // the bodies run in blocks of 256 threads
+constexpr int kChunkRows = 16;          // rows of a selection chunk, columns of an attention tile
+constexpr int kPipe = 8;                // loads kept in flight by norm_rows (decode_tc_common.cuh)
 
-// Stage one half (0: k, 1: v) of rows [0, nr) of a packed [rows][2*kD] block.
-__device__ __forceinline__ void stage_half(bf16* tile, const bf16* rows, int nr, int half) {
-  constexpr int kVec = kD / 8;          // 16-byte vectors per half-row
-  for (int i = threadIdx.x; i < nr * kVec; i += blockDim.x) {
-    const int r = i / kVec, c = i % kVec;
-    cp_async16(tile + r * kHalfRow + 8 * c, rows + (size_t)r * 2 * kD + half * kD + 8 * c);
-  }
-  cp_async_wait_all();
-  __syncthreads();
+// Programmatic dependent launch: a kernel launched with programmatic stream
+// serialization may start while the kernel before it runs; it waits here
+// until that kernel has finished and its writes are visible.  A no-op in a
+// kernel launched without the attribute.
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-template <int G>
-size_t select_smem_bytes(int Wc, int M, int Wf, int threads) {
-  const int outs = G * kD, parts = threads / outs > 1 ? threads / outs : 1;
-  return sizeof(bf16) * kSelTile * kHalfRow +
-         sizeof(float) * (G * Wc + G * M + Wf + G * kD + parts * outs + 32);
+// Let the next kernel on the stream, if launched with programmatic stream
+// serialization, start its blocks before this one ends.
+__device__ __forceinline__ void allow_dependent_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// q.k of one row of kD values: bf16 as dot_heads takes it (the same float32
+// order), or float32 (the whole-model kernel's mem slots).
+__device__ __forceinline__ float dot_row(const float* q, const bf16* k) {
+  float s;
+  dot_heads<1, kD>(q, k, &s);
+  return s;
+}
+
+__device__ __forceinline__ float dot_row(const float* q, const float* k) {
+  float s = 0.f;
+#pragma unroll 16
+  for (int e = 0; e < kD; ++e) s += q[e] * k[e];
+  return s;
+}
+
+__device__ __forceinline__ float2 load2(const bf16* p) { return load_bf16x2(p); }
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// Folds one chunk of R = kChunkRows rows into a warp's running softmax over
+// G heads.  Pair 32 k + lane of the chunk is (row p % R, head p / R); s[k] is its
+// scaled logit, or -inf where the row is out.  m[g] is the running max
+// (kNeg before any row), l[g] the running sum, acc[g] the weighted sums of
+// v over dims 2 lane and 2 lane + 1; every lane keeps all three.  `live`
+// has bit r set for the rows whose v is read (vrow(r): the lane's two
+// dims); a row outside it must have p = 0.  Shuffles only.
+template <int G, typename VRow>
+__device__ __forceinline__ void softmax_fold(float (&m)[G], float (&l)[G], float (&acc)[G][2],
+                                             const float (&s)[(kChunkRows * G + 31) / 32],
+                                             unsigned live, VRow vrow) {
+  constexpr int R = kChunkRows, NP = (R * G + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  float red[NP], p[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    red[k] = s[k];
+#pragma unroll
+    for (int o = R / 2; o > 0; o >>= 1) red[k] = fmaxf(red[k], __shfl_xor_sync(kFull, red[k], o));
+  }
+  float mn[G], alpha[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    mn[g] = fmaxf(m[g], __shfl_sync(kFull, red[g * R / 32], (g * R) % 32));
+    alpha[g] = expf(m[g] - mn[g]);
+  }
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const int own = (32 * k + lane) / R;       // the lane's head in pair k (>= G: none)
+    float mo = kNeg;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      if (g == own) mo = mn[g];
+    p[k] = expf(s[k] - mo);                     // 0 where s is -inf
+    red[k] = p[k];
+#pragma unroll
+    for (int o = R / 2; o > 0; o >>= 1) red[k] += __shfl_xor_sync(kFull, red[k], o);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    l[g] = l[g] * alpha[g] + __shfl_sync(kFull, red[g * R / 32], (g * R) % 32);
+    acc[g][0] *= alpha[g];
+    acc[g][1] *= alpha[g];
+    m[g] = mn[g];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!((live >> r) & 1u)) continue;          // the same for every lane
+    const float2 v = vrow(r);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float pr = __shfl_sync(kFull, p[(g * R + r) / 32], (g * R + r) % 32);
+      acc[g][0] += pr * v.x;
+      acc[g][1] += pr * v.y;
+    }
+  }
+}
+
+// Orders floats as unsigned ints (for the warp's max reduction).
+__device__ __forceinline__ unsigned ordered(float x) {
+  const unsigned u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+template <int G, int kDepth, typename MemT>
+size_t select_smem_bytes(int Wc, int M, int Wf) {
+  return sizeof(bf16) * kBodyWarps * kDepth * kChunkRows * kFullRow +
+         sizeof(MemT) * 2 * M * kD + sizeof(float) * (G * kD + G * Wc + Wf);
 }
 
 // Compressed attention of the G unrotated queries of `bh` over
 // ckv[:num_cb] plus the M mem slots; then grouped importance, stride ->
-// selection-block regroup, diagonal mask, pad(-1e3)-softmax-strip and an
-// iterative top-k by one warp (ties to the lowest index).  Writes c_out and
-// the packed info row: [0, S) selected ids, [S, S + n_slide) trailing ids,
+// selection-block regroup, diagonal mask, pad(-1e3)-softmax-strip and a
+// top-k by one warp (ties to the lowest index).  Writes c_out and the
+// packed info row: [0, S) selected ids, [S, S + n_slide) trailing ids,
 // [S + n_slide, 2S + n_slide) validity, the rest zero.  Reads no ckv row at
 // or above num_cb.  mem_kv is bf16 (the split and fused routes) or float32
-// (the whole-model kernel, as JAX's megakernel keeps it).  The c_out sum
-// keeps kPipe loads in flight (then a tail of one at a time), adding its
-// terms in row order.
-constexpr int kPipe = 8;
-
-template <int G, typename MemT>
+// (the whole-model kernel, as JAX's megakernel keeps it).
+//
+// The live rows, as chunks of kChunkRows whole packed rows (k || v, 256 B),
+// are dealt to the warps in turn (chunk c to warp c % kBodyWarps); each
+// warp streams its chunks through its own ring of kDepth slots, kDepth - 1
+// chunks in flight while it computes one, and reads every live row once.
+// A chunk's logits are one lane per (row, head), dot_heads's float32
+// order, kept in shared memory; softmax_fold folds them and the chunk's v
+// halves into the warp's running c_out, and the warp pools the importance
+// of the fine blocks the chunk holds (the same order as one thread per
+// block).  Warp 0 takes the mem slots first, staged with its first chunk.
+// After one barrier warp 0 takes the score softmax and the top-k (each lane
+// keeps the best of its own blocks; a warp max picks the next id, and only
+// the lane that gave it looks again), while the other warps merge the
+// warps' running sums into c_out.  Dynamic shared memory:
+// select_smem_bytes<G, kDepth, MemT>.
+template <int G, int kDepth, typename MemT>
 __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restrict__ mem_kv,
                             bf16* c_out, int* info, int kvh, int Wc, int M, int t, int num_cb,
                             int stride, int sel_block, int num_sel, int n_slide,
                             int max_blocks, int info_width, float scale, int bh,
                             unsigned char* smem_raw) {
+  static_assert(kDepth >= 2, "a ring of one slot has nothing in flight");
+  static_assert(sizeof(float) * (G * kD + 2 * G + 1) <=
+                    sizeof(bf16) * kDepth * kChunkRows * kFullRow,
+                "a warp's running sums fit in its ring");
+  constexpr int NP = (kChunkRows * G + 31) / 32;
+  constexpr int kSlot = kChunkRows * kFullRow;
   const int npf = sel_block / stride;
   const int Wf = Wc / npf;
-  constexpr int outs = G * kD;
-  const int parts = max(1, (int)blockDim.x / outs);
-  bf16* tile = reinterpret_cast<bf16*>(smem_raw);                  // [kSelTile][kHalfRow]
-  float* sim = reinterpret_cast<float*>(tile + kSelTile * kHalfRow);  // [G][Wc]
-  float* simm = sim + G * Wc;      // [G][M] mem-slot logits, then probabilities
-  float* fsc = simm + G * M;       // [Wf] fine-block scores
-  float* qs = fsc + Wf;            // [G][kD] queries
-  float* cacc = qs + G * kD;       // [parts][G*kD] partial c_out sums
-  float* scratch = cacc + parts * outs;  // [32]
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);         // [warps][kDepth][kChunkRows][kFullRow]
+  MemT* mem = reinterpret_cast<MemT*>(ring + kBodyWarps * kDepth * kSlot);  // [2][M][kD]
+  float* qs = reinterpret_cast<float*>(mem + 2 * M * kD);  // [G][kD]
+  float* sim = qs + G * kD;                                 // [G][Wc] logits
+  float* fsc = sim + G * Wc;                                // [Wf] fine-block scores
 
   const int h = bh % kvh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bf16* rows = ckv + (size_t)bh * Wc * 2 * kD;
-  const MemT* memk = mem_kv + (size_t)h * M * kD;
-  const MemT* memv = mem_kv + (size_t)(kvh + h) * M * kD;
   const int n_live = min(num_cb, Wc);
-
-  for (int i = tid; i < G * kD; i += blockDim.x)
-    qs[i] = __bfloat162float(q[(size_t)bh * G * kD + i]);
-  for (int i = tid; i < parts * outs; i += blockDim.x) cacc[i] = 0.f;
-  for (int j = n_live + tid; j < Wc; j += blockDim.x)
-    for (int g = 0; g < G; ++g) sim[g * Wc + j] = kNeg;
-  __syncthreads();
-
-  // logits of the live rows, tile by tile; then of the mem slots
-  for (int r0 = 0; r0 < n_live; r0 += kSelTile) {
-    const int nr = min(kSelTile, n_live - r0);
-    stage_half(tile, rows + (size_t)r0 * 2 * kD, nr, 0);
-    for (int r = tid; r < nr; r += blockDim.x) {
-      float s[G];
-      dot_heads<G, kD>(qs, tile + r * kHalfRow, s);
-#pragma unroll
-      for (int g = 0; g < G; ++g) sim[g * Wc + r0 + r] = s[g] * scale;
-    }
-    __syncthreads();               // the next tile overwrites this one
-  }
-  for (int o = tid; o < G * M; o += blockDim.x) {
-    const int g = o / M, m = o % M;
-    float s = 0.f;
-    for (int e = 0; e < kD; ++e) s += qs[g * kD + e] * ldf(memk[m * kD + e]);
-    simm[o] = s * scale;
-  }
-  __syncthreads();
-
-  // importance: mean over the group (mem slots excluded), pooled over the
-  // npf compressed blocks of each fine block, own block masked
+  const int nchunks = (n_live + kChunkRows - 1) / kChunkRows;
+  const int mine = nchunks > warp ? (nchunks - warp + kBodyWarps - 1) / kBodyWarps : 0;
+  bf16* my_ring = ring + warp * kDepth * kSlot;
   const int diag = t / sel_block;
-  for (int f = tid; f < Wf; f += blockDim.x) {
+  // the fine blocks the chunks pool as they stream (a chunk holds whole
+  // blocks); warp 0 pools the rest after them
+  const int pooled_early = kChunkRows % npf == 0 ? min(nchunks * kChunkRows / npf, Wf) : 0;
+
+  // importance of fine block f: mean over the group (mem slots excluded),
+  // pooled over its npf compressed blocks, own block masked; the lane keeps
+  // the largest it has pooled
+  float pmax = kNeg;
+  auto pool = [&](int f) {
     float pooled = 0.f;
     for (int i = 0; i < npf; ++i) {
       float s = 0.f;
+#pragma unroll
       for (int g = 0; g < G; ++g) s += sim[g * Wc + f * npf + i];
       pooled += (s / G) * (1.f / npf);
     }
     fsc[f] = (npf > 1 && f == diag) ? kNeg : pooled;
+    pmax = fmaxf(pmax, fsc[f]);
+  };
+
+  // the warp's i-th chunk into slot i % kDepth, one copy group (empty past the end)
+  auto issue = [&](int i) {
+    if (i < mine) {
+      const int r0 = (warp + kBodyWarps * i) * kChunkRows;
+      bf16* dst = my_ring + (i % kDepth) * kSlot;
+      for (int j = lane; j < kChunkRows * 16; j += 32) {    // 16 16-byte pieces a row
+        const int r = j >> 4, piece = j & 15;
+        if (r0 + r < n_live)
+          cp_async16(dst + r * kFullRow + 8 * piece, rows + (size_t)(r0 + r) * 2 * kD + 8 * piece);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // phase: prologue
+  // the queries' loads go out before the copies queue behind them
+  float qv[(G * kD + 255) / 256];
+#pragma unroll
+  for (int k = 0; k < (G * kD + 255) / 256; ++k) {
+    const int i = tid + 256 * k;
+    qv[k] = i < G * kD ? __bfloat162float(q[(size_t)bh * G * kD + i]) : 0.f;
   }
+  if (warp == 0) {             // the mem slots' k and v rows, with the first chunk
+    constexpr int kVec = 16 / sizeof(MemT);
+    for (int j = lane; j < 2 * M * kD / kVec; j += 32) {
+      const int half = j / (M * kD / kVec), i = j % (M * kD / kVec);
+      cp_async16(mem + half * M * kD + i * kVec,
+                 mem_kv + (size_t)(half * kvh + h) * M * kD + i * kVec);
+    }
+  }
+  for (int i = 0; i < kDepth - 1; ++i) issue(i);
+#pragma unroll
+  for (int k = 0; k < (G * kD + 255) / 256; ++k)
+    if (tid + 256 * k < G * kD) qs[tid + 256 * k] = qv[k];
+  for (int j = n_live + tid; j < Wc; j += blockDim.x)
+    for (int g = 0; g < G; ++g) sim[g * Wc + j] = kNeg;
   __syncthreads();
 
-  // pad(-1e3) -> softmax -> strip, without materializing the pad slot
-  float mx = kNeg;
-  for (int f = tid; f < Wf; f += blockDim.x) mx = fmaxf(mx, fsc[f]);
-  mx = fmaxf(block_reduce<true>(mx, scratch), -1e3f);
-  float den = 0.f;
-  for (int f = tid; f < Wf; f += blockDim.x) {
-    const float p = expf(fsc[f] - mx);
-    fsc[f] = p;
-    den += p;
-  }
-  den = block_reduce<false>(den, scratch) + expf(-1e3f - mx);
-  for (int f = tid; f < Wf; f += blockDim.x) fsc[f] /= den;
-
-  // compressed softmax over the live rows and the mem slots
-  float inv_den[G];
+  // phase: stream
+  float m[G], l[G], acc[G][2];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float m = kNeg;
-    for (int j = tid; j < n_live; j += blockDim.x) m = fmaxf(m, sim[g * Wc + j]);
-    for (int j = tid; j < M; j += blockDim.x) m = fmaxf(m, simm[g * M + j]);
-    m = block_reduce<true>(m, scratch);
-    float l = 0.f;
-    for (int j = tid; j < n_live; j += blockDim.x) {
-      const float p = expf(sim[g * Wc + j] - m);
-      sim[g * Wc + j] = p;
-      l += p;
-    }
-    for (int j = tid; j < M; j += blockDim.x) {
-      const float p = expf(simm[g * M + j] - m);
-      simm[g * M + j] = p;
-      l += p;
-    }
-    inv_den[g] = 1.f / block_reduce<false>(l, scratch);
+    m[g] = kNeg;
+    l[g] = 0.f;
+    acc[g][0] = acc[g][1] = 0.f;
   }
-  __syncthreads();
-
-  // c_out = sum_j p_j v_j / den over the v halves, tile by tile; thread
-  // (part, g, e) sums rows part, part + parts, ...
-  for (int r0 = 0; r0 < n_live; r0 += kSelTile) {
-    const int nr = min(kSelTile, n_live - r0);
-    stage_half(tile, rows + (size_t)r0 * 2 * kD, nr, 1);
-    for (int o = tid; o < parts * outs; o += blockDim.x) {
-      const int part = o / outs, g = (o % outs) / kD, e = o % kD;
-      const float* p = sim + g * Wc + r0;
-      float acc = 0.f;
-      int r = part;
-      for (; r + (kPipe - 1) * parts < nr; r += kPipe * parts) {
-        float pv[kPipe], tv[kPipe];
+  if (warp == 0 && M > 0) {
+    cp_async_wait<kDepth - 2>();                 // the first group: chunk 0 and the mem rows
+    __syncwarp();
+    const MemT* memk = mem;
+    const MemT* memv = mem + M * kD;
+    for (int m0 = 0; m0 < M; m0 += kChunkRows) {
+      float s[NP];
 #pragma unroll
-        for (int u = 0; u < kPipe; ++u) {
-          pv[u] = p[r + u * parts];
-          tv[u] = __bfloat162float(tile[(r + u * parts) * kHalfRow + e]);
-        }
-#pragma unroll
-        for (int u = 0; u < kPipe; ++u) acc += pv[u] * tv[u];
+      for (int k = 0; k < NP; ++k) {
+        const int p = 32 * k + lane, r = p % kChunkRows, g = p / kChunkRows;
+        s[k] = -INFINITY;
+        if (g < G && m0 + r < M) s[k] = dot_row(qs + g * kD, memk + (m0 + r) * kD) * scale;
       }
-      for (; r < nr; r += parts) acc += p[r] * __bfloat162float(tile[r * kHalfRow + e]);
-      cacc[o] += acc;
+      const int n = min(M - m0, kChunkRows);
+      softmax_fold<G>(m, l, acc, s, (1u << n) - 1, [&](int r) {
+        return load2(memv + (m0 + r) * kD + 2 * lane);
+      });
     }
-    __syncthreads();
   }
-  for (int o = tid; o < outs; o += blockDim.x) {
-    const int g = o / kD, e = o % kD;
-    float acc = 0.f;
-    for (int part = 0; part < parts; ++part) acc += cacc[part * outs + o];
-    for (int m = 0; m < M; ++m) acc += simm[g * M + m] * ldf(memv[m * kD + e]);
-    c_out[(size_t)bh * outs + o] = __float2bfloat16(acc * inv_den[g]);
+  for (int i = 0; i < mine; ++i) {
+    __syncwarp();                                // every lane is done with the slot refilled
+    issue(i + kDepth - 1);
+    cp_async_wait<kDepth - 1>();
+    __syncwarp();
+    const bf16* slot = my_ring + (i % kDepth) * kSlot;
+    const int r0 = (warp + kBodyWarps * i) * kChunkRows;
+    float s[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int p = 32 * k + lane, r = p % kChunkRows, g = p / kChunkRows;
+      s[k] = -INFINITY;
+      if (g < G && r0 + r < n_live) {
+        s[k] = dot_row(qs + g * kD, slot + r * kFullRow) * scale;
+        sim[g * Wc + r0 + r] = s[k];
+      }
+    }
+    const int n = min(n_live - r0, kChunkRows);
+    softmax_fold<G>(m, l, acc, s, (1u << n) - 1, [&](int r) {
+      return load_bf16x2(slot + r * kFullRow + kD + 2 * lane);
+    });
+    __syncwarp();                                // the chunk's logits, from the other lanes
+    if (lane < kChunkRows / npf && r0 / npf + lane < pooled_early) pool(r0 / npf + lane);
+  }
+  pmax = warp_max(pmax);
+  {                            // the warp's running sums, into its own ring
+    // [G][kD] weighted v, [G] max, [G] sum of p, the largest importance pooled
+    float* st = reinterpret_cast<float*>(my_ring);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      st[g * kD + 2 * lane] = acc[g][0];
+      st[g * kD + 2 * lane + 1] = acc[g][1];
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        st[G * kD + g] = m[g];
+        st[G * kD + G + g] = l[g];
+      }
+      st[G * kD + 2 * G] = pmax;
+    }
   }
 
-  // iterative top-k by warp 0: num_sel passes of (max, lowest index)
+  // phase: epilogue
+  __syncthreads();
   int* irow = info + (size_t)bh * info_width;
   const int n_slots = num_sel + n_slide;
   if (warp == 0) {
+    // the blocks no chunk pooled; then pad(-1e3) -> softmax -> strip,
+    // without materializing the pad slot.  Lane j owns blocks j, j + 32, ...
+    for (int f = pooled_early + lane; f < Wf; f += 32) pool(f);
+    pmax = warp_max(pmax);
+    float mx = pmax;
+    for (int w = 1; w < kBodyWarps; ++w)
+      mx = fmaxf(mx, reinterpret_cast<const float*>(ring + w * kDepth * kSlot)[G * kD + 2 * G]);
+    mx = fmaxf(mx, -1e3f);
+    // one pass: the weights, their sum, and each lane's best and next-best
+    // block by weight (ties to the lower id; the weights order the blocks as
+    // the normalized scores do)
+    float den = 0.f, best = -INFINITY, next = -INFINITY;
+    int bidx = 0x7fffffff, nidx = 0x7fffffff;
+#pragma unroll 4
+    for (int f = lane; f < Wf; f += 32) {
+      const float v = expf(fsc[f] - mx);
+      fsc[f] = v;
+      den += v;
+      if (v > best) {
+        next = best;
+        nidx = bidx;
+        best = v;
+        bidx = f;
+      } else if (v > next) {
+        next = v;
+        nidx = f;
+      }
+    }
+    den = warp_sum(den) + expf(-1e3f - mx);
+    // top-k: the largest lane best, the lowest id among equal ones; the lane
+    // that gave it moves on to its next-best, and looks again only when it
+    // has none
     for (int s = 0; s < num_sel; ++s) {
-      float best = -INFINITY;
-      int bidx = 0x7fffffff;
-      for (int f = lane; f < Wf; f += 32)
-        if (fsc[f] > best) { best = fsc[f]; bidx = f; }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ob = __shfl_xor_sync(kFull, best, o);
-        const int oi = __shfl_xor_sync(kFull, bidx, o);
-        if (ob > best || (ob == best && oi < bidx)) { best = ob; bidx = oi; }
-      }
+      const unsigned key = ordered(best);
+      const unsigned top = __reduce_max_sync(kFull, key);
+      const int id = (int)__reduce_min_sync(kFull, key == top ? (unsigned)bidx : 0xffffffffu);
+      const float val = __shfl_sync(kFull, best, id & 31);
       if (lane == 0) {
-        irow[s] = bidx;
-        irow[n_slots + s] = best > kScoreEps ? 1 : 0;
-        fsc[bidx] = kNeg;
+        irow[s] = id;
+        irow[n_slots + s] = val / den > kScoreEps ? 1 : 0;
       }
-      __syncwarp();
+      if (bidx == id) {
+        fsc[id] = kNeg;
+        best = next;
+        bidx = nidx;
+        next = -INFINITY;
+        nidx = 0x7fffffff;
+        if (bidx == 0x7fffffff) {
+#pragma unroll 4
+          for (int f = lane; f < Wf; f += 32)
+            if (fsc[f] > best) {
+              best = fsc[f];
+              bidx = f;
+            }
+        }
+      }
     }
     // trailing window blocks, ascending; the last one is the diagonal block
     for (int j = lane; j < n_slide; j += 32)
       irow[num_sel + j] = min(max(diag - (n_slide - 1 - j), 0), max_blocks - 1);
     for (int c = n_slots + num_sel + lane; c < info_width; c += 32) irow[c] = 0;
+  } else {
+    // c_out: the warps' running sums merged in warp order
+    constexpr int outs = G * kD;
+    for (int o = tid - 32; o < outs; o += blockDim.x - 32) {
+      const int g = o / kD;
+      float mx = kNeg;
+      for (int w = 0; w < kBodyWarps; ++w)
+        mx = fmaxf(mx, reinterpret_cast<const float*>(ring + w * kDepth * kSlot)[G * kD + g]);
+      float den = 0.f, num = 0.f;
+      for (int w = 0; w < kBodyWarps; ++w) {
+        const float* st = reinterpret_cast<const float*>(ring + w * kDepth * kSlot);
+        const float f = expf(st[G * kD + g] - mx);
+        den += st[G * kD + G + g] * f;
+        num += st[o] * f;
+      }
+      c_out[(size_t)bh * outs + o] = __float2bfloat16(num / den);
+    }
   }
 }
 
@@ -239,11 +423,13 @@ struct PagedRows {
   }
 };
 
+constexpr int kInfoMax = 128;     // the info row's ids and validity that the attention reads
+
 template <int G>
-size_t attend_smem_bytes(int J, int threads) {
-  const int outs = G * kD, parts = threads / outs > 1 ? threads / outs : 1;
-  return sizeof(bf16) * J * kFullRow + sizeof(float) * (2 * G * J + G * kD + 2 * parts * outs + 32) +
-         sizeof(int) * 2 * J;
+size_t attend_smem_bytes(int J) {
+  const int ntiles = (J + kChunkRows - 1) / kChunkRows;
+  return sizeof(bf16) * ntiles * kChunkRows * kFullRow + sizeof(float) * (2 * G * kD + 3 * G) +
+         sizeof(int) * kInfoMax;
 }
 
 // Fine and sliding attention of the G rotated queries of `bh` over the S
@@ -253,144 +439,184 @@ size_t attend_smem_bytes(int J, int threads) {
 // fine + g_s * sliding.  Row t is staged from `row_t` instead of the cache
 // when `row_t` is not null (the fused route writes that row in the same
 // launch).  Returns the combined float32 output [G][kD] in shared memory,
-// visible to the whole block.  The P.V sums keep kPipe columns' loads in
-// flight (then a tail of one at a time), adding the kept columns' terms in
-// column order.
-template <int G, typename Rows>
+// visible to the whole block.
+//
+// The J = (S + n_slide) * sel_block columns, as tiles of kChunkRows, are
+// dealt to the warps in turn; a warp copies the rows of its own tiles that
+// either mask keeps (whole packed rows) and waits only for its own copies.
+// The queries', gates', info row's and c_out's loads go out first (with
+// kDependent, the split route's attend launched as a programmatic dependent
+// of the selection, info and c_out after waiting for the kernel before it),
+// then every kept row's copy at once.  Per tile, one lane per (column, head) takes the logit, and
+// softmax_fold folds it into the warp's running fine and sliding sums
+// (skipped where the tile has no column of that mask); one merge across
+// the warps (in the warps' first tiles) ends it.  Dynamic shared memory:
+// attend_smem_bytes<G>; the info row's first n_slots + S entries must fit
+// kInfoMax.
+template <int G, bool kDependent, typename Rows>
 __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, const bf16* c_out,
                               const bf16* gates, const bf16* row_t, int t, int sel_block,
                               int window, int num_sel, int n_slide, int info_width, float scale,
                               int bh, unsigned char* smem_raw) {
+  constexpr int outs = G * kD;
+  constexpr int NP = (kChunkRows * G + 31) / 32;
+  constexpr int NO = (outs + 255) / 256;    // outputs a thread loads
+  static_assert(sizeof(float) * (2 * G * kD + 4 * G) <= sizeof(bf16) * kChunkRows * kFullRow,
+                "a warp's running sums fit in its first tile");
   const int n_slots = num_sel + n_slide;
   const int J = n_slots * sel_block;
-  constexpr int outs = G * kD;
-  const int parts = max(1, (int)blockDim.x / outs);
-  bf16* tile = reinterpret_cast<bf16*>(smem_raw);                 // [J][kFullRow]
-  float* sf = reinterpret_cast<float*>(tile + J * kFullRow);     // [G][J] fine
-  float* ss = sf + G * J;           // [G][J] sliding
-  float* qs = ss + G * J;           // [G][kD] queries, then the combined output
-  float* pf = qs + G * kD;          // [parts][outs] partial fine sums
-  float* ps = pf + parts * outs;    // [parts][outs] partial sliding sums
-  float* scratch = ps + parts * outs;                           // [32]
-  int* okm = reinterpret_cast<int*>(scratch + 32);  // [J] bit 0 fine, bit 1 sliding
-  int* rowid = okm + J;             // [J] kv row of each column
+  const int ntiles = (J + kChunkRows - 1) / kChunkRows;
+  bf16* tile = reinterpret_cast<bf16*>(smem_raw);                 // [ntiles * 16][kFullRow]
+  float* qs = reinterpret_cast<float*>(tile + ntiles * kChunkRows * kFullRow);  // [G][kD]
+  float* cg = qs + outs;            // [G][kD] c_out, then [G][3] gates
+  int* sinfo = reinterpret_cast<int*>(cg + outs + 3 * G);         // the info row's head
 
-  const int tid = threadIdx.x;
-  const int* irow = info + (size_t)bh * info_width;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int last_blk = t / sel_block;
 
-  for (int i = tid; i < G * kD; i += blockDim.x)
-    qs[i] = __bfloat162float(rq[(size_t)bh * G * kD + i]);
-  for (int col = tid; col < J; col += blockDim.x) {
+  // column col: its kv row, and which masks keep it (bit 0 fine, bit 1
+  // sliding); a selected block's column reads the staged info row
+  auto column = [&](int col, int& row) -> int {
     const int slot = col / sel_block, within = col % sel_block;
-    const bool sel_ok = slot < num_sel && irow[n_slots + slot] != 0;
-    const int trail_blk = last_blk - (n_slide - 1) + (slot - num_sel);
-    const int jg = trail_blk * sel_block + within;
-    const bool trail_ok = slot >= num_sel && trail_blk >= 0;
-    const bool fine = sel_ok || (trail_ok && slot == n_slots - 1 && jg <= t);
-    const bool slide = trail_ok && jg >= t - window && jg <= t;
-    okm[col] = (fine ? 1 : 0) | (slide ? 2 : 0);
-    rowid[col] = irow[slot] * sel_block + within;
-  }
-  __syncthreads();
-
-  // stage the rows either mask keeps (k and v), all in flight at once
-  constexpr int kVec = 2 * kD / 8;
-  for (int i = tid; i < J * kVec; i += blockDim.x) {
-    const int col = i / kVec, c = i % kVec;
-    if (!okm[col]) continue;
-    const bf16* src = (row_t != nullptr && rowid[col] == t) ? row_t : kv.row(bh, rowid[col]);
-    cp_async16(tile + col * kFullRow + 8 * c, src + 8 * c);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
-  for (int col = tid; col < J; col += blockDim.x) {
-    const int ok = okm[col];
-    float s[G] = {};
-    if (ok) dot_heads<G, kD>(qs, tile + col * kFullRow, s);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      sf[g * J + col] = (ok & 1) ? s[g] * scale : kNeg;
-      ss[g * J + col] = (ok & 2) ? s[g] * scale : kNeg;
+    if (slot < num_sel) {
+      row = sinfo[slot] * sel_block + within;
+      return sinfo[n_slots + slot] != 0 ? 1 : 0;
     }
-  }
-  __syncthreads();
+    const int blk = last_blk - (n_slide - 1) + (slot - num_sel);
+    row = blk * sel_block + within;
+    const bool fine = blk >= 0 && slot == n_slots - 1 && row <= t;
+    const bool slide = blk >= 0 && row >= t - window && row <= t;
+    return (fine ? 1 : 0) | (slide ? 2 : 0);
+  };
+  // copy the kept rows of this warp's tiles
+  auto stage = [&]() {
+    for (int tl = warp; tl < ntiles; tl += kBodyWarps)
+      for (int j = lane; j < kChunkRows * 16; j += 32) {    // 16 16-byte pieces a row
+        const int col = tl * kChunkRows + (j >> 4), piece = j & 15;
+        if (col >= J) continue;
+        int row;
+        if (!column(col, row)) continue;
+        const bf16* src = (row_t != nullptr && row == t) ? row_t : kv.row(bh, row);
+        cp_async16(tile + col * kFullRow + 8 * piece, src + 8 * piece);
+      }
+  };
 
-  float inv_f[G], inv_s[G];
+  // phase: prologue
+  // the loads go out before the copies queue behind them; with kDependent
+  // info and c_out are read after the wait (through L2: the kernel before
+  // may have written them after this one started)
+  const int* irow = info + (size_t)bh * info_width;
+  const unsigned short* crow = reinterpret_cast<const unsigned short*>(c_out) + (size_t)bh * outs;
+  const int ninfo = n_slots + num_sel;
+  float qv[NO], cv[NO], gv = 0.f;
+#pragma unroll
+  for (int k = 0; k < NO; ++k)
+    qv[k] = tid + 256 * k < outs ? __bfloat162float(rq[(size_t)bh * outs + tid + 256 * k]) : 0.f;
+  if (tid < 3 * G) gv = __bfloat162float(gates[(size_t)bh * 3 * G + tid]);
+  if (kDependent) wait_for_prior_grid();       // info and c_out come from the kernel before
+  const int iv = tid < ninfo ? (kDependent ? __ldcg(irow + tid) : irow[tid]) : 0;
+#pragma unroll
+  for (int k = 0; k < NO; ++k) {
+    const int i = tid + 256 * k;
+    cv[k] = i < outs ? __bfloat162float(__ushort_as_bfloat16(kDependent ? __ldcg(crow + i)
+                                                                        : crow[i]))
+                     : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < NO; ++k)
+    if (tid + 256 * k < outs) {
+      qs[tid + 256 * k] = qv[k];
+      cg[tid + 256 * k] = cv[k];
+    }
+  if (tid < 3 * G) cg[outs + tid] = gv;
+  if (tid < ninfo) sinfo[tid] = iv;
+  __syncthreads();
+  stage();
+
+  // phase: tiles
+  float mf[G], lf[G], af[G][2], ms[G], ls[G], as[G][2];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float mf = kNeg, ms = kNeg;
-    for (int c = tid; c < J; c += blockDim.x) {
-      mf = fmaxf(mf, sf[g * J + c]);
-      ms = fmaxf(ms, ss[g * J + c]);
-    }
-    mf = block_reduce<true>(mf, scratch);
-    ms = block_reduce<true>(ms, scratch);
-    float lf = 0.f, ls = 0.f;
-    for (int c = tid; c < J; c += blockDim.x) {
-      const int ok = okm[c];
-      const float a = (ok & 1) ? expf(sf[g * J + c] - mf) : 0.f;
-      const float b = (ok & 2) ? expf(ss[g * J + c] - ms) : 0.f;
-      sf[g * J + c] = a;
-      ss[g * J + c] = b;
-      lf += a;
-      ls += b;
-    }
-    inv_f[g] = 1.f / fmaxf(block_reduce<false>(lf, scratch), 1e-30f);
-    inv_s[g] = 1.f / fmaxf(block_reduce<false>(ls, scratch), 1e-30f);
+    mf[g] = ms[g] = kNeg;
+    lf[g] = ls[g] = 0.f;
+    af[g][0] = af[g][1] = as[g][0] = as[g][1] = 0.f;
   }
-  __syncthreads();
-
-  for (int o = tid; o < parts * outs; o += blockDim.x) {
-    const int part = o / outs, g = (o % outs) / kD, e = o % kD;
-    float af = 0.f, as = 0.f;
-    int c = part;
-    for (; c + (kPipe - 1) * parts < J; c += kPipe * parts) {
-      int ok[kPipe];
-      float v[kPipe], pf_[kPipe], ps_[kPipe];
+  cp_async_wait_all();
+  __syncwarp();
+  for (int tl = warp; tl < ntiles; tl += kBodyWarps) {
+    float sf[NP], ss[NP];
+    unsigned kept = 0;
+    bool any_f = false, any_s = false;
 #pragma unroll
-      for (int u = 0; u < kPipe; ++u) {
-        const int cc = c + u * parts;
-        ok[u] = okm[cc];
-        v[u] = ok[u] ? __bfloat162float(tile[cc * kFullRow + kD + e]) : 0.f;
-        pf_[u] = sf[g * J + cc];
-        ps_[u] = ss[g * J + cc];
-      }
-#pragma unroll
-      for (int u = 0; u < kPipe; ++u)
-        if (ok[u]) {
-          af += pf_[u] * v[u];
-          as += ps_[u] * v[u];
+    for (int k = 0; k < NP; ++k) {
+      const int p = 32 * k + lane, r = p % kChunkRows, g = p / kChunkRows;
+      const int col = tl * kChunkRows + r;
+      int ok = 0;
+      sf[k] = ss[k] = -INFINITY;
+      if (g < G && col < J) {
+        int row;
+        ok = column(col, row);
+        if (ok) {
+          const float s = dot_row(qs + g * kD, tile + col * kFullRow) * scale;
+          if (ok & 1) sf[k] = s;
+          if (ok & 2) ss[k] = s;
         }
+      }
+      any_f |= (ok & 1) != 0;
+      any_s |= (ok & 2) != 0;
+      if (k == 0) kept = __ballot_sync(kFull, ok != 0) & 0xffffu;   // lanes 0-15: head 0
     }
-    for (; c < J; c += parts) {
-      if (okm[c] == 0) continue;     // unstaged row: never read
-      const float v = __bfloat162float(tile[c * kFullRow + kD + e]);
-      af += sf[g * J + c] * v;
-      as += ss[g * J + c] * v;
-    }
-    pf[o] = af;
-    ps[o] = as;
+    const bf16* base = tile + tl * kChunkRows * kFullRow + kD + 2 * lane;
+    auto vrow = [&](int r) { return load_bf16x2(base + r * kFullRow); };
+    if (__any_sync(kFull, any_f)) softmax_fold<G>(mf, lf, af, sf, kept, vrow);
+    if (__any_sync(kFull, any_s)) softmax_fold<G>(ms, ls, as, ss, kept, vrow);
   }
+  __syncwarp();
+  if (warp < ntiles) {         // the warp's running sums, into its first tile
+    float* st = reinterpret_cast<float*>(tile + warp * kChunkRows * kFullRow);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      st[g * kD + 2 * lane] = af[g][0];
+      st[g * kD + 2 * lane + 1] = af[g][1];
+      st[outs + g * kD + 2 * lane] = as[g][0];
+      st[outs + g * kD + 2 * lane + 1] = as[g][1];
+    }
+    if (lane == 0)
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        st[2 * outs + g] = mf[g];
+        st[2 * outs + G + g] = lf[g];
+        st[2 * outs + 2 * G + g] = ms[g];
+        st[2 * outs + 3 * G + g] = ls[g];
+      }
+  }
+
+  // phase: combine
   __syncthreads();
-  float* comb = qs;
+  const int nw = min(ntiles, kBodyWarps);
   for (int o = tid; o < outs; o += blockDim.x) {
     const int g = o / kD;
-    float af = 0.f, as = 0.f;
-    for (int part = 0; part < parts; ++part) {
-      af += pf[part * outs + o];
-      as += ps[part * outs + o];
+    float mxf = kNeg, mxs = kNeg;
+    for (int w = 0; w < nw; ++w) {
+      const float* st = reinterpret_cast<const float*>(tile + w * kChunkRows * kFullRow);
+      mxf = fmaxf(mxf, st[2 * outs + g]);
+      mxs = fmaxf(mxs, st[2 * outs + 2 * G + g]);
     }
-    const size_t gi = ((size_t)bh * G + g) * 3;
-    const float gc = __bfloat162float(gates[gi]);
-    const float gf = __bfloat162float(gates[gi + 1]);
-    const float gs = __bfloat162float(gates[gi + 2]);
-    const float c = __bfloat162float(c_out[(size_t)bh * outs + o]);
-    comb[o] = gc * c + gf * (af * inv_f[g]) + gs * (as * inv_s[g]);
+    float lf_ = 0.f, af_ = 0.f, ls_ = 0.f, as_ = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      const float* st = reinterpret_cast<const float*>(tile + w * kChunkRows * kFullRow);
+      const float a = expf(st[2 * outs + g] - mxf), b = expf(st[2 * outs + 2 * G + g] - mxs);
+      lf_ += st[2 * outs + G + g] * a;
+      af_ += st[o] * a;
+      ls_ += st[2 * outs + 3 * G + g] * b;
+      as_ += st[outs + o] * b;
+    }
+    const float* gt = cg + outs + 3 * g;
+    qs[o] = gt[0] * cg[o] + gt[1] * (af_ * (1.f / fmaxf(lf_, 1e-30f))) +
+            gt[2] * (as_ * (1.f / fmaxf(ls_, 1e-30f)));
   }
   __syncthreads();
-  return comb;
+  return qs;
 }
 
 }  // namespace

@@ -8,56 +8,76 @@
 // What bounds them on this card: bytes.  A decode step does a few FLOPs per
 // byte of cache it reads, far below the H100's ~295 bf16 FLOP/byte ridge.
 //   select reads the live compressed cache, num_cb rows of packed k||v
-//     (256 B each at d = 64): ~32 MB per layer at bs 64 / 4 KV heads /
-//     num_cb 487-500, about 10 us at 3.35 TB/s.
-//   attend reads the (S + n_slide) * Bs = 144 gathered rows: ~9.4 MB per
-//     layer, about 2.8 us.
-// What the design does about it: one thread block per (batch row, KV head)
-// reads its rows once and keeps every intermediate (logits, probabilities,
-// scores, the top-k state) in shared memory; only c_out, the packed info row
-// and the combined output go back.  The rows are staged into shared memory
-// with 16-byte cp.async copies issued by all threads at once (up to 512 rows
-// per tile), so the block has its whole read in flight instead of one
-// dependent load per row; the dot products, softmaxes and weighted sums then
-// run out of shared memory (rows padded by 16 bytes so a quarter-warp's
-// 16-byte reads hit distinct banks).  select reads only the num_cb live rows,
-// its k halves for the logits and then its v halves for c_out; attend stages
-// only the rows that one of its two masks keeps.  The top-k is one warp's
-// work and stays serial; no tensor cores (two query heads per KV head is too
-// narrow a product for them).  The block bodies live in decode_common.cuh,
-// shared with the fused route's kernels (nsa_decode_fused.cu).
+//     (256 B each at d = 64): ~32.7 MB per layer at bs 64 / 4 KV heads /
+//     num_cb 499, about 9.8 us at 3.35 TB/s.
+//   attend reads the rows its two masks keep of the (S + n_slide) * Bs =
+//     144 gathered rows: ~8.6 MB per layer, about 2.6 us.
+// What the design does about it: one block of 256 threads per (batch row,
+// KV head), 256 blocks at bs 64, two on an SM; each is the split softmax of
+// flash decoding inside the block (the bodies in decode_common.cuh, shared
+// with the fused, ragged and whole-model kernels).  select streams each live
+// row once, as its whole 256-byte packed row: the rows go to the warps in
+// chunks of 16, and each warp keeps two chunks of cp.async copies in flight
+// in its own 3-slot ring (110 KB of shared memory a block, so that two
+// blocks share an SM) while it takes a chunk's logits (one lane per row and
+// head, in dot_heads's float32 order, kept for the importance), folds them
+// with the chunk's v halves into its running c_out (max, sum and weighted v
+// in registers, shuffles only) and pools the chunk's fine blocks.  After one
+// barrier warp 0 takes the score softmax and the top-k (a warp max a
+// selected id; only the lane that gave it looks again) while the other
+// warps merge their running sums into c_out.  attend is launched as a
+// programmatic dependent of select (cudaLaunchKernelEx with programmatic
+// stream serialization; select lets it start at once), so its launch and
+// its queries' and gates' loads overlap select's end; it waits for select
+// (griddepcontrol.wait), reads the info row and c_out, and each warp copies
+// the kept rows of its own 16-column tiles at once; per tile one lane per
+// (column, head) takes the logit, both masked softmaxes fold into the
+// warp's running sums, and one merge across the warps gives the combined
+// output.  No tensor cores: two query heads per KV head is too narrow a
+// product for them.
 #include "decode_common.cuh"
 
 namespace nsa {
 namespace {
 
-template <int G>
-__global__ void select_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ckv,
-                              const bf16* __restrict__ mem_kv, bf16* __restrict__ c_out,
-                              int* __restrict__ info, int kvh, int Wc, int M, int t,
-                              int num_cb, int stride, int sel_block, int num_sel,
-                              int n_slide, int max_blocks, int info_width, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  select_body<G>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb, stride, sel_block,
-                 num_sel, n_slide, max_blocks, info_width, scale, blockIdx.x, smem_raw);
-}
+constexpr int kThreads = 32 * kBodyWarps;
+constexpr int kSelectDepth = 3;    // ring slots a warp: two blocks an SM at bs 64
 
 template <int G>
-__global__ void attend_kernel(const bf16* __restrict__ rq, const bf16* __restrict__ kv,
-                              const int* __restrict__ info, const bf16* __restrict__ c_out,
-                              const bf16* __restrict__ gates, bf16* __restrict__ out,
-                              int max_len, int t, int sel_block, int window, int num_sel,
-                              int n_slide, int info_width, float scale) {
+__global__ void __launch_bounds__(kThreads)
+    select_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ckv,
+                  const bf16* __restrict__ mem_kv, bf16* __restrict__ c_out,
+                  int* __restrict__ info, int kvh, int Wc, int M, int t, int num_cb, int stride,
+                  int sel_block, int num_sel, int n_slide, int max_blocks, int info_width,
+                  float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  allow_dependent_launch();        // the attend kernel's prologue needs nothing of this one
+  select_body<G, kSelectDepth, bf16>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb, stride,
+                                     sel_block, num_sel, n_slide, max_blocks, info_width, scale,
+                                     blockIdx.x, smem_raw);
+}
+
+// info and c_out, written by the kernel it may overlap, carry no __restrict__.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+    attend_kernel(const bf16* __restrict__ rq, const bf16* __restrict__ kv, const int* info,
+                  const bf16* c_out, const bf16* __restrict__ gates, bf16* __restrict__ out,
+                  int max_len, int t, int sel_block, int window, int num_sel, int n_slide,
+                  int info_width, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int bh = blockIdx.x;
-  const float* comb = attend_body<G>(rq, DenseRows{const_cast<bf16*>(kv), max_len}, info, c_out,
-                                     gates, nullptr, t, sel_block, window, num_sel, n_slide,
-                                     info_width, scale, bh, smem_raw);
+  const float* comb = attend_body<G, true>(rq, DenseRows{const_cast<bf16*>(kv), max_len}, info,
+                                           c_out, gates, nullptr, t, sel_block, window, num_sel,
+                                           n_slide, info_width, scale, bh, smem_raw);
   for (int o = threadIdx.x; o < G * kD; o += blockDim.x)
     out[(size_t)bh * G * kD + o] = __float2bfloat16(comb[o]);
 }
 
-constexpr int kThreads = 256;
+// Lets `kern` take `shmem` bytes of dynamic shared memory.
+cudaError_t allow_smem(const void* kern, size_t shmem) {
+  if (shmem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+}
 
 template <int G>
 cudaError_t launch_select(const void* q, const void* ckv, const void* mem_kv, void* c_out,
@@ -65,37 +85,64 @@ cudaError_t launch_select(const void* q, const void* ckv, const void* mem_kv, vo
                           int stride, int sel_block, int num_sel, int n_slide, int max_blocks,
                           int info_width, float scale, cudaStream_t stream) {
   const int Wf = Wc / (sel_block / stride);
-  const size_t shmem = select_smem_bytes<G>(Wc, M, Wf, kThreads);
+  const size_t shmem = select_smem_bytes<G, kSelectDepth, bf16>(Wc, M, Wf);
   auto kern = select_kernel<G>;
-  if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)shmem);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = allow_smem((const void*)kern, shmem);
+  if (e != cudaSuccess) return e;
   kern<<<bkvh, kThreads, shmem, stream>>>(
       (const bf16*)q, (const bf16*)ckv, (const bf16*)mem_kv, (bf16*)c_out, (int*)info, kvh,
       Wc, M, t, num_cb, stride, sel_block, num_sel, n_slide, max_blocks, info_width, scale);
   return cudaGetLastError();
 }
 
+// attend as a programmatic dependent of the kernel before it on the stream
+// (select, on the decode step): its blocks may start while that kernel runs.
 template <int G>
 cudaError_t launch_attend(const void* rq, const void* kv, const void* info, const void* c_out,
                           const void* gates, void* out, int bkvh, int max_len, int t,
                           int sel_block, int window, int num_sel, int n_slide, int info_width,
                           float scale, cudaStream_t stream) {
   const int J = (num_sel + n_slide) * sel_block;
-  const size_t shmem = attend_smem_bytes<G>(J, kThreads);
+  const size_t shmem = attend_smem_bytes<G>(J);
   auto kern = attend_kernel<G>;
-  if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)shmem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<bkvh, kThreads, shmem, stream>>>(
-      (const bf16*)rq, (const bf16*)kv, (const int*)info, (const bf16*)c_out,
-      (const bf16*)gates, (bf16*)out, max_len, t, sel_block, window, num_sel, n_slide,
-      info_width, scale);
-  return cudaGetLastError();
+  const cudaError_t e = allow_smem((const void*)kern, shmem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bkvh);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = shmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, (const bf16*)rq, (const bf16*)kv, (const int*)info,
+                            (const bf16*)c_out, (const bf16*)gates, (bf16*)out, max_len, t,
+                            sel_block, window, num_sel, n_slide, info_width, scale);
+}
+
+// The two kernels' shared memory a block and blocks an SM, and the card's
+// opt-in limit a block, into out[5].
+template <int G>
+cudaError_t split_plan(int Wc, int M, int Wf, int J, int* out) {
+  const size_t ss = select_smem_bytes<G, kSelectDepth, bf16>(Wc, M, Wf);
+  const size_t as = attend_smem_bytes<G>(J);
+  cudaError_t e;
+  int dev;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&out[4], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess ||
+      (e = allow_smem((const void*)select_kernel<G>, ss)) != cudaSuccess ||
+      (e = allow_smem((const void*)attend_kernel<G>, as)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], select_kernel<G>, kThreads,
+                                                         ss)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], attend_kernel<G>, kThreads,
+                                                         as)) != cudaSuccess)
+    return e;
+  out[0] = (int)ss;
+  out[2] = (int)as;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -146,5 +193,21 @@ extern "C" int nsa_decode_attend(const void* rq, const void* kv, const void* inf
     case 8: NSA_ATTEND(8);
   }
 #undef NSA_ATTEND
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch geometry of both kernels at G heads a KV head, ckv width Wc, M
+// mem slots, Wf fine blocks and J attended columns, written to out[5]:
+// select's shared memory a block, its blocks an SM, attend's two, and the
+// card's opt-in shared memory a block.  Returns the first failing call's
+// cudaError_t.
+extern "C" int nsa_decode_split_plan(int G, int Wc, int M, int Wf, int J, void* out) {
+  int* o = (int*)out;
+  switch (G) {
+    case 1: return (int)nsa::split_plan<1>(Wc, M, Wf, J, o);
+    case 2: return (int)nsa::split_plan<2>(Wc, M, Wf, J, o);
+    case 4: return (int)nsa::split_plan<4>(Wc, M, Wf, J, o);
+    case 8: return (int)nsa::split_plan<8>(Wc, M, Wf, J, o);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -10,13 +10,18 @@ step before it) and the whole-model kernel (row 12) at bs 8, the fused
 pair again at bs 1, the engine's ragged select-emit, ragged attend and
 paged attend (rows 8-10) at 16 slots of 4096 rows at mixed positions, the
 split pair (rows 2-3) at bs 64 and the block gather (row 11) at 16 slots.
-For each it prints the event-timed median (L2 flushed before each call),
+For each it prints the event-timed median (L2 flushed before each call by
+zeroing a 256 MB buffer: the call pays the write-back of the dirty lines it
+evicts),
 the device time of every launch the call makes with the gaps between them
 (``torch.profiler``, one profile a call, medians over the calls), the host
 time of the call, and a SHA-256 of the outputs and the caches it writes,
 so that two trees run on one card compare bit for bit.  Beside them, for
 each kernel launch of every case, the grid, block, registers per thread
-and shared memory that the profiler's trace records; the one-launch
+and shared memory that the profiler's trace records; for rows 2 and 3
+their grid, blocks that fit an SM, shared memory and ptxas registers and
+spills (``split_geometry``, where the port has ``nsa_decode.split_plan``
+and built its kernels in this process); the one-launch
 attend kernels' time by phase (their ``phase_ns`` marks, median of 5
 launches, where the wrapper takes them); the whole-model kernel's time by
 phase and by layer (median of 5 launches, an emission step and the step
@@ -126,6 +131,62 @@ def launch_args(fn) -> list:
     kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
     return [{"name": e["name"][:60], **{k: e.get("args", {}).get(k) for k in LAUNCH_KEYS}}
             for e in kernels]
+
+
+def ptxas_usage(log, kernel, *also):
+    """(registers, spill store bytes, spill load bytes) that ptxas reports
+    for the first entry function whose name holds ``kernel`` and each of
+    ``also``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line \
+                and all(a in line for a in also):
+            regs = spill = None
+            for nxt in lines[i + 1:i + 6]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "spill stores" in nxt:
+                    words = nxt.replace(",", "").split()
+                    spill = (int(words[words.index("spill") - 2]), int(words[-4]))
+                if "Used" in nxt and "registers" in nxt:
+                    words = nxt.replace(",", "").split()
+                    regs = int(words[words.index("registers") - 1])
+            return regs, spill
+    return None, None
+
+
+def split_geometry(log: str, device="cuda") -> dict:
+    """Rows 2 and 3's launch geometry at the split cell: each kernel's grid,
+    blocks that fit an SM, shared memory a block (``nsa_decode.split_plan``)
+    and the registers and spills ptxas reported in this process's build
+    (``log``; None where the library was loaded, not built); empty where the
+    port has no ``split_plan``."""
+    from .config import reference_model_config
+    from .ops.cuda import nsa_decode
+    from .ops.nsa import _ckv_width
+
+    if not hasattr(nsa_decode, "split_plan"):
+        return {}
+    cfg = reference_model_config()
+    nsa = cfg.nsa
+    kvh, g, d = cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head
+    stride, Bs = nsa.compress_block_sliding_stride, nsa.selection_block_size
+    Wc = _ckv_width(MAX_LEN, stride, nsa.num_compress_per_fine)
+    q = torch.empty((SPLIT_B, kvh, g, d), dtype=torch.bfloat16, device=device)
+    ckv = torch.empty((1, kvh, Wc, 2 * d), dtype=torch.bfloat16, device=device)
+    mem = torch.empty((2, kvh, nsa.num_compressed_mem_kv, d), dtype=torch.bfloat16, device=device)
+    plan = nsa_decode.split_plan(q, ckv, mem, stride=stride, sel_block=Bs,
+                                 num_sel=nsa.num_selected_blocks,
+                                 n_slide=-(-nsa.sliding_window_size // Bs) + 1)
+    out = {}
+    for name, kern in (("decode_select", f"select_kernelILi{g}E"),
+                       ("decode_attend", f"attend_kernelILi{g}E")):
+        short = name.split("_")[1]
+        regs, spill = ptxas_usage(log, kern, "nsa_decode_cu")
+        out[name] = {"grid": plan["grid"], "blocks_per_sm": plan[f"{short}_blocks_per_sm"],
+                     "smem_bytes": plan[f"{short}_smem_bytes"], "smem_optin": plan["smem_optin"],
+                     "registers": regs, "spill_bytes": spill}
+    return out
 
 
 ATTEND_PHASES = ("attention", "w_out + residual", "norm + ff w1", "ff w2")
@@ -447,6 +508,7 @@ def main(argv=None):
         flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
         res = {"root": root, "device": torch.cuda.get_device_name(0),
                "build_s": lib.build_seconds, "kernels": {}}
+        geometry = split_geometry(lib.log)
         for name, (setup, run) in cases(params, cfg).items():
             bits = digest(*run(setup()))          # also the warm-up
             state = setup()
@@ -463,6 +525,10 @@ def main(argv=None):
                   + f"; gaps {[round(x, 4) for x in r['gaps_ms']]}; bits {bits}", flush=True)
             for x in r["launch_args"]:
                 print("  launch " + ", ".join(f"{k} {x[k]}" for k in ("name", *LAUNCH_KEYS)),
+                      flush=True)
+            if name in geometry:
+                r["geometry"] = geometry[name]
+                print("  geometry " + ", ".join(f"{k} {v}" for k, v in geometry[name].items()),
                       flush=True)
             if r.get("phase_us"):
                 print(f"  us per phase (the card's global timer, median of 5): "

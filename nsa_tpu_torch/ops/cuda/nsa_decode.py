@@ -23,6 +23,8 @@ position per row, for the ragged decode kernels' plain versions
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -260,7 +262,12 @@ def decode_attend(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
     """rq [b, kvh, g, d] rotated queries; kv [b, kvh, max_len, 2d] packed
     k||v cache holding the row at position t; info [b, kvh, INFO_WIDTH]
     from ``decode_select``; c_out [b, kvh, g, d]; gates [b, kvh, g, 3]
-    (compressed, fine, sliding).  Returns the combined output [b, kvh, g, d]."""
+    (compressed, fine, sliding).  Returns the combined output [b, kvh, g, d].
+    The kernel is launched as a programmatic dependent of the kernel before
+    it on the stream (``decode_select`` on the decode step): it may read rq
+    and gates while that kernel still runs, and everything else only after
+    it ends, so rq and gates must have been written before that kernel
+    began."""
     kw = dict(sel_block=sel_block, window=window, num_sel=num_sel,
               n_slide=n_slide, scale=scale)
     if runtime.on_cpu(rq, kv, info, c_out, gates):
@@ -291,3 +298,27 @@ def decode_attend(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
 
 
 decode_attend.launches = 0
+
+SPLIT_PLAN_KEYS = ("select_smem_bytes", "select_blocks_per_sm", "attend_smem_bytes",
+                   "attend_blocks_per_sm", "smem_optin")
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan(device: int, g: int, Wc: int, M: int, Wf: int, J: int) -> dict:
+    out = (ctypes.c_int * len(SPLIT_PLAN_KEYS))()
+    with torch.cuda.device(device):
+        runtime.library().call("nsa_decode_split_plan", g, Wc, M, Wf, J, ctypes.addressof(out))
+    return dict(zip(SPLIT_PLAN_KEYS, out))
+
+
+def split_plan(q, ckv, mem_kv, *, stride: int, sel_block: int, num_sel: int,
+               n_slide: int) -> dict:
+    """The launch geometry of ``decode_select`` and ``decode_attend`` on
+    q's card at these operands' widths: each kernel's dynamic shared memory
+    a block and blocks that fit an SM, the card's opt-in limit a block, and
+    the grid (one block per (batch row, KV head))."""
+    b, kvh, g, _ = q.shape
+    Wc = ckv.shape[2]
+    plan = _split_plan(q.device.index or 0, g, Wc, mem_kv.shape[2], Wc // (sel_block // stride),
+                       (num_sel + n_slide) * sel_block)
+    return {"grid": b * kvh, **plan}

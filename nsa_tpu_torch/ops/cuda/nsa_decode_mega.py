@@ -151,21 +151,21 @@ QKVG, WOUT, FW1, FW2, HEAD = range(5)
 PLACEMENT = (FW2, WOUT, HEAD, QKVG, FW1)
 PLAN_KEYS = ("grid", "blocks_per_sm", "slice_bytes", "slice_total", "work_bytes",
              "smem_bytes", "smem_optin")
-_THREADS, _WARPS, _SEL_TILE, _HALF_ROW, _FULL_ROW = 256, 8, 512, 72, 136
+# the bodies' warps, rows of a selection chunk or an attention tile, the
+# staged row's stride in bf16, and the whole-model kernel's ring slots a warp
+_WARPS, _CHUNK_ROWS, _FULL_ROW, _SEL_DEPTH = 8, 16, 136, 3
 
 
 def _select_smem(g: int, Wc: int, M: int, Wf: int, d: int = 64) -> int:
-    """select_body's shared memory (csrc/decode_common.cuh)."""
-    outs = g * d
-    parts = max(1, _THREADS // outs)
-    return 2 * _SEL_TILE * _HALF_ROW + 4 * (g * Wc + g * M + Wf + g * d + parts * outs + 32)
+    """select_body's shared memory in the whole-model kernel, float32 mem
+    slots (select_smem_bytes, csrc/decode_common.cuh)."""
+    return (2 * _WARPS * _SEL_DEPTH * _CHUNK_ROWS * _FULL_ROW + 4 * 2 * M * d
+            + 4 * (g * d + g * Wc + Wf))
 
 
 def _attend_smem(g: int, J: int, d: int = 64) -> int:
-    """attend_body's shared memory (csrc/decode_common.cuh)."""
-    outs = g * d
-    parts = max(1, _THREADS // outs)
-    return 2 * J * _FULL_ROW + 4 * (2 * g * J + g * d + 2 * parts * outs + 32) + 4 * 2 * J
+    """attend_body's shared memory (attend_smem_bytes, csrc/decode_common.cuh)."""
+    return 2 * -(-J // _CHUNK_ROWS) * _CHUNK_ROWS * _FULL_ROW + 4 * (2 * g * d + 3 * g) + 4 * 128
 
 
 def mega_plan(*, kvh: int, g: int, dim: int, hid4: int, vocab: int, Wc: int, M: int, Bc: int,

@@ -243,6 +243,36 @@ def attend_tolerance(rq, kv, info, c_out, gates, t, *, sel_block: int, window: i
     return plain, 2.0 ** -7 * plain.float().abs() + 2.0 ** -15 * mag
 
 
+def select_tolerance(q, ckv, mem_kv, t, num_cb, *, stride: int, sel_block: int, scale: float):
+    """The rule that holds the select kernels' compressed output (c_out) to
+    the plain version's, element by element: returns (the plain c_out with
+    float32 softmax weights, rounded to q's dtype as the kernels round it,
+    the bound).  2^-7 of |plain| for the two bf16 roundings, plus 2^-15 of
+    the same softmax's weighted sum over |v| (mem slots included) for the
+    float32 sums of up to num_cb + M terms in another order (512 x 2^-24 =
+    2^-15 of it at the reference model's 499 rows); each term twice its
+    source.  A c_out whose weights were rounded to bf16 (the XLA path's
+    ``decode_select_plain``) departs by up to 2^-9 of that sum and breaks it."""
+    d = q.shape[-1]
+    kw = dict(stride=stride, sel_block=sel_block, scale=scale, weights_dtype=torch.float32)
+    plain, _ = nsa_decode.select_scores_plain(q, ckv, mem_kv, num_cb, t, **kw)
+    abs_ckv = torch.cat([ckv[..., :d], ckv[..., d:].abs()], dim=-1)
+    abs_mem = torch.stack([mem_kv[0], mem_kv[1].abs()])
+    mag, _ = nsa_decode.select_scores_plain(q.float(), abs_ckv, abs_mem, num_cb, t, **kw)
+    return plain, 2.0 ** -7 * plain.float().abs() + 2.0 ** -15 * mag
+
+
+def without_live_chunk(ckv, num_cb: int, chunk: int = 0, rows: int = 64):
+    """(ckv [b, kvh, Wc, 2d] with the live rows [chunk * rows, (chunk + 1) *
+    rows) moved past the live ones, the live count that leaves): c_out over
+    them is the c_out of a kernel that left that chunk out.  The control
+    ``select_tolerance`` must fail."""
+    lo, hi = chunk * rows, min((chunk + 1) * rows, num_cb)
+    moved = torch.cat([ckv[:, :, :lo], ckv[:, :, hi:num_cb], ckv[:, :, lo:hi],
+                       ckv[:, :, num_cb:]], dim=2)
+    return moved, num_cb - (hi - lo)
+
+
 PLAN_KEYS = ("grid", "blocks_per_sm", "slice_bytes", "slice_total", "work_bytes",
              "smem_bytes", "smem_optin")
 

@@ -44,6 +44,8 @@ SIGNATURES = {
     "nsa_prefill_bwd_dkv_workspace": [_i] * 6 + [_p],
     "nsa_decode_select": [_p] * 5 + [_i] * 13 + [_f, _p],
     "nsa_decode_attend": [_p] * 6 + [_i] * 10 + [_f, _p],
+    # the two kernels' launch geometry, written to an int array (see the source)
+    "nsa_decode_split_plan": [_i] * 5 + [_p],
     "nsa_decode_select_emit": [_p] * 15 + [_i] * 16 + [_f, _p],
     "nsa_decode_attend_fused": [_p] * 18 + [_i] * 12 + [_f, _f, _p],
     "nsa_decode_select_emit_ragged": [_p] * 17 + [_i] * 13 + [_f, _p],

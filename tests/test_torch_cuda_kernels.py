@@ -35,7 +35,11 @@ the block gather is a copy.  The attend kernels' rounded attention output
 is held element by element (``nsa_decode_ragged.attend_tolerance``: 2^-7
 of |plain| for its two bf16 roundings plus 2^-15 of the same combine over
 absolute values for float32 sums in another order), with a control that
-leaves each row's first selected block out and must fail.  The flash
+leaves each row's first selected block out and must fail; the split
+route's select kernel's c_out is held the same way
+(``nsa_decode_ragged.select_tolerance``: 2^-7 of |plain| plus 2^-15 of the
+same softmax's sum over |v|), with a control that leaves the first 64
+live rows out.  The flash
 attention kernel rounds its softmax weights to bf16 for the P.V product,
 where its plain version keeps them float32, and both round the output
 once: element by element, 2^-7 of the plain output plus 2^-8 of the same
@@ -267,19 +271,38 @@ def test_decode_kernels_match_plain(gen, t):
     q, ckv, mem_kv = randn(gen, b, kvh, g, d), randn(gen, b, kvh, Wc, 2 * d), randn(gen, 2, kvh, M, d)
     kw = dict(max_blocks=max_len // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
               n_slide=n_slide, scale=0.125)
-    c_k, info_k = nsa_decode.decode_select(q, ckv, mem_kv, t, t // stride, **kw)
-    c_p, info_p = nsa_decode.decode_select_plain(q, ckv, mem_kv, t, t // stride, **kw)
+    num_cb = t // stride
+    c_k, info_k = nsa_decode.decode_select(q, ckv, mem_kv, t, num_cb, **kw)
+    c_2, info_2 = nsa_decode.decode_select(q, ckv, mem_kv, t, num_cb, **kw)
+    c_p, info_p = nsa_decode.decode_select_plain(q, ckv, mem_kv, t, num_cb, **kw)
+    skw = dict(stride=stride, sel_block=Bs, scale=0.125)
+    want, tol = nsa_decode_ragged.select_tolerance(q, ckv, mem_kv, t, num_cb, **skw)
+    moved, live = nsa_decode_ragged.without_live_chunk(ckv, num_cb)
+    wrong, _ = nsa_decode.select_scores_plain(q, moved, mem_kv, live, t,
+                                              weights_dtype=torch.float32, **skw)
     torch.cuda.synchronize()
     assert max_err(c_k, c_p) <= TOL_OUT
     assert torch.equal(info_k, info_p)   # random scores: no ties
+    assert ((c_k.float() - want.float()).abs() <= tol).all()
+    if num_cb:                           # the control: the first 64 live rows left out
+        assert ((wrong.float() - want.float()).abs() > tol).any()
+    assert torch.equal(c_2, c_k) and torch.equal(info_2, info_k)
 
     rq, kv = randn(gen, b, kvh, g, d), randn(gen, b, kvh, max_len, 2 * d)
     gates = torch.rand((b, kvh, g, 3), generator=gen, device="cuda").to(torch.bfloat16)
     akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=0.125)
     out_k = nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, t, **akw)
+    out_2 = nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, t, **akw)
     out_p = nsa_decode.decode_attend_plain(rq, kv, info_p, c_p, gates, t, **akw)
+    want, tol = nsa_decode_ragged.attend_tolerance(rq, kv, info_p, c_p, gates, t, **akw)
+    dropped = nsa_decode_ragged.without_first_selected(info_p, num_sel, n_slide)
+    wrong, _ = nsa_decode_ragged.attend_tolerance(rq, kv, dropped, c_p, gates, t, **akw)
     torch.cuda.synchronize()
     assert max_err(out_k, out_p) <= TOL_OUT
+    assert ((out_k.float() - want.float()).abs() <= tol).all()
+    if info_p[..., num_sel + n_slide:2 * num_sel + n_slide].any():   # the control
+        assert ((wrong.float() - want.float()).abs() > tol).any()
+    assert torch.equal(out_2, out_k)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
