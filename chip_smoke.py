@@ -1657,21 +1657,12 @@ def kernel_decode(gen, flush, cfg, log):
     ratio = ((c_k.float() - want.float()).abs() / tol).max().item()
     ratio_ctl = ((wrong.float() - want.float()).abs() / tol).max().item()
     same2 = torch.equal(c_2, c_k) and torch.equal(info_2, info_k)
-    plan = nsa_decode.split_plan(q, ckv, mem_kv, stride=stride, sel_block=Bs, num_sel=num_sel,
-                                 n_slide=n_slide)
-    geometry = {}
-    for name, kern in (("decode_select", f"select_kernelILi{g}E"),
-                       ("decode_attend", f"attend_kernelILi{g}E")):
-        regs, spill = kernel_times.ptxas_usage(log, kern, "nsa_decode_cu")
-        short = name.split("_")[1]
-        geometry[name] = {"grid": plan["grid"], "block": 256,
-                          "blocks_per_sm": plan[f"{short}_blocks_per_sm"],
-                          "smem_bytes": plan[f"{short}_smem_bytes"], "registers": regs,
-                          "spill_bytes": spill}
-        print(f"  {name} launch: grid {plan['grid']} of 256 threads, "
-              f"{geometry[name]['blocks_per_sm']} block(s) fit an SM, shared memory "
-              f"{geometry[name]['smem_bytes']} B a block (card limit {plan['smem_optin']}); "
-              f"ptxas: {regs} registers, spills (stores, loads) {spill}", flush=True)
+    geometry = kernel_times.split_geometry(log)
+    for name, x in geometry.items():
+        print(f"  {name} launch: grid {x['grid']} of 256 threads, {x['blocks_per_sm']} block(s) "
+              f"fit an SM, shared memory {x['smem_bytes']} B a block (card limit "
+              f"{x['smem_optin']}); ptxas: {x['registers']} registers, spills (stores, loads) "
+              f"{x['spill_bytes']}", flush=True)
     print(f"  decode_select max|err| c_out {err_c:.5f} (tol {TOL_OUT}); worst |err| / "
           f"select_tolerance {ratio:.4f} (<= 1), the dropped-chunk control {ratio_ctl:.1f} (> 1); "
           f"ids equal on {b * kvh - ties}/{b * kvh} rows, {ties} rows differ only by ties within "
@@ -2620,7 +2611,8 @@ def main():
 
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
-        kernels = [*kernel_prefill(gen, flush, cfg, params), *kernel_decode(gen, flush, cfg, lib.log),
+        kernels = [*kernel_prefill(gen, flush, cfg, params),
+                   *kernel_decode(gen, flush, cfg, lib.log),
                    *kernel_prefill_bwd(gen, flush, cfg, params, lib.log),
                    *kernel_decode_fused(gen, flush, cfg, params, SMALL_BATCHES[0], lib.log),
                    kernel_decode_mega(gen, flush, cfg, fuse_decode_params(params, cfg),

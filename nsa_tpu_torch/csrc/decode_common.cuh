@@ -30,21 +30,8 @@ constexpr int kPad = 8;                 // bf16 padding of a staged row
 constexpr int kFullRow = 2 * kD + kPad; // staged packed-row stride (272 B)
 constexpr int kBodyWarps = 8;           // the bodies run in blocks of 256 threads
 constexpr int kChunkRows = 16;          // rows of a selection chunk, columns of an attention tile
+constexpr int kSelDepth = 2;            // ring slots a warp: one chunk in flight while one is used
 constexpr int kPipe = 8;                // loads kept in flight by norm_rows (decode_tc_common.cuh)
-
-// Programmatic dependent launch: a kernel launched with programmatic stream
-// serialization may start while the kernel before it runs; it waits here
-// until that kernel has finished and its writes are visible.  A no-op in a
-// kernel launched without the attribute.
-__device__ __forceinline__ void wait_for_prior_grid() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-// Let the next kernel on the stream, if launched with programmatic stream
-// serialization, start its blocks before this one ends.
-__device__ __forceinline__ void allow_dependent_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
 
 // q.k of one row of kD values: bf16 as dot_heads takes it (the same float32
 // order), or float32 (the whole-model kernel's mem slots).
@@ -130,9 +117,9 @@ __device__ __forceinline__ unsigned ordered(float x) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <int G, int kDepth, typename MemT>
+template <int G, typename MemT>
 size_t select_smem_bytes(int Wc, int M, int Wf) {
-  return sizeof(bf16) * kBodyWarps * kDepth * kChunkRows * kFullRow +
+  return sizeof(bf16) * kBodyWarps * kSelDepth * kChunkRows * kFullRow +
          sizeof(MemT) * 2 * M * kD + sizeof(float) * (G * kD + G * Wc + Wf);
 }
 
@@ -147,8 +134,8 @@ size_t select_smem_bytes(int Wc, int M, int Wf) {
 //
 // The live rows, as chunks of kChunkRows whole packed rows (k || v, 256 B),
 // are dealt to the warps in turn (chunk c to warp c % kBodyWarps); each
-// warp streams its chunks through its own ring of kDepth slots, kDepth - 1
-// chunks in flight while it computes one, and reads every live row once.
+// warp streams its chunks through its own ring of kSelDepth slots, kSelDepth
+// - 1 chunks in flight while it computes one, and reads every live row once.
 // A chunk's logits are one lane per (row, head), dot_heads's float32
 // order, kept in shared memory; softmax_fold folds them and the chunk's v
 // halves into the warp's running c_out, and the warp pools the importance
@@ -158,23 +145,23 @@ size_t select_smem_bytes(int Wc, int M, int Wf) {
 // keeps the best of its own blocks; a warp max picks the next id, and only
 // the lane that gave it looks again), while the other warps merge the
 // warps' running sums into c_out.  Dynamic shared memory:
-// select_smem_bytes<G, kDepth, MemT>.
-template <int G, int kDepth, typename MemT>
+// select_smem_bytes<G, MemT>.
+template <int G, typename MemT>
 __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restrict__ mem_kv,
                             bf16* c_out, int* info, int kvh, int Wc, int M, int t, int num_cb,
                             int stride, int sel_block, int num_sel, int n_slide,
                             int max_blocks, int info_width, float scale, int bh,
                             unsigned char* smem_raw) {
-  static_assert(kDepth >= 2, "a ring of one slot has nothing in flight");
+  static_assert(kSelDepth >= 2, "a ring of one slot has nothing in flight");
   static_assert(sizeof(float) * (G * kD + 2 * G + 1) <=
-                    sizeof(bf16) * kDepth * kChunkRows * kFullRow,
+                    sizeof(bf16) * kSelDepth * kChunkRows * kFullRow,
                 "a warp's running sums fit in its ring");
   constexpr int NP = (kChunkRows * G + 31) / 32;
   constexpr int kSlot = kChunkRows * kFullRow;
   const int npf = sel_block / stride;
   const int Wf = Wc / npf;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);         // [warps][kDepth][kChunkRows][kFullRow]
-  MemT* mem = reinterpret_cast<MemT*>(ring + kBodyWarps * kDepth * kSlot);  // [2][M][kD]
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [warps][kSelDepth][kChunkRows][kFullRow]
+  MemT* mem = reinterpret_cast<MemT*>(ring + kBodyWarps * kSelDepth * kSlot);  // [2][M][kD]
   float* qs = reinterpret_cast<float*>(mem + 2 * M * kD);  // [G][kD]
   float* sim = qs + G * kD;                                 // [G][Wc] logits
   float* fsc = sim + G * Wc;                                // [Wf] fine-block scores
@@ -185,7 +172,10 @@ __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restri
   const int n_live = min(num_cb, Wc);
   const int nchunks = (n_live + kChunkRows - 1) / kChunkRows;
   const int mine = nchunks > warp ? (nchunks - warp + kBodyWarps - 1) / kBodyWarps : 0;
-  bf16* my_ring = ring + warp * kDepth * kSlot;
+  bf16* my_ring = ring + warp * kSelDepth * kSlot;
+  // warp w's running sums after the stream, in its ring: [G][kD] weighted
+  // v, [G] max, [G] sum of p, the largest importance it pooled
+  auto state = [&](int w) { return reinterpret_cast<float*>(ring + w * kSelDepth * kSlot); };
   const int diag = t / sel_block;
   // the fine blocks the chunks pool as they stream (a chunk holds whole
   // blocks); warp 0 pools the rest after them
@@ -207,11 +197,11 @@ __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restri
     pmax = fmaxf(pmax, fsc[f]);
   };
 
-  // the warp's i-th chunk into slot i % kDepth, one copy group (empty past the end)
-  auto issue = [&](int i) {
+  // the warp's i-th chunk into slot i % kSelDepth, one copy group (empty past the end)
+  auto fetch = [&](int i) {
     if (i < mine) {
       const int r0 = (warp + kBodyWarps * i) * kChunkRows;
-      bf16* dst = my_ring + (i % kDepth) * kSlot;
+      bf16* dst = my_ring + (i % kSelDepth) * kSlot;
       for (int j = lane; j < kChunkRows * 16; j += 32) {    // 16 16-byte pieces a row
         const int r = j >> 4, piece = j & 15;
         if (r0 + r < n_live)
@@ -237,7 +227,7 @@ __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restri
                  mem_kv + (size_t)(half * kvh + h) * M * kD + i * kVec);
     }
   }
-  for (int i = 0; i < kDepth - 1; ++i) issue(i);
+  for (int i = 0; i < kSelDepth - 1; ++i) fetch(i);
 #pragma unroll
   for (int k = 0; k < (G * kD + 255) / 256; ++k)
     if (tid + 256 * k < G * kD) qs[tid + 256 * k] = qv[k];
@@ -254,7 +244,7 @@ __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restri
     acc[g][0] = acc[g][1] = 0.f;
   }
   if (warp == 0 && M > 0) {
-    cp_async_wait<kDepth - 2>();                 // the first group: chunk 0 and the mem rows
+    cp_async_wait<kSelDepth - 2>();              // the first group: chunk 0 and the mem rows
     __syncwarp();
     const MemT* memk = mem;
     const MemT* memv = mem + M * kD;
@@ -274,10 +264,10 @@ __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restri
   }
   for (int i = 0; i < mine; ++i) {
     __syncwarp();                                // every lane is done with the slot refilled
-    issue(i + kDepth - 1);
-    cp_async_wait<kDepth - 1>();
+    fetch(i + kSelDepth - 1);
+    cp_async_wait<kSelDepth - 1>();
     __syncwarp();
-    const bf16* slot = my_ring + (i % kDepth) * kSlot;
+    const bf16* slot = my_ring + (i % kSelDepth) * kSlot;
     const int r0 = (warp + kBodyWarps * i) * kChunkRows;
     float s[NP];
 #pragma unroll
@@ -297,9 +287,8 @@ __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restri
     if (lane < kChunkRows / npf && r0 / npf + lane < pooled_early) pool(r0 / npf + lane);
   }
   pmax = warp_max(pmax);
-  {                            // the warp's running sums, into its own ring
-    // [G][kD] weighted v, [G] max, [G] sum of p, the largest importance pooled
-    float* st = reinterpret_cast<float*>(my_ring);
+  {
+    float* st = state(warp);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       st[g * kD + 2 * lane] = acc[g][0];
@@ -326,7 +315,7 @@ __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restri
     pmax = warp_max(pmax);
     float mx = pmax;
     for (int w = 1; w < kBodyWarps; ++w)
-      mx = fmaxf(mx, reinterpret_cast<const float*>(ring + w * kDepth * kSlot)[G * kD + 2 * G]);
+      mx = fmaxf(mx, state(w)[G * kD + 2 * G]);
     mx = fmaxf(mx, -1e3f);
     // one pass: the weights, their sum, and each lane's best and next-best
     // block by weight (ties to the lower id; the weights order the blocks as
@@ -388,10 +377,10 @@ __device__ void select_body(const bf16* q, const bf16* ckv, const MemT* __restri
       const int g = o / kD;
       float mx = kNeg;
       for (int w = 0; w < kBodyWarps; ++w)
-        mx = fmaxf(mx, reinterpret_cast<const float*>(ring + w * kDepth * kSlot)[G * kD + g]);
+        mx = fmaxf(mx, state(w)[G * kD + g]);
       float den = 0.f, num = 0.f;
       for (int w = 0; w < kBodyWarps; ++w) {
-        const float* st = reinterpret_cast<const float*>(ring + w * kDepth * kSlot);
+        const float* st = state(w);
         const float f = expf(st[G * kD + g] - mx);
         den += st[G * kD + G + g] * f;
         num += st[o] * f;
@@ -444,23 +433,21 @@ size_t attend_smem_bytes(int J) {
 // The J = (S + n_slide) * sel_block columns, as tiles of kChunkRows, are
 // dealt to the warps in turn; a warp copies the rows of its own tiles that
 // either mask keeps (whole packed rows) and waits only for its own copies.
-// The queries', gates', info row's and c_out's loads go out first (with
-// kDependent, the split route's attend launched as a programmatic dependent
-// of the selection, info and c_out after waiting for the kernel before it),
-// then every kept row's copy at once.  Per tile, one lane per (column, head) takes the logit, and
-// softmax_fold folds it into the warp's running fine and sliding sums
+// The queries, gates, c_out and the info row's head are read first, then
+// every kept row's copy goes out at once.  Per tile, one lane per (column,
+// head) takes the logit, and softmax_fold folds it into the warp's running
+// fine and sliding sums
 // (skipped where the tile has no column of that mask); one merge across
 // the warps (in the warps' first tiles) ends it.  Dynamic shared memory:
 // attend_smem_bytes<G>; the info row's first n_slots + S entries must fit
 // kInfoMax.
-template <int G, bool kDependent, typename Rows>
+template <int G, typename Rows>
 __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, const bf16* c_out,
                               const bf16* gates, const bf16* row_t, int t, int sel_block,
                               int window, int num_sel, int n_slide, int info_width, float scale,
                               int bh, unsigned char* smem_raw) {
   constexpr int outs = G * kD;
   constexpr int NP = (kChunkRows * G + 31) / 32;
-  constexpr int NO = (outs + 255) / 256;    // outputs a thread loads
   static_assert(sizeof(float) * (2 * G * kD + 4 * G) <= sizeof(bf16) * kChunkRows * kFullRow,
                 "a warp's running sums fit in its first tile");
   const int n_slots = num_sel + n_slide;
@@ -502,34 +489,12 @@ __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, co
   };
 
   // phase: prologue
-  // the loads go out before the copies queue behind them; with kDependent
-  // info and c_out are read after the wait (through L2: the kernel before
-  // may have written them after this one started)
-  const int* irow = info + (size_t)bh * info_width;
-  const unsigned short* crow = reinterpret_cast<const unsigned short*>(c_out) + (size_t)bh * outs;
-  const int ninfo = n_slots + num_sel;
-  float qv[NO], cv[NO], gv = 0.f;
-#pragma unroll
-  for (int k = 0; k < NO; ++k)
-    qv[k] = tid + 256 * k < outs ? __bfloat162float(rq[(size_t)bh * outs + tid + 256 * k]) : 0.f;
-  if (tid < 3 * G) gv = __bfloat162float(gates[(size_t)bh * 3 * G + tid]);
-  if (kDependent) wait_for_prior_grid();       // info and c_out come from the kernel before
-  const int iv = tid < ninfo ? (kDependent ? __ldcg(irow + tid) : irow[tid]) : 0;
-#pragma unroll
-  for (int k = 0; k < NO; ++k) {
-    const int i = tid + 256 * k;
-    cv[k] = i < outs ? __bfloat162float(__ushort_as_bfloat16(kDependent ? __ldcg(crow + i)
-                                                                        : crow[i]))
-                     : 0.f;
+  for (int i = tid; i < outs; i += blockDim.x) {
+    qs[i] = __bfloat162float(rq[(size_t)bh * outs + i]);
+    cg[i] = __bfloat162float(c_out[(size_t)bh * outs + i]);
   }
-#pragma unroll
-  for (int k = 0; k < NO; ++k)
-    if (tid + 256 * k < outs) {
-      qs[tid + 256 * k] = qv[k];
-      cg[tid + 256 * k] = cv[k];
-    }
-  if (tid < 3 * G) cg[outs + tid] = gv;
-  if (tid < ninfo) sinfo[tid] = iv;
+  if (tid < 3 * G) cg[outs + tid] = __bfloat162float(gates[(size_t)bh * 3 * G + tid]);
+  if (tid < n_slots + num_sel) sinfo[tid] = info[(size_t)bh * info_width + tid];
   __syncthreads();
   stage();
 

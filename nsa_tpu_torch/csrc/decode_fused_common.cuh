@@ -14,11 +14,6 @@ namespace nsa {
 namespace {
 
 constexpr int kThreads = 32 * kBodyWarps;
-// select_body's ring slots a warp where a launch has one block an SM (the
-// select-emit kernels: 32 or 64 items on 132 SMs), and where the whole-model
-// kernel's work space is set by its emission, which needs more
-constexpr int kSelectDepthFew = 4;
-constexpr int kSelectDepthMega = 3;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));

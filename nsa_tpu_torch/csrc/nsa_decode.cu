@@ -13,35 +13,29 @@
 //   attend reads the rows its two masks keep of the (S + n_slide) * Bs =
 //     144 gathered rows: ~8.6 MB per layer, about 2.6 us.
 // What the design does about it: one block of 256 threads per (batch row,
-// KV head), 256 blocks at bs 64, two on an SM; each is the split softmax of
-// flash decoding inside the block (the bodies in decode_common.cuh, shared
-// with the fused, ragged and whole-model kernels).  select streams each live
-// row once, as its whole 256-byte packed row: the rows go to the warps in
-// chunks of 16, and each warp keeps two chunks of cp.async copies in flight
-// in its own 3-slot ring (110 KB of shared memory a block, so that two
-// blocks share an SM) while it takes a chunk's logits (one lane per row and
-// head, in dot_heads's float32 order, kept for the importance), folds them
-// with the chunk's v halves into its running c_out (max, sum and weighted v
-// in registers, shuffles only) and pools the chunk's fine blocks.  After one
-// barrier warp 0 takes the score softmax and the top-k (a warp max a
-// selected id; only the lane that gave it looks again) while the other
-// warps merge their running sums into c_out.  attend is launched as a
-// programmatic dependent of select (cudaLaunchKernelEx with programmatic
-// stream serialization; select lets it start at once), so its launch and
-// its queries' and gates' loads overlap select's end; it waits for select
-// (griddepcontrol.wait), reads the info row and c_out, and each warp copies
-// the kept rows of its own 16-column tiles at once; per tile one lane per
-// (column, head) takes the logit, both masked softmaxes fold into the
-// warp's running sums, and one merge across the warps gives the combined
-// output.  No tensor cores: two query heads per KV head is too narrow a
-// product for them.
+// KV head), 256 blocks at bs 64, each the split softmax of flash decoding
+// inside the block (the bodies in decode_common.cuh, shared with the fused,
+// ragged and whole-model kernels).  select streams each live row once, as
+// its whole 256-byte packed row: the rows go to the warps in chunks of 16,
+// and each warp keeps one chunk of cp.async copies in flight in its own
+// 2-slot ring (76 KB of shared memory a block) while it takes a chunk's
+// logits (one lane per row and head, in dot_heads's float32 order, kept for
+// the importance), folds them with the chunk's v halves into its running
+// c_out (max, sum and weighted v in registers, shuffles only) and pools the
+// chunk's fine blocks.  After one barrier warp 0 takes the score softmax
+// and the top-k (a warp max a selected id; only the lane that gave it looks
+// again) while the other warps merge their running sums into c_out.  attend
+// reads the info row and c_out, and each warp copies the kept rows of its
+// own 16-column tiles at once; per tile one lane per (column, head) takes
+// the logit, both masked softmaxes fold into the warp's running sums, and
+// one merge across the warps gives the combined output.  No tensor cores:
+// two query heads per KV head is too narrow a product for them.
 #include "decode_common.cuh"
 
 namespace nsa {
 namespace {
 
 constexpr int kThreads = 32 * kBodyWarps;
-constexpr int kSelectDepth = 3;    // ring slots a warp: two blocks an SM at bs 64
 
 template <int G>
 __global__ void __launch_bounds__(kThreads)
@@ -51,24 +45,22 @@ __global__ void __launch_bounds__(kThreads)
                   int sel_block, int num_sel, int n_slide, int max_blocks, int info_width,
                   float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  allow_dependent_launch();        // the attend kernel's prologue needs nothing of this one
-  select_body<G, kSelectDepth, bf16>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb, stride,
-                                     sel_block, num_sel, n_slide, max_blocks, info_width, scale,
-                                     blockIdx.x, smem_raw);
+  select_body<G, bf16>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb, stride, sel_block,
+                       num_sel, n_slide, max_blocks, info_width, scale, blockIdx.x, smem_raw);
 }
 
-// info and c_out, written by the kernel it may overlap, carry no __restrict__.
 template <int G>
 __global__ void __launch_bounds__(kThreads)
-    attend_kernel(const bf16* __restrict__ rq, const bf16* __restrict__ kv, const int* info,
-                  const bf16* c_out, const bf16* __restrict__ gates, bf16* __restrict__ out,
-                  int max_len, int t, int sel_block, int window, int num_sel, int n_slide,
-                  int info_width, float scale) {
+    attend_kernel(const bf16* __restrict__ rq, const bf16* __restrict__ kv,
+                  const int* __restrict__ info, const bf16* __restrict__ c_out,
+                  const bf16* __restrict__ gates, bf16* __restrict__ out, int max_len, int t,
+                  int sel_block, int window, int num_sel, int n_slide, int info_width,
+                  float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int bh = blockIdx.x;
-  const float* comb = attend_body<G, true>(rq, DenseRows{const_cast<bf16*>(kv), max_len}, info,
-                                           c_out, gates, nullptr, t, sel_block, window, num_sel,
-                                           n_slide, info_width, scale, bh, smem_raw);
+  const float* comb = attend_body<G>(rq, DenseRows{const_cast<bf16*>(kv), max_len}, info, c_out,
+                                     gates, nullptr, t, sel_block, window, num_sel, n_slide,
+                                     info_width, scale, bh, smem_raw);
   for (int o = threadIdx.x; o < G * kD; o += blockDim.x)
     out[(size_t)bh * G * kD + o] = __float2bfloat16(comb[o]);
 }
@@ -85,7 +77,7 @@ cudaError_t launch_select(const void* q, const void* ckv, const void* mem_kv, vo
                           int stride, int sel_block, int num_sel, int n_slide, int max_blocks,
                           int info_width, float scale, cudaStream_t stream) {
   const int Wf = Wc / (sel_block / stride);
-  const size_t shmem = select_smem_bytes<G, kSelectDepth, bf16>(Wc, M, Wf);
+  const size_t shmem = select_smem_bytes<G, bf16>(Wc, M, Wf);
   auto kern = select_kernel<G>;
   const cudaError_t e = allow_smem((const void*)kern, shmem);
   if (e != cudaSuccess) return e;
@@ -95,8 +87,6 @@ cudaError_t launch_select(const void* q, const void* ckv, const void* mem_kv, vo
   return cudaGetLastError();
 }
 
-// attend as a programmatic dependent of the kernel before it on the stream
-// (select, on the decode step): its blocks may start while that kernel runs.
 template <int G>
 cudaError_t launch_attend(const void* rq, const void* kv, const void* info, const void* c_out,
                           const void* gates, void* out, int bkvh, int max_len, int t,
@@ -107,26 +97,18 @@ cudaError_t launch_attend(const void* rq, const void* kv, const void* info, cons
   auto kern = attend_kernel<G>;
   const cudaError_t e = allow_smem((const void*)kern, shmem);
   if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(bkvh);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = shmem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, (const bf16*)rq, (const bf16*)kv, (const int*)info,
-                            (const bf16*)c_out, (const bf16*)gates, (bf16*)out, max_len, t,
-                            sel_block, window, num_sel, n_slide, info_width, scale);
+  kern<<<bkvh, kThreads, shmem, stream>>>(
+      (const bf16*)rq, (const bf16*)kv, (const int*)info, (const bf16*)c_out,
+      (const bf16*)gates, (bf16*)out, max_len, t, sel_block, window, num_sel, n_slide,
+      info_width, scale);
+  return cudaGetLastError();
 }
 
 // The two kernels' shared memory a block and blocks an SM, and the card's
 // opt-in limit a block, into out[5].
 template <int G>
 cudaError_t split_plan(int Wc, int M, int Wf, int J, int* out) {
-  const size_t ss = select_smem_bytes<G, kSelectDepth, bf16>(Wc, M, Wf);
+  const size_t ss = select_smem_bytes<G, bf16>(Wc, M, Wf);
   const size_t as = attend_smem_bytes<G>(J);
   cudaError_t e;
   int dev;

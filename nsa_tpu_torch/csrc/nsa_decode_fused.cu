@@ -78,7 +78,7 @@ __global__ void select_emit_kernel(const bf16* __restrict__ q, bf16* ckv, bf16* 
     emit_row_body(partial, b2, ckv + ((size_t)bh * Wc + num_cb) * 2 * kD, nchunks, b, bh / kvh,
                   bh % kvh);
   __syncthreads();
-  select_body<G, kSelectDepthFew, bf16>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb,
+  select_body<G, bf16>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb,
                                         stride, sel_block, num_sel, n_slide, max_blocks,
                                         info_width, scale, bh, smem_raw);
 }
@@ -107,7 +107,7 @@ cudaError_t launch_select_emit(const bf16* q, bf16* ckv, bf16* ring, const bf16*
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   const int Wf = Wc / (sel_block / stride);
-  size_t shmem = select_smem_bytes<G, kSelectDepthFew, bf16>(Wc, M, Wf);
+  size_t shmem = select_smem_bytes<G, bf16>(Wc, M, Wf);
   const size_t ring_bytes = (size_t)Bc * 2 * kD * sizeof(bf16);
   if (shmem < ring_bytes) shmem = ring_bytes;
   auto kern = select_emit_kernel<G>;

@@ -256,7 +256,7 @@ MegaPlan make_mega_plan(const MegaArgs& a, int grid) {
   const int kmax = std::max(std::max(a.dim, h * kD), a.hid4);
   const size_t stage = (size_t)kRowTile * (kmax + 8) * sizeof(bf16) +
                        sizeof(float) * kWarps * std::max(a.kvh, 1) * 128;
-  size_t work = std::max(select_smem_bytes<G, kSelectDepthMega, float>(a.Wc, a.M, Wf),
+  size_t work = std::max(select_smem_bytes<G, float>(a.Wc, a.M, Wf),
                          attend_smem_bytes<G>(J));
   work = std::max(work, emit_tc_smem_bytes(a.Bc * kD));
   work = std::max(work, (size_t)a.Bc * 2 * kD * sizeof(bf16));
@@ -391,7 +391,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         bf16* c_out = a.c_out + lbh * G * kD;
         bf16* gates = a.gates + lbh * 3 * G;
         int* info = a.info + lbh * a.info_width;
-        select_body<G, kSelectDepthMega, float>(
+        select_body<G, float>(
             q, a.ckv[l], a.mem_kv + (size_t)l * 2 * a.kvh * a.M * kD, c_out, info, a.kvh, a.Wc,
             a.M, t, num_cb, a.stride, a.sel_block, a.num_sel, a.n_slide, max_blocks,
             a.info_width, a.scale, item, work);
@@ -401,7 +401,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (tid < 2 * kD / 8)        // the new token's row, written in place
           reinterpret_cast<uint4*>(kv.row(item, t))[tid] =
               reinterpret_cast<const uint4*>(row_t)[tid];
-        const float* comb = attend_body<G, false>(
+        const float* comb = attend_body<G>(
             rq, kv, info, c_out, gates, row_t, t, a.sel_block, a.window, a.num_sel, a.n_slide,
             a.info_width, a.scale, item, work);
         for (int i = tid; i < G * kD; i += blockDim.x)

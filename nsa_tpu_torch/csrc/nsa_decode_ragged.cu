@@ -152,7 +152,7 @@ __global__ void select_emit_ragged_kernel(const bf16* __restrict__ q, bf16* ckv,
     emit_row_body(partial, b2, ckv + ((size_t)bh * Wc + slot) * 2 * kD, nchunks, b, bi, bh % kvh);
   }
   __syncthreads();
-  select_body<G, kSelectDepthFew, bf16>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb,
+  select_body<G, bf16>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb,
                                         stride, sel_block, num_sel, n_slide, max_blocks,
                                         info_width, scale, bh, smem_raw);
 }
@@ -286,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bf16* row_t = a.kv_new + (size_t)bh * 2 * kD;
     if (tid < 2 * kD / 8)          // the new token's row, written in place
       reinterpret_cast<uint4*>(a.kv.row(bh, t))[tid] = reinterpret_cast<const uint4*>(row_t)[tid];
-    const float* comb = attend_body<G, false>(a.rq, a.kv, a.info, a.c_out, a.gates, row_t, t,
+    const float* comb = attend_body<G>(a.rq, a.kv, a.info, a.c_out, a.gates, row_t, t,
                                               a.sel_block, a.window, a.num_sel, a.n_slide,
                                               a.info_width, a.scale, bh, work);
     for (int o = tid; o < outs; o += blockDim.x)
@@ -470,7 +470,7 @@ cudaError_t launch_select_emit_ragged(const bf16* q, bf16* ckv, bf16* ring, cons
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const int Wf = Wc / (sel_block / stride);
-  size_t shmem = select_smem_bytes<G, kSelectDepthFew, bf16>(Wc, M, Wf);
+  size_t shmem = select_smem_bytes<G, bf16>(Wc, M, Wf);
   const size_t ring_bytes = (size_t)Bc * 2 * kD * sizeof(bf16);
   if (shmem < ring_bytes) shmem = ring_bytes;
   auto kern = select_emit_ragged_kernel<G>;

@@ -262,12 +262,7 @@ def decode_attend(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
     """rq [b, kvh, g, d] rotated queries; kv [b, kvh, max_len, 2d] packed
     k||v cache holding the row at position t; info [b, kvh, INFO_WIDTH]
     from ``decode_select``; c_out [b, kvh, g, d]; gates [b, kvh, g, 3]
-    (compressed, fine, sliding).  Returns the combined output [b, kvh, g, d].
-    The kernel is launched as a programmatic dependent of the kernel before
-    it on the stream (``decode_select`` on the decode step): it may read rq
-    and gates while that kernel still runs, and everything else only after
-    it ends, so rq and gates must have been written before that kernel
-    began."""
+    (compressed, fine, sliding).  Returns the combined output [b, kvh, g, d]."""
     kw = dict(sel_block=sel_block, window=window, num_sel=num_sel,
               n_slide=n_slide, scale=scale)
     if runtime.on_cpu(rq, kv, info, c_out, gates):

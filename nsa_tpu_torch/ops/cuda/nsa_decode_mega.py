@@ -152,8 +152,8 @@ PLACEMENT = (FW2, WOUT, HEAD, QKVG, FW1)
 PLAN_KEYS = ("grid", "blocks_per_sm", "slice_bytes", "slice_total", "work_bytes",
              "smem_bytes", "smem_optin")
 # the bodies' warps, rows of a selection chunk or an attention tile, the
-# staged row's stride in bf16, and the whole-model kernel's ring slots a warp
-_WARPS, _CHUNK_ROWS, _FULL_ROW, _SEL_DEPTH = 8, 16, 136, 3
+# staged row's stride in bf16, and select_body's ring slots a warp
+_WARPS, _CHUNK_ROWS, _FULL_ROW, _SEL_DEPTH = 8, 16, 136, 2
 
 
 def _select_smem(g: int, Wc: int, M: int, Wf: int, d: int = 64) -> int:

@@ -10,16 +10,18 @@ card's global timer for its block; builds ``nsa_decode.cu`` alone from
 the marked copy, and launches ``nsa_decode_select`` and
 ``nsa_decode_attend`` at the serving cell (bs 64, 4 KV heads, G 2,
 position 3999 of a 4096-row cache, seeded inputs, L2 flushed before each
-launch as ``kernel_times`` flushes it).  Prints, for each kernel, each phase's cycles and microseconds
-(the median over the grid's blocks of the median over the launches), a
+launch as ``kernel_times`` flushes it).  Prints, for each kernel, each
+phase's cycles and microseconds (the median over the grid's blocks of the
+median over the launches), a
 block's whole span, the kernel's span from the first block's start to the
-last block's end, and the event time of the marked and of the unmarked
-kernel (the marks' own cost), and the event time of the unmarked select
-and attend launched back to back, as the decode step launches them.  The
-phase boundaries are found by anchor
-lines: the layout of the PR 14 bodies, or the ``// phase: NAME`` comments
-of the current ones, so one copy of this script probes both trees.  Needs
-the card and ``nvcc``.
+last block's end, the event time of the marked and of the unmarked kernel
+(the marks' own cost), and the event time of the unmarked select and
+attend launched back to back, as the decode step launches them.  The phase
+boundaries are found by anchor lines: the ``// phase: NAME`` comments of
+the bodies, or, in a tree whose bodies have none, the lines of the earlier
+bodies that staged the k halves, then the v halves (``STAGED_SELECT``,
+``STAGED_ATTEND``), so one copy of this script probes both.  Needs the card
+and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -39,25 +41,28 @@ MAX_MARKS = 16
 MAX_BLOCKS = 4096
 MARK = "NSA_PROBE_MARK({k});\n"
 
-# The PR 14 bodies: (phase that ends at the anchor, anchor text); a mark is
-# inserted before each anchor.  The first entry marks the start.
-PR14_SELECT = [
+# The earlier bodies, which staged the k halves, then the v halves: (phase
+# that ends at the anchor, anchor text); a mark is inserted before each
+# anchor.  The first entry marks the start.
+STAGED_SELECT = [
     ("start", "  // logits of the live rows, tile by tile; then of the mem slots\n"),
     ("k staging", "    for (int r = tid; r < nr; r += blockDim.x) {\n      float s[G];\n"),
     ("logits", "  for (int o = tid; o < G * M; o += blockDim.x) {\n"),
     ("mem slots", "  // importance: mean over the group (mem slots excluded), pooled over the\n"),
     ("importance", "  // pad(-1e3) -> softmax -> strip, without materializing the pad slot\n"),
     ("score softmax", "  // compressed softmax over the live rows and the mem slots\n"),
-    ("compressed softmax", "  // c_out = sum_j p_j v_j / den over the v halves, tile by tile; thread\n"),
+    ("compressed softmax",
+     "  // c_out = sum_j p_j v_j / den over the v halves, tile by tile; thread\n"),
     ("v staging", "    for (int o = tid; o < parts * outs; o += blockDim.x) {\n"
                   "      const int part = o / outs, g = (o % outs) / kD, e = o % kD;\n"
                   "      const float* p = sim"),
     ("c_out", "  // iterative top-k by warp 0: num_sel passes of (max, lowest index)\n"),
     ("top-k", "\n// Where row r of item bh = (batch row, KV head) of the packed kv cache\n"),
 ]
-PR14_ATTEND = [
+STAGED_ATTEND = [
     ("start", "  for (int i = tid; i < G * kD; i += blockDim.x)\n    qs[i] = __bfloat162float(rq["),
-    ("rq + info row + masks", "  // stage the rows either mask keeps (k and v), all in flight at once\n"),
+    ("rq + info row + masks",
+     "  // stage the rows either mask keeps (k and v), all in flight at once\n"),
     ("staging", "  for (int col = tid; col < J; col += blockDim.x) {\n"
                 "    const int ok = okm[col];\n"),
     ("dots", "  float inv_f[G], inv_s[G];\n"),
@@ -123,9 +128,9 @@ def instrument(text: str) -> tuple:
     """decode_common.cuh with marks inserted; (text, {body: phase names}).
     A mark goes before each ``// phase:`` comment (and one before the
     body's closing brace) where the bodies have them, else before each
-    anchor of the PR 14 layout."""
+    anchor of the earlier layout."""
     phases = {}
-    for name, table in (("select_body", PR14_SELECT), ("attend_body", PR14_ATTEND)):
+    for name, table in (("select_body", STAGED_SELECT), ("attend_body", STAGED_ATTEND)):
         own = marked_phases(text, name)
         if own:
             s, e = body_span(text, name)
