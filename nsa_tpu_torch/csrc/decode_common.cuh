@@ -450,6 +450,7 @@ __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, co
   constexpr int NP = (kChunkRows * G + 31) / 32;
   static_assert(sizeof(float) * (2 * G * kD + 4 * G) <= sizeof(bf16) * kChunkRows * kFullRow,
                 "a warp's running sums fit in its first tile");
+  static_assert(2 * G * kBodyWarps <= kInfoMax, "the warps' weights fit in the info row's place");
   const int n_slots = num_sel + n_slide;
   const int J = n_slots * sel_block;
   const int ntiles = (J + kChunkRows - 1) / kChunkRows;
@@ -558,27 +559,31 @@ __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, co
 
   // phase: combine
   __syncthreads();
+  // each warp's weight in each head's two softmaxes, gate included:
+  // wt[mask][g][w] = gate * exp(max_w - max) / sum, into the staged info
+  // row's place (read no more)
   const int nw = min(ntiles, kBodyWarps);
+  float* wt = reinterpret_cast<float*>(sinfo);      // [2][G][kBodyWarps]
+  auto state = [&](int w) {
+    return reinterpret_cast<const float*>(tile + w * kChunkRows * kFullRow);
+  };
+  if (tid < 2 * G) {
+    const int k = tid / G, g = tid % G;              // k 0 fine, 1 sliding
+    const int mi = 2 * outs + 2 * G * k + g;         // the max; the sum follows G later
+    float mx = kNeg, sum = 0.f;
+    for (int w = 0; w < nw; ++w) mx = fmaxf(mx, state(w)[mi]);
+    for (int w = 0; w < nw; ++w) sum += state(w)[mi + G] * expf(state(w)[mi] - mx);
+    const float scale = cg[outs + 3 * g + 1 + k] / fmaxf(sum, 1e-30f);
+    for (int w = 0; w < nw; ++w) wt[tid * kBodyWarps + w] = scale * expf(state(w)[mi] - mx);
+  }
+  __syncthreads();
   for (int o = tid; o < outs; o += blockDim.x) {
     const int g = o / kD;
-    float mxf = kNeg, mxs = kNeg;
-    for (int w = 0; w < nw; ++w) {
-      const float* st = reinterpret_cast<const float*>(tile + w * kChunkRows * kFullRow);
-      mxf = fmaxf(mxf, st[2 * outs + g]);
-      mxs = fmaxf(mxs, st[2 * outs + 2 * G + g]);
-    }
-    float lf_ = 0.f, af_ = 0.f, ls_ = 0.f, as_ = 0.f;
-    for (int w = 0; w < nw; ++w) {
-      const float* st = reinterpret_cast<const float*>(tile + w * kChunkRows * kFullRow);
-      const float a = expf(st[2 * outs + g] - mxf), b = expf(st[2 * outs + 2 * G + g] - mxs);
-      lf_ += st[2 * outs + G + g] * a;
-      af_ += st[o] * a;
-      ls_ += st[2 * outs + 3 * G + g] * b;
-      as_ += st[outs + o] * b;
-    }
-    const float* gt = cg + outs + 3 * g;
-    qs[o] = gt[0] * cg[o] + gt[1] * (af_ * (1.f / fmaxf(lf_, 1e-30f))) +
-            gt[2] * (as_ * (1.f / fmaxf(ls_, 1e-30f)));
+    const float* wf = wt + g * kBodyWarps;
+    const float* ws = wt + (G + g) * kBodyWarps;
+    float c = cg[outs + 3 * g] * cg[o];
+    for (int w = 0; w < nw; ++w) c += wf[w] * state(w)[o] + ws[w] * state(w)[outs + o];
+    qs[o] = c;
   }
   __syncthreads();
   return qs;
