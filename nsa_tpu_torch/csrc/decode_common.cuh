@@ -58,8 +58,9 @@ __device__ __forceinline__ float2 load2(const float* p) {
 // scaled logit, or -inf where the row is out.  m[g] is the running max
 // (kNeg before any row), l[g] the running sum, acc[g] the weighted sums of
 // v over dims 2 lane and 2 lane + 1; every lane keeps all three.  `live`
-// has bit r set for the rows whose v is read (vrow(r): the lane's two
-// dims); a row outside it must have p = 0.  Shuffles only.
+// has bit r set for the rows whose v counts (vrow(r): the lane's two dims,
+// read for every row, its value dropped outside `live`); a row outside it
+// must have p = 0.  Shuffles only, no branch.
 template <int G, typename VRow>
 __device__ __forceinline__ void softmax_fold(float (&m)[G], float (&l)[G], float (&acc)[G][2],
                                              const float (&s)[(kChunkRows * G + 31) / 32],
@@ -100,13 +101,13 @@ __device__ __forceinline__ void softmax_fold(float (&m)[G], float (&l)[G], float
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (!((live >> r) & 1u)) continue;          // the same for every lane
     const float2 v = vrow(r);
+    const bool on = (live >> r) & 1u;           // a row outside `live` may hold anything
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float pr = __shfl_sync(kFull, p[(g * R + r) / 32], (g * R + r) % 32);
-      acc[g][0] += pr * v.x;
-      acc[g][1] += pr * v.y;
+      acc[g][0] += on ? pr * v.x : 0.f;
+      acc[g][1] += on ? pr * v.y : 0.f;
     }
   }
 }
@@ -412,13 +413,11 @@ struct PagedRows {
   }
 };
 
-constexpr int kInfoMax = 128;     // the info row's ids and validity that the attention reads
-
 template <int G>
 size_t attend_smem_bytes(int J) {
   const int ntiles = (J + kChunkRows - 1) / kChunkRows;
   return sizeof(bf16) * ntiles * kChunkRows * kFullRow + sizeof(float) * (2 * G * kD + 3 * G) +
-         sizeof(int) * kInfoMax;
+         sizeof(int) * 2 * J;
 }
 
 // Fine and sliding attention of the G rotated queries of `bh` over the S
@@ -430,17 +429,15 @@ size_t attend_smem_bytes(int J) {
 // launch).  Returns the combined float32 output [G][kD] in shared memory,
 // visible to the whole block.
 //
-// The J = (S + n_slide) * sel_block columns, as tiles of kChunkRows, are
-// dealt to the warps in turn; a warp copies the rows of its own tiles that
+// The queries, gates and c_out are read first, with each of the J = (S +
+// n_slide) * sel_block columns' kv row and masks (one thread a column, the
+// info row read once); then the columns, as tiles of kChunkRows, are dealt
+// to the warps in turn, and a warp copies the rows of its own tiles that
 // either mask keeps (whole packed rows) and waits only for its own copies.
-// The queries, gates, c_out and the info row's head are read first, then
-// every kept row's copy goes out at once.  Per tile, one lane per (column,
-// head) takes the logit, and softmax_fold folds it into the warp's running
-// fine and sliding sums
-// (skipped where the tile has no column of that mask); one merge across
-// the warps (in the warps' first tiles) ends it.  Dynamic shared memory:
-// attend_smem_bytes<G>; the info row's first n_slots + S entries must fit
-// kInfoMax.
+// Per tile, one lane per (column, head) takes the logit, and softmax_fold
+// folds it into the warp's running fine and sliding sums (skipped where the
+// tile has no column of that mask); one merge across the warps (in the
+// warps' first tiles) ends it.  Dynamic shared memory: attend_smem_bytes<G>.
 template <int G, typename Rows>
 __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, const bf16* c_out,
                               const bf16* gates, const bf16* row_t, int t, int sel_block,
@@ -450,54 +447,51 @@ __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, co
   constexpr int NP = (kChunkRows * G + 31) / 32;
   static_assert(sizeof(float) * (2 * G * kD + 4 * G) <= sizeof(bf16) * kChunkRows * kFullRow,
                 "a warp's running sums fit in its first tile");
-  static_assert(2 * G * kBodyWarps <= kInfoMax, "the warps' weights fit in the info row's place");
   const int n_slots = num_sel + n_slide;
   const int J = n_slots * sel_block;
   const int ntiles = (J + kChunkRows - 1) / kChunkRows;
   bf16* tile = reinterpret_cast<bf16*>(smem_raw);                 // [ntiles * 16][kFullRow]
   float* qs = reinterpret_cast<float*>(tile + ntiles * kChunkRows * kFullRow);  // [G][kD]
   float* cg = qs + outs;            // [G][kD] c_out, then [G][3] gates
-  int* sinfo = reinterpret_cast<int*>(cg + outs + 3 * G);         // the info row's head
+  int* colrow = reinterpret_cast<int*>(cg + outs + 3 * G);        // [J] kv row of each column
+  int* colok = colrow + J;          // [J] bit 0 fine, bit 1 sliding
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int last_blk = t / sel_block;
-
-  // column col: its kv row, and which masks keep it (bit 0 fine, bit 1
-  // sliding); a selected block's column reads the staged info row
-  auto column = [&](int col, int& row) -> int {
-    const int slot = col / sel_block, within = col % sel_block;
-    if (slot < num_sel) {
-      row = sinfo[slot] * sel_block + within;
-      return sinfo[n_slots + slot] != 0 ? 1 : 0;
-    }
-    const int blk = last_blk - (n_slide - 1) + (slot - num_sel);
-    row = blk * sel_block + within;
-    const bool fine = blk >= 0 && slot == n_slots - 1 && row <= t;
-    const bool slide = blk >= 0 && row >= t - window && row <= t;
-    return (fine ? 1 : 0) | (slide ? 2 : 0);
-  };
-  // copy the kept rows of this warp's tiles
-  auto stage = [&]() {
-    for (int tl = warp; tl < ntiles; tl += kBodyWarps)
-      for (int j = lane; j < kChunkRows * 16; j += 32) {    // 16 16-byte pieces a row
-        const int col = tl * kChunkRows + (j >> 4), piece = j & 15;
-        if (col >= J) continue;
-        int row;
-        if (!column(col, row)) continue;
-        const bf16* src = (row_t != nullptr && row == t) ? row_t : kv.row(bh, row);
-        cp_async16(tile + col * kFullRow + 8 * piece, src + 8 * piece);
-      }
-  };
 
   // phase: prologue
+  const int* irow = info + (size_t)bh * info_width;
+  const int last_blk = t / sel_block;
+  for (int col = tid; col < J; col += blockDim.x) {
+    const int slot = col / sel_block, within = col % sel_block;
+    int row, ok;
+    if (slot < num_sel) {
+      row = irow[slot] * sel_block + within;
+      ok = irow[n_slots + slot] != 0 ? 1 : 0;
+    } else {
+      const int blk = last_blk - (n_slide - 1) + (slot - num_sel);
+      row = blk * sel_block + within;
+      const bool fine = blk >= 0 && slot == n_slots - 1 && row <= t;
+      const bool slide = blk >= 0 && row >= t - window && row <= t;
+      ok = (fine ? 1 : 0) | (slide ? 2 : 0);
+    }
+    colrow[col] = row;
+    colok[col] = ok;
+  }
   for (int i = tid; i < outs; i += blockDim.x) {
     qs[i] = __bfloat162float(rq[(size_t)bh * outs + i]);
     cg[i] = __bfloat162float(c_out[(size_t)bh * outs + i]);
   }
   if (tid < 3 * G) cg[outs + tid] = __bfloat162float(gates[(size_t)bh * 3 * G + tid]);
-  if (tid < n_slots + num_sel) sinfo[tid] = info[(size_t)bh * info_width + tid];
   __syncthreads();
-  stage();
+  // copy the kept rows of this warp's tiles
+  for (int tl = warp; tl < ntiles; tl += kBodyWarps)
+    for (int j = lane; j < kChunkRows * 16; j += 32) {    // 16 16-byte pieces a row
+      const int col = tl * kChunkRows + (j >> 4), piece = j & 15;
+      if (col >= J || !colok[col]) continue;
+      const int row = colrow[col];
+      const bf16* src = (row_t != nullptr && row == t) ? row_t : kv.row(bh, row);
+      cp_async16(tile + col * kFullRow + 8 * piece, src + 8 * piece);
+    }
 
   // phase: tiles
   float mf[G], lf[G], af[G][2], ms[G], ls[G], as[G][2];
@@ -520,8 +514,7 @@ __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, co
       int ok = 0;
       sf[k] = ss[k] = -INFINITY;
       if (g < G && col < J) {
-        int row;
-        ok = column(col, row);
+        ok = colok[col];
         if (ok) {
           const float s = dot_row(qs + g * kD, tile + col * kFullRow) * scale;
           if (ok & 1) sf[k] = s;
@@ -559,31 +552,27 @@ __device__ float* attend_body(const bf16* rq, const Rows kv, const int* info, co
 
   // phase: combine
   __syncthreads();
-  // each warp's weight in each head's two softmaxes, gate included:
-  // wt[mask][g][w] = gate * exp(max_w - max) / sum, into the staged info
-  // row's place (read no more)
   const int nw = min(ntiles, kBodyWarps);
-  float* wt = reinterpret_cast<float*>(sinfo);      // [2][G][kBodyWarps]
-  auto state = [&](int w) {
-    return reinterpret_cast<const float*>(tile + w * kChunkRows * kFullRow);
-  };
-  if (tid < 2 * G) {
-    const int k = tid / G, g = tid % G;              // k 0 fine, 1 sliding
-    const int mi = 2 * outs + 2 * G * k + g;         // the max; the sum follows G later
-    float mx = kNeg, sum = 0.f;
-    for (int w = 0; w < nw; ++w) mx = fmaxf(mx, state(w)[mi]);
-    for (int w = 0; w < nw; ++w) sum += state(w)[mi + G] * expf(state(w)[mi] - mx);
-    const float scale = cg[outs + 3 * g + 1 + k] / fmaxf(sum, 1e-30f);
-    for (int w = 0; w < nw; ++w) wt[tid * kBodyWarps + w] = scale * expf(state(w)[mi] - mx);
-  }
-  __syncthreads();
   for (int o = tid; o < outs; o += blockDim.x) {
     const int g = o / kD;
-    const float* wf = wt + g * kBodyWarps;
-    const float* ws = wt + (G + g) * kBodyWarps;
-    float c = cg[outs + 3 * g] * cg[o];
-    for (int w = 0; w < nw; ++w) c += wf[w] * state(w)[o] + ws[w] * state(w)[outs + o];
-    qs[o] = c;
+    float mxf = kNeg, mxs = kNeg;
+    for (int w = 0; w < nw; ++w) {
+      const float* st = reinterpret_cast<const float*>(tile + w * kChunkRows * kFullRow);
+      mxf = fmaxf(mxf, st[2 * outs + g]);
+      mxs = fmaxf(mxs, st[2 * outs + 2 * G + g]);
+    }
+    float lf_ = 0.f, af_ = 0.f, ls_ = 0.f, as_ = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      const float* st = reinterpret_cast<const float*>(tile + w * kChunkRows * kFullRow);
+      const float a = expf(st[2 * outs + g] - mxf), b = expf(st[2 * outs + 2 * G + g] - mxs);
+      lf_ += st[2 * outs + G + g] * a;
+      af_ += st[o] * a;
+      ls_ += st[2 * outs + 3 * G + g] * b;
+      as_ += st[outs + o] * b;
+    }
+    const float* gt = cg + outs + 3 * g;
+    qs[o] = gt[0] * cg[o] + gt[1] * (af_ * (1.f / fmaxf(lf_, 1e-30f))) +
+            gt[2] * (as_ * (1.f / fmaxf(ls_, 1e-30f)));
   }
   __syncthreads();
   return qs;

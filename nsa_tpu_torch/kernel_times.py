@@ -20,8 +20,8 @@ so that two trees run on one card compare bit for bit.  Beside them, for
 each kernel launch of every case, the grid, block, registers per thread
 and shared memory that the profiler's trace records; for rows 2 and 3
 their grid, blocks that fit an SM, shared memory and ptxas registers and
-spills (``split_geometry``, where the port has ``nsa_decode.split_plan``
-and built its kernels in this process); the one-launch
+spills (``split_geometry``, where the port has ``nsa_decode.split_plan``);
+the one-launch
 attend kernels' time by phase (their ``phase_ns`` marks, median of 5
 launches, where the wrapper takes them); the whole-model kernel's time by
 phase and by layer (median of 5 launches, an emission step and the step
@@ -158,9 +158,8 @@ def ptxas_usage(log, kernel, *also):
 def split_geometry(log: str, device="cuda") -> dict:
     """Rows 2 and 3's launch geometry at the split cell: each kernel's grid,
     blocks that fit an SM, shared memory a block (``nsa_decode.split_plan``)
-    and the registers and spills ptxas reported in this process's build
-    (``log``; None where the library was loaded, not built); empty where the
-    port has no ``split_plan``."""
+    and the registers and spills ptxas reported when the library was built
+    (``log``); empty where the port has no ``split_plan``."""
     from .config import reference_model_config
     from .ops.cuda import nsa_decode
     from .ops.nsa import _ckv_width

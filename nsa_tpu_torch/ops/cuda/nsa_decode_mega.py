@@ -165,7 +165,7 @@ def _select_smem(g: int, Wc: int, M: int, Wf: int, d: int = 64) -> int:
 
 def _attend_smem(g: int, J: int, d: int = 64) -> int:
     """attend_body's shared memory (attend_smem_bytes, csrc/decode_common.cuh)."""
-    return 2 * -(-J // _CHUNK_ROWS) * _CHUNK_ROWS * _FULL_ROW + 4 * (2 * g * d + 3 * g) + 4 * 128
+    return 2 * -(-J // _CHUNK_ROWS) * _CHUNK_ROWS * _FULL_ROW + 4 * (2 * g * d + 3 * g) + 4 * 2 * J
 
 
 def mega_plan(*, kvh: int, g: int, dim: int, hid4: int, vocab: int, Wc: int, M: int, Bc: int,

@@ -5,7 +5,8 @@ call, all started together, and one more links the objects into one shared
 library with a plain C interface, on first use, into
 ``nsa_tpu_torch/_build/`` (listed in ``.gitignore``), loaded with
 ``ctypes``.  The library's name carries a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+an edited source is rebuilt and an unchanged one is loaded as it is, with
+the build's ``nvcc`` output kept beside it.
 Nothing here runs at import time; a missing ``nvcc`` or a failed build
 raises.
 """
@@ -70,7 +71,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float     # 0.0 when an existing build was loaded
-    log: str                 # nvcc's output (ptxas register/smem/spill lines)
+    log: str                 # nvcc's output (ptxas register/smem/spill lines), kept beside it
 
     def call(self, name: str, *args) -> None:
         """Launch through the C entry point; raise if it reports an error."""
@@ -120,8 +121,11 @@ def library() -> KernelLibrary:
             log += proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n{log}")
+            path.with_suffix(".log").write_text(log)
             os.replace(so, path)
         seconds = time.perf_counter() - t0
+    elif path.with_suffix(".log").is_file():
+        log = path.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
