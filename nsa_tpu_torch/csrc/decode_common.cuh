@@ -58,9 +58,8 @@ __device__ __forceinline__ float2 load2(const float* p) {
 // scaled logit, or -inf where the row is out.  m[g] is the running max
 // (kNeg before any row), l[g] the running sum, acc[g] the weighted sums of
 // v over dims 2 lane and 2 lane + 1; every lane keeps all three.  `live`
-// has bit r set for the rows whose v counts (vrow(r): the lane's two dims,
-// read for every row, its value dropped outside `live`); a row outside it
-// must have p = 0.  Shuffles only, no branch.
+// has bit r set for the rows whose v is read (vrow(r): the lane's two
+// dims); a row outside it must have p = 0.  Shuffles only.
 template <int G, typename VRow>
 __device__ __forceinline__ void softmax_fold(float (&m)[G], float (&l)[G], float (&acc)[G][2],
                                              const float (&s)[(kChunkRows * G + 31) / 32],
@@ -101,13 +100,13 @@ __device__ __forceinline__ void softmax_fold(float (&m)[G], float (&l)[G], float
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
+    if (!((live >> r) & 1u)) continue;          // the same for every lane
     const float2 v = vrow(r);
-    const bool on = (live >> r) & 1u;           // a row outside `live` may hold anything
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float pr = __shfl_sync(kFull, p[(g * R + r) / 32], (g * R + r) % 32);
-      acc[g][0] += on ? pr * v.x : 0.f;
-      acc[g][1] += on ? pr * v.y : 0.f;
+      acc[g][0] += pr * v.x;
+      acc[g][1] += pr * v.y;
     }
   }
 }
