@@ -12,7 +12,7 @@ paged attend (rows 8-10) at 16 slots of 4096 rows at mixed positions, the
 split pair (rows 2-3) at bs 64 and the block gather (row 11) at 16 slots.
 For each it prints the event-timed median (L2 flushed before each call by
 zeroing a 256 MB buffer: the call pays the write-back of the dirty lines it
-evicts),
+evicts; see ``Flush``),
 the device time of every launch the call makes with the gaps between them
 (``torch.profiler``, one profile a call, medians over the calls), the host
 time of the call, and a SHA-256 of the outputs and the caches it writes,
@@ -27,6 +27,12 @@ launches, where the wrapper takes them); the whole-model kernel's time by
 phase and by layer (median of 5 launches, an emission step and the step
 before it); and greedy decode tok/s at bs 8 and bs 1 of the whole-model
 kernel (``mega_tok_s``) and of the fused route (``fused_tok_s``).
+Rows 2, 3 and 11 are timed again under the clean-cold flush
+(``Flush(clean=True)``), and row 11 has a probe beside it at 16 and 64
+slots, each case under both flushes: the kernel, advanced indexing (the
+library call), a device-to-device ``cudaMemcpyAsync`` of the same bytes,
+an empty kernel (the launch floor), and at 16 slots the kernel on ids just
+copied (in L2, as the engine's selection leaves them).
 The script uses only the wrappers' public signatures, so a copy of it runs
 in an older checkout of the port too: run it there and here in one chip
 call, in turns, to compare two versions of a kernel.  Needs the card.
@@ -48,13 +54,33 @@ MAX_LEN, DECODE_T, SLOTS, SMALL_B, SPLIT_B, PAGE = 4096, 3999, 16, 8, 64, 64
 SEED = 0
 
 
+class Flush:
+    """The L2 flush before each timed call, through 256 MB buffers (five
+    times the card's 50 MB of L2).  The zeroing flush (``clean=False``)
+    zeroes one: L2 is left full of dirty lines, so the timed call pays a
+    write-back for every line it evicts.  The clean-cold flush
+    (``clean=True``) zeroes it and then reads a second one into one scalar:
+    L2 is left full of clean lines that the call never touched."""
+
+    def __init__(self, clean: bool = False, device="cuda"):
+        self.name = "clean-cold" if clean else "zeroing"
+        self.dirty = torch.empty(256 << 20, dtype=torch.int8, device=device)
+        self.clean = torch.zeros(256 << 20, dtype=torch.int8, device=device) if clean else None
+
+    def __call__(self) -> None:
+        self.dirty.zero_()
+        if self.clean is not None:
+            self.clean.sum(dtype=torch.int64)
+
+
 def launch_breakdown(fn, flush, iters: int = 5) -> dict:
     """One ``torch.profiler`` profile per call of ``fn`` (L2 flushed and the
     card idle before each): the device ms of each launch in order, the gaps
     between them, their sum and the span from the first start to the last
     end, medians over ``iters`` calls (a profile with no device event is
-    taken again, at most 3 x ``iters`` profiles in all); with the
-    event-timed median and the host ms of the call."""
+    taken again, at most 3 x ``iters`` profiles in all, and one that
+    recorded fewer of the call's launches than another is left out); with
+    the event-timed median and the host ms of the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,7 +90,7 @@ def launch_breakdown(fn, flush, iters: int = 5) -> dict:
 
     runs = []
     for _ in range(3 * iters):      # a profile now and then records no device event: retried
-        flush.zero_()
+        flush()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -77,7 +103,8 @@ def launch_breakdown(fn, flush, iters: int = 5) -> dict:
             break
     if not runs:
         raise RuntimeError("torch.profiler recorded no device event for the call")
-    n = min(len(r) for r in runs)
+    n = max(len(r) for r in runs)
+    runs = [r for r in runs if len(r) == n]
     names = [nm for nm, _, _ in runs[0][:n]]
     launch = [med([(r[i][2] - r[i][1]) / 1e3 for r in runs]) for i in range(n)]
     gaps = [med([(r[i + 1][1] - r[i][2]) / 1e3 for r in runs]) for i in range(n - 1)]
@@ -99,7 +126,7 @@ def event_ms(fn, iters, flush) -> float:
     """Median ms between CUDA events around fn(), L2 flushed before each."""
     pairs = []
     for _ in range(iters):
-        flush.zero_()
+        flush()
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -110,6 +137,9 @@ def event_ms(fn, iters, flush) -> float:
     return ts[len(ts) // 2]
 
 
+# the cases timed under both flushes: rows 2, 3 and 11 and row 11's probe
+CLEAN_TOO = ("decode_select", "decode_attend", "paged_gather", "paged_gather (ids in L2)",
+             "advanced indexing", "memcpy DtoD", "empty kernel")
 LAUNCH_KEYS = ("grid", "block", "registers per thread", "shared memory", "blocks per SM")
 
 
@@ -201,7 +231,7 @@ def attend_phase_us(fn, flush, iters: int = 5):
     runs = []
     for _ in range(iters):
         marks = torch.zeros(len(ATTEND_PHASES) + 1, dtype=torch.int64, device="cuda")
-        flush.zero_()
+        flush()
         if fn(marks) is None:
             return None
         torch.cuda.synchronize()
@@ -455,7 +485,8 @@ def cases(params, cfg, device="cuda"):
         out["decode_attend_fused_paged"] = (clones(pool), patt)
 
     # rows 2 and 3 (the split route, bs 64) and 11 (the ragged split route's
-    # block gather at 16 slots), whose code this script's A/B also holds
+    # block gather, at 16 slots and at 64), whose code this script's A/B
+    # also holds
     from .ops.cuda import paged_gather
 
     b = SPLIT_B
@@ -469,10 +500,27 @@ def cases(params, cfg, device="cuda"):
     tkw = {k: v for k, v in akw.items() if k != "eps"}
     out["decode_attend"] = (lambda: (), lambda st, rq=rq, kv=kv, info=info_p, c=c_p, gt=gates: (
         nsa_decode.decode_attend(rq, kv, info, c, gt, DECODE_T, **tkw),))
-    idx = info_p[..., :num_sel + n_slide][:SLOTS].contiguous()
-    kv16 = kv[:SLOTS]
-    out["paged_gather"] = (lambda: (), lambda st, kv16=kv16, idx=idx: (
-        paged_gather.paged_gather(kv16, idx, Bs),))
+    # beside row 11: the library call (advanced indexing), a device-to-device
+    # cudaMemcpyAsync of the same bytes, and an empty kernel, the launch floor
+    for slots, suffix in ((SLOTS, ""), (SPLIT_B, f" bs {SPLIT_B}")):
+        idx = info_p[..., :num_sel + n_slide][:slots].contiguous()
+        kvs = kv[:slots]
+        out["paged_gather" + suffix] = (lambda: (), lambda st, kvs=kvs, idx=idx: (
+            paged_gather.paged_gather(kvs, idx, Bs),))
+        blocks = kvs.view(slots, kvh, MAX_LEN // Bs, Bs, 2 * d)
+        bi = torch.arange(slots, device=device)[:, None, None]
+        hi = torch.arange(kvh, device=device)[None, :, None]
+        out["advanced indexing" + suffix] = (lambda: (), lambda st, blocks=blocks, bi=bi, hi=hi,
+                                             il=idx.long(): (blocks[bi, hi, il],))
+        n = idx.numel() * Bs * 2 * d
+        src, dst = kvs.reshape(-1)[:n], torch.empty(n, dtype=kv.dtype, device=device)
+        out["memcpy DtoD" + suffix] = (lambda: (), lambda st, src=src, dst=dst: (dst.copy_(src),))
+        if slots == SLOTS:
+            # the ids just written, as the engine's selection leaves them: a
+            # copy of them first (its own launch in the breakdown)
+            out["paged_gather (ids in L2)"] = (lambda: (), lambda st, kvs=kvs, idx=idx: (
+                paged_gather.paged_gather(kvs, idx.clone(), Bs),))
+    out["empty kernel"] = (lambda: (), lambda st: torch.cuda._sleep(0) or ())
 
     mp = fuse_decode_params(params, cfg)["mega"]
     b = SMALL_B
@@ -504,7 +552,7 @@ def main(argv=None):
         params, meta = load_params_npz(os.path.join(root, "ckpt_export", "sparse_mlp_seq4096.npz"),
                                        device="cuda", dtype=torch.bfloat16)
         cfg = model_config_from_meta(meta).replace(dtype="bfloat16")
-        flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+        flush, clean = Flush(), Flush(clean=True)
         res = {"root": root, "device": torch.cuda.get_device_name(0),
                "build_s": lib.build_seconds, "kernels": {}}
         geometry = split_geometry(lib.log)
@@ -513,6 +561,9 @@ def main(argv=None):
             state = setup()
             r = launch_breakdown(lambda: run(state), flush, args.iters)
             r["sha256"] = bits
+            r["flush"] = flush.name
+            if name.split(" bs ")[0] in CLEAN_TOO:
+                r["clean"] = launch_breakdown(lambda: run(state), clean, args.iters)
             r["launch_args"] = launch_args(lambda: run(state))
             if name.startswith("decode_attend_fused"):
                 r["phase_us"] = attend_phase_us(lambda m: run(state, phase_ns=m), flush)
@@ -522,6 +573,12 @@ def main(argv=None):
                   f"{r['host_ms']:.4f} ms; " + ", ".join(
                       f"{x['name'][:40]} {x['ms']:.4f}" for x in r["launches"])
                   + f"; gaps {[round(x, 4) for x in r['gaps_ms']]}; bits {bits}", flush=True)
+            if "clean" in r:
+                c = r["clean"]
+                print(f"  {clean.name} flush: event {c['event_ms']:.4f} ms, device "
+                      f"{c['device_ms']:.4f} ms, span {c['span_ms']:.4f} ms; "
+                      + ", ".join(f"{x['name'][:40]} {x['ms']:.4f}" for x in c["launches"]),
+                      flush=True)
             for x in r["launch_args"]:
                 print("  launch " + ", ".join(f"{k} {x[k]}" for k in ("name", *LAUNCH_KEYS)),
                       flush=True)
