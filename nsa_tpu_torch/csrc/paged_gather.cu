@@ -7,51 +7,66 @@
 // it (nsa_tpu/ops/nsa.py:939-942).
 //
 // What bounds it on this card: bytes, a pure copy of S * Bs rows per (row,
-// head) read once and written once.  One block of 256 threads per (row,
-// head) walks its rows in 16-byte vectors, neighbouring threads on
-// neighbouring addresses, four loads in flight per thread; a block id
-// outside the cache is clamped to the last block, as the plain version
-// does.
+// head) read once and written once, 2.36 MB each way at the engine cell
+// (16 slots x 4 heads x 9 blocks of 16 x 256 B).  So every byte has to be
+// in flight at once, on every SM: one CTA of 64 threads per (row, head,
+// block), 576 CTAs at the engine cell and 2,304 at 64 rows, all resident
+// in one wave (32 CTAs fit an SM).  A CTA reads its block id once, a
+// broadcast load, before any data load, with no divide; at the cell's
+// 16 x 256-byte blocks each thread then issues its four 16-byte loads, all
+// before its stores.  Other block sizes take a plain strided loop.  A block
+// id outside the cache is clamped to [0, L / Bs - 1], as the plain version
+// does.  The id rows are read by their strides, so the caller passes the
+// first S columns of its info rows as they are.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;        // 16-byte loads in flight per thread
+constexpr int kThreads = 64;
+constexpr int kUnroll = 4;                       // 16-byte loads in flight per thread
+constexpr int kCellVecs = kThreads * kUnroll;    // 16 rows of 256 bytes
 
-__global__ void paged_gather_kernel(const uint4* __restrict__ cache, const int* __restrict__ idx,
-                                    uint4* __restrict__ out, int L, int S, int Bs, int vec) {
-  const int bh = blockIdx.x;
-  const int nblocks = L / Bs, per_block = Bs * vec, n = S * per_block;
-  const uint4* src = cache + (size_t)bh * L * vec;
-  const int* ids = idx + (size_t)bh * S;
-  uint4* dst = out + (size_t)bh * n;
-  for (int i0 = threadIdx.x; i0 < n; i0 += kUnroll * blockDim.x) {
+template <bool kCell>   // a block of kCellVecs vectors, else `vecs` at run time
+__global__ void __launch_bounds__(kThreads)
+    paged_gather_kernel(const uint4* __restrict__ cache, const int* __restrict__ idx,
+                        uint4* __restrict__ out, int nblocks, int vecs, int stride_b,
+                        int stride_h) {
+  const int s = blockIdx.x, h = blockIdx.y, i = blockIdx.z;
+  const int blk = min(max(idx[(size_t)i * stride_b + (size_t)h * stride_h + s], 0), nblocks - 1);
+  const size_t bh = (size_t)i * gridDim.y + h;
+  if constexpr (kCell) vecs = kCellVecs;
+  const uint4* src = cache + (bh * nblocks + blk) * vecs;
+  uint4* dst = out + (bh * gridDim.x + s) * vecs;
+  if constexpr (kCell) {
     uint4 v[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {        // all loads first, then the stores
-      const int i = i0 + u * blockDim.x;
-      if (i >= n) break;
-      const int blk = min(max(ids[i / per_block], 0), nblocks - 1);
-      v[u] = src[(size_t)blk * per_block + i % per_block];
-    }
+    for (int u = 0; u < kUnroll; ++u) v[u] = src[threadIdx.x + u * kThreads];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < n) dst[i] = v[u];
-    }
+    for (int u = 0; u < kUnroll; ++u) dst[threadIdx.x + u * kThreads] = v[u];
+  } else {
+#pragma unroll 4
+    for (int v = threadIdx.x; v < vecs; v += kThreads) dst[v] = src[v];
   }
 }
 
 }  // namespace
 
-// cache [b, kvh, L, D] (row bytes a multiple of 16), idx [b, kvh, S] int32
-// block ids -> out [b, kvh, S * Bs, D]; row_bytes = D * element size.
-extern "C" int nsa_paged_gather(const void* cache, const void* idx, void* out, int bkvh, int L,
-                                int S, int Bs, int row_bytes, void* stream) {
-  if (row_bytes % 16 || L % Bs) return (int)cudaErrorInvalidValue;
-  paged_gather_kernel<<<bkvh, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)cache, (const int*)idx, (uint4*)out, L, S, Bs, row_bytes / 16);
+// cache [b, kvh, L, D] (row bytes a multiple of 16), idx int32 block ids,
+// id (i, h, s) at idx[i * stride_b + h * stride_h + s] -> out
+// [b, kvh, S * Bs, D]; row_bytes = D * element size.
+extern "C" int nsa_paged_gather(const void* cache, const void* idx, void* out, int b, int kvh,
+                                int L, int S, int Bs, int row_bytes, int stride_b, int stride_h,
+                                void* stream) {
+  if (row_bytes % 16 || L % Bs || b > 65535 || kvh > 65535) return (int)cudaErrorInvalidValue;
+  const int nblocks = L / Bs, vecs = Bs * (row_bytes / 16);
+  const dim3 grid(S, kvh, b);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (vecs == kCellVecs)
+    paged_gather_kernel<true><<<grid, kThreads, 0, st>>>(
+        (const uint4*)cache, (const int*)idx, (uint4*)out, nblocks, vecs, stride_b, stride_h);
+  else
+    paged_gather_kernel<false><<<grid, kThreads, 0, st>>>(
+        (const uint4*)cache, (const int*)idx, (uint4*)out, nblocks, vecs, stride_b, stride_h);
   return (int)cudaGetLastError();
 }

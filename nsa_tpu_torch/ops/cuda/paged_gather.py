@@ -30,7 +30,9 @@ def paged_gather_plain(cache: torch.Tensor, indices: torch.Tensor,
 def paged_gather(cache: torch.Tensor, indices: torch.Tensor, block_size: int) -> torch.Tensor:
     """cache [b, kvh, L, D]; indices [b, kvh, S] int32 block ids ->
     [b, kvh, S * block_size, D], block s of (i, h) = rows ``indices[i, h, s]
-    * block_size`` onward of ``cache[i, h]``."""
+    * block_size`` onward of ``cache[i, h]``.  ``indices`` may be a strided
+    view (the first S columns of a wider id table): only its last dimension
+    must be unit-stride."""
     if runtime.on_cpu(cache, indices):
         return paged_gather_plain(cache, indices, block_size)
     b, kvh, L, D = cache.shape
@@ -40,12 +42,19 @@ def paged_gather(cache: torch.Tensor, indices: torch.Tensor, block_size: int) ->
         raise ValueError(f"paged_gather kernel takes a cache length divisible by the block "
                          f"size and rows of a multiple of 16 bytes; got L={L}, "
                          f"block_size={block_size}, row bytes={row_bytes}")
-    ptrs = [runtime.check("cache", cache, cache.dtype, (b, kvh, L, D)),
-            runtime.check("indices", indices, torch.int32, (b, kvh, S))]
+    ptr = runtime.check("cache", cache, cache.dtype, (b, kvh, L, D))
+    if indices.dtype != torch.int32 or tuple(indices.shape) != (b, kvh, S):
+        raise ValueError(f"indices: {indices.dtype} {tuple(indices.shape)}, the kernel takes "
+                         f"int32 {(b, kvh, S)}")
+    if indices.stride(-1) != 1 and S > 1:
+        raise ValueError(f"indices: strides {indices.stride()}, the last must be 1")
+    if b > 65535 or kvh > 65535:
+        raise ValueError(f"paged_gather kernel takes at most 65535 rows and heads; got {b}, {kvh}")
     out = torch.empty((b, kvh, S * block_size, D), dtype=cache.dtype, device=cache.device)
     with torch.cuda.device(cache.device):
-        runtime.library().call("nsa_paged_gather", *ptrs, out.data_ptr(), b * kvh, L, S,
-                               block_size, row_bytes, runtime.stream_of(cache))
+        runtime.library().call("nsa_paged_gather", ptr, indices.data_ptr(), out.data_ptr(), b,
+                               kvh, L, S, block_size, row_bytes, indices.stride(0),
+                               indices.stride(1), runtime.stream_of(cache))
     paged_gather.launches += 1
     return out
 

@@ -56,7 +56,7 @@ SIGNATURES = {
     "nsa_decode_attend_ragged_plan": [_i] * 9 + [_p],
     # the ragged emission launch's blocks and shared memory, written to an int array
     "nsa_decode_emit_plan": [_i] * 4 + [_p],
-    "nsa_paged_gather": [_p] * 3 + [_i] * 5 + [_p],
+    "nsa_paged_gather": [_p] * 3 + [_i] * 8 + [_p],
     "nsa_flash_attention": [_p] * 4 + [_i] * 6 + [_f, _p],
     # the whole-model decode: a host array of pointers and of ints (see
     # csrc/nsa_decode_mega.cu for their order), their lengths, scale, eps

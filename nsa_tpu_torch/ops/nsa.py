@@ -533,7 +533,7 @@ def sparse_attention_decode(
         # the plain branch 1 and selection, the block gather as a kernel
         c_out, info = decode_select_plain(qg, ckv_cache, mem_kv, t, num_cb, **skw)
         gather = paged_gather if use_kernels else paged_gather_plain
-        fkv = gather(kv_cache, info[..., :nsa.num_selected_blocks + n_slide].contiguous(), Bs)
+        fkv = gather(kv_cache, info[..., :nsa.num_selected_blocks + n_slide], Bs)
         out = attend_combined_plain(rqg, fkv, info, c_out, gates4, t, gathered=True,
                                     **akw).to(x.dtype)
     else:

@@ -994,15 +994,58 @@ def test_attend_ragged_refuses_slices_that_do_not_fit(gen):
         0).multi_processor_count
 
 
-def test_paged_gather_kernel_matches_plain(gen):
-    b, kvh, L, Bs, S = 5, 4, 1024, 16, 9
-    cache = randn(gen, b, kvh, L, 128)
-    idx = torch.randint(0, L // Bs, (b, kvh, S), generator=gen, device="cuda").int()
+@pytest.mark.parametrize("b, L, D, dtype, S, ids", [
+    (5, 1024, 128, torch.bfloat16, 9, "random"),
+    (16, 4096, 128, torch.bfloat16, 9, "random"),      # the engine cell
+    (64, 4096, 128, torch.bfloat16, 9, "random"),      # the serving batch
+    (5, 1024, 64, torch.float32, 9, "random"),         # 256-byte rows
+    (5, 1024, 64, torch.bfloat16, 9, "random"),        # 128-byte rows
+    (5, 1024, 128, torch.bfloat16, 1, "random"),
+    (5, 1024, 128, torch.bfloat16, 9, "ends"),         # 0, the last block, and past both (clamped)
+    (16, 4096, 128, torch.bfloat16, 9, "info view"),   # the split route's strided id rows
+], ids=["small", "engine", "b64", "f32-d64", "bf16-d64", "S1", "ends", "info-view"])
+def test_paged_gather_kernel_matches_plain(gen, b, L, D, dtype, S, ids):
+    """One launch, bit for bit the plain version and advanced indexing (on
+    the clamped ids); the same call on ids with one id moved one block on
+    gives other bits."""
+    kvh, Bs = 4, 16
+    nb = L // Bs
+    cache = torch.randn((b, kvh, L, D), generator=gen, device="cuda").to(dtype)
+    if ids == "ends":
+        pick = torch.tensor([-2, 0, nb - 1, nb + 3], dtype=torch.int32, device="cuda")
+        idx = pick[torch.randint(0, 4, (b, kvh, S), generator=gen, device="cuda")]
+        idx[0, 0, :4] = pick
+    elif ids == "info view":
+        info = torch.randint(0, nb, (b, kvh, nsa_decode.INFO_WIDTH), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        idx = info[..., :S]
+        assert not idx.is_contiguous()
+    else:
+        idx = torch.randint(0, nb, (b, kvh, S), generator=gen, device="cuda", dtype=torch.int32)
     before = paged_gather.paged_gather.launches
     got = paged_gather.paged_gather(cache, idx, Bs)
     torch.cuda.synchronize()
     assert paged_gather.paged_gather.launches == before + 1
     assert torch.equal(got, paged_gather.paged_gather_plain(cache, idx, Bs))
+    blocks = cache.view(b, kvh, nb, Bs, D)
+    bi = torch.arange(b, device="cuda")[:, None, None]
+    hi = torch.arange(kvh, device="cuda")[None, :, None]
+    lib = blocks[bi, hi, idx.long().clamp(0, nb - 1)].reshape(got.shape)
+    assert torch.equal(got, lib)
+    wrong = idx.clone()
+    wrong[0, 0, 0] = (wrong[0, 0, 0].clamp(0, nb - 1) + 1) % nb
+    assert not torch.equal(got, paged_gather.paged_gather_plain(cache, wrong, Bs))
+
+
+def test_paged_gather_refuses_what_it_cannot_take(gen):
+    cache = randn(gen, 2, 4, 256, 128)
+    idx = torch.zeros((2, 4, 9), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        paged_gather.paged_gather(cache, idx.transpose(1, 2).contiguous().transpose(1, 2), 16)
+    with pytest.raises(ValueError):
+        paged_gather.paged_gather(cache, idx.long(), 16)
+    with pytest.raises(ValueError):
+        paged_gather.paged_gather(cache, idx, 24)
 
 
 @pytest.mark.parametrize("route", [None, "split"])

@@ -230,16 +230,24 @@ def test_decode_attend_fused_ragged_and_paged_plain_match_pallas(with_ff):
     np.testing.assert_array_equal(t_pool[-1].numpy(), pool[-1])      # trash page untouched
 
 
-def test_paged_gather_plain_matches_pallas():
+@pytest.mark.parametrize("b, kvh, max_len, width, block, slots, strided", [
+    (3, KVH, MAX_LEN, 2 * D, SEL_BLOCK, N_SLOTS, False),
+    (2, 3, 96, 8, 8, 5, False),
+    # the ids as the split route passes them: the first columns of its info rows
+    (3, KVH, MAX_LEN, 2 * D, SEL_BLOCK, N_SLOTS, True),
+], ids=["tiny", "second-shape", "strided-ids"])
+def test_paged_gather_plain_matches_pallas(b, kvh, max_len, width, block, slots, strided):
     rs = np.random.RandomState(5)
-    cache = rnd(rs, 3, KVH, MAX_LEN, 2 * D)
-    idx = rs.randint(0, MAX_LEN // SEL_BLOCK, (3, KVH, N_SLOTS)).astype(np.int32)
-    want = j_gather.paged_gather(jnp.asarray(cache), jnp.asarray(idx), SEL_BLOCK,
-                                 interpret=True)
+    cache = rnd(rs, b, kvh, max_len, width)
+    table = rs.randint(0, max_len // block, (b, kvh, slots + 3 * strided)).astype(np.int32)
+    idx = table[..., :slots]
+    want = j_gather.paged_gather(jnp.asarray(cache), jnp.asarray(idx), block, interpret=True)
+    t_idx = T(table)[..., :slots] if strided else T(idx)
+    assert t_idx.is_contiguous() != strided
     before = t_gather.paged_gather.launches
-    got = t_gather.paged_gather(T(cache), T(idx), SEL_BLOCK)
+    got = t_gather.paged_gather(T(cache), t_idx, block)
     assert t_gather.paged_gather.launches == before
-    assert tuple(got.shape) == (3, KVH, N_SLOTS * SEL_BLOCK, 2 * D)
+    assert tuple(got.shape) == (b, kvh, slots * block, width)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
