@@ -127,7 +127,12 @@ output within TOL_FUSED, the plain version with each row's first selected
 block left out failing both, a second launch bit for bit; rows 8-10 timed
 as device time from the profiler launch by launch, with the event-timed
 figure and the host time of a call beside it; the attend kernel's grid,
-shared memory and ptxas registers; the block gather of the ragged split route; and the
+shared memory and ptxas registers; the block gather of the ragged split route
+at the engine cell and at 64 rows, bit for bit its plain version and
+advanced indexing on contiguous ids and on the strided view of the info
+rows the route passes, a wrong-id control giving other bits, its launch
+geometry and ptxas registers, its device time and advanced indexing's under
+the zeroing and the clean-cold L2 flush (``kernel_times.Flush``); and the
 flash attention kernel of the full-attention baseline at the serving cell's
 shapes (q [64, 8, 3900, 64], k / v [64, 4, 3900, 64], causal), with
 ``torch.nn.functional.scaled_dot_product_attention`` timed beside it as its
@@ -643,7 +648,7 @@ def flex_backward(inputs, fo_grad, so_grad, sel_block, window, scale, flush, ite
         for _ in range(iters):
             outs = run()[:2]
             with torch.inference_mode():
-                flush.zero_()
+                flush()
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             torch.autograd.grad(outs, (rq, rk, v), cot)
@@ -1587,24 +1592,68 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
               f"6-7: {bits}")
 
     # ---- row 11: the block gather of the ragged split route ----------------
-    idx = info_p.reshape(b, kvh, -1)[..., :n_slots].contiguous()
-    gk = paged_gather.paged_gather(kv, idx, Bs)
-    gp = paged_gather.paged_gather_plain(kv, idx, Bs)
-    blocks = kv.view(b, kvh, MAX_LEN // Bs, Bs, 2 * d)
-    bi, hi, il = rows[:, None, None], torch.arange(kvh, device=DEVICE)[None, :, None], idx.long()
-    lib = blocks[bi, hi, il]
-    torch.cuda.synchronize()
-    check(torch.equal(gk, gp) and torch.equal(gk, lib.reshape(gk.shape)),
-          "paged_gather is not the blocks it was asked for")
-    print(f"  paged_gather {b} slots x {kvh} heads x {n_slots} blocks of {Bs} rows: equal to "
-          f"its plain version and to advanced indexing", flush=True)
-    bms, by = bound_ms(2 * nbytes(gk) + nbytes(idx), 0)
-    gat = {"name": "paged_gather", "route": "cuda", "source": "nsa_tpu_torch/csrc/paged_gather.cu",
-           "replaces": "nsa_tpu/ops/pallas/paged_gather.py:73", "max_abs_err": 0.0,
-           "ms": timed_ms(lambda: paged_gather.paged_gather(kv, idx, Bs), 50, flush),
-           "plain_ms": timed_ms(lambda: paged_gather.paged_gather_plain(kv, idx, Bs), 10, flush),
-           "bound_ms": bms, "bound_by": by,
-           "library_ms": timed_ms(lambda: blocks[bi, hi, il], 50, flush)}
+    # at the engine cell and at the serving batch (64 rows of seeded blocks);
+    # the ids as the split route passes them, the first columns of the info
+    # rows (a strided view), and contiguous
+    clean = kernel_times.Flush(clean=True)
+    blk_ids = torch.randint(0, MAX_LEN // Bs, (BATCH, kvh, nsa_decode.INFO_WIDTH),
+                            generator=gen, device=DEVICE, dtype=torch.int32)
+    gathers = {}
+    for label, kv_g, info_g in (("engine", kv, info_p.reshape(b, kvh, -1)),
+                                (f"bs {BATCH}", randn(BATCH, kvh, MAX_LEN, 2 * d), blk_ids)):
+        rows_g = kv_g.shape[0]
+        view = info_g[..., :n_slots]
+        idx = view.contiguous()
+        before = paged_gather.paged_gather.launches
+        gk, gv = paged_gather.paged_gather(kv_g, idx, Bs), paged_gather.paged_gather(kv_g, view, Bs)
+        gp = paged_gather.paged_gather_plain(kv_g, idx, Bs)
+        blocks = kv_g.view(rows_g, kvh, MAX_LEN // Bs, Bs, 2 * d)
+        bi = torch.arange(rows_g, device=DEVICE)[:, None, None]
+        hi, il = torch.arange(kvh, device=DEVICE)[None, :, None], idx.long()
+        lib = blocks[bi, hi, il]
+        wrong = idx.clone()
+        wrong[0, 0, 0] = (wrong[0, 0, 0].clamp(0, MAX_LEN // Bs - 1) + 1) % (MAX_LEN // Bs)
+        torch.cuda.synchronize()
+        check(paged_gather.paged_gather.launches == before + 2,
+              "paged_gather: one launch a call")
+        check(torch.equal(gk, gp) and torch.equal(gk, lib.reshape(gk.shape))
+              and torch.equal(gv, gk), f"paged_gather ({label}) is not the blocks it was asked for")
+        check(not torch.equal(gk, paged_gather.paged_gather_plain(kv_g, wrong, Bs)),
+              f"paged_gather ({label}): the wrong-id control gives the same bits")
+        geo = kernel_times.launch_args(lambda: paged_gather.paged_gather(kv_g, view, Bs))
+        print(f"  paged_gather {label}, {rows_g} rows x {kvh} heads x {n_slots} blocks of {Bs} "
+              f"rows: equal to its plain version and to advanced indexing, the strided id view "
+              f"too; one id moved one block on gives other bits; launch "
+              + "; ".join(", ".join(f"{k} {x[k]}" for k in ("name", *kernel_times.LAUNCH_KEYS))
+                          for x in geo), flush=True)
+        bms, by = bound_ms(2 * nbytes(gk) + nbytes(idx), 0)
+        g = {"name": "paged_gather", "route": "cuda",
+             "source": "nsa_tpu_torch/csrc/paged_gather.cu",
+             "replaces": "nsa_tpu/ops/pallas/paged_gather.py:73", "max_abs_err": 0.0,
+             **breakdown(f"paged_gather {label}",
+                         lambda: paged_gather.paged_gather(kv_g, view, Bs), flush),
+             "plain_ms": timed_ms(lambda: paged_gather.paged_gather_plain(kv_g, idx, Bs), 10,
+                                  flush),
+             "bound_ms": bms, "bound_by": by, "launch": geo,
+             "library_ms": kernel_times.launch_breakdown(lambda: blocks[bi, hi, il],
+                                                         flush)["device_ms"]}
+        # the same under the clean-cold flush: L2 full of clean lines
+        g["clean_ms"] = kernel_times.launch_breakdown(
+            lambda: paged_gather.paged_gather(kv_g, view, Bs), clean)["device_ms"]
+        g["library_clean_ms"] = kernel_times.launch_breakdown(lambda: blocks[bi, hi, il],
+                                                              clean)["device_ms"]
+        print(f"  paged_gather {label}: device {g['ms']:.4f} ms under the zeroing flush, "
+              f"{g['clean_ms']:.4f} under the clean-cold one; advanced indexing "
+              f"{g['library_ms']:.4f} / {g['library_clean_ms']:.4f}; bound {bms:.5f} ms",
+              flush=True)
+        gathers[label] = g
+    del clean
+    gat = gathers["engine"]
+    gat["bs64"] = {k: v for k, v in gathers[f"bs {BATCH}"].items()
+                   if k.endswith("ms") or k == "launch"}
+    regs, spill = kernel_times.ptxas_usage(log, "paged_gather_kernelILb1E", "paged_gather_cu")
+    gat.update(registers=regs, spill_bytes=spill)
+    print(f"  paged_gather ptxas: {regs} registers, spills (stores, loads) {spill}", flush=True)
     for k in (sel, att, pag, gat):
         print(f"  {k['name']} {b} slots: {k['ms']:.4f} ms (bound {k['bound_ms']:.5f} ms, by "
               f"{k['bound_by']}); plain {k['plain_ms']:.4f} ms; library {k['library_ms']}",
@@ -2610,7 +2659,7 @@ def main():
         t0 = phase("weights", t0)
 
         gen = torch.Generator(device="cuda").manual_seed(SEED)
-        flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+        flush = kernel_times.Flush()
         kernels = [*kernel_prefill(gen, flush, cfg, params),
                    *kernel_decode(gen, flush, cfg, lib.log),
                    *kernel_prefill_bwd(gen, flush, cfg, params, lib.log),
