@@ -343,7 +343,7 @@ def check(cond, msg):
 
 
 def timed_ms(fn, iters, flush):
-    """Median device ms of fn(), L2 flushed before each launch.  Every
+    """Median event-timed ms of fn(), L2 flushed before each launch.  Every
     function timed here has run once before, for its comparison: that run is
     its warm-up."""
     return kernel_times.event_ms(fn, iters, flush)

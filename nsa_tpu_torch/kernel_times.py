@@ -9,7 +9,8 @@ caches: the fused pair (rows 6-7; row 6 on an emitting step and on the
 step before it) and the whole-model kernel (row 12) at bs 8, the fused
 pair again at bs 1, the engine's ragged select-emit, ragged attend and
 paged attend (rows 8-10) at 16 slots of 4096 rows at mixed positions, the
-split pair (rows 2-3) at bs 64 and the block gather (row 11) at 16 slots.
+split pair (rows 2-3) at bs 64 and the block gather (row 11) at 16 and 64
+slots.
 For each it prints the event-timed median (L2 flushed before each call by
 zeroing a 256 MB buffer: the call pays the write-back of the dirty lines it
 evicts; see ``Flush``),
@@ -501,7 +502,8 @@ def cases(params, cfg, device="cuda"):
     out["decode_attend"] = (lambda: (), lambda st, rq=rq, kv=kv, info=info_p, c=c_p, gt=gates: (
         nsa_decode.decode_attend(rq, kv, info, c, gt, DECODE_T, **tkw),))
     # beside row 11: the library call (advanced indexing), a device-to-device
-    # cudaMemcpyAsync of the same bytes, and an empty kernel, the launch floor
+    # cudaMemcpyAsync of the same bytes, the kernel on ids already in L2, and
+    # an empty kernel, the launch floor
     for slots, suffix in ((SLOTS, ""), (SPLIT_B, f" bs {SPLIT_B}")):
         idx = info_p[..., :num_sel + n_slide][:slots].contiguous()
         kvs = kv[:slots]

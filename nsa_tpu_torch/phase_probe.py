@@ -257,7 +257,7 @@ def probe(lib, fn, phases, blocks, flush, iters=9, slot=0) -> dict:
         raise RuntimeError("nsa_probe_set_base failed")
     runs = []
     for _ in range(iters):
-        flush.zero_()
+        flush()
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
@@ -289,7 +289,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("phase_probe needs an NVIDIA GPU")
-    from .kernel_times import event_ms
+    from .kernel_times import Flush, event_ms
     from .ops.cuda import runtime
 
     res = {"src": args.src, "device": torch.cuda.get_device_name(0)}
@@ -301,7 +301,7 @@ def main(argv=None):
             getattr(plain, fn).argtypes = runtime.SIGNATURES[fn]
             getattr(plain, fn).restype = ctypes.c_int
         x = serving_inputs()
-        flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+        flush = Flush()
         blocks = x["q"].shape[0] * x["q"].shape[1]
         sel, att = launchers(lib, x)
         psel, patt = launchers(plain, x)
