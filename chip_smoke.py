@@ -1651,7 +1651,7 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
     gat = gathers["engine"]
     gat["bs64"] = {k: v for k, v in gathers[f"bs {BATCH}"].items()
                    if k.endswith("ms") or k == "launch"}
-    regs, spill = kernel_times.ptxas_usage(log, "paged_gather_kernelILb1E", "paged_gather_cu")
+    regs, spill = kernel_times.ptxas_usage(log, "paged_gather_kernelILi256E", "paged_gather_cu")
     gat.update(registers=regs, spill_bytes=spill)
     print(f"  paged_gather ptxas: {regs} registers, spills (stores, loads) {spill}", flush=True)
     for k in (sel, att, pag, gat):

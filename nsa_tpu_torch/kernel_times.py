@@ -32,8 +32,9 @@ Rows 2, 3 and 11 are timed again under the clean-cold flush
 (``Flush(clean=True)``), and row 11 has a probe beside it at 16 and 64
 slots, each case under both flushes: the kernel, advanced indexing (the
 library call), a device-to-device ``cudaMemcpyAsync`` of the same bytes,
-an empty kernel (the launch floor), and at 16 slots the kernel on ids just
-copied (in L2, as the engine's selection leaves them).
+an empty kernel (the launch floor), the kernel on blocks of one 16-byte
+row (its grid and id load with next to no data), and at 16 slots both
+kernels on ids just copied (in L2, as the engine's selection leaves them).
 The script uses only the wrappers' public signatures, so a copy of it runs
 in an older checkout of the port too: run it there and here in one chip
 call, in turns, to compare two versions of a kernel.  Needs the card.
@@ -63,10 +64,10 @@ class Flush:
     (``clean=True``) zeroes it and then reads a second one into one scalar:
     L2 is left full of clean lines that the call never touched."""
 
-    def __init__(self, clean: bool = False, device="cuda"):
+    def __init__(self, clean: bool = False):
         self.name = "clean-cold" if clean else "zeroing"
-        self.dirty = torch.empty(256 << 20, dtype=torch.int8, device=device)
-        self.clean = torch.zeros(256 << 20, dtype=torch.int8, device=device) if clean else None
+        self.dirty = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+        self.clean = torch.zeros(256 << 20, dtype=torch.int8, device="cuda") if clean else None
 
     def __call__(self) -> None:
         self.dirty.zero_()
@@ -78,10 +79,11 @@ def launch_breakdown(fn, flush, iters: int = 5) -> dict:
     """One ``torch.profiler`` profile per call of ``fn`` (L2 flushed and the
     card idle before each): the device ms of each launch in order, the gaps
     between them, their sum and the span from the first start to the last
-    end, medians over ``iters`` calls (a profile with no device event is
-    taken again, at most 3 x ``iters`` profiles in all, and one that
-    recorded fewer of the call's launches than another is left out); with
-    the event-timed median and the host ms of the call."""
+    end, medians over ``iters`` calls: only profiles that recorded as many
+    of the call's launches as the longest count, and profiles are taken
+    until ``iters`` of those are in hand, at most 3 x ``iters`` in all
+    (``profiles``: how many the medians used); with the event-timed median
+    and the host ms of the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -90,7 +92,7 @@ def launch_breakdown(fn, flush, iters: int = 5) -> dict:
         return xs[len(xs) // 2]
 
     runs = []
-    for _ in range(3 * iters):      # a profile now and then records no device event: retried
+    for _ in range(3 * iters):      # a profile now and then misses device events: retried
         flush()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -100,11 +102,11 @@ def launch_breakdown(fn, flush, iters: int = 5) -> dict:
                     key=lambda e: e.time_range.start)
         if ev:
             runs.append([(e.name, e.time_range.start, e.time_range.end) for e in ev])
-        if len(runs) == iters:
-            break
+            n = max(len(r) for r in runs)
+            if sum(len(r) == n for r in runs) == iters:
+                break
     if not runs:
         raise RuntimeError("torch.profiler recorded no device event for the call")
-    n = max(len(r) for r in runs)
     runs = [r for r in runs if len(r) == n]
     names = [nm for nm, _, _ in runs[0][:n]]
     launch = [med([(r[i][2] - r[i][1]) / 1e3 for r in runs]) for i in range(n)]
@@ -120,7 +122,7 @@ def launch_breakdown(fn, flush, iters: int = 5) -> dict:
             "gaps_ms": gaps, "device_ms": med([sum((e - s) / 1e3 for _, s, e in r[:n])
                                                for r in runs]),
             "span_ms": med([(r[n - 1][2] - r[0][1]) / 1e3 for r in runs]),
-            "event_ms": event_ms(fn, 30, flush), "host_ms": med(host)}
+            "event_ms": event_ms(fn, 30, flush), "host_ms": med(host), "profiles": len(runs)}
 
 
 def event_ms(fn, iters, flush) -> float:
@@ -140,6 +142,7 @@ def event_ms(fn, iters, flush) -> float:
 
 # the cases timed under both flushes: rows 2, 3 and 11 and row 11's probe
 CLEAN_TOO = ("decode_select", "decode_attend", "paged_gather", "paged_gather (ids in L2)",
+             "paged_gather 16-byte blocks", "paged_gather 16-byte blocks (ids in L2)",
              "advanced indexing", "memcpy DtoD", "empty kernel")
 LAUNCH_KEYS = ("grid", "block", "registers per thread", "shared memory", "blocks per SM")
 
@@ -502,8 +505,10 @@ def cases(params, cfg, device="cuda"):
     out["decode_attend"] = (lambda: (), lambda st, rq=rq, kv=kv, info=info_p, c=c_p, gt=gates: (
         nsa_decode.decode_attend(rq, kv, info, c, gt, DECODE_T, **tkw),))
     # beside row 11: the library call (advanced indexing), a device-to-device
-    # cudaMemcpyAsync of the same bytes, the kernel on ids already in L2, and
-    # an empty kernel, the launch floor
+    # cudaMemcpyAsync of the same bytes, the kernel on ids already in L2, an
+    # empty kernel (one block: the launch floor), and the kernel on 16-byte
+    # blocks (one row of 16 bytes), its own grid with the same ids but next
+    # to no data: its launch and ramp and its dependent id load
     for slots, suffix in ((SLOTS, ""), (SPLIT_B, f" bs {SPLIT_B}")):
         idx = info_p[..., :num_sel + n_slide][:slots].contiguous()
         kvs = kv[:slots]
@@ -517,11 +522,17 @@ def cases(params, cfg, device="cuda"):
         n = idx.numel() * Bs * 2 * d
         src, dst = kvs.reshape(-1)[:n], torch.empty(n, dtype=kv.dtype, device=device)
         out["memcpy DtoD" + suffix] = (lambda: (), lambda st, src=src, dst=dst: (dst.copy_(src),))
+        tiny = randn(slots, kvh, MAX_LEN, 8)
+        out["paged_gather 16-byte blocks" + suffix] = (lambda: (), lambda st, tiny=tiny, idx=idx: (
+            paged_gather.paged_gather(tiny, idx, 1),))
         if slots == SLOTS:
             # the ids just written, as the engine's selection leaves them: a
             # copy of them first (its own launch in the breakdown)
             out["paged_gather (ids in L2)"] = (lambda: (), lambda st, kvs=kvs, idx=idx: (
                 paged_gather.paged_gather(kvs, idx.clone(), Bs),))
+            out["paged_gather 16-byte blocks (ids in L2)"] = (
+                lambda: (), lambda st, tiny=tiny, idx=idx: (
+                    paged_gather.paged_gather(tiny, idx.clone(), 1),))
     out["empty kernel"] = (lambda: (), lambda st: torch.cuda._sleep(0) or ())
 
     mp = fuse_decode_params(params, cfg)["mega"]
@@ -572,13 +583,14 @@ def main(argv=None):
             res["kernels"][name] = r
             print(f"{name}: event {r['event_ms']:.4f} ms, device {r['device_ms']:.4f} ms over "
                   f"{len(r['launches'])} launches, span {r['span_ms']:.4f} ms, host "
-                  f"{r['host_ms']:.4f} ms; " + ", ".join(
+                  f"{r['host_ms']:.4f} ms, {r['profiles']} profiles; " + ", ".join(
                       f"{x['name'][:40]} {x['ms']:.4f}" for x in r["launches"])
                   + f"; gaps {[round(x, 4) for x in r['gaps_ms']]}; bits {bits}", flush=True)
             if "clean" in r:
                 c = r["clean"]
                 print(f"  {clean.name} flush: event {c['event_ms']:.4f} ms, device "
-                      f"{c['device_ms']:.4f} ms, span {c['span_ms']:.4f} ms; "
+                      f"{c['device_ms']:.4f} ms, span {c['span_ms']:.4f} ms, "
+                      f"{c['profiles']} profiles; "
                       + ", ".join(f"{x['name'][:40]} {x['ms']:.4f}" for x in c["launches"]),
                       flush=True)
             for x in r["launch_args"]:

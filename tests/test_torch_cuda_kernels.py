@@ -1000,10 +1000,13 @@ def test_attend_ragged_refuses_slices_that_do_not_fit(gen):
     (64, 4096, 128, torch.bfloat16, 9, "random"),      # the serving batch
     (5, 1024, 64, torch.float32, 9, "random"),         # 256-byte rows
     (5, 1024, 64, torch.bfloat16, 9, "random"),        # 128-byte rows
+    (5, 1024, 256, torch.float32, 9, "random"),        # 1,024 vectors a block: 4 rounds
+    (5, 1024, 24, torch.bfloat16, 9, "random"),        # 48 vectors a block: threads left idle
     (5, 1024, 128, torch.bfloat16, 1, "random"),
     (5, 1024, 128, torch.bfloat16, 9, "ends"),         # 0, the last block, and past both (clamped)
     (16, 4096, 128, torch.bfloat16, 9, "info view"),   # the split route's strided id rows
-], ids=["small", "engine", "b64", "f32-d64", "bf16-d64", "S1", "ends", "info-view"])
+], ids=["small", "engine", "b64", "f32-d64", "bf16-d64", "f32-d256", "bf16-d24", "S1", "ends",
+        "info-view"])
 def test_paged_gather_kernel_matches_plain(gen, b, L, D, dtype, S, ids):
     """One launch, bit for bit the plain version and advanced indexing (on
     the clamped ids); the same call on ids with one id moved one block on
