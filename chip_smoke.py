@@ -21,7 +21,8 @@ Phases, each printing its name and seconds as it ends:
              64-row tile, and ``flex_attention`` timed beside it.
 5. main    - the port's main path through its entry points: prefill of
              64 x 3900 seeded tokens, then 100 greedy decode steps with the
-             4096-row cache; launch counts read around exactly that run; the
+             4096-row cache (one eager step, then ``greedy_decode``'s
+             captured loop); launch counts read around exactly that run; the
              prefill's logits held against the plain path's, and the first
              decode step's logits against the plain versions'.
 6. measure - decode and prefill tok/s over 3 more timed runs each
@@ -82,6 +83,21 @@ Phases, each printing its name and seconds as it ends:
              full, sparse decode tok/s on the cell, its JSON printed on a line
              of its own); ``torch.profiler`` over the prefill and 5 decode
              steps, with the device time of copies a step (none of the cache).
+12. graph  - the decode loops as captured CUDA graphs (``models/decode_graph.py``,
+             the default on the card; the phases above already run them)
+             against the same steps eager (``capture=False``), in turns
+             (eager, captured, captured, eager): the serving cell on the
+             sparse and the full model, bs 8 on the whole-model kernel
+             (greedy at 1 and 25 tokens a launch, tempered at one with
+             seeded noise), the 48-request engine on the dense and the paged
+             pool; tokens and every cache tensor equal, launch counts equal
+             in every turn (a replay adds one eager step's), the logits of a
+             captured 3-step loop against eager (bit for bit, or within the
+             2% gate with the argmax equal); tok/s, peak memory; one
+             profiled run of replays for the split, full, whole-model and
+             engine steps, whose device records of each kernel a replay
+             must equal the step's launches and its wrapper's counter a
+             replay, with the device's busy share beside the eager steps'.
 
 The kernels phase holds the split route's two decode kernels (rows 2-3)
 at the serving cell's shapes (bs 64, t = 3999, seeded inputs): c_out
@@ -166,6 +182,7 @@ from nsa_tpu_torch.config import DataConfig, TrainConfig  # noqa: E402
 from nsa_tpu_torch.eval.efficiency import (  # noqa: E402
     _pick_mega_steps,
     clone_cache,
+    copy_cache,
     measure_decode,
     measure_prefill,
     measure_train,
@@ -177,6 +194,7 @@ from nsa_tpu_torch.models.transformer import (  # noqa: E402
     fuse_decode_params,
     greedy_decode,
     init_transformer,
+    sample_decode,
     transformer_decode_step,
     transformer_decode_step_mega,
     transformer_forward,
@@ -194,6 +212,7 @@ from nsa_tpu_torch.ops.cuda import (  # noqa: E402
     paged_gather,
     runtime,
 )
+from nsa_tpu_torch.models import decode_graph  # noqa: E402
 from nsa_tpu_torch.ops import nsa as nsa_layer  # noqa: E402
 from nsa_tpu_torch.ops.nsa import _ckv_width, fuse_decode_layer  # noqa: E402
 from nsa_tpu_torch import bench as port_bench  # noqa: E402
@@ -216,10 +235,11 @@ TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
 # kernels with the plain flash attention at full size and flex_attention's
 # compiles, forward and backward, 20.6 s full, 5.7 s main with its two plain
 # prefills), at least 10 s for the phases of a few seconds, whose time is
-# host noise; 635 s in all
+# host noise; the graph phase's (eager and captured decode in turns, ~60 s
+# predicted, mostly the eager engine runs) 150 s; 785 s in all
 BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 130, "main": 15,
             "measure": 20, "profile": 50, "small": 30, "serve": 40, "full": 50,
-            "train": 160}
+            "graph": 150, "train": 160}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
 SMALL_BATCHES = (8, 1)       # the small-batch cell: the whole-model decode route
 FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
@@ -335,6 +355,12 @@ def phase(name, t0):
     if dt > BUDGET_S[name]:
         raise RuntimeError(f"phase {name} took {dt:.1f}s, over its {BUDGET_S[name]}s budget")
     return time.perf_counter()
+
+
+def device_t(t):
+    """The position ``t`` as the decode kernels read it on the main path: one
+    int32 on the card, made before the calls that are timed."""
+    return torch.full((), t, dtype=torch.int32, device=DEVICE)
 
 
 def check(cond, msg):
@@ -820,11 +846,11 @@ def kernel_decode_fused(gen, flush, cfg, params, b, log):
               n_slide=n_slide, scale=scale)
     steps, plain_times, errs, outs = {}, {}, [], {}
     for t in (DECODE_T, DECODE_T - 1):          # an emission step, then one without
-        num_cb = t // stride
+        num_cb, pt = t // stride, device_t(t)
         caches = [(ckv.clone(), ring.clone()) for _ in range(4)]
-        c_k, info_k = F.decode_select_emit(q, *caches[0], kv_new, mem_kv, *weights, t, num_cb,
+        c_k, info_k = F.decode_select_emit(q, *caches[0], kv_new, mem_kv, *weights, pt, num_cb,
                                            **kw)
-        c_2, info_2 = F.decode_select_emit(q, *caches[2], kv_new, mem_kv, *weights, t, num_cb,
+        c_2, info_2 = F.decode_select_emit(q, *caches[2], kv_new, mem_kv, *weights, pt, num_cb,
                                            **kw)
         c_p, info_p = F.decode_select_emit_plain(q, *caches[1], kv_new, mem_kv, *weights, t,
                                                  num_cb, **kw)
@@ -874,7 +900,7 @@ def kernel_decode_fused(gen, flush, cfg, params, b, log):
         outs[t] = (c_p, info_p, err_ctl / (TOL_FUSED * top_row) if emit else None)
         work = (q, ckv.clone(), ring.clone(), kv_new, mem_kv, *weights)
         steps[t] = breakdown(f"decode_select_emit t={t}", lambda: F.decode_select_emit(
-            *work, t, num_cb, **kw), flush)
+            *work, pt, num_cb, **kw), flush)
         plain_times[t] = timed_ms(lambda: F.decode_select_emit_plain(
             *work, t, num_cb, **kw), 10, flush)
     # amortised over the stride: one emission step in `stride`
@@ -915,8 +941,9 @@ def kernel_decode_fused(gen, flush, cfg, params, b, log):
     kv_k, kv_p, kv_2 = kv.clone(), kv.clone(), kv.clone()
     comb_k, comb_2 = torch.empty_like(rq), torch.empty_like(rq)
     args = (kv_row, info_p, c_p, gates, x, fp["w_out"], t, ff)
-    out_k = F.decode_attend_fused(rq, kv_k, *args, attn_out=comb_k, **akw)
-    out_2 = F.decode_attend_fused(rq, kv_2, *args, attn_out=comb_2, **akw)
+    args_k = (*args[:6], device_t(t), ff)      # the kernel reads t on the device
+    out_k = F.decode_attend_fused(rq, kv_k, *args_k, attn_out=comb_k, **akw)
+    out_2 = F.decode_attend_fused(rq, kv_2, *args_k, attn_out=comb_2, **akw)
     out_p = F.decode_attend_fused_plain(rq, kv_p, *args, **akw)
     # the control: the plain version with each row's first selected block left out
     dropped = nsa_decode_ragged.without_first_selected(info_p, num_sel, n_slide)
@@ -965,13 +992,13 @@ def kernel_decode_fused(gen, flush, cfg, params, b, log):
            "max_abs_err": err_a, "attend_tolerance_ratio": ratio,
            "control_over_gate": err_ctl / (TOL_FUSED * top), "control_ratio": ratio_ctl,
            **breakdown("decode_attend_fused", lambda: F.decode_attend_fused(
-               rq, kv_k, *args, **akw), flush),
+               rq, kv_k, *args_k, **akw), flush),
            "plain_ms": timed_ms(lambda: F.decode_attend_fused_plain(rq, kv_p, *args, **akw),
                                 10, flush),
            "bound_ms": bms, "bound_by": by, "library_ms": None,
            "plan": plan, "registers": regs, "spill_bytes": spill,
            "phase_us": kernel_times.attend_phase_us(lambda m: F.decode_attend_fused(
-               rq, kv_k, *args, phase_ns=m, **akw), flush)}
+               rq, kv_k, *args_k, phase_ns=m, **akw), flush)}
     print(f"  decode_attend_fused bs {b}: device {att['ms']:.4f} ms (bound {bms:.5f} ms, by "
           f"{by}); plain {att['plain_ms']:.4f} ms; us per phase (the card's global timer, "
           f"median of 5): { {k: round(v, 2) for k, v in att['phase_us'].items()} }", flush=True)
@@ -1209,7 +1236,7 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
         # cast and the kernel), as for rows 8-10: the wrapper's host time now
         # exceeds the kernel's, and the event-timed figure reads it
         timed[t] = breakdown(f"decode_step_mega t={t}", lambda: transformer_decode_step_mega(
-            mp, cfg, token, *work, t, greedy=True), flush)
+            mp, cfg, token, *work, device_t(t), greedy=True), flush)
         times[t] = timed[t]["ms"]
         plain_times[t] = timed_ms(lambda: transformer_decode_step_mega(
             mp, cfg, token, *work, t, greedy=True, use_kernels=False), 3, flush)
@@ -1252,7 +1279,7 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
           f"{amort_plain:.4f} ms", flush=True)
     plan = nsa_decode_mega.launch_plan(DEVICE, [
         L, b, kvh, cfg.num_grouped_queries, MAX_LEN, Wc, Bc, nsa.num_compressed_mem_kv,
-        mp["w1k"].shape[3], cfg.dim, cfg.vocab_size, mp["fw1"].shape[2], 0, 1, 0, stride, Bs,
+        mp["w1k"].shape[3], cfg.dim, cfg.vocab_size, mp["fw1"].shape[2], 1, 0, stride, Bs,
         num_sel, n_slide, window, nsa_decode.INFO_WIDTH])
     regs, spill = kernel_times.ptxas_usage(log, f"mega_kernelILi{cfg.num_grouped_queries}E")
     print(f"  decode_step_mega launch: grid {plan['grid']}, {plan['blocks_per_sm']} block(s) fit "
@@ -1563,7 +1590,7 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
     # ---- rows 8-9 at one position for every row, against rows 6-7 ----------
-    # rows 6-7 run rows 8-9's bodies at a host position: the same bits, on an
+    # rows 6-7 run rows 8-9's bodies at one position: the same bits, on an
     # emission step and the step before it, with the FF and without
     for tt in (DECODE_T, DECODE_T - 1):
         tu = torch.full((b,), tt, dtype=torch.int32, device=DEVICE)
@@ -1687,8 +1714,9 @@ def kernel_decode(gen, flush, cfg, log):
     q, ckv, mem_kv = randn(b, kvh, g, d), randn(b, kvh, Wc, 2 * d), randn(2, kvh, M, d)
     kw = dict(max_blocks=MAX_LEN // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
               n_slide=n_slide, scale=scale)
-    c_k, info_k = nsa_decode.decode_select(q, ckv, mem_kv, t, num_cb, **kw)
-    c_2, info_2 = nsa_decode.decode_select(q, ckv, mem_kv, t, num_cb, **kw)
+    pt = device_t(t)                              # the kernels read t on the device
+    c_k, info_k = nsa_decode.decode_select(q, ckv, mem_kv, pt, num_cb, **kw)
+    c_2, info_2 = nsa_decode.decode_select(q, ckv, mem_kv, pt, num_cb, **kw)
     c_p, info_p = nsa_decode.decode_select_plain(q, ckv, mem_kv, t, num_cb, **kw)
     _, scores = nsa_decode.select_scores_plain(q, ckv, mem_kv, num_cb, t, stride=stride,
                                                sel_block=Bs, scale=scale)
@@ -1728,7 +1756,7 @@ def kernel_decode(gen, flush, cfg, log):
            "source": "nsa_tpu_torch/csrc/nsa_decode.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode.py:195",
            "max_abs_err": err_c, "select_tolerance_ratio": ratio, "control_ratio": ratio_ctl,
-           "ms": timed_ms(lambda: nsa_decode.decode_select(q, ckv, mem_kv, t, num_cb, **kw),
+           "ms": timed_ms(lambda: nsa_decode.decode_select(q, ckv, mem_kv, pt, num_cb, **kw),
                           50, flush),
            "plain_ms": timed_ms(lambda: nsa_decode.decode_select_plain(
                q, ckv, mem_kv, t, num_cb, **kw), 10, flush),
@@ -1739,8 +1767,8 @@ def kernel_decode(gen, flush, cfg, log):
     rq, kv = randn(b, kvh, g, d), randn(b, kvh, MAX_LEN, 2 * d)
     gates = torch.sigmoid(randn(b, kvh, g, 3).float()).to(torch.bfloat16)
     akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=scale)
-    out_k = nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, t, **akw)
-    out_2 = nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, t, **akw)
+    out_k = nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, pt, **akw)
+    out_2 = nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, pt, **akw)
     out_p = nsa_decode.decode_attend_plain(rq, kv, info_p, c_p, gates, t, **akw)
     want, tol = R.attend_tolerance(rq, kv, info_p, c_p, gates, t, **akw)
     # the control: each row's first selected block left out
@@ -1766,8 +1794,8 @@ def kernel_decode(gen, flush, cfg, log):
            "source": "nsa_tpu_torch/csrc/nsa_decode.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode.py:325",
            "max_abs_err": err_a, "attend_tolerance_ratio": ratio, "control_ratio": ratio_ctl,
-           "ms": timed_ms(lambda: nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, t, **akw),
-                          50, flush),
+           "ms": timed_ms(lambda: nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, pt,
+                                                           **akw), 50, flush),
            "plain_ms": timed_ms(lambda: nsa_decode.decode_attend_plain(
                rq, kv, info_p, c_p, gates, t, **akw), 10, flush),
            "bound_ms": bms, "bound_by": by, "library_ms": None,
@@ -2040,19 +2068,25 @@ def serve_requests(n, seed=0):
 
 
 class EngineRun:
-    """Count the ragged decode steps and prefill waves of engine runs, and
-    run every multi-token window under ``set_sync_debug_mode("error")``:
+    """Count the ragged decode steps (the single steps, and each window's
+    tokens: a captured window replays its step without calling the step
+    function) and prefill waves of engine runs, and run every multi-token
+    window, its capture included, under ``set_sync_debug_mode("error")``:
     a host sync inside one raises."""
+
+    NAMES = ("ragged_decode_step", "ragged_decode_step_paged", "wave_prefill",
+             "ragged_decode_multi")
 
     def __enter__(self):
         self.steps = self.waves = self.windows = 0
-        self.real = (serve.transformer_decode_step_ragged, serve.wave_prefill,
-                     serve.ragged_decode_multi)
-        step, wave, multi = self.real
+        self.real = tuple(getattr(serve, n) for n in self.NAMES)
+        step, step_paged, wave, multi = self.real
 
-        def counted_step(*a, **k):
-            self.steps += 1
-            return step(*a, **k)
+        def counted(fn):
+            def run(*a, **k):
+                self.steps += 1
+                return fn(*a, **k)
+            return run
 
         def counted_wave(*a, **k):
             self.waves += 1
@@ -2060,20 +2094,21 @@ class EngineRun:
 
         def no_sync_multi(*a, **k):
             self.windows += 1
+            self.steps += a[5]                   # num_steps
             torch.cuda.set_sync_debug_mode("error")
             try:
                 return multi(*a, **k)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
 
-        serve.transformer_decode_step_ragged = counted_step
-        serve.wave_prefill = counted_wave
-        serve.ragged_decode_multi = no_sync_multi
+        for n, fn in zip(self.NAMES, (counted(step), counted(step_paged), counted_wave,
+                                      no_sync_multi)):
+            setattr(serve, n, fn)
         return self
 
     def __exit__(self, *exc):
-        (serve.transformer_decode_step_ragged, serve.wave_prefill,
-         serve.ragged_decode_multi) = self.real
+        for n, fn in zip(self.NAMES, self.real):
+            setattr(serve, n, fn)
 
 
 def run_engine(params, cfg, reqs, **kw):
@@ -2245,9 +2280,10 @@ def serve_phase(params, cfg, smi):
                                                     runs["paged"]["tokens"]))
     print(f"  every request's tokens equal on the dense and the paged pool: {same}", flush=True)
     # the emitting slots a ragged step, counted in one more dense run (the
-    # count adds launches to every step, so the timed runs above go without)
+    # count adds launches to every step, so the timed runs above go without;
+    # eager, since a captured window would record only its capture)
     with emitting_slots(cfg) as emitting:
-        counted, *_ = run_engine(params, cfg, reqs, steps_per_sync=SERVE_SYNC)
+        counted, *_ = run_engine(params, cfg, reqs, steps_per_sync=SERVE_SYNC, capture=False)
     check(all(np.array_equal(a, b) for a, b in zip(counted, runs["dense"]["tokens"])),
           "the counted engine run gives other tokens")
     emit_counts = torch.stack(emitting[::L]).cpu() if emitting else torch.zeros(0)
@@ -2445,6 +2481,278 @@ def full_phase(sparse_params, sparse_cfg, smi):
     del params, start
     torch.cuda.empty_cache()
     return launches, m
+
+
+# the kernels of a captured step, by a piece of their device name: the
+# wrapper that launches each, and how many a step launches ("depth": one a
+# layer); the full model's step runs none of the port's kernels
+GRAPH_KERNELS = {
+    "split": {"select_kernel<": ("decode_select", "depth"),
+              "attend_kernel<": ("decode_attend", "depth")},
+    "mega": {"mega_kernel<": ("decode_step_mega", 1)},
+    "ragged": {"emit_partial_ragged_kernel": ("decode_select_emit_ragged", "depth"),
+               "select_emit_ragged_kernel": ("decode_select_emit_ragged", "depth"),
+               "attend_persistent_kernel": ("decode_attend_fused_ragged", "depth")},
+    "full": {},
+}
+GRAPH_TURNS = ("eager", "captured", "captured", "eager")
+
+
+def profile_run(fn, label, per):
+    """torch.profiler over ``fn()``: (the profile, its wall seconds, the
+    device's busy share, device records per ``per``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, records = _report(prof, label, wall, per=per, top=5)
+    return prof, wall, busy, records
+
+
+def replayed_kernels(run, kind, depth, per, label):
+    """Profile ``run()``, ``per`` replays of a kept graph (a few: a profile
+    of thousands of records may drop some), and hold each kernel of the
+    step (``GRAPH_KERNELS[kind]``) to the device's own record: its device
+    records a replay, the step's launches, and its wrapper's counter a
+    replay (what the graph adds on each replay) are one number, and no
+    other wrapper counts."""
+    from torch.autograd import DeviceType
+
+    zero_launches(ALL_KERNELS)
+    prof = profile_run(run, f"{label}: {per} replays of the captured step", per)[0]
+    counters = read_launches(ALL_KERNELS)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seen = {k: sum(k in n for n in names) / per for k in GRAPH_KERNELS[kind]}
+    want = {k: depth if n == "depth" else n for k, (_, n) in GRAPH_KERNELS[kind].items()}
+    counted = {k: counters[fn] / per for k, (fn, _) in GRAPH_KERNELS[kind].items()}
+    others = {k: v for k, v in counters.items()
+              if v and k not in {fn for fn, _ in GRAPH_KERNELS[kind].values()}}
+    print(f"  {label}: device records a replay {seen}; launches a step {want}; counters a "
+          f"replay {counted}", flush=True)
+    check(seen == want == counted and not others,
+          f"{label}: a replay's device record {seen}, counters {counted}, others {others}, "
+          f"expected {want}")
+
+
+def decode_turns(label, run, reset, per_run, check_launches):
+    """``run(capture)`` in GRAPH_TURNS from ``reset()``: the tokens and the
+    caches each leaves (``run`` returns them) equal the first turn's bit
+    for bit, the launches counted each turn are ``check_launches``'s, and
+    each turn's wall time, tok/s and peak memory are kept."""
+    ref, out, order = None, {"eager": [], "captured": []}, []
+    for mode in GRAPH_TURNS:
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(ALL_KERNELS)
+        t0 = time.perf_counter()
+        toks, caches = run(mode == "captured")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(ALL_KERNELS)
+        check_launches(launches, f"{label} {mode}")
+        if ref is None:
+            ref = (toks, [x.clone() for x in caches])
+        else:
+            check(torch.equal(toks, ref[0]), f"{label}: {mode} tokens differ from eager's")
+            check(all(torch.equal(x, y) for x, y in zip(caches, ref[1])),
+                  f"{label}: {mode} caches differ from eager's")
+        out[mode].append({"wall_s": wall, "tok_s": per_run / wall,
+                          "peak_bytes": torch.cuda.max_memory_allocated()})
+        order.append(out[mode][-1])
+    tps = " / ".join(f"{r['tok_s']:.1f}" for r in order)
+    peaks = " / ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in order)
+    print(f"  {label} tok/s in turns {' / '.join(GRAPH_TURNS)}: {tps} (the first captured "
+          f"turn captures its graph); peak GiB {peaks}; tokens and caches equal in every "
+          f"turn", flush=True)
+    del ref
+    return out
+
+
+def step_logits(params, cfg, token, run, route, capture, n=3):
+    """The logits of ``n`` decode steps at a device position from ``run``'s
+    cache, as one loop (eager, or a captured graph replayed): the last
+    step's logits, copied out."""
+    def body(s):
+        lg, _ = transformer_decode_step(params, cfg, s["token"], run, route=route, pos=s["pos"])
+        s["logits"].copy_(lg)
+        s["token"].copy_(lg.argmax(-1))
+        s["pos"].add_(1)
+
+    state = {"token": token.clone(), "pos": torch.full((), run.seq_len, dtype=torch.int32,
+                                                       device=DEVICE),
+             "logits": torch.zeros((token.shape[0], cfg.vocab_size), device=DEVICE)}
+    return decode_graph.decode_loop(state, body, n, reads=(params, run.layers),
+                                    opts=(cfg, route), capture=capture)["logits"].clone()
+
+
+def graph_phase(sparse_params, sparse_cfg, smi):
+    """The decode loops as captured CUDA graphs against the same steps
+    eager, in turns (eager, captured, captured, eager) in this call: the
+    serving cell on the sparse and the full model, bs 8 on the whole-model
+    kernel (greedy at 1 and MEGA_STEPS tokens a launch, tempered at one),
+    and the 48-request engine on the dense and the paged pool.  Tokens and
+    caches equal, launch counts equal, logits compared, one profiled run
+    of replays against the device's record, tok/s, busy shares and peak
+    memory.  Returns the metrics."""
+    full_params, meta = load_params_npz(FULL_WEIGHTS, device="cuda", dtype=torch.bfloat16)
+    full_cfg = model_config_from_meta(meta).replace(dtype="bfloat16")
+    models = {"sparse": (fuse_decode_params(sparse_params, sparse_cfg), sparse_cfg),
+              "full": (fuse_decode_params(full_params, full_cfg), full_cfg)}
+    none = {fn.__name__: 0 for fn in ALL_KERNELS}
+    m = {}
+
+    # the serving cell: GEN greedy steps at bs 64, sparse and full
+    for name, (params, cfg) in models.items():
+        L = cfg.depth
+        ids = seeded_ids(BATCH, PROMPT, cfg.vocab_size, SEED, DEVICE)
+        logits, cache = transformer_prefill(params, cfg, ids, MAX_LEN)
+        first = logits[:, -1].argmax(-1)
+        run = clone_cache(cache)
+        del logits
+        want = dict(none, **({"decode_select": L * GEN, "decode_attend": L * GEN}
+                             if cfg.use_sparse_attn else {}))
+
+        def launches_ok(launches, label, want=want):
+            check(launches == want, f"{label}: launches {launches}, expected {want}")
+
+        turns = decode_turns(
+            f"{name} bs {BATCH} greedy", lambda cap: (
+                greedy_decode(params, cfg, first, run, GEN, capture=cap),
+                [x for lc in run.layers for x in lc]),
+            lambda: copy_cache(run, cache), BATCH * GEN, launches_ok)
+        # logits: three steps eager and captured from the same cache
+        outs = {}
+        for cap in (False, True):
+            copy_cache(run, cache)
+            outs[cap] = step_logits(params, cfg, first, run, None, cap)
+        bit_equal = torch.equal(outs[True], outs[False])
+        err, top = max_err(outs[True], outs[False]), outs[False].abs().max().item()
+        same_argmax = torch.equal(outs[True].argmax(-1), outs[False].argmax(-1))
+        print(f"  {name} bs {BATCH}: the third step's logits captured vs eager bit-equal: "
+              f"{bit_equal} (max|err| {err:.6f}, tol {TOL_LOGITS_REL} x {top:.2f}; argmax "
+              f"equal {same_argmax})", flush=True)
+        check(bit_equal or (err <= TOL_LOGITS_REL * max(top, 1.0) and same_argmax),
+              f"{name}: captured logits disagree with eager")
+        # a profiled run of replays against the device's record (a 5-step
+        # loop, captured first), the busy share of the turns' kept GEN-step
+        # graph, and the eager steps' beside it
+        copy_cache(run, cache)
+        greedy_decode(params, cfg, first, run, 5)
+        replayed_kernels(lambda: greedy_decode(params, cfg, first, run, 5),
+                         "split" if cfg.use_sparse_attn else "full", L, 5, f"{name} bs {BATCH}")
+        copy_cache(run, cache)
+        _, wall, busy, _ = profile_run(lambda: greedy_decode(params, cfg, first, run, GEN),
+                                       f"{name} bs {BATCH}: {GEN} replays", GEN)
+        step_s = wall / GEN
+        _, e_wall, e_busy, _ = profile_run(
+            lambda: greedy_decode(params, cfg, first, run, 5, capture=False),
+            f"{name} bs {BATCH}: 5 eager steps", 5)
+        m[f"{name}_bs{BATCH}"] = {
+            **turns,
+            "logits_bit_equal": bit_equal, "logits_max_abs_err": err,
+            "captured_device_busy": busy, "captured_step_ms_profiled": step_s * 1e3,
+            "eager_device_busy": e_busy, "eager_step_ms_profiled": e_wall / 5 * 1e3}
+        del run, cache
+        torch.cuda.empty_cache()
+    # the second captured turn of each: replays of the kept graph only
+    sparse_tps = m[f"sparse_bs{BATCH}"]["captured"][1]["tok_s"]
+    full_tps = m[f"full_bs{BATCH}"]["captured"][1]["tok_s"]
+    m["sparse_over_full_captured"] = sparse_tps / full_tps
+    print(f"  captured greedy tok/s at bs {BATCH} (replays only): sparse {sparse_tps:.1f}, full "
+          f"{full_tps:.1f}, sparse_over_full {sparse_tps / full_tps:.3f} (the benchmark's own "
+          f"turns in the full phase); {smi}", flush=True)
+
+    # bs 8 on the whole-model kernel: greedy at 1 and MEGA_STEPS tokens a
+    # launch, tempered at one (seeded noise, the same in every turn)
+    params, cfg = models["sparse"]
+    b = SMALL_BATCHES[0]
+    ids = seeded_ids(b, PROMPT, cfg.vocab_size, SEED + b, DEVICE)
+    logits, cache = transformer_prefill(params, cfg, ids, MAX_LEN)
+    first = logits[:, -1].argmax(-1)
+    run = clone_cache(cache)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    u = torch.rand((GEN - 1, b, cfg.vocab_size), generator=g, device=DEVICE)
+    gumbel = -torch.log(-torch.log(u + 1e-20) + 1e-20)
+    for label, launches_a_run, fn in (
+            ("greedy, 1 token a launch", GEN, lambda cap: greedy_decode(
+                params, cfg, first, run, GEN, capture=cap)),
+            (f"greedy, {MEGA_STEPS} tokens a launch", GEN // MEGA_STEPS,
+             lambda cap: greedy_decode(params, cfg, first, run, GEN, steps=MEGA_STEPS,
+                                       capture=cap)),
+            ("tempered 0.8, 1 token a launch", GEN - 1, lambda cap: sample_decode(
+                params, cfg, first, run, gumbel, temperature=0.8, capture=cap))):
+        want = dict(none, decode_step_mega=launches_a_run)
+
+        def launches_ok(launches, lbl, want=want):
+            check(launches == want, f"{lbl}: launches {launches}, expected {want}")
+
+        m[f"mega_bs{b} {label}"] = decode_turns(
+            f"bs {b} mega {label}", lambda cap, fn=fn: (fn(cap), [
+                x for lc in run.layers for x in lc]), lambda: copy_cache(run, cache),
+            b * GEN, launches_ok)
+    copy_cache(run, cache)
+    greedy_decode(params, cfg, first, run, 5)
+    replayed_kernels(lambda: greedy_decode(params, cfg, first, run, 5), "mega", cfg.depth, 5,
+                     f"bs {b} mega greedy")
+    copy_cache(run, cache)                                      # the turns' kept graph
+    busy = profile_run(lambda: greedy_decode(params, cfg, first, run, GEN),
+                       f"bs {b} mega greedy: {GEN} replays", GEN)[2]
+    m[f"mega_bs{b}_captured_device_busy"] = busy
+    del run, cache, logits
+    torch.cuda.empty_cache()
+
+    # the 48-request engine, dense and paged, captured against eager
+    L = cfg.depth
+    reqs = serve_requests(SERVE_REQUESTS)
+    for pool, kw, attend in (
+            ("dense", {}, "decode_attend_fused_ragged"),
+            ("paged", dict(paged_pool_pages=POOL_PAGES, page_tokens=PAGE_TOKENS),
+             "decode_attend_fused_paged")):
+        outs = {}
+        for mode in (("eager", "captured") if pool == "dense" else ("captured", "eager")):
+            toks, eng, wall, launches, steps, waves, windows, _ = run_engine(
+                params, cfg, reqs, steps_per_sync=SERVE_SYNC, capture=mode == "captured", **kw)
+            check_engine_launches(launches, L, steps, waves, attend, f"{pool} pool {mode}")
+            new = sum(len(x) for x in toks)
+            outs[mode] = toks
+            m[f"engine_{pool}_{mode}"] = {"wall_s": wall, "new_tokens_per_s": new / wall,
+                                         "ragged_steps": steps, "windows": windows}
+            print(f"  engine {pool} {mode}: {new} new tokens in {wall:.3f}s = "
+                  f"{new / wall:.1f} new tokens/s, {steps} ragged steps, {windows} windows; "
+                  f"{smi}", flush=True)
+            del eng
+        same = all(np.array_equal(a, b) for a, b in zip(outs["eager"], outs["captured"]))
+        print(f"  engine {pool}: every request's tokens captured = eager: {same}", flush=True)
+        check(same, f"the {pool} engine's captured windows give other tokens than eager")
+    # one profiled window of replays at 16 slots, and the eager window beside it
+    eng = serve.ContinuousBatchingEngine(params, cfg, max_batch=SERVE_SLOTS, max_len=MAX_LEN,
+                                         prefill_buckets=SERVE_BUCKETS)
+    for p, n in reqs[:SERVE_SLOTS]:
+        eng.add_request(p, max_new_tokens=n)
+    eng._admit()
+    args = eng._decode_args()
+    serve.ragged_decode_multi(*args, SERVE_SYNC)                 # captures the window
+    replayed_kernels(lambda: serve.ragged_decode_multi(*args, SERVE_SYNC), "ragged", L,
+                     SERVE_SYNC, f"engine window, {SERVE_SLOTS} slots")
+    _, wall, busy, _ = profile_run(lambda: serve.ragged_decode_multi(*args, SERVE_SYNC),
+                                   f"engine window, {SERVE_SLOTS} slots: {SERVE_SYNC} replays",
+                                   SERVE_SYNC)
+    step_s = wall / SERVE_SYNC
+    _, e_wall, e_busy, _ = profile_run(
+        lambda: serve.ragged_decode_multi(*args, SERVE_SYNC, capture=False),
+        f"engine window, {SERVE_SLOTS} slots: {SERVE_SYNC} eager steps", SERVE_SYNC)
+    m["engine_window"] = {"captured_device_busy": busy, "captured_step_ms_profiled": step_s * 1e3,
+                          "eager_device_busy": e_busy,
+                          "eager_step_ms_profiled": e_wall / SERVE_SYNC * 1e3}
+    del eng, full_params, models
+    decode_graph.clear()
+    torch.cuda.empty_cache()
+    return m
 
 
 class StepLog(MetricsLogger):
@@ -2754,9 +3062,13 @@ def main():
         t0 = phase("serve", t0)
 
         full_launches, full = full_phase(params, cfg, smi)
-        del params
         torch.cuda.empty_cache()
         t0 = phase("full", t0)
+
+        graphs = graph_phase(params, cfg, smi)
+        del params
+        torch.cuda.empty_cache()
+        t0 = phase("graph", t0)
 
     train_launches, train = train_phase(smi)
     torch.cuda.empty_cache()
@@ -2781,7 +3093,7 @@ def main():
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,
         "measure_decode_tok_s": tps, "measure_prefill_tok_s": prefill_tps, "peak_bytes": peak,
         "logits_max_abs_err": err, "decode_device_busy": busy, "small": small,
-        "serve": served, "full": full, **train,
+        "serve": served, "full": full, "graph": graphs, **train,
         "train_launches": train_launches, "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them

@@ -10,7 +10,9 @@ committed weights ``ckpt_export/sparse_mlp_seq4096.npz`` and
 ``ckpt_export/full_attn_seq4096.npz`` (a seeded random init, reported as
 ``"weights": "random"``, where a file is missing).  ``measure_decode``
 times each model in turns, sparse, full, full, sparse, in one process; each
-turn times ``--iters`` runs after a warm-up.  Every run's tok/s is printed,
+turn times ``--iters`` runs after a warm-up, which captures the decode
+loop as a CUDA graph that the timed runs replay (``greedy_decode``), as
+``bench.py``'s jitted scan is compiled in its warm-up.  Every run's tok/s is printed,
 then the median of each model's runs, the card's name and power limit, and
 last one JSON line with ``bench.py``'s keys.
 

@@ -29,7 +29,10 @@
 // own 16-column tiles at once; per tile one lane per (column, head) takes
 // the logit, both masked softmaxes fold into the warp's running sums, and
 // one merge across the warps gives the combined output.  No tensor cores:
-// two query heads per KV head is too narrow a product for them.
+// two query heads per KV head is too narrow a product for them.  Both read
+// the position t from one int32 in device memory (select derives num_cb =
+// t / stride from it), so a captured CUDA graph replays them at whatever
+// position the step before it wrote there.
 #include "decode_common.cuh"
 
 namespace nsa {
@@ -41,10 +44,11 @@ template <int G>
 __global__ void __launch_bounds__(kThreads)
     select_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ckv,
                   const bf16* __restrict__ mem_kv, bf16* __restrict__ c_out,
-                  int* __restrict__ info, int kvh, int Wc, int M, int t, int num_cb, int stride,
-                  int sel_block, int num_sel, int n_slide, int max_blocks, int info_width,
-                  float scale) {
+                  int* __restrict__ info, int kvh, int Wc, int M, const int* __restrict__ tp,
+                  int stride, int sel_block, int num_sel, int n_slide, int max_blocks,
+                  int info_width, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int t = *tp, num_cb = t / stride;
   select_body<G, bf16>(q, ckv, mem_kv, c_out, info, kvh, Wc, M, t, num_cb, stride, sel_block,
                        num_sel, n_slide, max_blocks, info_width, scale, blockIdx.x, smem_raw);
 }
@@ -53,11 +57,11 @@ template <int G>
 __global__ void __launch_bounds__(kThreads)
     attend_kernel(const bf16* __restrict__ rq, const bf16* __restrict__ kv,
                   const int* __restrict__ info, const bf16* __restrict__ c_out,
-                  const bf16* __restrict__ gates, bf16* __restrict__ out, int max_len, int t,
-                  int sel_block, int window, int num_sel, int n_slide, int info_width,
-                  float scale) {
+                  const bf16* __restrict__ gates, bf16* __restrict__ out, int max_len,
+                  const int* __restrict__ tp, int sel_block, int window, int num_sel,
+                  int n_slide, int info_width, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x, t = *tp;
   const float* comb = attend_body<G>(rq, DenseRows{const_cast<bf16*>(kv), max_len}, info, c_out,
                                      gates, nullptr, t, sel_block, window, num_sel, n_slide,
                                      info_width, scale, bh, smem_raw);
@@ -73,7 +77,7 @@ cudaError_t allow_smem(const void* kern, size_t shmem) {
 
 template <int G>
 cudaError_t launch_select(const void* q, const void* ckv, const void* mem_kv, void* c_out,
-                          void* info, int bkvh, int kvh, int Wc, int M, int t, int num_cb,
+                          void* info, int bkvh, int kvh, int Wc, int M, const int* t,
                           int stride, int sel_block, int num_sel, int n_slide, int max_blocks,
                           int info_width, float scale, cudaStream_t stream) {
   const int Wf = Wc / (sel_block / stride);
@@ -83,13 +87,13 @@ cudaError_t launch_select(const void* q, const void* ckv, const void* mem_kv, vo
   if (e != cudaSuccess) return e;
   kern<<<bkvh, kThreads, shmem, stream>>>(
       (const bf16*)q, (const bf16*)ckv, (const bf16*)mem_kv, (bf16*)c_out, (int*)info, kvh,
-      Wc, M, t, num_cb, stride, sel_block, num_sel, n_slide, max_blocks, info_width, scale);
+      Wc, M, t, stride, sel_block, num_sel, n_slide, max_blocks, info_width, scale);
   return cudaGetLastError();
 }
 
 template <int G>
 cudaError_t launch_attend(const void* rq, const void* kv, const void* info, const void* c_out,
-                          const void* gates, void* out, int bkvh, int max_len, int t,
+                          const void* gates, void* out, int bkvh, int max_len, const int* t,
                           int sel_block, int window, int num_sel, int n_slide, int info_width,
                           float scale, cudaStream_t stream) {
   const int J = (num_sel + n_slide) * sel_block;
@@ -131,18 +135,19 @@ cudaError_t split_plan(int Wc, int M, int Wf, int J, int* out) {
 }  // namespace nsa
 
 // q [b, kvh, G, 64] bf16 (unrotated); ckv [b, kvh, Wc, 128] bf16; mem_kv
-// [2, kvh, M, 64] bf16 -> c_out [b, kvh, G, 64] bf16, info [b, kvh,
-// info_width] int32.  Returns the launch's cudaError_t.
+// [2, kvh, M, 64] bf16; t one int32 on the device, the position (the kernel
+// reads it, and num_cb = t / stride) -> c_out [b, kvh, G, 64] bf16, info
+// [b, kvh, info_width] int32.  Returns the launch's cudaError_t.
 extern "C" int nsa_decode_select(const void* q, const void* ckv, const void* mem_kv,
-                                 void* c_out, void* info, int b, int kvh, int G, int Wc, int M,
-                                 int t, int num_cb, int stride, int sel_block, int num_sel,
+                                 void* c_out, void* info, const void* t, int b, int kvh, int G,
+                                 int Wc, int M, int stride, int sel_block, int num_sel,
                                  int n_slide, int max_blocks, int info_width, float scale,
                                  void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int bkvh = b * kvh;
 #define NSA_SELECT(GG)                                                                   \
-  return (int)nsa::launch_select<GG>(q, ckv, mem_kv, c_out, info, bkvh, kvh, Wc, M, t,   \
-                                     num_cb, stride, sel_block, num_sel, n_slide,        \
+  return (int)nsa::launch_select<GG>(q, ckv, mem_kv, c_out, info, bkvh, kvh, Wc, M,      \
+                                     (const int*)t, stride, sel_block, num_sel, n_slide, \
                                      max_blocks, info_width, scale, s)
   switch (G) {
     case 1: NSA_SELECT(1);
@@ -156,16 +161,18 @@ extern "C" int nsa_decode_select(const void* q, const void* ckv, const void* mem
 
 // rq [b, kvh, G, 64] bf16 (rotated); kv [b, kvh, max_len, 128] bf16 packed
 // k||v cache; info [b, kvh, info_width] int32 from nsa_decode_select; c_out
-// [b, kvh, G, 64] bf16; gates [b, kvh, G, 3] bf16 -> out [b, kvh, G, 64] bf16.
+// [b, kvh, G, 64] bf16; gates [b, kvh, G, 3] bf16; t one int32 on the
+// device, the position -> out [b, kvh, G, 64] bf16.
 extern "C" int nsa_decode_attend(const void* rq, const void* kv, const void* info,
-                                 const void* c_out, const void* gates, void* out, int b, int kvh,
-                                 int G, int max_len, int t, int sel_block, int window,
+                                 const void* c_out, const void* gates, void* out, const void* t,
+                                 int b, int kvh, int G, int max_len, int sel_block, int window,
                                  int num_sel, int n_slide, int info_width, float scale,
                                  void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int bkvh = b * kvh;
 #define NSA_ATTEND(GG)                                                                  \
-  return (int)nsa::launch_attend<GG>(rq, kv, info, c_out, gates, out, bkvh, max_len, t, \
+  return (int)nsa::launch_attend<GG>(rq, kv, info, c_out, gates, out, bkvh, max_len,    \
+                                     (const int*)t,                                     \
                                      sel_block, window, num_sel, n_slide, info_width,   \
                                      scale, s)
   switch (G) {

@@ -109,6 +109,7 @@ struct MegaArgs {
   const bf16* fb2;                // [L, dim]
   const float* inv_freq;          // [kD / 2] rotary inverse frequencies
   const int* tok_in;              // [b]
+  const int* t0;                  // the first step's position, one int on the device
   float* logits;                  // [b, vocab]
   int* tok_out;                   // [b, steps] (greedy)
   // scratch
@@ -131,7 +132,7 @@ struct MegaArgs {
   // optional: the global timer in ns when block 0 starts and after each
   // grid sync, 1 + steps * (5 * depth + 1) values (where the time goes)
   unsigned long long* phase_ns;
-  int depth, b, kvh, max_len, Wc, Bc, M, hid, dim, vocab, hid4, t0, steps, greedy, stride,
+  int depth, b, kvh, max_len, Wc, Bc, M, hid, dim, vocab, hid4, steps, greedy, stride,
       sel_block, num_sel, n_slide, window, info_width;
   float scale, eps;
   MegaPlan plan;
@@ -300,6 +301,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int max_blocks = a.max_len / a.sel_block;
   const int o = tid, m = o >> 3, n = o & 7;   // threads 0..127: one element of a 16 x 8 tile
   const bool row_ok = o < 128 && m < a.b;
+  const int t0 = *a.t0;            // nothing writes it during the launch
   int mk = 0;
   mark(a, mk);
 
@@ -341,7 +343,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   EmitRing er{ebar, 0u, 0u};
 
   for (int s = 0; s < a.steps; ++s) {
-    const int t = a.t0 + s;
+    const int t = t0 + s;
     const int num_cb = t / a.stride;
     const bool emit = (t + 1) % a.stride == 0;
     const int slot = min(num_cb, a.Wc - 1);
@@ -580,7 +582,7 @@ cudaError_t launch_mega(MegaArgs& a, cudaStream_t stream) {
 // The ints of the C entries (see below) into a, with G; false when they are
 // out of range.
 bool parse_ints(MegaArgs& a, int* G, const int* ints, int nints) {
-  if (nints != 21) return false;
+  if (nints != 20) return false;
   int k = 0;
   a.depth = ints[k++];
   a.b = ints[k++];
@@ -594,7 +596,6 @@ bool parse_ints(MegaArgs& a, int* G, const int* ints, int nints) {
   a.dim = ints[k++];
   a.vocab = ints[k++];
   a.hid4 = ints[k++];
-  a.t0 = ints[k++];
   a.steps = ints[k++];
   a.greedy = ints[k++];
   a.stride = ints[k++];
@@ -612,12 +613,14 @@ bool parse_ints(MegaArgs& a, int* G, const int* ints, int nints) {
 // ptrs, in order: kv[0..L), ckv[0..L), ring[0..L); token_emb, to_logits,
 // out_norm, attn_norm, w_qkvg, gate_b, mem_kv (float32), pos_kv, b1k, b1v,
 // b2c, w1k, w1v, w2c, w_out, ff_norm, fw1, fb1, fw2, fb2 (bf16, shapes of
-// pack_mega_params); inv_freq [64/2] f32; tok_in [b] int32; logits [b,
+// pack_mega_params); inv_freq [64/2] f32; tok_in [b] int32; t0 one int32,
+// the first step's position (read on the device: a captured CUDA graph
+// replays the launch at whatever position is there); logits [b,
 // vocab] f32 and tok_out [b, steps] int32 (outputs); the scratch buffers
 // proj, q, rq, gates, kvn_unrot, kvn_rot, c_out, info, partial, comb, x, y,
 // hbuf (see MegaArgs); phase_ns (null, or 1 + steps * (5 * L + 1) uint64
 // for the global timer after each grid sync).  ints: L, b, kvh, G, max_len,
-// Wc, Bc, M, hid, dim, vocab, hid4, t, steps, greedy, stride, sel_block,
+// Wc, Bc, M, hid, dim, vocab, hid4, steps, greedy, stride, sel_block,
 // num_sel, n_slide, window, info_width.  The caches are updated in place.
 // Returns the launch's cudaError_t (cudaErrorCooperativeLaunchTooLarge when
 // a block's weight tiles and work space do not fit, see
@@ -627,7 +630,7 @@ extern "C" int nsa_decode_mega(const void* const* ptrs, int nptrs, const int* in
   using nsa::bf16;
   nsa::MegaArgs a = {};
   int G = 0;
-  if (!nsa::parse_ints(a, &G, ints, nints) || nptrs != 3 * a.depth + 38)
+  if (!nsa::parse_ints(a, &G, ints, nints) || nptrs != 3 * a.depth + 39)
     return (int)cudaErrorInvalidValue;
   a.scale = scale;
   a.eps = eps;
@@ -657,6 +660,7 @@ extern "C" int nsa_decode_mega(const void* const* ptrs, int nptrs, const int* in
   a.fb2 = (const bf16*)ptrs[p++];
   a.inv_freq = (const float*)ptrs[p++];
   a.tok_in = (const int*)ptrs[p++];
+  a.t0 = (const int*)ptrs[p++];
   a.logits = (float*)ptrs[p++];
   a.tok_out = (int*)ptrs[p++];
   a.proj = (bf16*)ptrs[p++];

@@ -37,8 +37,9 @@
 //
 // decode_attend_fused / _ragged / _paged: one kernel, templated on where a
 // row lives (DenseRows, PagedRows) and on how an item reads its position
-// (one per row from a device vector t [b], or one host scalar t for the
-// whole batch: the fused route, which then needs no device tensor for t).
+// (one per row from a device vector t [b], or one device int t for the
+// whole batch: the fused route).  Neither reads a position from the host,
+// so a captured CUDA graph replays them at each step's positions.
 // What bounds it on this card: not bytes (the weights, 4.5 MB at the
 // reference model with the FF, and the ~2 MB of kv rows the masks keep at
 // 16 slots take ~2 us at 3.35 TB/s) but latency: the attention of b x kvh
@@ -188,7 +189,7 @@ Plan make_plan(int kvh, int dim, int hid4, int J, int grid) {
 }
 
 // How an item reads its batch row's position: from a device vector t [b]
-// (the ragged and paged kernels), or one host scalar for every row (the
+// (the ragged and paged kernels), or one device int for every row (the
 // fused route).
 struct RowPositions {
   const int* t;
@@ -196,8 +197,8 @@ struct RowPositions {
 };
 
 struct OnePosition {
-  int t;
-  __device__ __forceinline__ int at(int) const { return t; }
+  const int* t;
+  __device__ __forceinline__ int at(int) const { return *t; }
 };
 
 template <typename Rows, typename Pos>
@@ -519,8 +520,8 @@ extern "C" int nsa_decode_select_emit_ragged(
 // [b, kvh * info_width] int32; c_out [b, kvh, G, 64] bf16; gates [b, kvh, G,
 // 3] bf16; x [b, 1, dim] bf16; w_out [kvh*G*64, dim] bf16; the FF (null
 // pointers and hid4 0 without it): norm [dim] f32, w1 [dim, hid4] bf16, b1
-// [hid4] f32, w2 [hid4, dim] bf16, b2 [dim] f32 -> out [b, 1, dim] bf16.
-// Scratch: comb [b, kvh*G*64] bf16 (the rounded attention output; the
+// [hid4] f32, w2 [hid4, dim] bf16, b2 [dim] f32; t one int32 on the
+// device, every row's position -> out [b, 1, dim] bf16.  Scratch: comb [b, kvh*G*64] bf16 (the rounded attention output; the
 // caller may read it), y [b, dim] bf16, hbuf [b, hid4] bf16; phase_ns null
 // or 5 uint64 (the global timer at the start, after each grid sync, and
 // where the block holding the last product's first tile ends; marks 2-3
@@ -530,14 +531,15 @@ extern "C" int nsa_decode_select_emit_ragged(
 extern "C" int nsa_decode_attend_fused(
     const void* rq, void* kv, const void* kv_new, const void* info, const void* c_out,
     const void* gates, const void* x, const void* w_out, const void* ff_norm, const void* ff_w1,
-    const void* ff_b1, const void* ff_w2, const void* ff_b2, void* comb, void* y, void* hbuf,
-    void* out, void* phase_ns, int b, int kvh, int G, int max_len, int dim, int hid4, int t,
+    const void* ff_b1, const void* ff_w2, const void* ff_b2, const void* t, void* comb, void* y,
+    void* hbuf, void* out, void* phase_ns, int b, int kvh, int G, int max_len, int dim, int hid4,
     int sel_block, int window, int num_sel, int n_slide, int info_width, float scale, float eps,
     void* stream) {
   return nsa::attend_entry(G, rq, nsa::DenseRows{(nsa::bf16*)kv, max_len}, kv_new, info, c_out,
                            gates, x, w_out, ff_norm, ff_w1, ff_b1, ff_w2, ff_b2,
-                           nsa::OnePosition{t}, comb, y, hbuf, out, phase_ns, b, kvh, dim, hid4,
-                           sel_block, window, num_sel, n_slide, info_width, scale, eps, stream);
+                           nsa::OnePosition{(const int*)t}, comb, y, hbuf, out, phase_ns, b, kvh,
+                           dim, hid4, sel_block, window, num_sel, n_slide, info_width, scale, eps,
+                           stream);
 }
 
 // As nsa_decode_attend_fused, with t [b] int32 on the device: row t[i] of

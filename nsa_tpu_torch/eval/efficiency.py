@@ -6,8 +6,9 @@
 Timed with CUDA events around work on the current stream, after a warm-up;
 a measurement that finds no card raises instead of timing the CPU.  Token
 ids come from a numpy seed.  The decode cache is written in place, so every
-timed decode run starts from its own copy of the prefilled cache (copied
-outside the timed region).
+timed decode run starts from a copy of the prefilled cache, copied outside
+the timed region into one run cache, whose addresses the captured decode
+graph keeps (the warm-up run captures it, as JAX's warm-up compiles).
 """
 
 from __future__ import annotations
@@ -51,6 +52,13 @@ def clone_cache(cache: ModelCache) -> ModelCache:
         layers=tuple(type(lc)(*(x.clone() for x in lc)) for lc in cache.layers),
         seq_len=cache.seq_len,
     )
+
+
+def copy_cache(dst: ModelCache, src: ModelCache) -> None:
+    """Copy ``src``'s tensors into ``dst``'s, in place (same shapes)."""
+    for a, b in zip(dst.layers, src.layers):
+        for x, y in zip(a, b):
+            x.copy_(y)
 
 
 def kv_cache_saving_ratio(cfg: ModelConfig, prompt_len: int) -> float:
@@ -105,7 +113,8 @@ def measure_decode(params, cfg: ModelConfig, batch_size: int, prompt_len: int,
     pins the cache length (the benchmark cell's 4096).  Where
     ``use_mega_decode`` holds, the whole-model kernel decodes
     ``_pick_mega_steps(gen_len)`` tokens per launch, as JAX's
-    ``measure_decode`` does."""
+    ``measure_decode`` does.  The loop runs as a captured CUDA graph
+    (``greedy_decode``)."""
     ms = decode_run_ms(params, cfg, batch_size, prompt_len, gen_len, iters, seq_len,
                        seed=seed, device=device)
     return batch_size * gen_len * iters / (sum(ms) / 1e3)
@@ -125,8 +134,10 @@ def decode_run_ms(params, cfg: ModelConfig, batch_size: int, prompt_len: int,
     with torch.no_grad():
         logits, cache = transformer_prefill(params, cfg, ids, max_len)
         first = logits[:, -1].argmax(-1)
+        run_cache = clone_cache(cache)
         for i in range(iters + 1):
-            run_cache = clone_cache(cache)
+            if i:
+                copy_cache(run_cache, cache)
             ms = timed_ms(lambda: greedy_decode(params, cfg, first, run_cache, gen_len,
                                                 steps=steps), device)
             if i:

@@ -37,7 +37,10 @@ row (its grid and id load with next to no data), and at 16 slots both
 kernels on ids just copied (in L2, as the engine's selection leaves them).
 The script uses only the wrappers' public signatures, so a copy of it runs
 in an older checkout of the port too: run it there and here in one chip
-call, in turns, to compare two versions of a kernel.  Needs the card.
+call, in turns, to compare two versions of a kernel (rows 2, 3, 6, 7 and
+12 take their position as a device tensor here, made before the timed
+calls, and as an int in a tree whose kernels take it as a launch
+argument: ``position``).  Needs the card.
 """
 
 from __future__ import annotations
@@ -392,6 +395,19 @@ def ragged_positions(gen, b, device):
     return torch.cat([fixed, rest]).int()
 
 
+def position(t: int, device):
+    """The position ``t`` as the one-position decode wrappers (rows 2, 3, 6,
+    7, 12) take it in this tree: a 0-d int32 tensor on the card, made once
+    outside the timed calls, where their kernels read the position from
+    device memory; the int itself in an older tree, whose kernels take it
+    as a launch argument."""
+    from .ops.cuda import runtime
+
+    if hasattr(runtime, "device_position"):
+        return torch.full((), t, dtype=torch.int32, device=device)
+    return t
+
+
 def cases(params, cfg, device="cuda"):
     """{row name: (setup, run)} at the cells: ``setup()`` copies the caches
     the kernel writes, ``run(state)`` launches it on them and returns every
@@ -441,14 +457,15 @@ def cases(params, cfg, device="cuda"):
         q, ckv, ring, kv_new, rq, kv, kv_row, x, gates = inputs(b)
         for tt, name in ((DECODE_T, "decode_select_emit emitting"),
                          (DECODE_T - 1, "decode_select_emit")):
-            def sel(st, tt=tt, q=q, kv_new=kv_new):
+            def sel(st, pt=position(tt, device), ncb=tt // stride, q=q, kv_new=kv_new):
                 return (*nsa_decode_fused.decode_select_emit(
-                    q, *st, kv_new, *weights, tt, tt // stride, **skw), *st)
+                    q, *st, kv_new, *weights, pt, ncb, **skw), *st)
             out[name + suffix] = (clones(ckv, ring), sel)
         c_p, info_p = nsa_decode.decode_select_plain(q, ckv, fp["mem_kv"], DECODE_T,
                                                      DECODE_T // stride, **skw,
                                                      weights_dtype=torch.float32)
-        args = (kv_row, info_p.reshape(b, -1), c_p, gates, x, fp["w_out"], DECODE_T, ff)
+        args = (kv_row, info_p.reshape(b, -1), c_p, gates, x, fp["w_out"],
+                position(DECODE_T, device), ff)
 
         def att(st, rq=rq, args=args, **kw):
             if kw and not takes_phase_ns(nsa_decode_fused.decode_attend_fused):
@@ -499,11 +516,12 @@ def cases(params, cfg, device="cuda"):
     gates = torch.sigmoid(randn(b, kvh, g, 3).float()).to(torch.bfloat16)
     c_p, info_p = nsa_decode.decode_select_plain(q, ckv, fp["mem_kv"], DECODE_T,
                                                  DECODE_T // stride, **skw)
+    pt = position(DECODE_T, device)
     out["decode_select"] = (lambda: (), lambda st, q=q, ckv=ckv: nsa_decode.decode_select(
-        q, ckv, fp["mem_kv"], DECODE_T, DECODE_T // stride, **skw))
+        q, ckv, fp["mem_kv"], pt, DECODE_T // stride, **skw))
     tkw = {k: v for k, v in akw.items() if k != "eps"}
     out["decode_attend"] = (lambda: (), lambda st, rq=rq, kv=kv, info=info_p, c=c_p, gt=gates: (
-        nsa_decode.decode_attend(rq, kv, info, c, gt, DECODE_T, **tkw),))
+        nsa_decode.decode_attend(rq, kv, info, c, gt, pt, **tkw),))
     # beside row 11: the library call (advanced indexing), a device-to-device
     # cudaMemcpyAsync of the same bytes, the kernel on ids already in L2, an
     # empty kernel (one block: the launch floor), and the kernel on 16-byte
@@ -541,8 +559,8 @@ def cases(params, cfg, device="cuda"):
               randn(L, b, kvh, Bc, 2 * d))
     token = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=device)
     for tt, name in ((DECODE_T, "decode_step_mega emitting"), (DECODE_T - 1, "decode_step_mega")):
-        def mega(st, tt=tt):
-            lg, tok, *_ = transformer_decode_step_mega(mp, cfg, token, *st, tt, greedy=True)
+        def mega(st, pt=position(tt, device)):
+            lg, tok, *_ = transformer_decode_step_mega(mp, cfg, token, *st, pt, greedy=True)
             return (lg, tok, *st)
         out[name] = (clones(*caches), mega)
     fused_pair(1, " bs 1")

@@ -19,6 +19,11 @@ The full-attention baseline (``use_sparse_attn=False``) runs its prefill
 and forward attention through the ``flash_attention`` kernel
 (``ops/cuda/flash.py``) and decodes over a ``KVDecodeCache`` with plain
 PyTorch attention, as JAX leaves its decode to XLA.
+
+The decode loops (``greedy_decode``, ``sample_decode``) run their
+steps at a position held on the device; on the card each loop is a
+captured CUDA graph of one step, replayed (``models/decode_graph.py``), as
+JAX runs its decode as one jitted scan.
 """
 
 from __future__ import annotations
@@ -42,8 +47,9 @@ from ..ops.nsa import (
     sparse_attention_decode,
     sparse_attention_forward,
 )
-from ..ops.rotary import rotate_at_offset, rotate_at_row_offsets, rotate_qk
+from ..ops.rotary import rotate_at_row_offsets, rotate_qk
 from ..utils.checkpoint import tree_to
+from . import decode_graph
 
 
 class KVDecodeCache(NamedTuple):
@@ -161,13 +167,15 @@ def _full_qkv_weight(params, dtype) -> torch.Tensor:
 
 
 def _full_attn_decode(params, cfg: ModelConfig, x, cache: KVDecodeCache, t):
-    """One full-attention decode step over x [b, 1, dim] at position ``t``,
-    an int or a [b] tensor of per-row positions (the ragged step).  Writes
-    the rotated k and v at row t (row t[i]) of the cache in place and
-    returns x + attn_out.  At an int t it attends over rows 0..t
-    only, which equals JAX's masked attention over every row; a ragged step
-    attends over all rows under the mask ``row <= t[i]``, as JAX does."""
+    """One full-attention decode step over x [b, 1, dim] at position ``t``:
+    an int or a 0-d int tensor on x's device (every row there), or a [b]
+    tensor of per-row positions (the ragged step).  Writes the rotated k
+    and v at row t[i] of the cache in place and returns x + attn_out,
+    attending over every row under the mask ``row <= t[i]``, as JAX does:
+    the same shapes at every position, so a captured step replays it."""
     b = x.shape[0]
+    if not (torch.is_tensor(t) and t.dim() == 1):
+        t = (t if torch.is_tensor(t) else decode_graph.device_scalar(t, x.device)).expand(b)
     d, kvh, g, heads = cfg.dim_head, cfg.kv_heads, cfg.num_grouped_queries, cfg.heads
     normed = rms_norm(x, params["norm_scale"], cfg.norm_eps)
     w = params.get("w_qkv")
@@ -178,26 +186,16 @@ def _full_attn_decode(params, cfg: ModelConfig, x, cache: KVDecodeCache, t):
     k = proj[:, cfg.dim_inner:cfg.dim_inner + cfg.dim_kv_inner].reshape(b, kvh, d)
     v = proj[:, cfg.dim_inner + cfg.dim_kv_inner:].reshape(b, kvh, d)
     qk = torch.cat([q, k], dim=1)[:, :, None]
-    ragged = torch.is_tensor(t)
-    if ragged:
-        rot = rotate_at_row_offsets(qk, t, cfg.rope_theta)[:, :, 0]
-    else:
-        rot = rotate_at_offset(qk, t, cfg.rope_theta)[:, :, 0]
+    rot = rotate_at_row_offsets(qk, t, cfg.rope_theta)[:, :, 0]
     kv_row = torch.cat([rot[:, heads:], v], dim=-1)              # [b, kvh, 2d]
     kv = cache.kv
-    if ragged:
-        rows = torch.arange(b, device=x.device)[:, None]
-        kv[rows, torch.arange(kvh, device=x.device)[None, :], t.long()[:, None]] = kv_row
-        live = kv
-    else:
-        kv[:, :, t] = kv_row
-        live = kv[:, :, :t + 1]
-    sim = _scores(rot[:, :heads].reshape(b, kvh, g, d), live[..., :d]) * d ** -0.5
-    if ragged:
-        valid = torch.arange(kv.shape[2], device=x.device) <= t[:, None]
-        sim = sim.masked_fill(~valid[:, None, None, :], mask_value(torch.float32))
+    rows = torch.arange(b, device=x.device)[:, None]
+    kv[rows, torch.arange(kvh, device=x.device)[None, :], t.long()[:, None]] = kv_row
+    sim = _scores(rot[:, :heads].reshape(b, kvh, g, d), kv[..., :d]) * d ** -0.5
+    valid = torch.arange(kv.shape[2], device=x.device) <= t[:, None]
+    sim = sim.masked_fill(~valid[:, None, None, :], mask_value(torch.float32))
     attn = torch.softmax(sim, dim=-1).to(x.dtype)
-    out = (attn @ live[..., d:]).reshape(b, 1, heads * d)
+    out = (attn @ kv[..., d:]).reshape(b, 1, heads * d)
     return x + out @ params["w_out"].to(x.dtype)
 
 
@@ -420,10 +418,15 @@ def cache_tensors(cache: ModelCache):
 def transformer_decode_step(
     params, cfg: ModelConfig, token: torch.Tensor, cache: ModelCache, *,
     use_kernels: bool = True, route: Optional[str] = None,
+    pos: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ModelCache]:
     """One token step. token: [b] int -> float32 logits [b, vocab], cache.
 
-    The cache's tensors are updated in place.  ``route``: None takes the
+    The cache's tensors are updated in place; the returned cache's
+    ``seq_len`` is the host's count, one more.  ``pos``, a 0-d int32 tensor
+    on the params' device holding ``cache.seq_len``, is the position the
+    step reads instead (on the device, as a captured step replays it;
+    ``models/decode_graph.py``).  ``route``: None takes the
     whole-model kernel where ``use_mega_decode`` holds, else the layer's
     default (fused at b <= 8, split above); "mega", "fused" or "split"
     forces one.  ``use_kernels=False`` runs the route's plain versions (see
@@ -433,25 +436,24 @@ def transformer_decode_step(
     None and ``use_kernels`` changes nothing.
     """
     _check_model(cfg)
-    t = cache.seq_len
+    t = cache.seq_len if pos is None else pos
+    done = ModelCache(layers=cache.layers, seq_len=cache.seq_len + 1)
     if not cfg.use_sparse_attn:
-        return _full_decode_layers(params, cfg, token, cache.layers, t, route), \
-            ModelCache(layers=cache.layers, seq_len=t + 1)
+        return _full_decode_layers(params, cfg, token, cache.layers, t, route), done
     if _mega_route(cfg, token.shape[0], route):
         mp = params.get("mega") or pack_mega_params(params, cfg)
         logits = transformer_decode_step_mega(mp, cfg, token, *cache_tensors(cache), t,
                                               use_kernels=use_kernels)[0]
-        return logits, ModelCache(layers=cache.layers, seq_len=t + 1)
+        return logits, done
     x = params["token_emb"][token][:, None].to(_compute_dtype(cfg))   # [b, 1, dim]
-    new_layers = []
+    if pos is None:             # one device position for every layer
+        t = decode_graph.device_scalar(t, x.device)
     for layer, lc in zip(params["layers"], cache.layers):
-        x, lc = sparse_attention_decode(
+        x, _ = sparse_attention_decode(
             layer["attn"], cfg, x, lc, t, ff_params=layer["ff"], use_kernels=use_kernels,
             route=route,
         )
-        new_layers.append(lc)
-    logits = _logits(params, cfg, x)[:, 0]
-    return logits, ModelCache(layers=tuple(new_layers), seq_len=t + 1)
+    return _logits(params, cfg, x)[:, 0], done
 
 
 def transformer_decode_step_ragged(
@@ -517,34 +519,65 @@ def default_max_len(cfg: ModelConfig, need: int) -> int:
                                    nsa.selection_block_size, 128))
 
 
+def _check_room(cache: ModelCache, gen_len: int) -> None:
+    """The loop's range check, on the host at its start: the steps read
+    their positions on the device and check nothing."""
+    max_len = cache.layers[0].kv.shape[2]
+    if not 0 <= cache.seq_len <= max_len - gen_len:
+        raise ValueError(f"{gen_len} decode steps from position {cache.seq_len} do not fit "
+                         f"the cache of {max_len}")
+
+
 def greedy_decode(params, cfg: ModelConfig, token: torch.Tensor, cache: ModelCache,
-                  gen_len: int, *, route: Optional[str] = None, steps: int = 1) -> torch.Tensor:
+                  gen_len: int, *, route: Optional[str] = None, steps: int = 1,
+                  capture: bool = True) -> torch.Tensor:
     """``gen_len`` greedy decode steps from ``token`` [b], each consuming the
     token it emits; returns the consumed tokens [b, gen_len].  The cache's
     tensors are updated in place.  The decode weights are packed once first
     (``fuse_decode_params``).  ``route`` as in ``transformer_decode_step``;
     on the whole-model kernel the argmax is taken in the kernel, ``steps``
-    tokens per launch (a divisor of ``gen_len``)."""
+    tokens per launch (a divisor of ``gen_len``).
+
+    The steps read their position and token on the device and feed the
+    argmax back there: on the card the loop is a captured CUDA graph of one
+    step (one launch on the whole-model kernel), replayed
+    (``models/decode_graph.py``), as JAX jits its decode scan.
+    ``capture=False`` runs the same steps eagerly on the card; on the CPU
+    they always run eagerly."""
     params = fuse_decode_params(params, cfg)
-    if _mega_route(cfg, token.shape[0], route):
-        if gen_len % steps:
-            raise ValueError(f"steps {steps} must divide gen_len {gen_len}")
+    b, dev = token.shape[0], token.device
+    _check_room(cache, gen_len)
+    mega = _mega_route(cfg, b, route)
+    if mega and gen_len % steps:
+        raise ValueError(f"steps {steps} must divide gen_len {gen_len}")
+    per = steps if mega else 1
+    state = {"token": token.to(torch.int32 if mega else torch.long).clone(),
+             "pos": decode_graph.device_scalar(cache.seq_len, dev),
+             "i": decode_graph.device_scalar(0, dev, torch.long),
+             "hist": torch.zeros((b, gen_len), dtype=torch.long, device=dev)}
+
+    def mega_step(s):
         kv, ckv, ring = cache_tensors(cache)
-        chunks = []
-        for i in range(gen_len // steps):
-            _, toks, *_ = transformer_decode_step_mega(
-                params["mega"], cfg, token, kv, ckv, ring, cache.seq_len + i * steps,
-                greedy=True, steps=steps)
-            toks = toks.to(token.dtype)
-            chunks.append(torch.cat([token[:, None], toks[:, :-1]], dim=1))
-            token = toks[:, -1]
-        return torch.cat(chunks, dim=1) if chunks else token.new_zeros((token.shape[0], 0))
-    tokens = []
-    for _ in range(gen_len):
-        tokens.append(token)
-        logits, cache = transformer_decode_step(params, cfg, token, cache, route=route)
-        token = logits.argmax(-1)
-    return torch.stack(tokens, dim=1)
+        _, toks, *_ = transformer_decode_step_mega(params["mega"], cfg, s["token"], kv, ckv, ring,
+                                                   s["pos"], greedy=True, steps=steps)
+        consumed = torch.cat([s["token"][:, None], toks[:, :-1]], dim=1).long()
+        s["hist"].index_copy_(1, s["i"] + torch.arange(steps, device=dev), consumed)
+        s["token"].copy_(toks[:, -1])
+        s["pos"].add_(steps)
+        s["i"].add_(steps)
+
+    def layer_step(s):
+        s["hist"].index_copy_(1, s["i"].reshape(1), s["token"][:, None])
+        logits, _ = transformer_decode_step(params, cfg, s["token"], cache, route=route,
+                                            pos=s["pos"])
+        s["token"].copy_(logits.argmax(-1))
+        s["pos"].add_(1)
+        s["i"].add_(1)
+
+    out = decode_graph.decode_loop(state, mega_step if mega else layer_step, gen_len // per,
+                                   reads=(params, cache.layers), opts=(cfg, route, steps),
+                                   capture=capture)
+    return out["hist"].to(token.dtype, copy=True)
 
 
 def transformer_greedy(
@@ -553,7 +586,7 @@ def transformer_greedy(
 ) -> torch.Tensor:
     """Greedy generation: prefill, then ``gen_len`` decode steps.
     prompt [b, n] -> tokens [b, gen_len], the first from the prefill;
-    ``route`` as in ``transformer_decode_step``."""
+    ``route`` as in ``greedy_decode``."""
     b, n = prompt.shape
     if gen_len == 0:
         return prompt.new_zeros((b, 0))
@@ -581,6 +614,43 @@ def _sample_from_logits(logits: torch.Tensor, temperature: float, filter_thres: 
     return (top_k_filter(logits, filter_thres) / temperature + gumbel).argmax(-1)
 
 
+def sample_decode(params, cfg: ModelConfig, token: torch.Tensor, cache: ModelCache,
+                  gumbel: torch.Tensor, *, temperature: float, filter_thres: float = 0.9,
+                  route: Optional[str] = None, capture: bool = True) -> torch.Tensor:
+    """Tempered decode steps from ``token`` [b], one a row of ``gumbel``
+    [n, b, vocab]: step i samples its token by the top-k filter and
+    Gumbel-max over its logits with noise ``gumbel[i]``, indexed on the
+    device by the step counter.  Returns the consumed tokens and the last
+    one sampled, [b, n + 1] (``token`` first).  ``route`` as in
+    ``transformer_decode_step`` (the whole-model kernel's logits at b <= 8,
+    one token a launch); the cache is updated in place; ``capture`` as in
+    ``greedy_decode``."""
+    params = fuse_decode_params(params, cfg)
+    b, dev, n = token.shape[0], token.device, gumbel.shape[0]
+    _check_room(cache, n)
+    hist = torch.zeros((b, n + 1), dtype=torch.long, device=dev)
+    hist[:, 0] = token
+    state = {"token": token.to(torch.long).clone(),
+             "pos": decode_graph.device_scalar(cache.seq_len, dev),
+             "i": decode_graph.device_scalar(0, dev, torch.long), "hist": hist,
+             "gumbel": gumbel.to(dev).clone()}
+
+    def step(s):
+        logits, _ = transformer_decode_step(params, cfg, s["token"], cache, route=route,
+                                            pos=s["pos"])
+        noise = s["gumbel"].index_select(0, s["i"].reshape(1))[0]
+        tok = _sample_from_logits(logits, temperature, filter_thres, noise)
+        s["i"].add_(1)
+        s["hist"].index_copy_(1, s["i"].reshape(1), tok[:, None])
+        s["token"].copy_(tok)
+        s["pos"].add_(1)
+
+    out = decode_graph.decode_loop(
+        state, step, n, reads=(params, cache.layers),
+        opts=(cfg, route, float(temperature), float(filter_thres)), capture=capture)
+    return out["hist"].to(token.dtype, copy=True)
+
+
 def transformer_sample(
     params, cfg: ModelConfig, prompt: torch.Tensor, gen_len: int, *,
     temperature: float = 0.0, filter_thres: float = 0.9,
@@ -593,11 +663,11 @@ def transformer_sample(
 
     Greedy (temperature <= 0) is ``transformer_greedy``: on the whole-model
     kernel its argmax runs in the kernel.  Tempered sampling takes the
-    top-k filter and Gumbel-max over each step's logits, on the route
-    ``route`` picks (the whole-model kernel's logits at b <= 8).  JAX draws
-    its noise from a key; here ``gumbel`` [gen_len, b, vocab] passes it in
-    (row i samples token i), or ``generator`` draws it (default: a fresh
-    generator seeded 0 on the prompt's device)."""
+    top-k filter and Gumbel-max over each step's logits (``sample_decode``).
+    JAX draws its noise from a key; here ``gumbel`` [gen_len, b, vocab]
+    passes it in (row i samples token i), or ``generator`` draws it
+    (default: a fresh generator seeded 0 on the prompt's device).
+    ``route`` as in ``greedy_decode``."""
     b, n = prompt.shape
     if temperature <= 0 or gen_len == 0:
         return transformer_greedy(params, cfg, prompt, gen_len, max_len, route=route)
@@ -610,10 +680,6 @@ def transformer_sample(
     max_len = default_max_len(cfg, n + gen_len) if max_len is None else max_len
     params = fuse_decode_params(params, cfg)
     logits, cache = transformer_prefill(params, cfg, prompt, max_len)
-    token = _sample_from_logits(logits[:, -1], temperature, filter_thres, gumbel[0])
-    tokens = [token]
-    for i in range(1, gen_len):
-        logits, cache = transformer_decode_step(params, cfg, token, cache, route=route)
-        token = _sample_from_logits(logits, temperature, filter_thres, gumbel[i])
-        tokens.append(token)
-    return torch.stack(tokens, dim=1)
+    first = _sample_from_logits(logits[:, -1], temperature, filter_thres, gumbel[0])
+    return sample_decode(params, cfg, first, cache, gumbel[1:], temperature=temperature,
+                         filter_thres=filter_thres, route=route)

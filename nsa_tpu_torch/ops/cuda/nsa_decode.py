@@ -18,7 +18,9 @@ plain versions follow the JAX package's XLA decode path
 (``_decode_compressed`` / ``_decode_fine_sliding``, ``ops/nsa.py:870-996``).
 They also take the position ``t`` (and ``num_cb``) as a [b] tensor, one
 position per row, for the ragged decode kernels' plain versions
-(``nsa_decode_ragged.py``); the kernels here take one position.
+(``nsa_decode_ragged.py``); the kernels here take one position, an int or
+a 0-d int32 tensor on the device, which they read from device memory (so a
+captured decode step replays them at each step's position).
 """
 
 from __future__ import annotations
@@ -38,9 +40,19 @@ INFO_WIDTH = 128   # packed info row: [0,S) ids | [S,S+ns) trailing | [S+ns,2S+n
 
 
 def per_row(t):
-    """A position as it broadcasts against a trailing axis: the int itself,
-    or a [b] tensor as [b, 1]."""
-    return t[:, None] if isinstance(t, torch.Tensor) else t
+    """A position as it broadcasts against a trailing axis: an int or a 0-d
+    tensor (one position) itself, a [b, ...] tensor with one more axis."""
+    return t[:, None] if isinstance(t, torch.Tensor) and t.dim() >= 1 else t
+
+
+def write_row(cache: torch.Tensor, t, row: torch.Tensor) -> None:
+    """``cache[:, :, t] = row`` in place: cache [b, kvh, L, 2d], row [b, kvh,
+    2d], t an int or a 0-d tensor on the cache's device (written without a
+    host sync)."""
+    if isinstance(t, torch.Tensor):
+        cache.index_copy_(2, t.long().reshape(1), row[:, :, None].to(cache.dtype))
+    else:
+        cache[:, :, t] = row.to(cache.dtype)
 
 
 def trailing_blocks(t, sel_block: int, n_slide: int, device) -> torch.Tensor:
@@ -161,12 +173,14 @@ def with_next_ranked(info, scores, num_sel: int) -> torch.Tensor:
     return info
 
 
-def decode_select(q, ckv, mem_kv, t: int, num_cb: int, *, max_blocks: int,
+def decode_select(q, ckv, mem_kv, t, num_cb, *, max_blocks: int,
                   stride: int, sel_block: int, num_sel: int, n_slide: int,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [b, kvh, g, d] UNROTATED queries; ckv [b, kvh, Wc, 2d]; mem_kv
-    [2, kvh, M, d]; t the query position; num_cb the live compressed rows.
-    Returns (c_out [b, kvh, g, d], info [b, kvh, INFO_WIDTH] int32)."""
+    [2, kvh, M, d]; t the query position (an int, or a 0-d int32 tensor on
+    q's device); num_cb = t // stride the live compressed rows (the plain
+    version's; the kernel derives it from t).  Returns (c_out [b, kvh, g,
+    d], info [b, kvh, INFO_WIDTH] int32)."""
     kw = dict(max_blocks=max_blocks, stride=stride, sel_block=sel_block,
               num_sel=num_sel, n_slide=n_slide, scale=scale)
     if runtime.on_cpu(q, ckv, mem_kv):
@@ -186,12 +200,13 @@ def decode_select(q, ckv, mem_kv, t: int, num_cb: int, *, max_blocks: int,
         runtime.check("ckv", ckv, bf, (b, kvh, Wc, 2 * d)),
         runtime.check("mem_kv", mem_kv, bf, (2, kvh, M, d)),
     ]
+    pos = runtime.device_position(t, q)
     c_out = torch.empty_like(q)
     info = torch.empty((b, kvh, INFO_WIDTH), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         runtime.library().call(
-            "nsa_decode_select", *ptrs, c_out.data_ptr(), info.data_ptr(),
-            b, kvh, g, Wc, M, t, num_cb, stride, sel_block, num_sel, n_slide,
+            "nsa_decode_select", *ptrs, c_out.data_ptr(), info.data_ptr(), pos.data_ptr(),
+            b, kvh, g, Wc, M, stride, sel_block, num_sel, n_slide,
             max_blocks, INFO_WIDTH, scale, runtime.stream_of(q),
         )
     decode_select.launches += 1
@@ -247,7 +262,7 @@ def attend_combined_plain(rq, kv, info, c_out, gates, t, *, sel_block: int,
     return torch.einsum("bhgs,bhgds->bhgd", gates.to(rq.dtype).float(), stacked)
 
 
-def decode_attend_plain(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
+def decode_attend_plain(rq, kv, info, c_out, gates, t, *, sel_block: int,
                         window: int, num_sel: int, n_slide: int,
                         scale: float) -> torch.Tensor:
     """The plain PyTorch version of ``decode_attend``: the block gather, the
@@ -257,10 +272,11 @@ def decode_attend_plain(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
                                  scale=scale).to(rq.dtype)
 
 
-def decode_attend(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
+def decode_attend(rq, kv, info, c_out, gates, t, *, sel_block: int,
                   window: int, num_sel: int, n_slide: int, scale: float) -> torch.Tensor:
     """rq [b, kvh, g, d] rotated queries; kv [b, kvh, max_len, 2d] packed
-    k||v cache holding the row at position t; info [b, kvh, INFO_WIDTH]
+    k||v cache holding the row at position t (an int, or a 0-d int32 tensor
+    on rq's device); info [b, kvh, INFO_WIDTH]
     from ``decode_select``; c_out [b, kvh, g, d]; gates [b, kvh, g, 3]
     (compressed, fine, sliding).  Returns the combined output [b, kvh, g, d]."""
     kw = dict(sel_block=sel_block, window=window, num_sel=num_sel,
@@ -281,10 +297,11 @@ def decode_attend(rq, kv, info, c_out, gates, t: int, *, sel_block: int,
         runtime.check("c_out", c_out, bf, (b, kvh, g, d)),
         runtime.check("gates", gates, bf, (b, kvh, g, 3)),
     ]
+    pos = runtime.device_position(t, rq)
     out = torch.empty_like(rq)
     with torch.cuda.device(rq.device):
         runtime.library().call(
-            "nsa_decode_attend", *ptrs, out.data_ptr(), b, kvh, g, max_len, t,
+            "nsa_decode_attend", *ptrs, out.data_ptr(), pos.data_ptr(), b, kvh, g, max_len,
             sel_block, window, num_sel, n_slide, INFO_WIDTH, scale,
             runtime.stream_of(rq),
         )

@@ -16,13 +16,16 @@ layer's decode step as two kernels.
 Each wrapper launches its CUDA kernel for CUDA tensors, raises on what the
 kernel does not take, and runs the plain PyTorch version beside it for CPU
 tensors.  The two kernels are the ragged pair's designs (rows 8 and 9,
-``nsa_decode_ragged.py``) at one position that the host passes:
-``decode_select_emit`` (``csrc/nsa_decode_fused.cu``) runs the tensor-core
-emission on emitting steps only, under the ragged emission's launch plan
-(``emit_plan``; it raises when that does not fit), then the ring shift, the
-emitted row and the selection; ``decode_attend_fused`` is the one-launch
-attend kernel (``csrc/nsa_decode_ragged.cu``) with ``t`` a launch argument,
-under the same plan (``attend_plan``; it raises when that does not fit).
+``nsa_decode_ragged.py``) at one position, which both read from one int32
+in device memory (an int ``t`` is written there first), so a captured
+decode step replays them at each step's position: ``decode_select_emit``
+(``csrc/nsa_decode_fused.cu``) launches the tensor-core emission on every
+step, which returns at once unless the step emits, under the ragged
+emission's launch plan (``emit_plan``; it raises when that does not fit),
+then the ring shift, the emitted row and the selection;
+``decode_attend_fused`` is the one-launch attend kernel
+(``csrc/nsa_decode_ragged.cu``) at that position, under the same plan
+(``attend_plan``; it raises when that does not fit).
 At a position every row shares, the pairs give the same bits.  The plain
 versions follow the
 Pallas kernels' rounding points: softmax weights stay float32; the gates
@@ -39,13 +42,14 @@ from typing import Tuple
 import torch
 
 from . import nsa_decode, runtime
-from .nsa_decode import INFO_WIDTH, per_row
+from .nsa_decode import INFO_WIDTH, per_row, write_row
 
 EMIT_COLS = 64      # compressor hidden columns per emission block (the kernel's)
 
 
-def emits(t: int, stride: int) -> bool:
-    """Whether the step at position ``t`` completes a compressed block."""
+def emits(t, stride: int):
+    """Whether the step at position ``t`` completes a compressed block: a
+    bool for an int, a bool tensor for a tensor."""
     return (t + 1) % stride == 0
 
 
@@ -78,10 +82,12 @@ def emission_plain(shifted, t, pos_kv, w1k, b1k, w1v, b1v, w2, b2, dtype,
 
 
 def decode_select_emit_plain(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v,
-                             w2, b2, t: int, num_cb: int, *, max_blocks: int, stride: int,
+                             w2, b2, t, num_cb, *, max_blocks: int, stride: int,
                              sel_block: int, num_sel: int, n_slide: int,
                              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of ``decode_select_emit``."""
+    """The plain PyTorch version of ``decode_select_emit``; ``t`` and
+    ``num_cb`` ints or 0-d tensors (a device position: the emission is then
+    decided on the device)."""
     b, kvh = q.shape[:2]
     c_out, info = nsa_decode.decode_select_plain(
         q, ckv, mem_kv, t, num_cb, max_blocks=max_blocks, stride=stride,
@@ -89,7 +95,12 @@ def decode_select_emit_plain(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v
         weights_dtype=torch.float32,
     )
     shifted = torch.cat([ring[:, :, 1:], kv_new.to(ring.dtype)], dim=2)
-    if emits(t, stride):
+    if isinstance(t, torch.Tensor):
+        slot = num_cb.clamp(max=ckv.shape[2] - 1)
+        cand = emission_plain(shifted, t, pos_kv, w1k, b1k, w1v, b1v, w2, b2, ckv.dtype)
+        kept = ckv.index_select(2, slot.long().reshape(1))[:, :, 0]
+        write_row(ckv, slot, torch.where(emits(t, stride), cand, kept))
+    elif emits(t, stride):
         ckv[:, :, num_cb] = emission_plain(shifted, t, pos_kv, w1k, b1k, w1v, b1v, w2, b2,
                                            ckv.dtype)
     ring.copy_(shifted)
@@ -97,15 +108,18 @@ def decode_select_emit_plain(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v
 
 
 def decode_select_emit(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v, w2, b2,
-                       t: int, num_cb: int, *, max_blocks: int, stride: int, sel_block: int,
+                       t, num_cb, *, max_blocks: int, stride: int, sel_block: int,
                        num_sel: int, n_slide: int,
                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [b, kvh, g, d] UNROTATED queries; ckv [b, kvh, Wc, 2d] and ring
     [b, kvh, Bc, 2d] caches (both updated in place); kv_new [b, kvh, 1, 2d]
     the new token's unrotated k||v; mem_kv [2, kvh, M, d]; pos_kv [kvh, Bc,
     2d] packed k_pos||v_pos; w1k, w1v [kvh, Bc*d, hid], b1k, b1v [kvh, hid],
-    w2 [kvh, hid, 2d], b2 [kvh, 2d] the packed compressors.  Returns
-    (c_out [b, kvh, g, d], info [b, kvh * INFO_WIDTH] int32)."""
+    w2 [kvh, hid, 2d], b2 [kvh, 2d] the packed compressors; t the position
+    (an int, or a 0-d int32 tensor on q's device), num_cb = t // stride (the
+    plain version's; the kernel derives it, and whether the step emits, from
+    t on the device).  Returns (c_out [b, kvh, g, d], info [b, kvh *
+    INFO_WIDTH] int32)."""
     args = (q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v, w2, b2)
     kw = dict(max_blocks=max_blocks, stride=stride, sel_block=sel_block,
               num_sel=num_sel, n_slide=n_slide, scale=scale)
@@ -115,7 +129,7 @@ def decode_select_emit(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v,
     Wc, Bc, M, hid = ckv.shape[2], ring.shape[2], mem_kv.shape[2], w1k.shape[2]
     npf = sel_block // stride
     if d != 64 or g not in (1, 2, 4, 8) or npf < 2 or Wc % npf or hid % EMIT_COLS \
-            or 2 * num_sel + n_slide > INFO_WIDTH or not 0 <= num_cb < Wc:
+            or 2 * num_sel + n_slide > INFO_WIDTH or (isinstance(t, int) and t // stride >= Wc):
         raise ValueError(f"decode_select_emit kernel takes dim_head 64, g in 1/2/4/8, "
                          f"sel_block/stride >= 2 dividing the ckv width and a compressor "
                          f"width divisible by {EMIT_COLS}; got d={d}, g={g}, npf={npf}, "
@@ -139,17 +153,17 @@ def decode_select_emit(q, ckv, ring, kv_new, mem_kv, pos_kv, w1k, b1k, w1v, b1v,
     ]
     nsa_decode_ragged.check_plan("decode_select_emit",
                                  nsa_decode_ragged.device_emit_plan(q, ring, w1k))
-    emit = emits(t, stride)
+    pos = runtime.device_position(t, q)
     c_out = torch.empty_like(q)
     info = torch.empty((b, kvh * INFO_WIDTH), dtype=torch.int32, device=q.device)
     # per (head, hidden chunk) partial sums of the compressor's second layer
-    partial = torch.empty((kvh, hid // EMIT_COLS, b, 2 * d) if emit else (1,),
-                          dtype=f32, device=q.device)
+    # (written on emitting steps, which the kernel decides)
+    partial = torch.empty((kvh, hid // EMIT_COLS, b, 2 * d), dtype=f32, device=q.device)
     with torch.cuda.device(q.device):
         runtime.library().call(
-            "nsa_decode_select_emit", *ptrs, c_out.data_ptr(), info.data_ptr(),
-            partial.data_ptr(), b, kvh, g, Wc, M, Bc, hid, t, num_cb, stride, sel_block,
-            num_sel, n_slide, max_blocks, INFO_WIDTH, int(emit), scale, runtime.stream_of(q),
+            "nsa_decode_select_emit", *ptrs, pos.data_ptr(), c_out.data_ptr(), info.data_ptr(),
+            partial.data_ptr(), b, kvh, g, Wc, M, Bc, hid, stride, sel_block,
+            num_sel, n_slide, max_blocks, INFO_WIDTH, scale, runtime.stream_of(q),
         )
     decode_select_emit.launches += 1
     return c_out, info
@@ -205,22 +219,24 @@ def combined_plain(rq, kv, info, c_out, gates, t, page_table, *, sel_block, wind
         weights_dtype=torch.float32, page_table=page_table).to(kv.dtype)
 
 
-def decode_attend_fused_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t: int,
+def decode_attend_fused_plain(rq, kv, kv_new, info, c_out, gates, x, w_out, t,
                               ff=(), *, sel_block: int, window: int, num_sel: int,
                               n_slide: int, scale: float, eps: float = 1e-6) -> torch.Tensor:
-    """The plain PyTorch version of ``decode_attend_fused``."""
-    kv[:, :, t] = kv_new[:, :, 0].to(kv.dtype)
+    """The plain PyTorch version of ``decode_attend_fused`` (``t`` an int or
+    a 0-d tensor)."""
+    write_row(kv, t, kv_new[:, :, 0])
     return attend_out_plain(rq, kv, info, c_out, gates, x, w_out, t, ff, sel_block=sel_block,
                             window=window, num_sel=num_sel, n_slide=n_slide, scale=scale,
                             eps=eps)
 
 
-def decode_attend_fused(rq, kv, kv_new, info, c_out, gates, x, w_out, t: int, ff=(), *,
+def decode_attend_fused(rq, kv, kv_new, info, c_out, gates, x, w_out, t, ff=(), *,
                         sel_block: int, window: int, num_sel: int, n_slide: int,
                         scale: float, eps: float = 1e-6, attn_out=None,
                         phase_ns=None) -> torch.Tensor:
     """rq [b, kvh, g, d] rotated queries; kv [b, kvh, max_len, 2d] packed
-    k||v cache (row t written in place); kv_new [b, kvh, 1, 2d] the new
+    k||v cache (row t written in place; t an int or a 0-d int32 tensor on
+    rq's device, which the kernel reads there); kv_new [b, kvh, 1, 2d] the new
     token's rotated-k||v; info [b, kvh * INFO_WIDTH] and c_out [b, kvh, g, d]
     from ``decode_select_emit``; gates [b, kvh, g, 3]; x [b, 1, dim] the
     residual stream; w_out [kvh * g * d, dim]; ff () or the gelu FF's

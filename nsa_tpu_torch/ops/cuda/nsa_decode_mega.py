@@ -72,11 +72,12 @@ def _layers(x: Caches):
 
 
 def decode_step_mega_plain(mp: dict, kv: Caches, ckv: Caches, ring: Caches,
-                           token: torch.Tensor, t: int, *, steps: int = 1,
+                           token: torch.Tensor, t, *, steps: int = 1,
                            greedy: bool = False, heads: int, stride: int, sel_block: int,
                            num_sel: int, n_slide: int, window: int, scale: float,
                            eps: float, theta: float):
-    """The plain PyTorch version of ``decode_step_mega``."""
+    """The plain PyTorch version of ``decode_step_mega`` (``t`` an int or a
+    0-d tensor)."""
     kvs, ckvs, rings = _layers(kv), _layers(ckv), _layers(ring)
     b, kvh, max_len, d2 = kvs[0].shape
     d = d2 // 2
@@ -90,7 +91,7 @@ def decode_step_mega_plain(mp: dict, kv: Caches, ckv: Caches, ring: Caches,
     tok, picked = token.long(), []
     for s in range(steps):
         ts = t + s
-        pos = torch.tensor([ts], device=token.device)
+        pos = torch.as_tensor(ts, device=token.device).reshape(1)
         x = mp["token_emb"][tok]                                   # [b, dim]
         for l in range(len(kvs)):
             normed = rms_norm(x, mp["attn_norm"][l, 0], eps)
@@ -230,7 +231,7 @@ def _inv_freq(d: int, theta: float, device: str) -> torch.Tensor:
 
 def launch_plan(device, ints) -> dict:
     """The kernel's plan on ``device`` for the C entry's ints (see
-    ``decode_step_mega``; the plan does not depend on t, steps or greedy),
+    ``decode_step_mega``; the plan does not depend on steps or greedy),
     as its C entry computes it: ``PLAN_KEYS``, and ``fits`` (at least one
     block an SM)."""
     index = torch.device(device).index
@@ -251,12 +252,14 @@ def _scratch(device, spec):
 
 
 def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: torch.Tensor,
-                     t: int, *, steps: int = 1, greedy: bool = False, heads: int,
+                     t, *, steps: int = 1, greedy: bool = False, heads: int,
                      stride: int, sel_block: int, num_sel: int, n_slide: int, window: int,
                      scale: float, eps: float, theta: float,
                      phase_ns: Optional[torch.Tensor] = None,
                      inspect: Optional[dict] = None) -> Tuple[torch.Tensor, ...]:
-    """Whole-model decode at position ``t`` -> (logits [b, vocab] float32,
+    """Whole-model decode at position ``t`` (an int, or a 0-d int32 tensor
+    on the caches' device, which the kernel reads there: the caller then
+    keeps ``t + steps <= max_len``) -> (logits [b, vocab] float32,
     kv, ckv, ring), or with ``greedy=True`` (logits, tokens [b, steps]
     int32, kv, ckv, ring): ``tokens[:, i]`` is the token sampled after
     consuming position ``t + i``, and the logits are the last step's.
@@ -281,8 +284,8 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
     b, kvh, max_len, d2 = kvs[0].shape
     if steps < 1 or (steps > 1 and not greedy):
         raise ValueError(f"steps must be 1, or more with greedy=True; got {steps}")
-    if not (len(ckvs) == len(rings) == L == mp["w_qkvg"].shape[0]) or not 0 <= t \
-            or t + steps > max_len or b > MAX_BATCH:
+    if not (len(ckvs) == len(rings) == L == mp["w_qkvg"].shape[0]) or b > MAX_BATCH or (
+            isinstance(t, int) and not 0 <= t <= max_len - steps):
         raise ValueError(f"decode_step_mega takes {mp['w_qkvg'].shape[0]} layers of kv, ckv "
                          f"and ring, b <= {MAX_BATCH} and t + steps <= max_len; got "
                          f"{L}/{len(ckvs)}/{len(rings)} layers, b={b}, t={t}, steps={steps}, "
@@ -332,11 +335,12 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
     dev = kvs[0].device
     inv_freq = _inv_freq(d, float(theta), str(dev))
     tok_in = token.to(device=dev, dtype=torch.int32).contiguous()
+    pos = runtime.device_position(t, kvs[0])
     logits = torch.empty((b, vocab), dtype=f32, device=dev)
     tokens = torch.empty((b, steps), dtype=torch.int32, device=dev)
-    ints = [L, b, kvh, g, max_len, Wc, Bc, M, hid, dim, vocab, hid4, t, steps, int(greedy),
+    ints = [L, b, kvh, g, max_len, Wc, Bc, M, hid, dim, vocab, hid4, steps, int(greedy),
             stride, sel_block, num_sel, n_slide, window, INFO_WIDTH]
-    check_plan("decode_step_mega", launch_plan(dev, ints[:12] + [0, 1, 0] + ints[15:]))
+    check_plan("decode_step_mega", launch_plan(dev, ints[:12] + [1, 0] + ints[14:]))
     nchunks = hid // EMIT_COLS
     scratch = _scratch(dev, [
         (b * P, bf),                       # proj: the fused projection, rounded
@@ -351,7 +355,8 @@ def decode_step_mega(mp: dict, kv: Caches, ckv: Caches, ring: Caches, token: tor
         (b * hid4, bf),                    # the FF's hidden row
     ])
     ptrs = ([x.data_ptr() for x in (*kvs, *ckvs, *rings)] + weights
-            + [inv_freq.data_ptr(), tok_in.data_ptr(), logits.data_ptr(), tokens.data_ptr()]
+            + [inv_freq.data_ptr(), tok_in.data_ptr(), pos.data_ptr(), logits.data_ptr(),
+               tokens.data_ptr()]
             + [x.data_ptr() for x in scratch])
     if phase_ns is not None:
         runtime.check("phase_ns", phase_ns, torch.int64, (None,))

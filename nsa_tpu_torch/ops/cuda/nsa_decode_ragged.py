@@ -23,7 +23,7 @@ wrapper raises when it does not fit).  The two attend kernels are one
 cooperative launch of one block per SM that holds column tiles of w_out and
 the FF's matrices in shared memory (``attend_plan`` gives the sizes; the
 wrapper raises when they do not fit).  ``decode_select_emit`` and
-``decode_attend_fused`` launch the same designs at one host position, under
+``decode_attend_fused`` launch the same designs at one device position, under
 the same plans (``attend_call`` checks and launches all three attends).
 Neither ragged kernel reads a position back
 to the host: the kernels decide per row on the device, and the plain
@@ -307,15 +307,16 @@ def attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out, 
                 attn_out, phase_ns, *, sel_block, window, num_sel, n_slide, scale, eps):
     """Check the operands of the one-launch attend kernel and launch it: the
     ragged one (``t`` a [b] tensor), the paged one (``t`` a [b] tensor and
-    ``page_table``) or the one-position one (``t`` an int, a launch
-    argument; ``decode_attend_fused``).  Returns the layer output."""
+    ``page_table``) or the one-position one (``t`` an int or a 0-d int32
+    tensor, read on the device; ``decode_attend_fused``).  Returns the layer
+    output."""
     b, kvh, g, d = rq.shape
     dim = x.shape[-1]
     hid4 = ff[1].shape[1] if ff else 0
     d2 = kv.shape[-1]
-    one_position = isinstance(t, int)
+    one_position = not isinstance(t, torch.Tensor) or t.dim() == 0
     if d != 64 or g not in (1, 2, 4, 8) or kv.shape[2] % sel_block or dim % 64 or hid4 % 64 \
-            or (one_position and not 0 <= t < kv.shape[2]):
+            or (isinstance(t, int) and not 0 <= t < kv.shape[2]):
         raise ValueError(f"{name} kernel takes dim_head 64, g in 1/2/4/8, a cache length or "
                          f"page divisible by sel_block, model and FF widths divisible by 64 "
                          f"and a position in the cache; got d={d}, g={g}, rows={kv.shape[2]}, "
@@ -346,8 +347,8 @@ def attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out, 
         ]
     else:
         ptrs += [0] * 5
-    if not one_position:
-        ptrs.append(runtime.check("t", t, i32, (b,)))
+    pos = runtime.device_position(t, rq) if one_position else t    # alive until the launch
+    ptrs.append(pos.data_ptr() if one_position else runtime.check("t", t, i32, (b,)))
     plan = attend_plan(rq, dim, hid4, sel_block=sel_block, num_sel=num_sel, n_slide=n_slide,
                        paged=page_table is not None)
     if plan["blocks_per_sm"] < 1:
@@ -369,7 +370,7 @@ def attend_call(name, rq, kv, page_table, kv_new, info, c_out, gates, x, w_out, 
     with torch.cuda.device(rq.device):
         runtime.library().call(
             name, *ptrs, y.data_ptr(), hbuf.data_ptr(), out.data_ptr(), marks, b, kvh, g, *rows,
-            dim, hid4, *((t,) if one_position else ()), sel_block, window, num_sel, n_slide,
+            dim, hid4, sel_block, window, num_sel, n_slide,
             INFO_WIDTH, scale, eps, runtime.stream_of(rq),
         )
     return out

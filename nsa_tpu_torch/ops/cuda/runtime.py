@@ -43,12 +43,14 @@ SIGNATURES = {
     "nsa_prefill_bwd_dkv": [_p] * 14 + [_ll] + [_i] * 7 + [_f, _p],
     # its workspace's bytes at given shapes, written to a long long
     "nsa_prefill_bwd_dkv_workspace": [_i] * 6 + [_p],
-    "nsa_decode_select": [_p] * 5 + [_i] * 13 + [_f, _p],
-    "nsa_decode_attend": [_p] * 6 + [_i] * 10 + [_f, _p],
+    # the one-position decode kernels (rows 2, 3, 6, 7) read the position
+    # from a device int32 (a pointer) and so can be replayed in a CUDA graph
+    "nsa_decode_select": [_p] * 6 + [_i] * 11 + [_f, _p],
+    "nsa_decode_attend": [_p] * 7 + [_i] * 9 + [_f, _p],
     # the two kernels' launch geometry, written to an int array (see the source)
     "nsa_decode_split_plan": [_i] * 5 + [_p],
-    "nsa_decode_select_emit": [_p] * 15 + [_i] * 16 + [_f, _p],
-    "nsa_decode_attend_fused": [_p] * 18 + [_i] * 12 + [_f, _f, _p],
+    "nsa_decode_select_emit": [_p] * 16 + [_i] * 13 + [_f, _p],
+    "nsa_decode_attend_fused": [_p] * 19 + [_i] * 11 + [_f, _f, _p],
     "nsa_decode_select_emit_ragged": [_p] * 17 + [_i] * 13 + [_f, _p],
     "nsa_decode_attend_fused_ragged": [_p] * 19 + [_i] * 11 + [_f, _f, _p],
     "nsa_decode_attend_fused_paged": [_p] * 20 + [_i] * 12 + [_f, _f, _p],
@@ -160,6 +162,19 @@ def check(name: str, x: torch.Tensor, dtype: torch.dtype, shape) -> int:
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: data must be 16-byte aligned")
     return x.data_ptr()
+
+
+def device_position(t, like: torch.Tensor) -> torch.Tensor:
+    """The position ``t`` as the one-position decode kernels read it: one
+    int32 in ``like``'s device memory.  An int is written there by a fill
+    (no host sync); a tensor must already be one, a 0-d int32 on that
+    device (a captured decode step's position, advanced on the device)."""
+    if not isinstance(t, torch.Tensor):
+        return torch.full((), int(t), dtype=torch.int32, device=like.device)
+    if t.dim() != 0 or t.dtype != torch.int32 or t.device != like.device:
+        raise ValueError(f"a device position is a 0-d int32 tensor on {like.device}; got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t
 
 
 def stream_of(x: torch.Tensor) -> int:

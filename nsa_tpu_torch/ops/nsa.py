@@ -57,7 +57,6 @@ from .cuda.nsa_decode_fused import (
     decode_attend_fused_plain,
     decode_select_emit,
     decode_select_emit_plain,
-    emits,
 )
 from .cuda.nsa_decode_ragged import (
     decode_attend_fused_paged,
@@ -383,12 +382,15 @@ def sparse_attention_decode(
 
     Returns ``(x + attn_out, cache)``: the updated residual stream, with the
     layer's FF block applied too when ``ff_params`` is given.  The caches
-    are written in place; the returned cache holds them (and, on the split
-    route, the shifted ring as a new tensor).
+    (the ring too) are written in place at their own addresses; the
+    returned cache holds the same tensors.
 
-    ``t`` is an int (every row at one position) or a [b] int tensor on x's
-    device (the ragged step: row i at position t[i], as the serving engine's
-    slots decode; nothing is read back to the host).
+    ``t`` is every row's position, an int or a 0-d int32 tensor on x's
+    device (a device position, as a captured decode step advances it), or
+    a [b] int tensor there (the ragged step: row i at position t[i], as the
+    serving engine's slots decode).  Nothing is read back to the host: an
+    int is written to the device once, and the caller of a device position
+    keeps it inside the cache.
 
     ``route``: ``None`` takes the fused pair at b <= 8 and the split pair
     above (JAX's default), and the ragged fused pair at every b for a
@@ -419,10 +421,10 @@ def sparse_attention_decode(
     Bs = nsa.selection_block_size
     window = nsa.sliding_window_size
     n_slide = -(-window // Bs) + 1
-    ragged = isinstance(t, torch.Tensor)
+    ragged = isinstance(t, torch.Tensor) and t.dim() == 1
     paged = page_table is not None
     max_len = page_table.shape[1] * cache.kv.shape[2] if paged else cache.kv.shape[2]
-    if not ragged and not 0 <= t < max_len:
+    if isinstance(t, int) and not 0 <= t < max_len:
         raise ValueError(f"position {t} is outside the cache of {max_len}")
     if route not in (None, "fused", "split"):
         raise ValueError(f"route must be None, 'fused' or 'split', got {route!r}")
@@ -436,8 +438,10 @@ def sparse_attention_decode(
     if paged and not (ragged and fused):
         raise NotImplementedError("paged KV decode requires ragged positions and the fused "
                                   "route (mlp compressor, shared-KV selection)")
-    if ragged:
+    if isinstance(t, torch.Tensor):
         t = t.to(device=x.device, dtype=torch.int32)
+    else:                       # one device position for the whole step
+        t = torch.full((), t, dtype=torch.int32, device=x.device)
     num_cb = t // stride
 
     fp = params.get("decode_fused")
@@ -498,15 +502,14 @@ def sparse_attention_decode(
         )
         return out_x, cache
 
-    # ---- caches: ring shift, kv row write --------------------------------
-    ring = torch.cat([cache.ring[:, :, 1:], kv_new[:, :, None]], dim=2)
+    # ---- caches: ring shift, kv row write, in place ----------------------
+    ring = cache.ring
+    ring[:, :, :-1].copy_(ring[:, :, 1:].clone())    # through a copy: the views overlap
+    ring[:, :, -1].copy_(kv_new)
     kv_cache = cache.kv
     rows = torch.arange(b, device=x.device)
-    kv_row = torch.cat([rk_new, v_new], dim=-1)
-    if ragged:
-        kv_cache[rows, :, t.long()] = kv_row.to(kv_cache.dtype)
-    else:
-        kv_cache[:, :, t] = kv_row
+    tv = t if ragged else t.expand(b)                 # each row's position
+    kv_cache[rows, :, tv.long()] = torch.cat([rk_new, v_new], dim=-1).to(kv_cache.dtype)
 
     # ---- predicated compressed-block emission ----------------------------
     # when t+1 completes a stride the ring holds the window [t+1-Bc, t+1)
@@ -518,11 +521,9 @@ def sparse_attention_decode(
     cand = torch.cat([new_ck, new_cv], dim=-1)[:, :, 0]
     ckv_cache = cache.ckv
     trash = ckv_cache.shape[2] - 1
-    if ragged:
-        slot = torch.where(ragged_emits(t, num_cb, stride), num_cb.clamp(0, trash), trash)
-        ckv_cache[rows, :, slot.long()] = cand.to(ckv_cache.dtype)
-    else:
-        ckv_cache[:, :, min(num_cb, trash) if emits(t, stride) else trash] = cand
+    ncb = tv // stride
+    slot = torch.where(ragged_emits(tv, ncb, stride), ncb.clamp(0, trash), trash)
+    ckv_cache[rows, :, slot.long()] = cand.to(ckv_cache.dtype)
 
     # ---- branch 1 + selection, then branches 2 + 3 + gate ----------------
     qg, rqg = q.reshape(b, kvh, g, d).contiguous(), rq.reshape(b, kvh, g, d)
@@ -548,4 +549,4 @@ def sparse_attention_decode(
     out_x = x + out
     if ff_params is not None:
         out_x = out_x + ff_apply_gelu(ff_params, cfg, out_x)
-    return out_x, NSADecodeCache(kv=kv_cache, ckv=ckv_cache, ring=ring)
+    return out_x, cache

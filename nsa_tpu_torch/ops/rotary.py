@@ -27,8 +27,10 @@ def apply_rotary(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.
     return out.reshape(x.shape).to(x.dtype)
 
 
-def rotate_at_offset(x: torch.Tensor, offset: int, theta: float = 10000.0):
-    """Rotate [..., n, d] starting at absolute position ``offset``."""
+def rotate_at_offset(x: torch.Tensor, offset, theta: float = 10000.0):
+    """Rotate [..., n, d] starting at absolute position ``offset``: an int,
+    or a 0-d int tensor on x's device (a device position: the same angles
+    with no host sync)."""
     n = x.shape[-2]
     positions = torch.arange(n, device=x.device) + offset
     return apply_rotary(x, positions, theta)

@@ -224,12 +224,13 @@ def launchers(lib, x):
     k = x["skw"]
     c_out, info = torch.empty_like(q), torch.empty_like(x["info"])
     out = torch.empty_like(rq)
+    pos = torch.full((), x["t"], dtype=torch.int32, device=q.device)   # read on the device
     stream = torch.cuda.current_stream().cuda_stream
 
     def select():
         rc = lib.nsa_decode_select(q.data_ptr(), ckv.data_ptr(), mem_kv.data_ptr(),
-                                   c_out.data_ptr(), info.data_ptr(), b, kvh, g, ckv.shape[2],
-                                   mem_kv.shape[2], x["t"], x["num_cb"], k["stride"],
+                                   c_out.data_ptr(), info.data_ptr(), pos.data_ptr(), b, kvh, g,
+                                   ckv.shape[2], mem_kv.shape[2], k["stride"],
                                    k["sel_block"], k["num_sel"], k["n_slide"], k["max_blocks"],
                                    nsa_decode.INFO_WIDTH, k["scale"], stream)
         if rc:
@@ -238,7 +239,8 @@ def launchers(lib, x):
     def attend():
         rc = lib.nsa_decode_attend(rq.data_ptr(), kv.data_ptr(), x["info"].data_ptr(),
                                    x["c_out"].data_ptr(), x["gates"].data_ptr(), out.data_ptr(),
-                                   b, kvh, g, kv.shape[2], x["t"], k["sel_block"], x["window"],
+                                   pos.data_ptr(), b, kvh, g, kv.shape[2], k["sel_block"],
+                                   x["window"],
                                    k["num_sel"], k["n_slide"], nsa_decode.INFO_WIDTH, k["scale"],
                                    stream)
         if rc:

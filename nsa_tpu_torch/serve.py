@@ -13,7 +13,9 @@ or the full-attention model's kv cache (``nsa_tpu/serve.py``).
 * admission and retirement (max tokens, stop byte, cache capacity) between
   steps: new requests join as others finish, without draining the pool;
 * ``steps_per_sync`` > 1 decodes that many tokens per host round trip, the
-  sampled token fed back on the device, with one [B, steps] readback.
+  sampled token fed back on the device, with one [B, steps] readback; on
+  the card the window's step is a captured CUDA graph, replayed
+  (``models/decode_graph.py``), as JAX jits its window's scan.
 
 The engine allocates its caches on the params' device, so params on the
 card serve on the card.  The full-attention model serves on the dense pool
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .models import decode_graph
 from .models.transformer import (
     _check_model,
     _compute_dtype,
@@ -59,24 +62,42 @@ def ragged_decode_step(params, cfg: ModelConfig, tokens, cache_layers, seq_lens,
 def ragged_decode_multi(params, cfg: ModelConfig, tokens, cache_layers, seq_lens,
                         num_steps: int, temperature: float = 0.0, filter_thres: float = 0.9,
                         generator: Optional[torch.Generator] = None, *, page_table=None,
-                        route: Optional[str] = None):
+                        route: Optional[str] = None, capture: bool = True):
     """Advance every slot ``num_steps`` tokens without a host sync: each
     slot's sampled token and position ``t + 1`` stay on the device and feed
     the next step.  Greedy at ``temperature <= 0``, else top-k + Gumbel
     with noise from ``generator`` (on the caches' device).  Returns (tokens
-    [B, num_steps] on the device, cache_layers)."""
-    toks, t = [], seq_lens
-    for _ in range(num_steps):
-        logits, cache_layers = transformer_decode_step_ragged(
-            params, cfg, tokens, cache_layers, t, page_table, route=route)
+    [B, num_steps] on the device, cache_layers).  On the card the step is a
+    captured CUDA graph, replayed, with the tokens, positions and page table
+    in its buffers and ``generator`` registered with it (each replay draws
+    fresh noise); ``capture=False`` runs the same steps eagerly."""
+    dev = cache_layers[0].kv.device
+    state = {"tokens": tokens.to(dev, torch.long).clone(),
+             "t": seq_lens.to(dev, torch.int32).clone(),
+             "j": decode_graph.device_scalar(0, dev, torch.long),
+             "out": torch.zeros((tokens.shape[0], num_steps), dtype=torch.long, device=dev)}
+    if page_table is not None:
+        state["page_table"] = page_table.clone()
+
+    def step(s):
+        logits, _ = transformer_decode_step_ragged(params, cfg, s["tokens"], cache_layers,
+                                                   s["t"], s.get("page_table"), route=route)
         gumbel = None
         if temperature > 0:
             u = torch.rand(logits.shape, generator=generator, device=logits.device)
             gumbel = -torch.log(-torch.log(u + 1e-20) + 1e-20)
-        tokens = _sample_from_logits(logits, temperature, filter_thres, gumbel)
-        toks.append(tokens)
-        t = t + 1
-    return torch.stack(toks, dim=1), cache_layers
+        tok = _sample_from_logits(logits, temperature, filter_thres, gumbel)
+        s["out"].index_copy_(1, s["j"].reshape(1), tok[:, None])
+        s["tokens"].copy_(tok)
+        s["t"].add_(1)
+        s["j"].add_(1)
+
+    gens = (generator,) if temperature > 0 and generator is not None else ()
+    out = decode_graph.decode_loop(
+        state, step, num_steps, reads=(params, cache_layers),
+        opts=(cfg, route, float(temperature), float(filter_thres)), capture=capture,
+        generators=gens)
+    return out["out"].clone(), cache_layers
 
 
 def ragged_decode_step_paged(params, cfg: ModelConfig, tokens, cache_layers, seq_lens,
@@ -92,13 +113,13 @@ def ragged_decode_multi_paged(params, cfg: ModelConfig, tokens, cache_layers, se
                               page_table, num_steps: int, temperature: float = 0.0,
                               filter_thres: float = 0.9,
                               generator: Optional[torch.Generator] = None, *,
-                              route: Optional[str] = None):
+                              route: Optional[str] = None, capture: bool = True):
     """Paged ``ragged_decode_multi``: the page table is the same for all
     ``num_steps``; admission reserves every page a request can touch, so a
-    sync window needs no remapping."""
+    sync window needs no remapping (the host remaps between windows)."""
     return ragged_decode_multi(params, cfg, tokens, cache_layers, seq_lens, num_steps,
                                temperature, filter_thres, generator, page_table=page_table,
-                               route=route)
+                               route=route, capture=capture)
 
 
 def _paged_merge_wave(cache_layers, wave_layers, phys_pages: np.ndarray, slots):
@@ -176,6 +197,7 @@ class ContinuousBatchingEngine:
         paged_pool_pages: Optional[int] = None,
         page_tokens: int = 64,
         route: Optional[str] = None,
+        capture: bool = True,
     ):
         """``dtype`` is the caches' (default: the config's compute dtype).
         ``paged_pool_pages`` switches the kv cache to a shared pool of that
@@ -186,7 +208,9 @@ class ContinuousBatchingEngine:
         when the pool is full, pending requests wait.  ``route`` is the
         ragged step's (``transformer_decode_step_ragged``); the paged pool
         takes the fused route only, and the sparse model only.  Sampling at ``temperature > 0`` draws
-        its noise from ``torch.Generator``s seeded with ``seed``."""
+        its noise from ``torch.Generator``s seeded with ``seed``.  The
+        multi-token window runs as a captured CUDA graph on the card
+        (``ragged_decode_multi``); ``capture=False`` runs it eagerly."""
         if mesh is not None:
             raise NotImplementedError("serving over a device mesh is not ported yet "
                                       "(see ROADMAP.md, parallelism)")
@@ -199,6 +223,7 @@ class ContinuousBatchingEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.route = route
+        self.capture = capture
         self.temperature = float(temperature)
         self.filter_thres = float(filter_thres)
         self._host_gen = torch.Generator().manual_seed(seed)
@@ -434,7 +459,7 @@ class ContinuousBatchingEngine:
         temperature 0 token for token what single steps give."""
         k = self.steps_per_sync
         kw = dict(temperature=self.temperature, filter_thres=self.filter_thres,
-                  generator=self._dev_gen, route=self.route)
+                  generator=self._dev_gen, route=self.route, capture=self.capture)
         if self.paged:
             toks, self.cache_layers = ragged_decode_multi_paged(*self._decode_args(),
                                                                 self._pt_dev, k, **kw)

@@ -45,16 +45,26 @@ where its plain version keeps them float32, and both round the output
 once: element by element, 2^-7 of the plain output plus 2^-8 of the same
 attention over |v|
 (``flash.flash_attention_tolerance``: each term twice its source).
+The decode loops captured as CUDA graphs (``models/decode_graph.py``) run
+the same kernels and ops as their eager steps, in the same order: tokens,
+caches, logits and launch counts are held to the eager steps' bit for bit.
 """
 
+import gc
+
+import numpy as np
 import pytest
 import torch
 
-from nsa_tpu_torch import reference_model_config
-from nsa_tpu_torch.eval.efficiency import clone_cache
+from nsa_tpu_torch import reference_model_config, serve
+from nsa_tpu_torch.eval.efficiency import clone_cache, copy_cache
+from nsa_tpu_torch.models import decode_graph
 from nsa_tpu_torch.models.transformer import (
+    _sample_from_logits,
     fuse_decode_params,
+    greedy_decode,
     init_transformer,
+    sample_decode,
     stack_decode_caches,
     transformer_decode_step,
     transformer_decode_step_mega,
@@ -666,7 +676,7 @@ def test_mega_plan_on_the_card_is_the_python_plan(gen):
                                      (512, 16384, 256, 16), (512, 2048, 32768, 16),
                                      (512, 2048, 256, 64), (512, 2048, 256, 128)):
             ints = [6, 8, kvh, g, 4096, 512, Bc, nsa.num_compressed_mem_kv, 1024, dim, vocab,
-                    hid4, 0, 1, 0, nsa.compress_block_sliding_stride, nsa.selection_block_size,
+                    hid4, 1, 0, nsa.compress_block_sliding_stride, nsa.selection_block_size,
                     nsa.num_selected_blocks, 5, nsa.sliding_window_size, nsa_decode.INFO_WIDTH]
             dev = nsa_decode_mega.launch_plan("cuda", ints)
             want = nsa_decode_mega.mega_plan(
@@ -1146,3 +1156,186 @@ def test_full_model_prefill_and_decode_kernels_match_plain(gen):
         step_p, _ = transformer_decode_step(params, cfg, token, plain)
     assert torch.isfinite(step).all()
     assert max_err(step, step_p) <= 0.02 * step_p.abs().max().item()
+
+
+# ---- decode loops as captured CUDA graphs (models/decode_graph.py) ------------
+
+# name: (sparse model, batch, route, tokens a launch, temperature); gen_len 12
+# from position 195 crosses the emission at t = 199
+DECODE_LOOPS = {"split": (True, 9, None, 1, 0.0), "fused": (True, 4, "fused", 1, 0.0),
+                "mega": (True, 4, None, 4, 0.0), "mega_sample": (True, 4, None, 1, 0.8),
+                "full": (False, 9, None, 1, 0.0)}
+LOOP_PROMPT, LOOP_GEN, LOOP_MAX_LEN = 195, 12, 256
+
+
+def decode_model(sparse):
+    cfg = reference_model_config(use_sparse_attn=sparse).replace(depth=2, dtype="bfloat16")
+    params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cuda"),
+                     dtype=torch.bfloat16)
+    return fuse_decode_params(params, cfg), cfg
+
+
+def launch_counts():
+    return [fn.launches for fn in decode_graph.COUNTED]
+
+
+@pytest.mark.parametrize("name", list(DECODE_LOOPS))
+def test_decode_loop_captured_equals_eager(gen, name):
+    """Each decode entry point eager, captured (the warm-up step, the
+    capture, replays), then replayed from the kept graph, from copies of
+    one prefilled cache: the tokens and every cache tensor bit for bit, and
+    the same launches counted each time (a replay adds one eager step's)."""
+    sparse, b, route, steps, temperature = DECODE_LOOPS[name]
+    params, cfg = decode_model(sparse)
+    ids = torch.randint(0, 256, (b, LOOP_PROMPT), generator=gen, device="cuda")
+    gumbel = torch.rand((LOOP_GEN, b, cfg.vocab_size), generator=gen, device="cuda")
+    decode_graph.clear()          # no graph kept from another test
+    runs = []
+    with torch.inference_mode():
+        logits, cache = transformer_prefill(params, cfg, ids, LOOP_MAX_LEN)
+        first = logits[:, -1].argmax(-1)
+        run = clone_cache(cache)
+        for capture in (False, True, True):
+            copy_cache(run, cache)
+            graphs, before = decode_graph.graph_count(), launch_counts()
+            if temperature > 0:
+                toks = sample_decode(params, cfg, first, run, gumbel[:LOOP_GEN - 1],
+                                     temperature=temperature, route=route, capture=capture)
+            else:
+                toks = greedy_decode(params, cfg, first, run, LOOP_GEN, route=route,
+                                     steps=steps, capture=capture)
+            torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(launch_counts(), before)]
+            runs.append((toks, [x.clone() for lc in run.layers for x in lc], ran,
+                         decode_graph.graph_count() - graphs))
+    (toks_e, cache_e, ran_e, _), *captured = runs
+    assert toks_e.shape == (b, LOOP_GEN) and (sum(ran_e) > 0) == sparse   # the full model: none
+    for toks_c, cache_c, ran_c, _ in captured:
+        assert torch.equal(toks_c, toks_e)
+        assert all(torch.equal(x, y) for x, y in zip(cache_c, cache_e))
+        assert ran_c == ran_e
+    assert runs[1][3] >= 1 and runs[2][3] == 0      # the third run replays the second's graph
+
+
+@pytest.mark.parametrize("name", ["split", "fused", "mega", "full"])
+def test_captured_decode_step_logits_equal_eager(gen, name):
+    """transformer_decode_step at a device position, three steps eager and
+    three as one captured graph replayed: the last logits bit for bit (the
+    same kernels and ops in the same order)."""
+    sparse, b, route, _, _ = DECODE_LOOPS[name]
+    params, cfg = decode_model(sparse)
+    ids = torch.randint(0, 256, (b, LOOP_PROMPT), generator=gen, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        logits, cache = transformer_prefill(params, cfg, ids, LOOP_MAX_LEN)
+        run = clone_cache(cache)
+
+        def body(s):
+            lg, _ = transformer_decode_step(params, cfg, s["token"], run, route=route,
+                                            pos=s["pos"])
+            s["logits"].copy_(lg)
+            s["token"].copy_(lg.argmax(-1))
+            s["pos"].add_(1)
+
+        for capture in (False, True):
+            copy_cache(run, cache)
+            state = {"token": logits[:, -1].argmax(-1),
+                     "pos": torch.full((), LOOP_PROMPT, dtype=torch.int32, device="cuda"),
+                     "logits": torch.zeros_like(logits[:, -1])}
+            out[capture] = decode_graph.decode_loop(state, body, 3, reads=(params, run.layers),
+                                                    opts=(cfg, route),
+                                                    capture=capture)["logits"].clone()
+    assert torch.isfinite(out[False]).all()
+    assert torch.equal(out[True], out[False])
+
+
+@pytest.mark.parametrize("name", ["split", "fused", "mega", "mega_sample", "full"])
+def test_decode_step_makes_no_host_sync(gen, name):
+    """The step each loop captures, run once eagerly (the warm-up) under
+    ``set_sync_debug_mode("error")``: no ``.item()``, ``int(tensor)``,
+    ``bool(tensor)`` or ``.cpu()`` inside it."""
+    sparse, b, route, steps, temperature = DECODE_LOOPS[name]
+    params, cfg = decode_model(sparse)
+    ids = torch.randint(0, 256, (b, LOOP_PROMPT), generator=gen, device="cuda")
+    with torch.inference_mode():
+        logits, cache = transformer_prefill(params, cfg, ids, LOOP_MAX_LEN)
+        first = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks = greedy_decode(params, cfg, first, cache, steps, route=route, steps=steps,
+                                 capture=False)
+            if temperature > 0:    # the tempered loop's sampling too
+                _sample_from_logits(logits[:, -1], temperature, 0.9,
+                                    torch.rand_like(logits[:, -1]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert toks.shape == (b, steps)
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged", "split", "tempered"])
+def test_engine_window_captured_equals_eager(gen, kind):
+    """The serving engine's multi-token window captured against eager:
+    every request's tokens equal (at a fixed seed when tempered: the device
+    generator is registered with the graph) and the same launches counted;
+    no host sync inside a captured window."""
+    params, cfg = decode_model(True)
+    rs = np.random.RandomState(0)
+    reqs = [(rs.randint(32, 127, size=rs.randint(20, 120)).astype(np.int32),
+             int(rs.randint(6, 20))) for _ in range(6)]
+    kw = dict(max_batch=4, max_len=LOOP_MAX_LEN, prefill_buckets=(64, 128), steps_per_sync=4)
+    kw.update({"paged": dict(paged_pool_pages=16, page_tokens=64), "split": dict(route="split"),
+               "tempered": dict(temperature=0.8), "dense": {}}[kind])
+    real = serve.ragged_decode_multi
+
+    def no_sync_window(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    outs = {}
+    try:
+        serve.ragged_decode_multi = no_sync_window
+        for capture in (False, True):
+            before = launch_counts()
+            eng = serve.ContinuousBatchingEngine(params, cfg, capture=capture, **kw)
+            rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+            with torch.inference_mode():
+                done = eng.run()
+            torch.cuda.synchronize()
+            outs[capture] = ([done[r] for r in rids],
+                             [a - b for a, b in zip(launch_counts(), before)])
+    finally:
+        serve.ragged_decode_multi = real
+    for got, want in zip(outs[True][0], outs[False][0]):
+        assert np.array_equal(got, want)
+    assert outs[True][1] == outs[False][1]
+
+
+def test_tempered_engines_in_turn_give_the_seeds_tokens(gen):
+    """Two captured tempered engines built in turn with one seed, the first
+    dropped before the second is made: the same tokens.  Each engine's
+    window graph draws from that engine's own device generator: a graph
+    kept from the first engine, whose generator is gone (and whose id and
+    cache addresses the second engine's may reuse), is not replayed."""
+    params, cfg = decode_model(True)
+    rs = np.random.RandomState(1)
+    reqs = [(rs.randint(32, 127, size=rs.randint(20, 120)).astype(np.int32),
+             int(rs.randint(6, 20))) for _ in range(6)]
+    decode_graph.clear()
+    outs = []
+    for _ in range(2):
+        eng = serve.ContinuousBatchingEngine(params, cfg, max_batch=4, max_len=LOOP_MAX_LEN,
+                                             prefill_buckets=(64, 128), steps_per_sync=4,
+                                             temperature=0.8, seed=5)
+        rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+        with torch.inference_mode():
+            done = eng.run()
+        outs.append([done[r] for r in rids])
+        del eng, done
+        gc.collect()
+    assert decode_graph.graph_count() == 2            # one window graph each
+    for a, b in zip(*outs):
+        assert np.array_equal(a, b)
