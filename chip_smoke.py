@@ -83,7 +83,27 @@ Phases, each printing its name and seconds as it ends:
              full, sparse decode tok/s on the cell, its JSON printed on a line
              of its own); ``torch.profiler`` over the prefill and 5 decode
              steps, with the device time of copies a step (none of the cache).
-12. graph  - the decode loops as captured CUDA graphs (``models/decode_graph.py``,
+12. eval   - the evaluation suite (``nsa_tpu_torch.eval``) on the trained
+             sparse and full weights in bf16, in a temporary directory (the
+             4,000,000-byte synthetic corpus, the CSVs): ``run_ppl_eval`` at
+             seq 4096 on the first 65,536 validation bytes and the CS441 QA
+             stand-in, launch counts read around it (row 1 or row 13 once a
+             layer a batch, no decode kernel); three perplexity gates, each
+             with a control that scores every label one byte late and must
+             fail: the kernel path against the plain path on the same
+             windows, ``compute_ppl_incremental`` (a 1-byte prefill, then
+             4,095 teacher-forced steps, row 12 once a step for the sparse
+             model) against ``compute_ppl`` on one window, and 2 windows
+             against ``nsa_tpu``'s own float32 ``compute_ppl`` of the same
+             bytes (a constant computed on a CPU); the incremental loop
+             eager against captured on 513 bytes, equal; ``generate_samples``
+             (128 greedy bytes at b = 1) with its tokens equal on a second
+             call and the first step's logits against the plain path;
+             ``run_efficiency_sweep`` over bs 1, 8, 64 x prompt 500, 3900 at
+             gen 100 and the 4096-row cache, launch counts read around it
+             (rows 1 / 13, 12, 2-3); the perplexity table and the sweep's
+             CSV rows with the card's name and power limit.
+13. graph  - the decode loops as captured CUDA graphs (``models/decode_graph.py``,
              the default on the card; the phases above already run them)
              against the same steps eager (``capture=False``), in turns
              (eager, captured, captured, eager): the serving cell on the
@@ -186,11 +206,25 @@ from nsa_tpu_torch.eval.efficiency import (  # noqa: E402
     measure_decode,
     measure_prefill,
     measure_train,
+    run_efficiency_sweep,
     seeded_ids,
 )
+from nsa_tpu_torch.eval.generate import (  # noqa: E402
+    decode_bytes,
+    generate_samples,
+    greedy_continuation,
+)
+from nsa_tpu_torch.eval.perplexity import (  # noqa: E402
+    compute_ppl,
+    compute_ppl_incremental,
+    ppl_windows,
+    run_ppl_eval,
+)
+from nsa_tpu_torch.eval.visualize import ppl_markdown_table  # noqa: E402
 from nsa_tpu_torch.models.transformer import (  # noqa: E402
     KVDecodeCache,
     cache_tensors,
+    default_max_len,
     fuse_decode_params,
     greedy_decode,
     init_transformer,
@@ -219,6 +253,7 @@ from nsa_tpu_torch import bench as port_bench  # noqa: E402
 from nsa_tpu_torch import kernel_times  # noqa: E402
 from nsa_tpu_torch import serve  # noqa: E402
 from nsa_tpu_torch.train import pretrain  # noqa: E402
+from nsa_tpu_torch.train.data import load_byte_corpus, load_cs441_qa_bytes  # noqa: E402
 from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
     latest_checkpoint,
     load_params_npz,
@@ -236,10 +271,11 @@ TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
 # compiles, forward and backward, 20.6 s full, 5.7 s main with its two plain
 # prefills), at least 10 s for the phases of a few seconds, whose time is
 # host noise; the graph phase's (eager and captured decode in turns, ~60 s
-# predicted, mostly the eager engine runs) 150 s; 785 s in all
+# predicted, mostly the eager engine runs) 150 s; the eval phase's 60 s
+# (27.8 s alone on the H100); 845 s in all
 BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 130, "main": 15,
             "measure": 20, "profile": 50, "small": 30, "serve": 40, "full": 50,
-            "graph": 150, "train": 160}
+            "eval": 60, "graph": 150, "train": 160}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
 SMALL_BATCHES = (8, 1)       # the small-batch cell: the whole-model decode route
 FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
@@ -326,6 +362,38 @@ SERVE_SLOTS, SERVE_REQUESTS, SERVE_SYNC = 16, 48, 8
 SERVE_BUCKETS = (512, 1024, 2048, 4096)
 PAGE_TOKENS, POOL_PAGES = 64, 640
 SERVE_CHECK_REQUESTS = 4
+# the evaluation cell: the suite's perplexity at seq 4096 on the first 65,536
+# bytes of the synthetic corpus's validation split (16 windows, 2 batches of
+# 8 x 4,097) and the CS441 QA stand-in; greedy samples of the suite's length;
+# the sweep over bs x prompt at the serving cell's gen and cache length
+EVAL_SEQ, EVAL_ID_TOKENS, EVAL_GEN = 4096, 65_536, 128
+EVAL_SWEEP_BATCHES, EVAL_SWEEP_PROMPTS = (1, 8, 64), (500, 3900)
+EVAL_EAGER_BYTES = 513       # the incremental loop eager against captured
+# nsa_tpu's own float32 compute_ppl of the first 2 x 4096 + 1 validation
+# bytes of the 4,000,000-byte synthetic corpus, on the committed weights,
+# computed once on a CPU (attn_impl "xla", batch_size 1: the two windows
+# one at a time; rows are independent, so only the order of the sum moves):
+#   _, val = nsa_tpu.train.data.load_byte_corpus(DataConfig(synthetic_bytes=4_000_000))
+#   cfg = replace(model_config_from_json(<the export's meta model_config>),
+#                 dtype="float32", attn_impl="xla")
+#   params = import_params_npz("ckpt_export/<name>_seq4096.npz", <init_transformer shapes>)
+#   nsa_tpu.eval.perplexity.compute_ppl(<params as float32>, cfg, val[:8193], 4096,
+#                                       batch_size=1)
+# -> (1.9425824999092995, 8192) sparse, (1.9812038092760385, 8192) full
+JAX_PPL_TWO_WINDOWS = {"sparse_mlp": 1.9425824999092995, "full_attn": 1.9812038092760385}
+# The perplexity gates, relative: bf16 rounding moves each byte's NLL by a
+# small amount of either sign, and the mean over thousands of bytes moves far
+# less.  On an H100 (700 W limit) the kernel path and the plain path differed by
+# 3.4e-5 (sparse) and 7.8e-6 (full), the incremental path and the dense one
+# by 1.7e-4 and 1.2e-4 (bf16 through the decode kernels against the prefill
+# kernels), and the card and nsa_tpu's float32 figure by 8.9e-5 and 1.5e-4:
+# each bound is about ten times the larger figure (the incremental one is
+# JAX's own bound for its two float32 paths, tests/test_eval_suite.py).  A
+# control that scores every label one byte late gives ~2e4 times the
+# perplexity and must fail each.
+TOL_PPL_PLAIN = 5e-4
+TOL_PPL_INCREMENTAL = 2e-3
+TOL_PPL_JAX = 2e-3
 # every kernel the port has, counted around each path's run
 ALL_KERNELS = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv,
                nsa_decode.decode_select, nsa_decode.decode_attend,
@@ -2483,6 +2551,210 @@ def full_phase(sparse_params, sparse_cfg, smi):
     return launches, m
 
 
+def shifted_label_ppl(params, cfg, tokens, seq_len, batch_size=8):
+    """The perplexity gates' control: ``compute_ppl``'s windows through the
+    kernel path with every label one byte late (position j scored on byte
+    j + 2 where it lies in the window)."""
+    windows, valids = ppl_windows(tokens, seq_len)
+    total, count = 0.0, 0
+    for i in range(0, len(windows), batch_size):
+        w = torch.from_numpy(np.stack(windows[i:i + batch_size])).to(DEVICE)
+        v = torch.from_numpy(np.stack(valids[i:i + batch_size])).to(DEVICE)[:, 1:]
+        logp = torch.log_softmax(transformer_forward(params, cfg, w[:, :-2]).float(), -1)
+        total += float(-(logp.gather(-1, w[:, 2:, None])[..., 0] * v).sum())
+        count += int(v.sum())
+    return math.exp(total / count)
+
+
+def ppl_gate(label, got, ref, tol, control):
+    """|got / ref - 1| <= tol, and the control's |control / ref - 1| above it."""
+    rel, rel_c = abs(got / ref - 1), abs(control / ref - 1)
+    print(f"  {label}: {got:.6f} vs {ref:.6f}, rel {rel:.3e} (tol {tol:.0e}); control (labels "
+          f"one byte late) {control:.6f}, rel {rel_c:.3e}", flush=True)
+    check(rel_c > tol, f"{label}: the shifted-label control passes the gate")
+    check(rel <= tol, f"{label}: rel {rel:.3e} over {tol:.0e}")
+    return rel
+
+
+def eval_phase(sparse_params, sparse_cfg, sparse_step, smi):
+    """The evaluation suite (``nsa_tpu_torch.eval``) on the trained sparse
+    and full weights in bf16: ``run_ppl_eval`` at seq 4096 (ID and OOD) with
+    launch counts; the three perplexity gates, each with a shifted-label
+    control; ``generate_samples`` with bit-equal repeats and the first
+    step's logits against the plain path; ``run_efficiency_sweep`` with
+    launch counts.  Every CSV and the corpus land in a temporary directory.
+    Returns the launch counts of each run and the metrics."""
+    full_params, meta = load_params_npz(FULL_WEIGHTS, device="cuda", dtype=torch.bfloat16)
+    full_cfg = model_config_from_meta(meta).replace(dtype="bfloat16")
+    models = {"sparse_mlp": (fuse_decode_params(sparse_params, sparse_cfg), sparse_cfg,
+                             sparse_step, "prefill_fwd"),
+              "full_attn": (fuse_decode_params(full_params, full_cfg), full_cfg,
+                            meta.get("step", 0), "flash_attention")}
+    none = {fn.__name__: 0 for fn in ALL_KERNELS}
+    launches, m = {}, {}
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            _, val = load_byte_corpus(DataConfig(path=os.path.join(tmp, "enwik8.gz"),
+                                                 synthetic_bytes=CORPUS_BYTES))
+            ood = load_cs441_qa_bytes()
+            print(f"  corpus: {CORPUS_BYTES} synthetic bytes ({time.perf_counter() - t0:.1f}s; "
+                  f"{smi}), val {len(val)}; OOD {len(ood)} QA bytes", flush=True)
+            batches = sum(-(-len(ppl_windows(x, EVAL_SEQ)[0]) // 8)
+                          for x in (val[:EVAL_ID_TOKENS], ood))
+            for name, (params, cfg, step, prefill_kernel) in models.items():
+                mm = m[name] = {}
+                csv_path = os.path.join(tmp, f"ppl_seq{EVAL_SEQ}.csv")
+                zero_launches(ALL_KERNELS)
+                t0 = time.perf_counter()
+                row = run_ppl_eval(params, cfg, name, EVAL_SEQ, val, ood, csv_path=csv_path,
+                                   step=step, max_id_tokens=EVAL_ID_TOKENS, device=DEVICE)
+                wall = time.perf_counter() - t0
+                got = launches[f"{name} ppl"] = read_launches(ALL_KERNELS)
+                want = {**none, prefill_kernel: cfg.depth * batches}
+                print(f"  {name} ppl (seq {EVAL_SEQ}): {row} in {wall:.2f}s; launches "
+                      f"{ {k: v for k, v in got.items() if v} }; {smi}", flush=True)
+                check(got == want, f"{name} ppl launches {got}, expected {want}")
+                check(row["tokens_id"] == EVAL_ID_TOKENS - 1 and math.isfinite(row["ppl_id"])
+                      and math.isfinite(row["ppl_ood"]) and row["tokens_ood"] == len(ood) - 1,
+                      f"{name} ppl row malformed: {row}")
+                mm.update(row=row, ppl_s=wall)
+
+                # gate 1: the kernel path against the plain path on the same windows
+                ppl_k = compute_ppl(params, cfg, val, EVAL_SEQ, max_tokens=EVAL_ID_TOKENS,
+                                    device=DEVICE)[0]
+                check(round(ppl_k, 4) == row["ppl_id"], f"{name}: a second kernel-path run "
+                      f"gives {ppl_k}, the row {row['ppl_id']}")
+                ppl_p = compute_ppl(params, cfg, val, EVAL_SEQ, max_tokens=EVAL_ID_TOKENS,
+                                    use_kernels=False, device=DEVICE)[0]
+                control = shifted_label_ppl(params, cfg, val[:EVAL_ID_TOKENS], EVAL_SEQ)
+                mm["kernel_vs_plain_rel"] = ppl_gate(f"{name} ID ppl, kernels vs plain", ppl_k,
+                                                     ppl_p, TOL_PPL_PLAIN, control)
+
+                # gate 2: the incremental path against the dense one on one window
+                window = val[:EVAL_SEQ + 1]
+                zero_launches(ALL_KERNELS)
+                s_ev = torch.cuda.Event(enable_timing=True)
+                e_ev = torch.cuda.Event(enable_timing=True)
+                s_ev.record()
+                ppl_i, n_i = compute_ppl_incremental(params, cfg, window, EVAL_SEQ,
+                                                     max_tokens=None, device=DEVICE)
+                e_ev.record()
+                got = launches[f"{name} incremental"] = read_launches(ALL_KERNELS)
+                inc_s = s_ev.elapsed_time(e_ev) / 1e3
+                want = {**none, prefill_kernel: cfg.depth}
+                if cfg.use_sparse_attn:
+                    want["decode_step_mega"] = EVAL_SEQ - 1
+                print(f"  {name} incremental ppl: {ppl_i:.6f} over {n_i} bytes in {inc_s:.3f}s "
+                      f"({n_i / inc_s:.1f} steps/s); launches "
+                      f"{ {k: v for k, v in got.items() if v} }; {smi}", flush=True)
+                check(got == want, f"{name} incremental launches {got}, expected {want}")
+                ppl_d, n_d = compute_ppl(params, cfg, window, EVAL_SEQ, max_tokens=None,
+                                       device=DEVICE)
+                check(n_i == n_d == EVAL_SEQ, f"{name}: counts {n_i} / {n_d}")
+                control = shifted_label_ppl(params, cfg, window, EVAL_SEQ)
+                mm["incremental_vs_dense_rel"] = ppl_gate(
+                    f"{name} incremental vs dense ppl", ppl_i, ppl_d, TOL_PPL_INCREMENTAL, control)
+                mm.update(incremental_s=inc_s, ppl_incremental=ppl_i, ppl_dense_window=ppl_d)
+                # the captured loop against the same steps eager
+                short = val[:EVAL_EAGER_BYTES]
+                eager = compute_ppl_incremental(params, cfg, short, EVAL_SEQ, max_tokens=None,
+                                                capture=False, device=DEVICE)
+                captured = compute_ppl_incremental(params, cfg, short, EVAL_SEQ, max_tokens=None,
+                                                   device=DEVICE)
+                print(f"  {name} incremental on {EVAL_EAGER_BYTES} bytes, eager {eager} / "
+                      f"captured {captured}: equal {eager == captured}", flush=True)
+                check(eager == captured, f"{name}: the captured incremental loop differs from "
+                      "the eager one")
+
+                # gate 3: the card against nsa_tpu's float32 compute_ppl of the same bytes
+                two = val[:2 * EVAL_SEQ + 1]
+                ppl_2, n_2 = compute_ppl(params, cfg, two, EVAL_SEQ, max_tokens=None, device=DEVICE)
+                check(n_2 == 2 * EVAL_SEQ, f"{name}: {n_2} bytes predicted")
+                control = shifted_label_ppl(params, cfg, two, EVAL_SEQ)
+                mm["vs_jax_float32_rel"] = ppl_gate(
+                    f"{name} ppl of val[:{2 * EVAL_SEQ + 1}] vs nsa_tpu float32 (CPU)", ppl_2,
+                    JAX_PPL_TWO_WINDOWS[name], TOL_PPL_JAX, control)
+                mm["ppl_two_windows"] = ppl_2
+
+                # generation: greedy samples, repeated bit for bit
+                snippet = val[:64]
+                zero_launches(ALL_KERNELS)
+                gen_row = generate_samples(params, cfg, name, gen_len=EVAL_GEN,
+                                           id_snippet=snippet, step=step,
+                                           csv_path=os.path.join(tmp, "generation.csv"),
+                                           device=DEVICE)
+                got = launches[f"{name} generate"] = read_launches(ALL_KERNELS)
+                want = {**none, prefill_kernel: 2 * cfg.depth}
+                if cfg.use_sparse_attn:
+                    want["decode_step_mega"] = 2 * EVAL_GEN
+                print(f"  {name} generation launches { {k: v for k, v in got.items() if v} }",
+                      flush=True)
+                check(got == want, f"{name} generation launches {got}, expected {want}")
+                for key, prompt in (("id", snippet), ("ood", np.frombuffer(
+                        gen_row["ood_prompt"].encode(), np.uint8))):
+                    a = greedy_continuation(params, cfg, prompt, EVAL_GEN, device=DEVICE)
+                    b = greedy_continuation(params, cfg, prompt, EVAL_GEN, device=DEVICE)
+                    print(f"  {name} {key} prompt {gen_row[key + '_prompt']!r}\n"
+                          f"    -> {gen_row[key + '_generation']!r}", flush=True)
+                    check(np.array_equal(a, b), f"{name} {key}: a second call gives other tokens")
+                    check(decode_bytes(a) == gen_row[key + "_generation"],
+                          f"{name} {key}: generate_samples' row differs from the tokens")
+                ids = torch.from_numpy(snippet.astype(np.int64))[None].to(DEVICE)
+                logits, cache = transformer_prefill(params, cfg, ids,
+                                                    default_max_len(cfg, len(snippet) + EVAL_GEN))
+                first = logits[:, -1].argmax(-1)
+                plain_cache = clone_cache(cache)
+                step_k = transformer_decode_step(params, cfg, first, cache)[0]
+                step_p = transformer_decode_step(params, cfg, first, plain_cache,
+                                                 use_kernels=False)[0]
+                err, scale = max_err(step_k, step_p), step_p.abs().max().item()
+                print(f"  {name} generation, first step's logits vs plain max|err| {err:.4f} "
+                      f"(tol {TOL_LOGITS_REL} x max|logit| {scale:.2f})", flush=True)
+                check(err <= TOL_LOGITS_REL * max(scale, 1.0),
+                      f"{name}: the generation step's logits disagree with the plain path")
+                mm.update(generation=gen_row, first_step_logits_max_abs_err=err)
+                del cache, plain_cache
+
+                # the efficiency sweep
+                zero_launches(ALL_KERNELS)
+                t0 = time.perf_counter()
+                rows = run_efficiency_sweep(params, cfg, name, EVAL_SWEEP_BATCHES,
+                                            EVAL_SWEEP_PROMPTS, GEN, seq_len=MAX_LEN,
+                                            csv_path=os.path.join(tmp, "efficiency.csv"),
+                                            step=step, device=DEVICE,
+                                            log=lambda line: print(f"  {line}; {smi}",
+                                                                   flush=True))
+                wall = time.perf_counter() - t0
+                got = launches[f"{name} sweep"] = read_launches(ALL_KERNELS)
+                runs = 4 * len(EVAL_SWEEP_PROMPTS)      # warm-up + 3 timed, each prompt
+                want = {**none, prefill_kernel: runs * len(EVAL_SWEEP_BATCHES) * cfg.depth}
+                if cfg.use_sparse_attn:
+                    small = [b for b in EVAL_SWEEP_BATCHES if use_mega_decode(cfg, b)]
+                    want["decode_step_mega"] = runs * len(small) * GEN // MEGA_STEPS
+                    split = runs * (len(EVAL_SWEEP_BATCHES) - len(small)) * GEN * cfg.depth
+                    want.update(decode_select=split, decode_attend=split)
+                print(f"  {name} sweep in {wall:.1f}s; launches "
+                      f"{ {k: v for k, v in got.items() if v} }; {smi}", flush=True)
+                check(got == want, f"{name} sweep launches {got}, expected {want}")
+                check(len(rows) == len(EVAL_SWEEP_BATCHES) * len(EVAL_SWEEP_PROMPTS)
+                      and all(r["max_len"] == MAX_LEN and r["decode_tokens_per_s"] > 0
+                              and r["prefill_tokens_per_s"] > 0 for r in rows),
+                      f"{name} sweep rows malformed")
+                mm.update(sweep=rows, sweep_s=wall)
+            print("  " + ppl_markdown_table(os.path.join(tmp, f"ppl_seq{EVAL_SEQ}.csv"))
+                  .replace("\n", "\n  "), flush=True)
+            with open(os.path.join(tmp, "efficiency.csv")) as f:
+                print("  efficiency.csv (" + smi + "):\n    " + f.read().strip()
+                      .replace("\n", "\n    "), flush=True)
+        finally:
+            os.chdir(here)
+    del full_params, models
+    return launches, m
+
+
 # the kernels of a captured step, by a piece of their device name: the
 # wrapper that launches each, and how many a step launches ("depth": one a
 # layer); the full model's step runs none of the port's kernels
@@ -2496,19 +2768,25 @@ GRAPH_KERNELS = {
     "full": {},
 }
 GRAPH_TURNS = ("eager", "captured", "captured", "eager")
+PROFILE_PAD_S = 0.05   # host idle seconds at each end of a profile_run window
 
 
 def profile_run(fn, label, per):
     """torch.profiler over ``fn()``: (the profile, its wall seconds, the
-    device's busy share, device records per ``per``)."""
+    device's busy share, device records per ``per``).  The host idles
+    PROFILE_PAD_S inside the profiler's window before and after the run:
+    without it the profiler can lose the device records of a run's first
+    few milliseconds (on the H100, the first of 5 whole-model replays)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(PROFILE_PAD_S)
     busy, records = _report(prof, label, wall, per=per, top=5)
     return prof, wall, busy, records
 
@@ -3065,6 +3343,10 @@ def main():
         torch.cuda.empty_cache()
         t0 = phase("full", t0)
 
+        eval_launches, evaluated = eval_phase(params, cfg, meta.get("step", 0), smi)
+        torch.cuda.empty_cache()
+        t0 = phase("eval", t0)
+
         graphs = graph_phase(params, cfg, smi)
         del params
         torch.cuda.empty_cache()
@@ -3093,7 +3375,8 @@ def main():
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,
         "measure_decode_tok_s": tps, "measure_prefill_tok_s": prefill_tps, "peak_bytes": peak,
         "logits_max_abs_err": err, "decode_device_busy": busy, "small": small,
-        "serve": served, "full": full, "graph": graphs, **train,
+        "serve": served, "full": full, "eval": evaluated, "eval_launches": eval_launches,
+        "graph": graphs, **train,
         "train_launches": train_launches, "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them

@@ -1,1 +1,1 @@
-"""Measurement harnesses of the port."""
+"""Evaluation and measurement harnesses of the port."""

@@ -9,6 +9,12 @@ ids come from a numpy seed.  The decode cache is written in place, so every
 timed decode run starts from a copy of the prefilled cache, copied outside
 the timed region into one run cache, whose addresses the captured decode
 graph keeps (the warm-up run captures it, as JAX's warm-up compiles).
+
+``run_efficiency_sweep`` and ``run_efficiency_eval`` write the JAX
+package's efficiency CSV rows.  Prompts are seeded random ids
+(``seeded_ids``), where JAX times zeros: the sparse model's selections,
+and so its timings, follow the ids (``ROADMAP.md`` section 3, "benchmark
+input").
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..models.transformer import (
     use_mega_decode,
 )
 from ..train.pretrain import make_optimizer, train_step, trainable
+from ..utils.metrics import CSVLogger
 
 
 def require_cuda(device="cuda") -> torch.device:
@@ -128,21 +135,156 @@ def decode_run_ms(params, cfg: ModelConfig, batch_size: int, prompt_len: int,
     device = require_cuda(device)
     max_len = default_max_len(cfg, max(prompt_len + gen_len + 1, seq_len or 0))
     ids = seeded_ids(batch_size, prompt_len, cfg.vocab_size, seed, device)
-    steps = _pick_mega_steps(gen_len) if use_mega_decode(cfg, batch_size) else 1
     params = fuse_decode_params(params, cfg)
-    runs = []
     with torch.no_grad():
         logits, cache = transformer_prefill(params, cfg, ids, max_len)
-        first = logits[:, -1].argmax(-1)
-        run_cache = clone_cache(cache)
-        for i in range(iters + 1):
-            if i:
-                copy_cache(run_cache, cache)
-            ms = timed_ms(lambda: greedy_decode(params, cfg, first, run_cache, gen_len,
-                                                steps=steps), device)
-            if i:
-                runs.append(ms)
+        return _decode_runs_ms(params, cfg, logits[:, -1].argmax(-1), cache, gen_len, iters,
+                               device)
+
+
+def _decode_runs_ms(params, cfg: ModelConfig, first: torch.Tensor, cache: ModelCache,
+                    gen_len: int, iters: int, device) -> list:
+    """Device milliseconds of ``iters`` greedy decode runs of ``gen_len``
+    steps from ``first`` and ``cache`` (left as it is), after one warm-up
+    run; each run starts from a copy of ``cache`` in one run cache.  Where
+    ``use_mega_decode`` holds, ``_pick_mega_steps(gen_len)`` tokens a
+    launch."""
+    steps = _pick_mega_steps(gen_len) if use_mega_decode(cfg, first.shape[0]) else 1
+    run_cache = clone_cache(cache)
+    runs = []
+    for i in range(iters + 1):
+        if i:
+            copy_cache(run_cache, cache)
+        ms = timed_ms(lambda: greedy_decode(params, cfg, first, run_cache, gen_len,
+                                            steps=steps), device)
+        if i:
+            runs.append(ms)
     return runs
+
+
+def sweep_max_len(cfg: ModelConfig, prompt_lens, gen_len: int,
+                  seq_len: Optional[int] = None) -> int:
+    """The one cache length of a sweep: room for the longest prompt and
+    ``gen_len`` tokens, at least ``seq_len``."""
+    return default_max_len(cfg, max(max(prompt_lens) + gen_len + 1, seq_len or 0))
+
+
+def prefill_bucket(prompt_len: int, max_len: int) -> int:
+    """The serving-style admission bucket a prompt is right-padded to: the
+    smallest power of two from 128 that holds ``prompt_len + 1``, at most
+    ``max_len``."""
+    bucket = 128
+    while bucket < prompt_len + 1:
+        bucket *= 2
+    return min(bucket, max_len)
+
+
+def run_efficiency_sweep(
+    params,
+    cfg: ModelConfig,
+    model_type: str,
+    batch_sizes,
+    prompt_lens,
+    gen_len: int = 100,
+    seq_len: Optional[int] = None,
+    csv_path: Optional[str] = None,
+    step: int = 0,
+    *,
+    device="cuda",
+    log=print,
+) -> list:
+    """Prefill and decode throughput over batch sizes x prompt lengths
+    (``nsa_tpu.eval.efficiency.run_efficiency_sweep``), one CSV row a cell.
+
+    Each prompt is right-padded to its admission bucket (``prefill_bucket``)
+    and prefilled with its true length, so a short prompt pays the small
+    bucket's cost; the first token is the argmax at the last true position.
+    Every decode runs ``gen_len`` greedy steps against one cache of
+    ``sweep_max_len`` rows (``_decode_runs_ms``: the whole-model kernel at
+    ``_pick_mega_steps`` tokens a launch where ``use_mega_decode`` holds, the
+    split pair above b = 8).  Prefill time is the mean of 3 timed runs
+    after one warm-up, decode time the mean of 3 runs, as in JAX.  The row
+    records ``max_len``, the bucket, ``prefill_tokens_per_s`` over the true
+    prompt tokens and ``prefill_bucket_tokens_per_s`` over the padded ones;
+    ``log`` gets each row as a line.  Raises without a card: it measures."""
+    device = require_cuda(device)
+    prompt_lens = list(prompt_lens)
+    params = fuse_decode_params(params, cfg)
+    max_len = sweep_max_len(cfg, prompt_lens, gen_len, seq_len)
+    iters, rows = 3, []
+    with torch.no_grad():
+        for bs in batch_sizes:
+            for prompt_len in prompt_lens:
+                bucket = prefill_bucket(prompt_len, max_len)
+                ids = seeded_ids(bs, bucket, cfg.vocab_size, 0, device)
+
+                def prefill_first():
+                    logits, cache = transformer_prefill(params, cfg, ids, max_len,
+                                                        true_len=prompt_len)
+                    return logits[:, prompt_len - 1].argmax(-1), cache
+
+                def prefills():
+                    for _ in range(iters):
+                        prefill_first()
+
+                first, cache = prefill_first()
+                dt_pre = timed_ms(prefills, device) / iters / 1e3
+                dt_dec = sum(_decode_runs_ms(params, cfg, first, cache, gen_len, iters,
+                                             device)) / iters / 1e3
+                row = {
+                    "model_type": model_type,
+                    "step": step,
+                    "seq_len": seq_len or max_len,
+                    "batch_size": bs,
+                    "prompt_len": prompt_len,
+                    "gen_len": gen_len,
+                    "max_len": max_len,
+                    "prefill_bucket": bucket,
+                    "prefill_tokens_per_s": round(bs * prompt_len / dt_pre, 1),
+                    "prefill_bucket_tokens_per_s": round(bs * bucket / dt_pre, 1),
+                    "decode_tokens_per_s": round(bs * gen_len / dt_dec, 1),
+                    "kv_cache_saving_ratio": round(kv_cache_saving_ratio(cfg, prompt_len), 4),
+                }
+                rows.append(row)
+                if csv_path:
+                    CSVLogger(csv_path).append(row)
+                log(f"efficiency: {row}")
+                del cache
+    return rows
+
+
+def run_efficiency_eval(
+    params,
+    cfg: ModelConfig,
+    model_type: str,
+    batch_size: int,
+    prompt_len: int,
+    gen_len: int = 100,
+    seq_len: Optional[int] = None,
+    csv_path: Optional[str] = None,
+    step: int = 0,
+    *,
+    device="cuda",
+) -> dict:
+    """One cell's prefill and decode tok/s (``measure_prefill``,
+    ``measure_decode``) as a CSV row.  Raises without a card."""
+    prefill_tps = measure_prefill(params, cfg, batch_size, prompt_len, device=device)
+    decode_tps = measure_decode(params, cfg, batch_size, prompt_len, gen_len, seq_len=seq_len,
+                                device=device)
+    row = {
+        "model_type": model_type,
+        "step": step,
+        "seq_len": seq_len or prompt_len,
+        "batch_size": batch_size,
+        "prompt_len": prompt_len,
+        "gen_len": gen_len,
+        "prefill_tokens_per_s": round(prefill_tps, 1),
+        "decode_tokens_per_s": round(decode_tps, 1),
+        "kv_cache_saving_ratio": round(kv_cache_saving_ratio(cfg, prompt_len), 4),
+    }
+    if csv_path:
+        CSVLogger(csv_path).append(row)
+    return row
 
 
 def measure_train(params, cfg: ModelConfig, micro_batch: int, accum: int, seq_len: int,

@@ -275,7 +275,8 @@ def sparse_attention_forward(
         # slot j of row i holds position true_len[i] - Bc + j (+Bc for the
         # left pad)
         kv_unrot = F.pad(torch.cat([k, v], dim=-1), (0, 0, Bc, 0))
-        tl = torch.as_tensor(true_len, device=dev).long().expand(b)
+        tl = (torch.full((b,), true_len, device=dev) if isinstance(true_len, int)  # no copy
+              else torch.as_tensor(true_len, device=dev).long().expand(b))
         pos = tl[:, None] + torch.arange(Bc, device=dev)                 # [b, Bc]
         ring = kv_unrot.gather(2, pos[:, None, :, None].expand(b, kvh, Bc, 2 * d))
     wc = _ckv_width(max_len, stride, nsa.num_compress_per_fine)

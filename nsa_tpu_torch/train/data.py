@@ -6,17 +6,31 @@ deterministic synthetic byte corpus with enwik8-like statistics (the JAX
 package's generator, copied): the same seed gives byte-identical corpora and
 batches in both packages.  The synthetic corpus is cached under ``data/``
 relative to the working directory, as the JAX package caches it.
+
+Also the CS441 QA byte serialization for OOD perplexity, with the JAX
+package's built-in synthetic QA set where no QA file is found.
 """
 
 from __future__ import annotations
 
 import gzip
+import json
 import os
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..config import DataConfig
+
+# where the CS441 QA json may lie, relative to the working directory
+CS441_CANDIDATES = [
+    "data/cs441_synthetic_test.json",
+    "data_collection/cs441_synthetic_test.json",
+]
+CS441_TRAIN_CANDIDATES = [
+    "data/cs441_synthetic_train.json",
+    "data_collection/cs441_synthetic_train.json",
+]
 
 _SYLLABLES = [
     "ba", "co", "di", "fu", "ga", "he", "ji", "ka", "lo", "mu", "ne", "or",
@@ -141,3 +155,57 @@ def batch_iterator(
     rng = np.random.RandomState(seed)
     while True:
         yield sample_batch(data, batch_size, seq_len, rng)
+
+
+def _first_existing(paths) -> Optional[str]:
+    for p in paths:
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def load_cs441_qa_pairs(
+    path: Optional[str] = None, split: str = "test"
+) -> List[Tuple[str, str]]:
+    """CS441 (question, answer) pairs (196 train / 84 test in the reference's
+    JSON); the built-in synthetic QA set when no file is found."""
+    cands = CS441_TRAIN_CANDIDATES if split == "train" else CS441_CANDIDATES
+    path = path or _first_existing(cands)
+    if path is None:
+        return synthetic_qa_pairs(84 if split == "test" else 196)
+    with open(path) as f:
+        raw = json.load(f)
+    return [(item.get("question", ""), item.get("answer", "")) for item in raw]
+
+
+def load_cs441_qa_bytes(path: Optional[str] = None, split: str = "test") -> np.ndarray:
+    """CS441 QA pairs as one byte stream for OOD perplexity:
+    ``question + "\\nAnswer: " + answer + "\\n\\n"`` per pair, UTF-8."""
+    pairs = load_cs441_qa_pairs(path, split)
+    text = "".join(f"{q}\nAnswer: {a}\n\n" for q, a in pairs)
+    return np.frombuffer(text.encode("utf-8"), dtype=np.uint8).copy()
+
+
+def synthetic_qa_pairs(n: int) -> List[Tuple[str, str]]:
+    """Deterministic distributed-systems QA pairs (the CS441 stand-in)."""
+    topics = [
+        ("What consistency model guarantees that reads reflect all prior writes",
+         "linearizability"),
+        ("Which protocol uses prepare and commit phases across participants",
+         "two-phase commit"),
+        ("What replication scheme tolerates f failures with 2f+1 replicas",
+         "quorum replication"),
+        ("Which algorithm elects a single leader among distributed nodes",
+         "raft"),
+        ("What technique shards a keyspace uniformly across nodes",
+         "consistent hashing"),
+        ("Which theorem limits consistency availability and partition tolerance",
+         "the CAP theorem"),
+        ("What mechanism orders events without synchronized clocks",
+         "lamport timestamps"),
+    ]
+    out = []
+    for i in range(n):
+        q, a = topics[i % len(topics)]
+        out.append((f"Q{i}: {q}?", a))
+    return out

@@ -231,7 +231,7 @@ def main(argv: Optional[Sequence[str]] = None):
     args = p.parse_args(argv)
     if args.full_attention:
         raise NotImplementedError("training the full-attention model is not ported yet "
-                                  "(ROADMAP.md, modules queue item 1b)")
+                                  "(ROADMAP.md, modules queue item 2)")
 
     ckpt_dir = args.ckpt_dir or f"ckpt/sparse_{args.compressor}_seq{args.seq_len}"
     model_cfg = reference_model_config(compressor=args.compressor).replace(

@@ -90,6 +90,12 @@ def model_config_from_meta(meta: dict) -> ModelConfig:
     return model_config_from_json(json.dumps(meta["model_config"]))
 
 
+def model_config_from_checkpoint(path: str) -> ModelConfig:
+    """The ``ModelConfig`` recorded in a checkpoint's ``meta.json``."""
+    with open(os.path.join(path, "meta.json")) as f:
+        return model_config_from_meta(json.load(f))
+
+
 def params_from_numpy(
     tree: Any, device="cuda", dtype: Optional[torch.dtype] = None
 ) -> Any:
