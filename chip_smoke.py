@@ -51,7 +51,14 @@ Phases, each printing its name and seconds as it ends:
              around exactly those two runs; one micro-batch's loss and
              every parameter gradient through the kernels held against the
              plain path; ``measure_train`` tokens/s; ``torch.profiler`` over
-             one micro-step.
+             one micro-step.  Then the full-attention model the same way
+             (training on the recomputed query chunks, row 13 in validation
+             and generation only), its peak memory and ``measure_train``,
+             and two gates on the committed full weights: the recomputed
+             chunks' loss and every gradient bit for bit the kept chunks' at
+             micro 1 x 4096, and the training path's loss within 2e-3 of the
+             no-grad loss through row 13 on 4 validation windows, each with
+             a dropped-chunk control that must fail.
 10. serve  - the serving engine (``nsa_tpu_torch.serve.ContinuousBatchingEngine``)
              on the trained model: 48 seeded requests (prompts of 256-3900
              bytes in [32, 127), 32-128 new tokens each) through 16 slots of
@@ -118,6 +125,24 @@ Phases, each printing its name and seconds as it ends:
              engine steps, whose device records of each kernel a replay
              must equal the step's launches and its wrapper's counter a
              replay, with the device's busy share beside the eager steps'.
+14. cpt    - continuous pretraining (``train/continuous_pretrain.py``) from
+             each committed export written as a port checkpoint at its
+             step: 4 steps at the script's defaults (batch 8 x seq 512, lr
+             3e-5, half QA bytes) with an eval point every 2 steps, in the
+             train phase's working directory; the first logged loss equal
+             to ``transformer_loss`` of the restored weights on the same
+             batch, the final checkpoint at the export's step + 4, finite
+             perplexities, launch counts (rows 1, 4, 5 sparse; row 13 in the
+             full model's eval points).
+15. compress - the six compressors no committed weights use (conv, attn,
+             mean, shared_mlp, single, transformer) on the reference model
+             from a seeded random init: prefill bs 8 x 2048 (row 1), 16
+             captured greedy steps on the split route (rows 2-3), launch
+             counts; the prefill logits and the first step's against the
+             plain path, rows 2-3 on layer 0's inputs of that step under
+             ``select_tolerance`` / ``attend_tolerance`` with their
+             controls; one training micro-step at 2 x 4096 (rows 1, 4, 5),
+             its loss and gradients against the plain path.
 
 The kernels phase holds the split route's two decode kernels (rows 2-3)
 at the serving cell's shapes (bs 64, t = 3999, seeded inputs): c_out
@@ -181,6 +206,7 @@ exits non-zero; nothing catches it.  Imports nothing of JAX or ``nsa_tpu``.
 
 import contextlib
 import faulthandler
+import functools
 import inspect
 import json
 import math
@@ -247,35 +273,40 @@ from nsa_tpu_torch.ops.cuda import (  # noqa: E402
     runtime,
 )
 from nsa_tpu_torch.models import decode_graph  # noqa: E402
+from nsa_tpu_torch.models import transformer as model_module  # noqa: E402
 from nsa_tpu_torch.ops import nsa as nsa_layer  # noqa: E402
+from nsa_tpu_torch.ops import attention as attention_module  # noqa: E402
 from nsa_tpu_torch.ops.nsa import _ckv_width, fuse_decode_layer  # noqa: E402
 from nsa_tpu_torch import bench as port_bench  # noqa: E402
 from nsa_tpu_torch import kernel_times  # noqa: E402
 from nsa_tpu_torch import serve  # noqa: E402
-from nsa_tpu_torch.train import pretrain  # noqa: E402
+from nsa_tpu_torch.train import continuous_pretrain, pretrain  # noqa: E402
 from nsa_tpu_torch.train.data import load_byte_corpus, load_cs441_qa_bytes  # noqa: E402
 from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
     latest_checkpoint,
     load_params_npz,
     model_config_from_meta,
     restore_checkpoint,
+    save_checkpoint,
     tree_items,
     tree_leaves,
 )
 from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
-# about twice each phase's longest time on the H100 (61 s build of the eight
-# kernels, 12 s small phase, 79 s train on the slower host, 19 s serve, 63 s
-# kernels with the plain flash attention at full size and flex_attention's
-# compiles, forward and backward, 20.6 s full, 5.7 s main with its two plain
-# prefills), at least 10 s for the phases of a few seconds, whose time is
-# host noise; the graph phase's (eager and captured decode in turns, ~60 s
-# predicted, mostly the eager engine runs) 150 s; the eval phase's 60 s
-# (27.8 s alone on the H100); 845 s in all
+# each phase's budget against its longest time on the H100: about twice it
+# for eval 60 s (32.1 s), graph 150 s (73.6 s), cpt 60 s (27.8 s), compress
+# 90 s (43.7 s), full 30 s (12.2 s);
+# at least 10 s for the phases of a few seconds (device, weights, measure:
+# 3.6 s at most), whose time is host noise; under twice, to keep the sum
+# under 1,000 s, for kernels 130 s (99.9 s: the plain flash attention at
+# full size, flex_attention's compiles, forward and backward), serve 40 s
+# (23 s), train 200 s (104.9 s, both models); over it for build 120 s
+# (48 s), main 15 s (5.2 s), profile 30 s (13.2 s) and small 20 s (8.3 s);
+# 975 s in all
 BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 130, "main": 15,
-            "measure": 20, "profile": 50, "small": 30, "serve": 40, "full": 50,
-            "eval": 60, "graph": 150, "train": 160}
+            "measure": 10, "profile": 30, "small": 20, "serve": 40, "full": 30,
+            "eval": 60, "graph": 150, "train": 200, "cpt": 60, "compress": 90}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
 SMALL_BATCHES = (8, 1)       # the small-batch cell: the whole-model decode route
 FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
@@ -284,8 +315,31 @@ MEGA_STEPS = _pick_mega_steps(GEN)   # tokens per launch in measure_decode: 25
 MICRO, ACCUM, SEQ = 16, 4, 4096
 TRAIN_STEPS, CKPT_STEP = 3, 2
 # synthetic corpus cut from the default 32,000,000 bytes to keep its
-# generation (pure Python, ~2 s per MB) inside the phase budget
+# generation (pure Python, ~2 s per MB) inside the phase budget; the train
+# and cpt phases share one copy in their working directory
 CORPUS_BYTES = 4_000_000
+# the full model's training gates: the query chunk the controls drop (rows
+# of one 128-row chunk, past the middle) and the windows of the loss gate
+FULL_DROPPED_ROWS = (1920, 2048)
+FULL_GATE_WINDOWS = 4
+# continuous pretraining: steps, eval points, and the script's defaults for
+# the sequence (batch 8) and an eval point's bytes
+CPT_STEPS, CPT_EVAL_EVERY, CPT_SEQ, CPT_EVAL_MAX_TOKENS = 4, 2, 512, 200_000
+# the cpt gates' control: the query rows whose attention the kernel path
+# loses (row 1's fine and sliding outputs, row 13's output), past the middle
+# of the 512-byte sequence
+CPT_DROPPED_ROWS = (256, 320)
+# the compressors that no committed weights use: prefill and split-route
+# decode at bs 8 x prompt 2048, and one training micro-step at 2 x 4096
+NEW_COMPRESSORS = ("conv", "attn", "mean", "shared_mlp", "single", "transformer")
+COMPRESS_BATCH, COMPRESS_PROMPT, COMPRESS_GEN, COMPRESS_MICRO = 8, 2048, 16, 2
+# The transformer compressor's key bias adds q.b_k to every logit of a
+# query's row, which the softmax cancels: its gradient is zero in exact
+# arithmetic and rounding noise on both paths, so the relative L2 of one
+# noise against the other says nothing.  Its kernel-vs-plain difference is
+# held, under TOL_GRAD_REL_L2, relative to the gradient of the same layer's
+# query bias instead.
+ZERO_GRAD_LEAF = "['b_k']"
 DECODE_T = PROMPT + GEN - 1  # the last decode position of the cell
 SEED = 0
 DEVICE = "cuda"
@@ -1756,74 +1810,127 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
     return sel, att, pag, gat
 
 
-def kernel_decode(gen, flush, cfg, log):
-    """Rows 2 and 3 at the serving cell (bs 64, t = 3999, seeded inputs):
-    row 2's c_out within TOL_OUT and element by element under
-    ``select_tolerance``, with a dropped-chunk control that must fail it,
-    its selected ids equal to the plain version's but for ties; row 3's
-    output within TOL_OUT and under ``attend_tolerance``, with a
-    dropped-block control that must fail it; second launches bit for bit;
-    each kernel's launch geometry and ptxas registers / spills."""
+def split_kw(cfg):
+    """The split pair's keyword arguments: (row 2's, row 3's)."""
     nsa = cfg.nsa
-    b, kvh, g, d = BATCH, cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head
-    stride, Bs, window = nsa.compress_block_sliding_stride, nsa.selection_block_size, \
-        nsa.sliding_window_size
-    num_sel, M = nsa.num_selected_blocks, nsa.num_compressed_mem_kv
-    n_slide = -(-window // Bs) + 1
-    t, scale = DECODE_T, d ** -0.5
-    num_cb = t // stride
-    Wc = _ckv_width(MAX_LEN, stride, nsa.num_compress_per_fine)
-    dev = DEVICE
-    R = nsa_decode_ragged
+    Bs, window, num_sel = nsa.selection_block_size, nsa.sliding_window_size, \
+        nsa.num_selected_blocks
+    n_slide, scale = -(-window // Bs) + 1, cfg.dim_head ** -0.5
+    return (dict(max_blocks=MAX_LEN // Bs, stride=nsa.compress_block_sliding_stride,
+                 sel_block=Bs, num_sel=num_sel, n_slide=n_slide, scale=scale),
+            dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=scale))
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    q, ckv, mem_kv = randn(b, kvh, g, d), randn(b, kvh, Wc, 2 * d), randn(2, kvh, M, d)
-    kw = dict(max_blocks=MAX_LEN // Bs, stride=stride, sel_block=Bs, num_sel=num_sel,
-              n_slide=n_slide, scale=scale)
+def select_gate(q, ckv, mem_kv, t, num_cb, cfg, label):
+    """Row 2 against its plain version at position ``t`` (an int): c_out
+    within TOL_OUT and element by element under ``select_tolerance``, with
+    the plain c_out over all but the first 64 live rows as a control that
+    must fail it; the selected ids equal but for ties; a second launch bit
+    for bit.  Returns (c_k, info_k, c_p, info_p, figures)."""
+    nsa, b, kvh = cfg.nsa, q.shape[0], q.shape[1]
+    kw, akw = split_kw(cfg)
     pt = device_t(t)                              # the kernels read t on the device
     c_k, info_k = nsa_decode.decode_select(q, ckv, mem_kv, pt, num_cb, **kw)
     c_2, info_2 = nsa_decode.decode_select(q, ckv, mem_kv, pt, num_cb, **kw)
     c_p, info_p = nsa_decode.decode_select_plain(q, ckv, mem_kv, t, num_cb, **kw)
-    _, scores = nsa_decode.select_scores_plain(q, ckv, mem_kv, num_cb, t, stride=stride,
-                                               sel_block=Bs, scale=scale)
-    skw = dict(stride=stride, sel_block=Bs, scale=scale)
+    _, scores = nsa_decode.select_scores_plain(q, ckv, mem_kv, num_cb, t, stride=kw["stride"],
+                                               sel_block=kw["sel_block"], scale=kw["scale"])
+    skw = dict(stride=kw["stride"], sel_block=kw["sel_block"], scale=kw["scale"])
+    R = nsa_decode_ragged
     want, tol = R.select_tolerance(q, ckv, mem_kv, t, num_cb, **skw)
     # the control: c_out with the first 64 live rows left out
     moved, live = R.without_live_chunk(ckv, num_cb)
     wrong, _ = nsa_decode.select_scores_plain(q, moved, mem_kv, live, t,
                                               weights_dtype=torch.float32, **skw)
     torch.cuda.synchronize()
-    n_slots = num_sel + n_slide
-    err_c = max_err(c_k, c_p)
-    ties = check_selection(info_k, info_p, scores, num_sel, n_slide, "decode_select")
-    vp = info_p[..., n_slots:n_slots + num_sel]
+    err = max_err(c_k, c_p)
+    ties = check_selection(info_k, info_p, scores, nsa.num_selected_blocks, akw["n_slide"],
+                           label)
     ratio = ((c_k.float() - want.float()).abs() / tol).max().item()
     ratio_ctl = ((wrong.float() - want.float()).abs() / tol).max().item()
     same2 = torch.equal(c_2, c_k) and torch.equal(info_2, info_k)
+    print(f"  {label} max|err| c_out {err:.5f} (tol {TOL_OUT}); worst |err| / "
+          f"select_tolerance {ratio:.4f} (<= 1), the dropped-chunk control {ratio_ctl:.1f} (> 1); "
+          f"ids equal on {b * kvh - ties}/{b * kvh} rows, {ties} rows differ only by ties within "
+          f"{TIE}; a second launch bit-equal: {same2}", flush=True)
+    check(err <= TOL_OUT and bool(torch.isfinite(c_k.float()).all()),
+          f"{label} c_out disagrees")
+    check(ratio <= 1.0, f"{label}: c_out breaks select_tolerance")
+    check(ratio_ctl > 1.0, f"{label}: the dropped-chunk control passes select_tolerance")
+    check(same2, f"{label}: a second launch gives other bits")
+    return c_k, info_k, c_p, info_p, {"max_abs_err": err, "select_tolerance_ratio": ratio,
+                                      "control_ratio": ratio_ctl, "tie_rows": ties}
+
+
+def attend_gate(rq, kv, info, c_out, gates, t, cfg, label):
+    """Row 3 against its plain version on the same ``info``, c_out and gates
+    at position ``t`` (an int): the output within TOL_OUT and under
+    ``attend_tolerance``, with each row's first selected block left out as a
+    control that must fail it; a second launch bit for bit.  Returns
+    (out_k, figures)."""
+    _, akw = split_kw(cfg)
+    pt, R = device_t(t), nsa_decode_ragged
+    out_k = nsa_decode.decode_attend(rq, kv, info, c_out, gates, pt, **akw)
+    out_2 = nsa_decode.decode_attend(rq, kv, info, c_out, gates, pt, **akw)
+    out_p = nsa_decode.decode_attend_plain(rq, kv, info, c_out, gates, t, **akw)
+    want, tol = R.attend_tolerance(rq, kv, info, c_out, gates, t, **akw)
+    dropped = R.without_first_selected(info, akw["num_sel"], akw["n_slide"])
+    wrong, _ = R.attend_tolerance(rq, kv, dropped, c_out, gates, t, **akw)
+    torch.cuda.synchronize()
+    err = max_err(out_k, out_p)
+    ratio = ((out_k.float() - want.float()).abs() / tol).max().item()
+    ratio_ctl = ((wrong.float() - want.float()).abs() / tol).max().item()
+    same2 = torch.equal(out_2, out_k)
+    print(f"  {label} max|err| {err:.5f} (tol {TOL_OUT}); worst |err| / "
+          f"attend_tolerance {ratio:.4f} (<= 1), the dropped-block control {ratio_ctl:.1f} "
+          f"(> 1); a second launch bit-equal: {same2}", flush=True)
+    check(err <= TOL_OUT and torch.isfinite(out_k.float()).all().item(), f"{label} disagrees")
+    check(ratio <= 1.0, f"{label}: the output breaks attend_tolerance")
+    check(ratio_ctl > 1.0, f"{label}: the dropped-block control passes attend_tolerance")
+    check(same2, f"{label}: a second launch gives other bits")
+    return out_k, {"max_abs_err": err, "attend_tolerance_ratio": ratio,
+                   "control_ratio": ratio_ctl}
+
+
+def kernel_decode(gen, flush, cfg, log):
+    """Rows 2 and 3 at the serving cell (bs 64, t = 3999, seeded inputs):
+    ``select_gate`` and ``attend_gate``; each kernel's launch geometry and
+    ptxas registers / spills, its time, its plain version's and its bound."""
+    nsa = cfg.nsa
+    b, kvh, g, d = BATCH, cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head
+    stride, Bs, window = nsa.compress_block_sliding_stride, nsa.selection_block_size, \
+        nsa.sliding_window_size
+    num_sel, M = nsa.num_selected_blocks, nsa.num_compressed_mem_kv
+    kw, akw = split_kw(cfg)
+    n_slide = akw["n_slide"]
+    t = DECODE_T
+    num_cb = t // stride
+    Wc = _ckv_width(MAX_LEN, stride, nsa.num_compress_per_fine)
+    dev = DEVICE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, ckv, mem_kv = randn(b, kvh, g, d), randn(b, kvh, Wc, 2 * d), randn(2, kvh, M, d)
+    pt = device_t(t)
     geometry = kernel_times.split_geometry(log)
     for name, x in geometry.items():
         print(f"  {name} launch: grid {x['grid']} of 256 threads, {x['blocks_per_sm']} block(s) "
               f"fit an SM, shared memory {x['smem_bytes']} B a block (card limit "
               f"{x['smem_optin']}); ptxas: {x['registers']} registers, spills (stores, loads) "
               f"{x['spill_bytes']}", flush=True)
-    print(f"  decode_select max|err| c_out {err_c:.5f} (tol {TOL_OUT}); worst |err| / "
-          f"select_tolerance {ratio:.4f} (<= 1), the dropped-chunk control {ratio_ctl:.1f} (> 1); "
-          f"ids equal on {b * kvh - ties}/{b * kvh} rows, {ties} rows differ only by ties within "
-          f"{TIE}; a second launch bit-equal: {same2}", flush=True)
-    check(err_c <= TOL_OUT and bool(torch.isfinite(c_k.float()).all()),
-          "decode_select c_out disagrees")
-    check(ratio <= 1.0, "decode_select: c_out breaks select_tolerance")
-    check(ratio_ctl > 1.0, "decode_select: the dropped-chunk control passes select_tolerance")
-    check(same2, "decode_select: a second launch gives other bits")
+    c_k, info_k, c_p, info_p, figures = select_gate(q, ckv, mem_kv, t, num_cb, cfg,
+                                                    "decode_select")
+    vp = info_p[..., num_sel + n_slide:num_sel + n_slide + num_sel]
     rows_read = b * kvh * num_cb * 2 * d * 2
     bms, by = bound_ms(nbytes(q, mem_kv, c_k, info_k) + rows_read,
                        b * kvh * g * (num_cb + M) * 4 * d)
     sel = {"name": "decode_select", "route": "cuda",
            "source": "nsa_tpu_torch/csrc/nsa_decode.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode.py:195",
-           "max_abs_err": err_c, "select_tolerance_ratio": ratio, "control_ratio": ratio_ctl,
+           "max_abs_err": figures["max_abs_err"],
+           "select_tolerance_ratio": figures["select_tolerance_ratio"],
+           "control_ratio": figures["control_ratio"],
            "ms": timed_ms(lambda: nsa_decode.decode_select(q, ckv, mem_kv, pt, num_cb, **kw),
                           50, flush),
            "plain_ms": timed_ms(lambda: nsa_decode.decode_select_plain(
@@ -1834,34 +1941,16 @@ def kernel_decode(gen, flush, cfg, log):
     # attend: both versions get the same info, c_out and gates
     rq, kv = randn(b, kvh, g, d), randn(b, kvh, MAX_LEN, 2 * d)
     gates = torch.sigmoid(randn(b, kvh, g, 3).float()).to(torch.bfloat16)
-    akw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=scale)
-    out_k = nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, pt, **akw)
-    out_2 = nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, pt, **akw)
-    out_p = nsa_decode.decode_attend_plain(rq, kv, info_p, c_p, gates, t, **akw)
-    want, tol = R.attend_tolerance(rq, kv, info_p, c_p, gates, t, **akw)
-    # the control: each row's first selected block left out
-    dropped = R.without_first_selected(info_p, num_sel, n_slide)
-    wrong, _ = R.attend_tolerance(rq, kv, dropped, c_p, gates, t, **akw)
-    torch.cuda.synchronize()
-    err_a = max_err(out_k, out_p)
-    ratio = ((out_k.float() - want.float()).abs() / tol).max().item()
-    ratio_ctl = ((wrong.float() - want.float()).abs() / tol).max().item()
-    same2 = torch.equal(out_2, out_k)
-    print(f"  decode_attend max|err| {err_a:.5f} (tol {TOL_OUT}); worst |err| / "
-          f"attend_tolerance {ratio:.4f} (<= 1), the dropped-block control {ratio_ctl:.1f} "
-          f"(> 1); a second launch bit-equal: {same2}", flush=True)
-    check(err_a <= TOL_OUT and torch.isfinite(out_k.float()).all().item(),
-          "decode_attend disagrees")
-    check(ratio <= 1.0, "decode_attend: the output breaks attend_tolerance")
-    check(ratio_ctl > 1.0, "decode_attend: the dropped-block control passes attend_tolerance")
-    check(same2, "decode_attend: a second launch gives other bits")
+    out_k, figures = attend_gate(rq, kv, info_p, c_p, gates, t, cfg, "decode_attend")
     rows = attend_rows(vp, t, Bs, n_slide, window, b * kvh)
     bms, by = bound_ms(nbytes(rq, info_p, c_p, gates, out_k) + rows * 2 * d * 2,
                        rows * g * 4 * d)
     att = {"name": "decode_attend", "route": "cuda",
            "source": "nsa_tpu_torch/csrc/nsa_decode.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode.py:325",
-           "max_abs_err": err_a, "attend_tolerance_ratio": ratio, "control_ratio": ratio_ctl,
+           "max_abs_err": figures["max_abs_err"],
+           "attend_tolerance_ratio": figures["attend_tolerance_ratio"],
+           "control_ratio": figures["control_ratio"],
            "ms": timed_ms(lambda: nsa_decode.decode_attend(rq, kv, info_p, c_p, gates, pt,
                                                            **akw), 50, flush),
            "plain_ms": timed_ms(lambda: nsa_decode.decode_attend_plain(
@@ -3045,19 +3134,24 @@ class StepLog(MetricsLogger):
         self.rows.append((step, metrics))
 
 
-def expected_launches(cfg, tc, start):
-    """Kernel launches of ``run_pretrain`` over steps start .. num_batches-1:
-    a forward per micro-batch, validation and generation prefill, a backward
-    per micro-batch, and the generation's decode steps."""
+def expected_launches(cfg, tc, start, counted):
+    """Kernel launches of ``run_pretrain`` over steps start .. num_batches-1,
+    for each kernel of ``counted``.  The sparse model: a forward per
+    micro-batch, validation and generation prefill, a backward per
+    micro-batch, and the generation's decode steps (bs 1: the whole-model
+    kernel).  The full model trains on the recomputed chunks, no kernel: row
+    13 in the validation and generation prefills only (its decode is plain)."""
     steps = range(start, tc.num_batches)
     val = sum(s % tc.validate_every == 0 for s in steps)
     gen = sum(bool(tc.generate_every) and s % tc.generate_every == 0 and s > 0 for s in steps)
     micro = len(steps) * tc.grad_accum_every
-    return {"prefill_fwd": cfg.depth * (micro + val + gen),
-            "prefill_bwd_dq": cfg.depth * micro, "prefill_bwd_dkv": cfg.depth * micro,
-            "decode_select": 0, "decode_attend": 0,       # generation runs at bs 1: mega
-            "decode_select_emit": 0, "decode_attend_fused": 0,
-            "decode_step_mega": gen * tc.generate_length}
+    want = dict.fromkeys((fn.__name__ for fn in counted), 0)
+    if not cfg.use_sparse_attn:
+        want["flash_attention"] = cfg.depth * (val + gen)
+        return want
+    want.update(prefill_fwd=cfg.depth * (micro + val + gen), prefill_bwd_dq=cfg.depth * micro,
+                prefill_bwd_dkv=cfg.depth * micro, decode_step_mega=gen * tc.generate_length)
+    return want
 
 
 def rel_l2(a, b):
@@ -3066,71 +3160,89 @@ def rel_l2(a, b):
     return diff / ref if ref > 0 else diff
 
 
+def run_and_resume(cfg, name, counted):
+    """``run_pretrain`` at the training cell from a seeded random init in
+    the working directory: ``TRAIN_STEPS`` steps with a checkpoint at
+    ``CKPT_STEP``, then a resume that must start there from the saved
+    params; launch counts read around exactly those two runs.  Returns
+    (launches, losses, seconds, peak bytes, the train config)."""
+    tc = TrainConfig(num_batches=TRAIN_STEPS, batch_size=MICRO, grad_accum_every=ACCUM,
+                     seq_len=SEQ, log_every=1, validate_every=2, generate_every=2,
+                     generate_length=16, ckpt_every=CKPT_STEP,
+                     ckpt_dir=os.path.join("ckpt", name),
+                     log_csv=os.path.join("ckpt", name, "log.csv"))
+    log1, log2 = StepLog(tc.log_csv), StepLog(tc.log_csv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pretrain.run_pretrain(cfg, tc, train_data(), logger=log1, device=DEVICE)
+    ckpt = latest_checkpoint(tc.ckpt_dir)
+    check(ckpt is not None and ckpt.endswith(f"step_{CKPT_STEP:08d}"),
+          f"{name}: no checkpoint at step {CKPT_STEP}: {ckpt}")
+    check(os.path.isfile(os.path.join("ckpt_export", f"{name}.npz")),
+          f"{name}: run_pretrain wrote no export")
+    # the resume must start at the checkpoint's step, from its params
+    saved = tree_leaves(restore_checkpoint(ckpt, ("params",), DEVICE)[0]["params"])
+    first = []
+    real_step = pretrain.train_step
+
+    def recording_step(params, *args, **kw):
+        if not first:
+            first.append(all(torch.equal(p.detach(), q)
+                             for p, q in zip(tree_leaves(params), saved)))
+        return real_step(params, *args, **kw)
+
+    pretrain.train_step = recording_step
+    try:
+        pretrain.run_pretrain(cfg, tc, train_data(), logger=log2, device=DEVICE)
+    finally:
+        pretrain.train_step = real_step
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated()
+    check(first == [True] and log2.rows and log2.rows[0][0] == CKPT_STEP,
+          f"{name}: resume did not start at step {CKPT_STEP} from the saved params")
+    losses = [m.get("loss", m.get("valid_loss")) for _, m in log1.rows + log2.rows]
+    check(len(losses) == 3 + 2 + 1 + 1 and all(math.isfinite(x) for x in losses),
+          f"{name}: train losses not all finite: {losses}")
+    print(f"  {name}: {TRAIN_STEPS} + {TRAIN_STEPS - CKPT_STEP} steps of {MICRO}x{ACCUM}x{SEQ} "
+          f"in {seconds:.2f}s (corpus, checkpoints, validation and generation included); "
+          f"peak memory {peak / 2**30:.2f} GiB; losses {losses}", flush=True)
+    return launches, losses, seconds, peak, tc
+
+
+def train_data():
+    """The training corpus, cut to CORPUS_BYTES, cached in the working directory."""
+    return DataConfig(path="enwik8.gz", synthetic_bytes=CORPUS_BYTES)
+
+
 def train_phase(smi):
-    """The training path at the cell, from a seeded random init; returns its
-    launch counts and metrics."""
+    """The training path at the cell, from a seeded random init, in the
+    working directory: the sparse model (``train_sparse``), then the full
+    model (``train_full``); returns the launch counts and metrics."""
+    launches, metrics = train_sparse(smi)
+    full_launches, full = train_full(smi)
+    return launches, {**metrics, "full_train": full, "full_train_launches": full_launches}
+
+
+def train_sparse(smi):
+    """The sparse model: the run and its resume, one micro-batch's loss and
+    gradients through the kernels against the plain path, ``measure_train``
+    and a profiled micro-step."""
     cfg = nsa_tpu_torch.reference_model_config().replace(dtype="bfloat16")
     counted = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv,
                nsa_decode.decode_select, nsa_decode.decode_attend,
                nsa_decode_fused.decode_select_emit, nsa_decode_fused.decode_attend_fused,
                nsa_decode_mega.decode_step_mega)
-    here = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        os.chdir(tmp)
-        try:
-            tc = TrainConfig(num_batches=TRAIN_STEPS, batch_size=MICRO, grad_accum_every=ACCUM,
-                             seq_len=SEQ, log_every=1, validate_every=2, generate_every=2,
-                             generate_length=16, ckpt_every=CKPT_STEP,
-                             ckpt_dir=os.path.join(tmp, "ckpt", "smoke"),
-                             log_csv=os.path.join(tmp, "ckpt", "smoke", "log.csv"))
-            data = DataConfig(path=os.path.join(tmp, "enwik8.gz"), synthetic_bytes=CORPUS_BYTES)
-            log1, log2 = StepLog(tc.log_csv), StepLog(tc.log_csv)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for fn in counted:
-                fn.launches = 0
-            t0 = time.perf_counter()
-            pretrain.run_pretrain(cfg, tc, data, logger=log1, device=DEVICE)
-            ckpt = latest_checkpoint(tc.ckpt_dir)
-            check(ckpt is not None and ckpt.endswith(f"step_{CKPT_STEP:08d}"),
-                  f"no checkpoint at step {CKPT_STEP}: {ckpt}")
-            check(os.path.isfile(os.path.join(tmp, "ckpt_export", "smoke.npz")),
-                  "run_pretrain wrote no export")
-            # the resume must start at the checkpoint's step, from its params
-            saved = tree_leaves(restore_checkpoint(ckpt, ("params",), DEVICE)[0]["params"])
-            first = []
-            real_step = pretrain.train_step
-
-            def recording_step(params, *args, **kw):
-                if not first:
-                    first.append(all(torch.equal(p.detach(), q)
-                                     for p, q in zip(tree_leaves(params), saved)))
-                return real_step(params, *args, **kw)
-
-            pretrain.train_step = recording_step
-            try:
-                pretrain.run_pretrain(cfg, tc, data, logger=log2, device=DEVICE)
-            finally:
-                pretrain.train_step = real_step
-            torch.cuda.synchronize()
-            train_s = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in counted}
-            peak = torch.cuda.max_memory_allocated()
-        finally:
-            os.chdir(here)
-    want = expected_launches(cfg, tc, 0)
-    for k, n in expected_launches(cfg, tc, CKPT_STEP).items():
+    launches, losses, train_s, peak, tc = run_and_resume(cfg, "smoke", counted)
+    want = expected_launches(cfg, tc, 0, counted)
+    for k, n in expected_launches(cfg, tc, CKPT_STEP, counted).items():
         want[k] += n
-    print(f"  train launches {launches}", flush=True)
+    print(f"  train launches {launches}; {smi}", flush=True)
     check(launches == want, f"train-path launches {launches}, expected {want}")
-    check(first == [True] and log2.rows and log2.rows[0][0] == CKPT_STEP,
-          f"resume did not start at step {CKPT_STEP} from the saved params")
-    losses = [m.get("loss", m.get("valid_loss")) for _, m in log1.rows + log2.rows]
-    check(len(losses) == 3 + 2 + 1 + 1 and all(math.isfinite(x) for x in losses),
-          f"train losses not all finite: {losses}")
-    print(f"  train: {TRAIN_STEPS} + {TRAIN_STEPS - CKPT_STEP} steps of {MICRO}x{ACCUM}x{SEQ} "
-          f"in {train_s:.2f}s (corpus, checkpoints, validation and generation included); "
-          f"peak memory {peak / 2**30:.2f} GiB; {smi}", flush=True)
 
     # one micro-batch: loss and every gradient, kernels vs the plain path,
     # and vs the kernel forward with the plain backward (the two backward
@@ -3138,38 +3250,32 @@ def train_phase(smi):
     params = pretrain.trainable(init_transformer(cfg, torch.Generator().manual_seed(SEED),
                                                  device="cpu"), DEVICE)
     ids = seeded_ids(MICRO, SEQ + 1, cfg.vocab_size, SEED + 1, DEVICE)
-    leaves = tree_leaves(params)
-
-    def loss_and_grads(use_kernels):
-        loss = transformer_loss(params, cfg, ids, use_kernels=use_kernels)
-        return loss.item(), torch.autograd.grad(loss, leaves)
-
     with torch.no_grad():
         stats = selection_stats(*layer0_prefill_inputs(params, cfg, training_forward)[3:],
                                 cfg.nsa.selection_block_size)
     print(f"  layer 0 of the random-init model at {MICRO}x{SEQ}: rows per inverted list "
           f"{stats['rows_per_list']}, union blocks per 16 rows {stats['u16']}", flush=True)
-    lk, gk = loss_and_grads(True)
-    lp, gp = loss_and_grads(False)
+    lk, gk = loss_and_grads(params, cfg, ids)
+    lp, gp = loss_and_grads(params, cfg, ids, use_kernels=False)
     kernel_bwd = nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv
     nsa_prefill.prefill_bwd_dq = nsa_prefill.prefill_bwd_dq_plain
     nsa_prefill.prefill_bwd_dkv = nsa_prefill.prefill_bwd_dkv_plain
     try:
-        _, gh = loss_and_grads(True)
+        _, gh = loss_and_grads(params, cfg, ids)
     finally:
         nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv = kernel_bwd
     check(math.isfinite(lk) and abs(lk - lp) <= TOL_LOSS_REL * abs(lp),
           f"kernel-path loss {lk} disagrees with the plain path's {lp}")
     check(all(torch.isfinite(g).all().item() for g in gk), "kernel-path gradients not finite")
     print(f"  micro-batch {MICRO}x{SEQ} loss kernels {lk:.6f} plain {lp:.6f}", flush=True)
-    grad_errs = {}
+    worst_errs = {}
     for label, other, tol in (("plain path", gp, TOL_GRAD_REL_L2),
                               ("kernel forward + plain backward", gh, TOL_GRAD_BWD_REL_L2)):
-        errs = {key: rel_l2(a, b) for (key, _), a, b in zip(tree_items(params), gk, other)}
+        errs = grad_errs(params, gk, other)
         worst = max(errs, key=errs.get)
-        grad_errs[label] = errs[worst]
+        worst_errs[label] = errs[worst]
         k_pos = max(v for k, v in errs.items() if "k_pos" in k)   # the net sum nearest its gate
-        grad_errs[label + " k_pos"] = k_pos
+        worst_errs[label + " k_pos"] = k_pos
         print(f"  gradients, kernels vs {label}: rel L2 max {errs[worst]:.3e} at {worst} "
               f"(tol {tol}), median {sorted(errs.values())[len(errs) // 2]:.3e} "
               f"over {len(errs)} tensors; k_pos (largest over the layers) {k_pos:.3e}",
@@ -3203,14 +3309,443 @@ def train_phase(smi):
           f"{device_ms:.3f} ms device time ({100 * bwd_ms / device_ms:.1f}%); {smi}", flush=True)
     return launches, {"train_s": train_s, "train_peak_bytes": peak,
                       "train_losses": losses, "measure_train_tok_s": tps,
-                      "grad_rel_l2_max": grad_errs["plain path"],
-                      "grad_rel_l2_max_bwd_only": grad_errs["kernel forward + plain backward"],
-                      "k_pos_rel_l2": grad_errs["plain path k_pos"],
-                      "k_pos_rel_l2_bwd_only": grad_errs["kernel forward + plain backward k_pos"],
+                      "grad_rel_l2_max": worst_errs["plain path"],
+                      "grad_rel_l2_max_bwd_only": worst_errs["kernel forward + plain backward"],
+                      "k_pos_rel_l2": worst_errs["plain path k_pos"],
+                      "k_pos_rel_l2_bwd_only": worst_errs["kernel forward + plain backward k_pos"],
                       "loss_kernels": lk, "loss_plain": lp,
                       "train_micro_step_device_busy": busy,
                       "train_micro_step_device_ms": device_ms, "train_rows45_ms": bwd_ms,
                       "train_init_selections": stats}
+
+
+def dropped_chunk_attention(q, k, v, causal=True, scale=None, chunk=128):
+    """``full_attention_chunked`` with its query rows FULL_DROPPED_ROWS given
+    zero attention: a wrong training attention, the full-model gates'
+    control."""
+    out = attention_module.full_attention_chunked(q, k, v, causal=causal, scale=scale,
+                                                  chunk=chunk)
+    keep = torch.ones(q.shape[2], 1, dtype=out.dtype, device=out.device)
+    keep[slice(*FULL_DROPPED_ROWS)] = 0
+    return out * keep
+
+
+@contextlib.contextmanager
+def training_attention(attention):
+    """The full model's training attention swapped for ``attention``."""
+    real = model_module.full_attention_chunked
+    model_module.full_attention_chunked = attention
+    try:
+        yield
+    finally:
+        model_module.full_attention_chunked = real
+
+
+@contextlib.contextmanager
+def kept_chunks():
+    """``full_attention_chunked``'s chunks kept for the backward: its
+    ``torch.utils.checkpoint`` swapped for a pass-through."""
+    real = attention_module.checkpoint
+    attention_module.checkpoint = lambda fn, *args, **kw: fn(*args)
+    try:
+        yield
+    finally:
+        attention_module.checkpoint = real
+
+
+def full_loss_and_grads(params, cfg, ids, attention, keep=False):
+    """The training loss on ``ids`` and every gradient through ``attention``
+    (its chunks kept for the backward when ``keep``); peak memory of the
+    pass."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with training_attention(attention), kept_chunks() if keep else contextlib.nullcontext():
+        loss = transformer_loss(params, cfg, ids)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+    torch.cuda.synchronize()
+    return loss.detach(), grads, torch.cuda.max_memory_allocated()
+
+
+def train_full(smi):
+    """The full-attention model: the run and its resume from a seeded random
+    init (training on the recomputed chunks, row 13 in validation and
+    generation), ``measure_train``; then two gates on the committed full
+    weights (float32 masters, bf16 compute) on validation bytes:
+    1. at micro 1 x seq 4096 the recomputed chunks' loss and every gradient
+       bit for bit those of the same chunks kept for the backward; the
+       control, the query chunk FULL_DROPPED_ROWS dropped, must differ;
+    2. the training path's loss on FULL_GATE_WINDOWS windows within
+       TOL_LOSS_REL of the no-grad loss through row 13; the training path
+       with the dropped chunk must fail it."""
+    cfg = nsa_tpu_torch.reference_model_config(use_sparse_attn=False).replace(dtype="bfloat16")
+    launches, losses, train_s, peak, tc = run_and_resume(cfg, "full", ALL_KERNELS)
+    want = expected_launches(cfg, tc, 0, ALL_KERNELS)
+    for k, n in expected_launches(cfg, tc, CKPT_STEP, ALL_KERNELS).items():
+        want[k] += n
+    print(f"  full train launches {launches}", flush=True)
+    check(launches == want, f"full-model train launches {launches}, expected {want}")
+    params = pretrain.trainable(init_transformer(cfg, torch.Generator().manual_seed(SEED),
+                                                 device="cpu"), DEVICE)
+    tps = measure_train(params, cfg, MICRO, ACCUM, SEQ, iters=2, seed=SEED, device=DEVICE)
+    print(f"  full model measure_train micro {MICRO} accum {ACCUM} seq {SEQ}: {tps:.1f} "
+          f"tokens/s (mean of 2 steps); run peak memory {peak / 2**30:.2f} GiB; {smi}",
+          flush=True)
+    del params
+
+    weights, meta = load_params_npz(FULL_WEIGHTS, device=DEVICE, dtype=torch.float32)
+    gcfg = model_config_from_meta(meta).replace(dtype="bfloat16")
+    params = pretrain.trainable(weights)
+    del weights
+    val = load_byte_corpus(train_data())[1]
+    starts = np.random.RandomState(SEED).randint(0, len(val) - SEQ - 1, FULL_GATE_WINDOWS)
+    windows = torch.from_numpy(np.stack([val[i:i + SEQ + 1] for i in starts])
+                               .astype(np.int64)).to(DEVICE)
+    one = windows[:1]
+    chunked = attention_module.full_attention_chunked
+    l_re, g_re, peak_re = full_loss_and_grads(params, gcfg, one, chunked)
+    l_kept, g_kept, peak_kept = full_loss_and_grads(params, gcfg, one, chunked, keep=True)
+    l_ctl, g_ctl, _ = full_loss_and_grads(params, gcfg, one, dropped_chunk_attention)
+    equal = bool(torch.equal(l_re, l_kept)) and all(torch.equal(a, b)
+                                                    for a, b in zip(g_re, g_kept))
+    worst = max(max_err(a, b) for a, b in zip(g_re, g_kept))
+    ctl_equal = bool(torch.equal(l_ctl, l_kept)) and all(torch.equal(a, b)
+                                                         for a, b in zip(g_ctl, g_kept))
+    ctl_worst = max(max_err(a, b) for a, b in zip(g_ctl, g_kept))
+    print(f"  gate 1, micro 1 x {SEQ}: recomputed loss {l_re.item():.6f} kept {l_kept.item():.6f};"
+          f" loss and all {len(g_re)} gradients bit-equal: {equal} (largest |diff| {worst:.3e}, "
+          f"bound 0); peak memory recomputed {peak_re / 2**30:.2f} GiB, kept "
+          f"{peak_kept / 2**30:.2f} GiB; control (rows {FULL_DROPPED_ROWS} dropped): loss "
+          f"{l_ctl.item():.6f}, largest gradient |diff| {ctl_worst:.3e}, bit-equal {ctl_equal}",
+          flush=True)
+    check(equal, "recomputed chunks give another loss or gradient than kept chunks")
+    check(not ctl_equal, "the dropped-chunk control equals the kept chunks")
+    del g_re, g_kept, g_ctl
+
+    with torch.no_grad():
+        l_flash = transformer_loss(params, gcfg, windows).item()
+    l_train = transformer_loss(params, gcfg, windows).item()
+    with training_attention(dropped_chunk_attention):
+        l_wrong = transformer_loss(params, gcfg, windows).item()
+    rel, rel_ctl = abs(l_train - l_flash) / l_flash, abs(l_wrong - l_flash) / l_flash
+    print(f"  gate 2, {FULL_GATE_WINDOWS} x {SEQ} validation windows: training path "
+          f"{l_train:.6f}, row 13 (no grad) {l_flash:.6f}, rel {rel:.3e} (tol {TOL_LOSS_REL}); "
+          f"control (rows {FULL_DROPPED_ROWS} dropped) {l_wrong:.6f}, rel {rel_ctl:.3e} (> tol)",
+          flush=True)
+    check(math.isfinite(l_train) and rel <= TOL_LOSS_REL,
+          "the full model's training loss disagrees with row 13's")
+    check(rel_ctl > TOL_LOSS_REL, "the dropped-chunk control passes the training-loss gate")
+    del params
+    torch.cuda.empty_cache()
+    return launches, {"train_s": train_s, "peak_bytes": peak, "losses": losses,
+                      "measure_train_tok_s": tps, "recompute_bit_equal": equal,
+                      "recompute_peak_bytes": peak_re, "kept_peak_bytes": peak_kept,
+                      "control_grad_max_diff": ctl_worst, "loss_train_path": l_train,
+                      "loss_row13": l_flash, "loss_rel": rel, "control_loss_rel": rel_ctl}
+
+
+@contextlib.contextmanager
+def kernel_rows_dropped(rows=CPT_DROPPED_ROWS):
+    """The kernel path with query rows ``rows`` given zero attention: row
+    1's fine and sliding outputs (forward and backward) and row 13's output,
+    a kernel that lost those rows.  The plain path is left as it is.  The
+    cpt gates' control."""
+    real_fine, real_flash = nsa_layer.nsa_fine_sliding_attention, model_module.flash_attention
+
+    def drop(x):
+        keep = torch.ones(x.shape[2], 1, dtype=x.dtype, device=x.device)
+        keep[slice(*rows)] = 0
+        return x * keep
+
+    def fine(*a, use_kernels=True, **k):
+        outs = real_fine(*a, use_kernels=use_kernels, **k)
+        return tuple(drop(o) for o in outs) if use_kernels else outs
+
+    nsa_layer.nsa_fine_sliding_attention = fine
+    model_module.flash_attention = lambda *a, **k: drop(real_flash(*a, **k))
+    try:
+        yield
+    finally:
+        nsa_layer.nsa_fine_sliding_attention = real_fine
+        model_module.flash_attention = real_flash
+
+
+def eval_logits_vs_plain(params, cfg, ids):
+    """(largest |error|, largest plain logit) of the kernel path's logits on
+    ``ids`` (no grad: rows 1 or 13) against the plain path's; the sparse
+    model's plain path on the kernel path's selections
+    (``prefill_logits_vs_plain``)."""
+    with torch.no_grad():
+        if cfg.use_sparse_attn:
+            return prefill_logits_vs_plain(params, cfg, ids)[:2]
+        got = transformer_forward(params, cfg, ids)
+        want = transformer_forward(params, cfg, ids, use_kernels=False)
+        return max_err(got, want), want.abs().max().item()
+
+
+def loss_and_grads(params, cfg, ids, use_kernels=True):
+    """The training loss on ``ids`` and every gradient."""
+    loss = transformer_loss(params, cfg, ids, use_kernels=use_kernels)
+    return loss.item(), torch.autograd.grad(loss, tree_leaves(params))
+
+
+def grad_errs(params, got, want):
+    """Relative L2 error of each gradient of ``got`` against ``want``, by key."""
+    return {key: rel_l2(a, b) for (key, _), a, b in zip(tree_items(params), got, want)}
+
+
+def cpt_eval_batches(qa_test, val):
+    """The forwards of one CPT eval point: ``compute_ppl`` at batch 4 on the
+    QA test bytes and on ``val``, each cut to the script's max tokens."""
+    return sum(-(-len(ppl_windows(x[:CPT_EVAL_MAX_TOKENS], CPT_SEQ)[0]) // 4)
+               for x in (qa_test, val))
+
+
+def cpt_phase(smi):
+    """Continuous pretraining from each committed export, in the working
+    directory: the export written as a port checkpoint at its step (float32
+    params), then ``run_continuous_pretrain`` for CPT_STEPS steps at the
+    script's defaults (batch 8, seq 512, lr 3e-5, half QA, eval points of
+    200,000 bytes) with an eval point every CPT_EVAL_EVERY steps, on the
+    CORPUS_BYTES corpus.  Gates: the first logged loss equals
+    ``transformer_loss`` of the restored weights on the same batch; the
+    final checkpoint's step is the export's + CPT_STEPS; the eval points'
+    perplexities are finite; launch counts exact.  Then the kernels at the
+    run's shapes, on the restored weights: the sparse model's loss and
+    every gradient on the first batch (rows 1, 4, 5 at 8 x 512) against the
+    plain path (TOL_LOSS_REL, TOL_GRAD_REL_L2), and both models' logits on
+    the first 4 x 512 eval batch (row 1 or 13) against the plain path
+    (TOL_LOGITS_REL); each with the CPT_DROPPED_ROWS control
+    (``kernel_rows_dropped``), which must fail it."""
+    qa_test = load_cs441_qa_bytes(split="test")
+    val = load_byte_corpus(train_data())[0][-2_000_000:]
+    out = {}
+    for name, path in (("sparse_mlp", WEIGHTS), ("full_attn", FULL_WEIGHTS)):
+        weights, meta = load_params_npz(path, device="cpu", dtype=torch.float32)
+        cfg = model_config_from_meta(meta)
+        src = os.path.join("cpt", name)
+        save_checkpoint(src, meta["step"], weights, model_cfg=cfg)
+        del weights
+        log = StepLog(os.path.join(src + "_cpt", "cpt_log.csv"))
+        batches, real_step = [], continuous_pretrain.train_step
+
+        def recording_step(params, optimizer, batch, model_cfg, accum):
+            if not batches:
+                batches.append(batch[0].clone())
+            return real_step(params, optimizer, batch, model_cfg, accum)
+
+        zero_launches(ALL_KERNELS)
+        t0 = time.perf_counter()
+        continuous_pretrain.train_step = recording_step
+        try:
+            _, loss, final = continuous_pretrain.run_continuous_pretrain(
+                src, num_batches=CPT_STEPS, seq_len=CPT_SEQ, eval_every=CPT_EVAL_EVERY,
+                eval_max_tokens=CPT_EVAL_MAX_TOKENS, data_cfg=train_data(), logger=log,
+                device=DEVICE)
+        finally:
+            continuous_pretrain.train_step = real_step
+        launches = read_launches(ALL_KERNELS)
+        seconds = time.perf_counter() - t0
+        # the restored weights' loss on the first batch, on the training path
+        restored = pretrain.trainable(restore_checkpoint(
+            latest_checkpoint(src), ("params",), DEVICE)[0]["params"])
+        b0 = batches[0]
+        if cfg.use_sparse_attn:
+            lk, gk = loss_and_grads(restored, cfg, b0)
+            lp, gp = loss_and_grads(restored, cfg, b0, use_kernels=False)
+            with kernel_rows_dropped():
+                lc, gc = loss_and_grads(restored, cfg, b0)
+            errs, ctl_errs = grad_errs(restored, gk, gp), grad_errs(restored, gc, gp)
+            worst, ctl_worst = max(errs, key=errs.get), max(ctl_errs, key=ctl_errs.get)
+            rel, ctl_rel = abs(lk - lp) / abs(lp), abs(lc - lp) / abs(lp)
+            ctl_fails = ctl_rel > TOL_LOSS_REL or ctl_errs[ctl_worst] > TOL_GRAD_REL_L2
+            print(f"  cpt {name}: batch {tuple(b0.shape)} loss kernels {lk:.6f} plain {lp:.6f}, "
+                  f"rel {rel:.3e} (tol {TOL_LOSS_REL}); gradients rel L2 max "
+                  f"{errs[worst]:.3e} at {worst} (tol {TOL_GRAD_REL_L2}) over {len(errs)} "
+                  f"tensors; control (rows {CPT_DROPPED_ROWS} dropped): loss rel {ctl_rel:.3e}, "
+                  f"gradients rel L2 max {ctl_errs[ctl_worst]:.3e} at {ctl_worst}", flush=True)
+            check(math.isfinite(lk) and rel <= TOL_LOSS_REL,
+                  f"cpt {name}: kernel-path loss {lk} disagrees with the plain path's {lp}")
+            check(all(torch.isfinite(g).all().item() for g in gk),
+                  f"cpt {name}: kernel-path gradients not finite")
+            check(errs[worst] <= TOL_GRAD_REL_L2, f"cpt {name}: kernel-path gradients disagree")
+            check(ctl_fails, f"cpt {name}: the dropped-rows control passes the loss and "
+                             f"gradient gates")
+            del gk, gp, gc
+            train_gate = {"loss_kernels": lk, "loss_plain": lp, "grad_rel_l2_max": errs[worst],
+                          "control_loss_rel": ctl_rel,
+                          "control_grad_rel_l2_max": ctl_errs[ctl_worst]}
+        else:
+            # the training forward has no kernel (the recomputed chunks)
+            lk, train_gate = transformer_loss(restored, cfg, b0).item(), {}
+        first = [lk]
+        eval_ids = torch.from_numpy(np.stack(ppl_windows(qa_test[:CPT_EVAL_MAX_TOKENS],
+                                                         CPT_SEQ)[0][:4])
+                                    .astype(np.int64))[:, :-1].to(DEVICE)
+        e_err, e_top = eval_logits_vs_plain(restored, cfg, eval_ids)
+        with kernel_rows_dropped():
+            c_err, _ = eval_logits_vs_plain(restored, cfg, eval_ids)
+        e_tol = TOL_LOGITS_REL * max(e_top, 1.0)
+        print(f"  cpt {name}: eval batch {tuple(eval_ids.shape)} logits kernels vs plain "
+              f"max|err| {e_err:.4f} (tol {TOL_LOGITS_REL} x {e_top:.2f}); control (rows "
+              f"{CPT_DROPPED_ROWS} dropped) {c_err:.4f}", flush=True)
+        check(e_err <= e_tol, f"cpt {name}: kernel-path eval logits disagree with the plain path")
+        check(c_err > e_tol, f"cpt {name}: the dropped-rows control passes the eval logits gate")
+        del restored
+        step0 = [m["cpt_loss"] for s, m in log.rows if s == 0 and "cpt_loss" in m]
+        evals = [(s, m["ppl_id"], m["ppl_ood"]) for s, m in log.rows if "ppl_id" in m]
+        _, final_meta = restore_checkpoint(final, (), device="cpu")
+        points = CPT_STEPS // CPT_EVAL_EVERY
+        forwards = points * cpt_eval_batches(qa_test, val)
+        want = dict.fromkeys((fn.__name__ for fn in ALL_KERNELS), 0)
+        if cfg.use_sparse_attn:
+            want.update(prefill_fwd=cfg.depth * (CPT_STEPS + forwards),
+                        prefill_bwd_dq=cfg.depth * CPT_STEPS, prefill_bwd_dkv=cfg.depth * CPT_STEPS)
+        else:
+            want["flash_attention"] = cfg.depth * forwards
+        print(f"  cpt {name} (step {meta['step']}): {CPT_STEPS} steps in {seconds:.2f}s; first "
+              f"logged loss {step0} vs transformer_loss of the restored weights on its batch "
+              f"{first} (equal); last loss {loss:.6f}; eval points (step, ppl_id, ppl_ood) "
+              f"{evals}; final checkpoint step {final_meta['step']}; launches {launches}; {smi}",
+              flush=True)
+        check(step0 == first, f"cpt {name}: the first logged loss {step0} is not the restored "
+                              f"weights' {first}")
+        check(final_meta["step"] == meta["step"] + CPT_STEPS and final_meta["continuous_pretrain"],
+              f"cpt {name}: final checkpoint at step {final_meta['step']}")
+        check([s for s, *_ in evals] == list(range(CPT_EVAL_EVERY, CPT_STEPS + 1,
+                                                   CPT_EVAL_EVERY))
+              and all(math.isfinite(x) for _, *p in evals for x in p),
+              f"cpt {name}: eval points {evals}")
+        check(launches == want, f"cpt {name}: launches {launches}, expected {want}")
+        out[name] = {"seconds": seconds, "first_loss": first[0], "last_loss": loss,
+                     "evals": evals, "launches": launches, **train_gate,
+                     "eval_logits_err": e_err, "eval_logits_scale": e_top,
+                     "eval_control_err": c_err}
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_split_inputs():
+    """Rows 2-3 in the NSA layer wrapped so that the first call of each keeps
+    its inputs (layer 0 of the first split step) in the dict yielded."""
+    rec, real_sel, real_att = {}, nsa_layer.decode_select, nsa_layer.decode_attend
+
+    def sel(q, ckv, mem_kv, t, num_cb, **kw):
+        rec.setdefault("select", (q.clone(), ckv.clone(), mem_kv.clone(), int(t)))
+        return real_sel(q, ckv, mem_kv, t, num_cb, **kw)
+
+    def att(rq, kv, info, c_out, gates, t, **kw):
+        rec.setdefault("attend", (rq.clone(), kv.clone(), gates.clone()))
+        return real_att(rq, kv, info, c_out, gates, t, **kw)
+
+    nsa_layer.decode_select, nsa_layer.decode_attend = sel, att
+    try:
+        yield rec
+    finally:
+        nsa_layer.decode_select, nsa_layer.decode_attend = real_sel, real_att
+
+
+def compress_phase(smi):
+    """Each compressor the trained exports do not use, on the reference
+    model from a seeded random init (float32 masters, bf16 compute):
+    prefill COMPRESS_BATCH x COMPRESS_PROMPT through row 1 into a
+    MAX_LEN-row cache, then COMPRESS_GEN greedy steps on the split route
+    (rows 2-3; the fused routes take only mlp), captured; launch counts read
+    around exactly that run.  Gates: the prefill logits against the plain
+    path on the kernel path's selections (TOL_LOGITS_REL), the first decode
+    step's logits against the plain step's, rows 2-3 on layer 0's inputs
+    of that step (``select_gate`` / ``attend_gate`` with their controls);
+    one training micro-step at COMPRESS_MICRO x SEQ through rows 1, 4, 5,
+    its loss (TOL_LOSS_REL) and every gradient (TOL_GRAD_REL_L2) against
+    the plain path, its launches counted."""
+    counted = ALL_KERNELS
+    out = {}
+    for kind in NEW_COMPRESSORS:
+        t0 = time.perf_counter()
+        cfg = nsa_tpu_torch.reference_model_config(compressor=kind).replace(dtype="bfloat16")
+        params = pretrain.trainable(init_transformer(cfg, torch.Generator().manual_seed(SEED),
+                                                     device="cpu"), DEVICE)
+        stride = cfg.nsa.compress_block_sliding_stride
+        ids = seeded_ids(COMPRESS_BATCH, COMPRESS_PROMPT, cfg.vocab_size, SEED, DEVICE)
+        with torch.no_grad():
+            zero_launches(counted)
+            logits, cache = transformer_prefill(params, cfg, ids, MAX_LEN)
+            first = logits[:, -1].argmax(-1)
+            plain_cache = clone_cache(cache)
+            with recorded_split_inputs() as rec:
+                step0, cache = transformer_decode_step(params, cfg, first, cache)
+            tokens = greedy_decode(params, cfg, step0.argmax(-1), cache, COMPRESS_GEN - 1)
+            launches = read_launches(counted)
+            want = dict.fromkeys((fn.__name__ for fn in counted), 0)
+            want.update(prefill_fwd=cfg.depth, decode_select=cfg.depth * COMPRESS_GEN,
+                        decode_attend=cfg.depth * COMPRESS_GEN)
+            check(launches == want, f"{kind}: decode-path launches {launches}, expected {want}")
+            check(tuple(tokens.shape) == (COMPRESS_BATCH, COMPRESS_GEN - 1)
+                  and bool(torch.isfinite(logits).all()), f"{kind}: prefill or decode malformed")
+            pre_err, pre_scale, flipped = prefill_logits_vs_plain(params, cfg, ids)
+            plain0, _ = transformer_decode_step(params, cfg, first, plain_cache, use_kernels=False)
+            err0, scale0 = max_err(step0, plain0), plain0.abs().max().item()
+            del plain_cache
+            print(f"  {kind}: decode launches {launches}; prefill logits vs plain on the same "
+                  f"selections max|err| {pre_err:.4f} (tol {TOL_LOGITS_REL} x {pre_scale:.2f}), "
+                  f"{flipped} positions differ by more on the plain path's own; first step's "
+                  f"logits max|err| {err0:.4f} (tol {TOL_LOGITS_REL} x {scale0:.2f})", flush=True)
+            check(pre_err <= TOL_LOGITS_REL * max(pre_scale, 1.0),
+                  f"{kind}: kernel-path prefill logits disagree with the plain path")
+            check(err0 <= TOL_LOGITS_REL * max(scale0, 1.0),
+                  f"{kind}: kernel-path decode logits disagree with the plain path")
+            q, ckv, mem_kv, t = rec["select"]
+            _, _, c_p, info_p, sel = select_gate(q, ckv, mem_kv, t, t // stride, cfg,
+                                                 f"{kind} decode_select")
+            rq, kv, gates = rec["attend"]
+            _, att = attend_gate(rq, kv, info_p, c_p, gates, t, cfg, f"{kind} decode_attend")
+            del cache, rec, logits
+
+        micro = seeded_ids(COMPRESS_MICRO, SEQ + 1, cfg.vocab_size, SEED + 1, DEVICE)
+        leaves = tree_leaves(params)
+        zero_launches(counted)
+        loss_k = transformer_loss(params, cfg, micro)
+        grads_k = torch.autograd.grad(loss_k, leaves)
+        train_launches = read_launches(counted)
+        loss_p = transformer_loss(params, cfg, micro, use_kernels=False)
+        grads_p = torch.autograd.grad(loss_p, leaves)
+        lk, lp = loss_k.item(), loss_p.item()
+        named = {key: (a, b) for (key, _), a, b in zip(tree_items(params), grads_k, grads_p)}
+        errs = {}
+        for key, (a, b) in named.items():
+            if key.endswith(ZERO_GRAD_LEAF):
+                # zero in exact arithmetic: the difference against the
+                # same layer's query bias, whose gradient is not
+                sibling = named[key.removesuffix(ZERO_GRAD_LEAF) + "['b_q']"][1]
+                errs[key] = (a.float() - b.float()).norm().item() / sibling.float().norm().item()
+            else:
+                errs[key] = rel_l2(a, b)
+        worst = max(errs, key=errs.get)
+        zero = [v for k, v in errs.items() if k.endswith(ZERO_GRAD_LEAF)]
+        want = dict.fromkeys((fn.__name__ for fn in counted), 0)
+        want.update(prefill_fwd=cfg.depth, prefill_bwd_dq=cfg.depth, prefill_bwd_dkv=cfg.depth)
+        seconds = time.perf_counter() - t0
+        print(f"  {kind}: micro-step {COMPRESS_MICRO}x{SEQ} loss kernels {lk:.6f} plain {lp:.6f}; "
+              f"gradients rel L2 max {errs[worst]:.3e} at {worst} (tol {TOL_GRAD_REL_L2}) over "
+              f"{len(errs)} tensors" + (f" ({len(zero)} key biases against their query bias's "
+                                        f"gradient, max {max(zero):.3e})" if zero else "") +
+              f"; launches {train_launches}; {seconds:.2f}s; {smi}", flush=True)
+        check(train_launches == want, f"{kind}: micro-step launches {train_launches}, "
+                                      f"expected {want}")
+        check(math.isfinite(lk) and abs(lk - lp) <= TOL_LOSS_REL * abs(lp),
+              f"{kind}: kernel-path loss {lk} disagrees with the plain path's {lp}")
+        check(all(torch.isfinite(g).all().item() for g in grads_k),
+              f"{kind}: kernel-path gradients not finite")
+        check(errs[worst] <= TOL_GRAD_REL_L2, f"{kind}: kernel-path gradients disagree")
+        out[kind] = {"seconds": seconds, "decode_launches": launches,
+                     "train_launches": train_launches, "prefill_logits_err": pre_err,
+                     "prefill_logits_scale": pre_scale, "step_logits_err": err0,
+                     "decode_select": sel, "decode_attend": att, "loss_kernels": lk,
+                     "loss_plain": lp, "grad_rel_l2_max": errs[worst]}
+        del params, grads_k, grads_p, leaves
+        decode_graph.clear()
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -3352,9 +3887,21 @@ def main():
         torch.cuda.empty_cache()
         t0 = phase("graph", t0)
 
-    train_launches, train = train_phase(smi)
-    torch.cuda.empty_cache()
-    t0 = phase("train", t0)
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        # the corpus cache, checkpoints and exports land here, never in the tree
+        os.chdir(work)
+        try:
+            train_launches, train = train_phase(smi)
+            torch.cuda.empty_cache()
+            t0 = phase("train", t0)
+            cpt = cpt_phase(smi)
+            t0 = phase("cpt", t0)
+        finally:
+            os.chdir(here)
+
+    compressors = compress_phase(smi)
+    t0 = phase("compress", t0)
 
     for k in kernels:
         # each kernel's count from its own path: serving at bs 64 for the
@@ -3377,7 +3924,8 @@ def main():
         "logits_max_abs_err": err, "decode_device_busy": busy, "small": small,
         "serve": served, "full": full, "eval": evaluated, "eval_launches": eval_launches,
         "graph": graphs, **train,
-        "train_launches": train_launches, "phases_s": dict(PHASES)}}), flush=True)
+        "train_launches": train_launches, "cpt": cpt, "compress": compressors,
+        "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,8 +17,10 @@ takes the ragged fused pair per layer.
 
 The full-attention baseline (``use_sparse_attn=False``) runs its prefill
 and forward attention through the ``flash_attention`` kernel
-(``ops/cuda/flash.py``) and decodes over a ``KVDecodeCache`` with plain
-PyTorch attention, as JAX leaves its decode to XLA.
+(``ops/cuda/flash.py``), trains through the plain chunked attention with
+each query chunk recomputed in the backward (the kernel has no backward),
+and decodes over a ``KVDecodeCache`` with plain PyTorch attention, as JAX
+leaves its decode to XLA.
 
 The decode loops (``greedy_decode``, ``sample_decode``) run their
 steps at a position held on the device; on the card each loop is a
@@ -34,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from ..config import ModelConfig
+from ..ops.attention import full_attention_chunked
 from ..ops.common import mask_value, merge_heads, rms_norm, round_up_mult, split_heads
 from ..ops.cuda.flash import flash_attention, flash_attention_plain
 from ..ops.cuda.nsa_decode_mega import MAX_BATCH, decode_step_mega, decode_step_mega_plain
@@ -125,10 +128,15 @@ def _logits(params, cfg: ModelConfig, x):
 
 def _full_attn_forward(params, cfg: ModelConfig, x, *, return_cache_max_len=None,
                        use_kernels: bool = True):
-    """The full-attention layer over x [b, n, dim]: rotary q and k, then
-    ``flash_attention`` (its plain version when ``use_kernels`` is False),
-    then the output projection; with ``return_cache_max_len`` also the
-    layer's ``KVDecodeCache`` holding rows 0..n-1."""
+    """The full-attention layer over x [b, n, dim]: rotary q and k, then the
+    attention, then the output projection; with ``return_cache_max_len``
+    also the layer's ``KVDecodeCache`` holding rows 0..n-1.
+
+    The attention is ``flash_attention`` (its plain version when
+    ``use_kernels`` is False) unless autograd needs its gradient: the kernel
+    has no backward (nor has JAX's), so training takes
+    ``full_attention_chunked`` over chunks of ``max(attn_chunk_size, 128)``
+    query rows, each recomputed in the backward, as JAX trains the model."""
     b, n, _ = x.shape
     d = cfg.dim_head
     normed = rms_norm(x, params["norm_scale"], cfg.norm_eps)
@@ -136,8 +144,12 @@ def _full_attn_forward(params, cfg: ModelConfig, x, *, return_cache_max_len=None
     k = split_heads(normed @ params["w_k"].to(x.dtype), d)
     v = split_heads(normed @ params["w_v"].to(x.dtype), d).contiguous()
     q, k = rotate_qk(q, k, cfg.rope_theta)
-    attn = flash_attention if use_kernels else flash_attention_plain
-    out = attn(q.contiguous(), k.contiguous(), v, causal=cfg.causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = full_attention_chunked(q, k, v, causal=cfg.causal,
+                                     chunk=max(cfg.attn_chunk_size, 128))
+    else:
+        attn = flash_attention if use_kernels else flash_attention_plain
+        out = attn(q.contiguous(), k.contiguous(), v, causal=cfg.causal)
     out = merge_heads(out) @ params["w_out"].to(x.dtype)
     if return_cache_max_len is None:
         return out
@@ -355,7 +367,7 @@ def fuse_decode_params(params: dict, cfg: ModelConfig) -> dict:
             for layer in params["layers"]]}
     if all("decode_fused" in layer["attn"] for layer in params["layers"]):
         return params
-    packed = {**params, "layers": [fuse_decode_layer(layer, dtype)
+    packed = {**params, "layers": [fuse_decode_layer(layer, dtype, cfg.nsa.compressor)
                                    for layer in params["layers"]]}
     if _mega_applies(cfg):
         packed["mega"] = pack_mega_params(params, cfg)

@@ -1,7 +1,8 @@
 """Plain PyTorch attention primitives (``nsa_tpu/ops/attention.py``): the
 oracles that the port's kernels are checked against, and the dense
-attention of the full-attention baseline (``full_attention``,
-``full_attention_chunked``).
+attention of the full-attention baseline (``full_attention``, and
+``full_attention_chunked``, which trains it, recomputing each query chunk
+in the backward).
 
 Logits are computed in float32 from the working-dtype inputs (the JAX
 package's ``preferred_element_type=float32``); softmax weights are cast
@@ -14,6 +15,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .common import mask_value, repeat_kv, round_up_mult
 
@@ -104,6 +106,15 @@ def attention_by_query_chunks(
     return out
 
 
+def _causal_chunk_attend(qc, kc, vc, first_row: int, causal: bool, scale: Optional[float]):
+    """``attend`` for query rows at positions ``first_row ..`` of the keys."""
+    mask = None
+    if causal:
+        rows = torch.arange(first_row, first_row + qc.shape[2], device=qc.device)
+        mask = rows[:, None] >= torch.arange(kc.shape[2], device=qc.device)[None, :]
+    return attend(qc, kc, vc, mask=mask, scale=scale)
+
+
 def full_attention_chunked(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -112,17 +123,26 @@ def full_attention_chunked(
     scale: Optional[float] = None,
     chunk: int = 256,
 ) -> torch.Tensor:
-    """Dense attention evaluated per query chunk (exact, memory-bounded):
-    ``full_attention`` up to ``chunk`` queries, as in JAX, and
-    ``attention_by_query_chunks`` above, where query row r sits at position
-    r of the keys (the FIRST positions, as the flash kernel counts them),
-    which equals ``full_attention`` when q and k have the same length.
-    Above ``chunk`` the softmax weights stay float32 through P.V, where
-    JAX's ``attend`` casts them to the input dtype first: the same in
-    float32, not bit for bit in bf16."""
+    """Dense attention evaluated per query chunk (exact, memory-bounded), the
+    full model's training attention, in JAX's numerics: ``full_attention``
+    up to ``chunk`` queries; above, ``attend`` on each chunk of ``chunk``
+    query rows (softmax weights in the input dtype before P.V), query row r
+    at key position r (q and k of one length), against the keys up to the
+    chunk's last row when causal: the only ones JAX's mask keeps.
+
+    Each chunk runs under ``torch.utils.checkpoint``, JAX's
+    ``jax.checkpoint`` per chunk: autograd keeps no chunk's [chunk, n]
+    logits or weights, and the backward recomputes them, one chunk at a
+    time, giving the same bits as the chunks kept."""
     if q.shape[2] <= chunk:
         return full_attention(q, k, v, causal=causal, scale=scale)
-    return attention_by_query_chunks(q, k, v, causal=causal, scale=scale, chunk=chunk)
+    outs = []
+    for c0, qc in zip(range(0, q.shape[2], chunk), q.split(chunk, dim=2)):
+        c1 = c0 + qc.shape[2]
+        kc, vc = (k[:, :, :c1], v[:, :, :c1]) if causal else (k, v)
+        outs.append(checkpoint(_causal_chunk_attend, qc, kc, vc, c0, causal, scale,
+                               use_reentrant=False))
+    return torch.cat(outs, dim=2)
 
 
 def _shift_tiles(x: torch.Tensor, amt: int) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """The Native Sparse Attention layer (``nsa_tpu/ops/nsa.py``): three
 branches under a learned sigmoid gate.
 
-* branch 1: compressed attention over GroupedMLP compressions of
-  overlapping K/V windows plus one learned mem slot; its logits double as
-  block-importance scores;
+* branch 1: compressed attention over the compressions of overlapping K/V
+  windows (any kind of ``ops/compress.py``) plus one learned mem slot; its
+  logits double as block-importance scores;
 * branch 2: fine attention over the top-k selected blocks united with the
   block-causal diagonal;
 * branch 3: sliding-window attention.
@@ -26,9 +26,11 @@ takes the ragged fused pair at every batch size
 table), or, forced to the split route, JAX's XLA branches with the block
 gather as a kernel (``ops/cuda/paged_gather.py``).  The
 port covers the configuration those kernels take: causal, query heads
-sharing their KV head's selection, ``selection_block_size / stride > 1``,
-the ``mlp`` compressor.  Other configurations raise ``NotImplementedError``
-(see ``ROADMAP.md``).
+sharing their KV head's selection, ``selection_block_size / stride > 1``;
+other configurations raise ``NotImplementedError`` (see ``ROADMAP.md``).
+Every compressor trains and prefills through the same kernels, which take
+only the selections; the fused routes take only the ``mlp`` compressor, as
+in JAX, so the other kinds decode on the split route.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from ..config import ModelConfig
 from .attention import attend
 from ..utils.checkpoint import tree_to
 from .common import merge_heads, rms_norm, round_down_mult, round_up_mult, split_heads
-from .compress import apply_compressor, split_compress_windows
+from .compress import apply_compressor, init_compressor, split_compress_windows
 from .cuda.nsa_decode import (
     attend_combined_plain,
     decode_attend,
@@ -119,16 +121,6 @@ def init_sparse_attention(cfg: ModelConfig, generator: torch.Generator,
         bound = 1.0 / fan_in ** 0.5
         return (torch.rand(shape, generator=generator) * 2 - 1) * bound
 
-    def compressor():
-        dim_in = d * nsa.compress_block_size
-        hidden = int(dim_in * nsa.compress_mlp_expand_factor)
-        return {
-            "w1": uniform((kvh, dim_in, hidden), dim_in),
-            "b1": uniform((kvh, hidden), dim_in),
-            "w2": uniform((kvh, hidden, d), hidden),
-            "b2": uniform((kvh, d), hidden),
-        }
-
     params = {
         "norm_scale": torch.ones(cfg.dim),
         "w_q": uniform((cfg.dim, cfg.dim_inner), cfg.dim),
@@ -137,8 +129,8 @@ def init_sparse_attention(cfg: ModelConfig, generator: torch.Generator,
         "mem_kv": torch.zeros(2, kvh, nsa.num_compressed_mem_kv, d),
         "k_pos": torch.zeros(kvh, nsa.compress_block_size, d),
         "v_pos": torch.zeros(kvh, nsa.compress_block_size, d),
-        "k_compress": compressor(),
-        "v_compress": compressor(),
+        "k_compress": init_compressor(nsa, kvh, d, generator),
+        "v_compress": init_compressor(nsa, kvh, d, generator),
         "gate_w": torch.zeros(cfg.dim, 3 * h),
         "gate_b": torch.tensor([-2.0, -2.0, 2.0]).repeat(h),
         "w_out": uniform((cfg.dim_inner, cfg.dim), cfg.dim_inner),
@@ -329,12 +321,16 @@ def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).contiguous()
 
 
-def _pack_attn(attn: dict, dtype: torch.dtype) -> dict:
+def _pack_attn(attn: dict, dtype: torch.dtype, compressor: str = "mlp") -> dict:
+    """The decode weights of one layer; for a compressor other than ``mlp``
+    only the fused projection, all that the split route reads."""
+    w_qkvg = _cast(torch.cat([attn["w_q"], attn["w_k"], attn["w_v"], attn["gate_w"]], 1), dtype)
+    if compressor != "mlp":
+        return {"w_qkvg": w_qkvg}
     kc, vc = attn["k_compress"], attn["v_compress"]
     f32 = torch.float32
     return {
-        "w_qkvg": _cast(torch.cat([attn["w_q"], attn["w_k"], attn["w_v"], attn["gate_w"]], 1),
-                        dtype),
+        "w_qkvg": w_qkvg,
         "pos_kv": _cast(torch.cat([attn["k_pos"], attn["v_pos"]], -1), dtype),
         "w1k": _cast(kc["w1"], dtype), "b1k": _cast(kc["b1"], f32),
         "w1v": _cast(vc["w1"], dtype), "b1v": _cast(vc["b1"], f32),
@@ -352,16 +348,19 @@ def _pack_ff(ff: dict, dtype: torch.dtype) -> dict:
             "b2": _cast(ff["b2"], f32)}
 
 
-def fuse_decode_layer(layer: dict, dtype: torch.dtype) -> dict:
+def fuse_decode_layer(layer: dict, dtype: torch.dtype, compressor: str = "mlp") -> dict:
     """A layer's decode weights packed once for the decode step
     (``fuse_decode_params``): ``attn["decode_fused"]`` holds the fused
     projection ``w_qkvg``, ``pos_kv = k_pos||v_pos``, the compressors'
     ``w1k``, ``w1v`` [kvh, Bc*d, hid] and ``w2 = w2_k||w2_v``, ``mem_kv``
-    and ``w_out`` in ``dtype`` and the compressors' biases in float32;
-    ``ff["decode_fused"]`` the FF's matrices in ``dtype`` and its norm scale
-    and biases in float32.  Returns a new layer dict; the input is unchanged."""
+    and ``w_out`` in ``dtype`` and the compressors' biases in float32 (for
+    another ``compressor``, which decodes on the split route, ``w_qkvg``
+    alone); ``ff["decode_fused"]`` the FF's matrices in ``dtype`` and its
+    norm scale and biases in float32.  Returns a new layer dict; the input
+    is unchanged."""
     return {**layer,
-            "attn": {**layer["attn"], "decode_fused": _pack_attn(layer["attn"], dtype)},
+            "attn": {**layer["attn"],
+                     "decode_fused": _pack_attn(layer["attn"], dtype, compressor)},
             "ff": {**layer["ff"], "decode_fused": _pack_ff(layer["ff"], dtype)}}
 
 

@@ -1,15 +1,21 @@
-"""Byte-level GPT pretraining loop (``nsa_tpu/train/pretrain.py``).
+"""Byte-level GPT pretraining loop (``nsa_tpu/train/pretrain.py``), for the
+sparse model with any compressor and for the full-attention model.
 
 Adam after global-norm clipping, gradient accumulation over micro-batches,
 periodic validation, greedy generation, checkpoints with true resume and a
 bf16 ``.npz`` export, as the JAX package's loop.  Parameters are float32
 master tensors updated in place; the forward computes in ``cfg.dtype``.
-Runs on ``cuda`` unless asked for ``device="cpu"`` (the tests).  There is
-no activation checkpointing: training the reference model at micro-batch
-16 x seq 4096 peaks at 35.6 GiB on an 80 GB H100 (``chip_smoke.py``'s train
-phase), so the JAX package's remat'd layer scan has no counterpart here.
+Runs on ``cuda`` unless asked for ``device="cpu"`` (the tests).
+
+Memory: the full model's attention recomputes each query chunk in the
+backward (``ops/attention.py::full_attention_chunked``), as JAX remats
+its chunks; without it the float32 weights of every chunk would be kept.
+Neither model remats whole layers as JAX's layer scan does: the activations
+that stay fit the card at the JAX trainer's micro-batch 16 x seq 4096
+(``chip_smoke.py``'s train phase prints both models' peaks).
 
     python -m nsa_tpu_torch.train.pretrain --num-batches 3 --ckpt-every 2
+    python -m nsa_tpu_torch.train.pretrain --full-attention --num-batches 3
 
 Like the JAX loop it writes ``data/`` (the synthetic corpus cache) and
 ``ckpt_export/<run>.npz`` relative to the working directory.
@@ -229,13 +235,12 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--generate-every", type=int, default=500)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.full_attention:
-        raise NotImplementedError("training the full-attention model is not ported yet "
-                                  "(ROADMAP.md, modules queue item 2)")
 
-    ckpt_dir = args.ckpt_dir or f"ckpt/sparse_{args.compressor}_seq{args.seq_len}"
-    model_cfg = reference_model_config(compressor=args.compressor).replace(
-        dtype=args.dtype, attn_impl=args.attn_impl)
+    name = "full_attn" if args.full_attention else f"sparse_{args.compressor}"
+    ckpt_dir = args.ckpt_dir or f"ckpt/{name}_seq{args.seq_len}"
+    model_cfg = reference_model_config(
+        compressor=args.compressor, use_sparse_attn=not args.full_attention,
+    ).replace(dtype=args.dtype, attn_impl=args.attn_impl)
     train_cfg = TrainConfig(
         num_batches=args.num_batches,
         batch_size=args.batch_size,

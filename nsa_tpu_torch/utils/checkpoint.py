@@ -15,7 +15,9 @@ their ``uint16`` bit patterns, and a ``__meta__`` entry holds JSON with the
 per-leaf dtypes, the step and the ``model_config``.  The port reads it with
 numpy alone and keeps the JAX layout: a dict with ``token_emb``,
 ``norm_scale``, ``to_logits`` and a list ``layers`` of ``{"attn", "ff"}``
-dicts, every leaf a tensor of the JAX shape.
+dicts, every leaf a tensor of the JAX shape.  Every compressor's tree
+carries across: the ``transformer`` kind's list of ``layers`` as a list,
+the ``mean`` kind as an empty dict.
 """
 
 from __future__ import annotations
@@ -82,7 +84,19 @@ def load_params_npz(
                 data[key], dtypes.get(key) == "bfloat16", device, dtype
             )
             _insert(tree, key, leaf)
-    return _lists_from_int_keys(tree), meta
+    return _with_empty_compressors(_lists_from_int_keys(tree), meta), meta
+
+
+def _with_empty_compressors(params: dict, meta: dict) -> dict:
+    """The ``mean`` compressor has no parameters, so an export holds no path
+    under its ``k_compress`` / ``v_compress``: put their empty dicts back,
+    as the JAX package's params template has them."""
+    cfg = meta.get("model_config") or {}
+    if cfg.get("use_sparse_attn", True) and cfg.get("nsa", {}).get("compressor") == "mean":
+        for layer in params.get("layers", []):
+            for name in ("k_compress", "v_compress"):
+                layer["attn"].setdefault(name, {})
+    return params
 
 
 def model_config_from_meta(meta: dict) -> ModelConfig:

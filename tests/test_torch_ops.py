@@ -95,8 +95,10 @@ def test_mlp_compressor_and_unported_kinds():
     kv = rnd(2, 2, 5, 4, 8, seed=7)
     got = tcomp.apply_compressor({k: T(v) for k, v in params.items()}, "mlp", T(kv))
     close(got, jcomp.apply_compressor(params, "mlp", jnp.asarray(kv)), atol=2e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcomp.apply_compressor({}, "conv", T(kv))
+    # every kind of nsa_tpu is ported (tests/test_torch_compressors.py); an
+    # unknown one raises
+    with pytest.raises(ValueError, match="unknown compressor"):
+        tcomp.apply_compressor({}, "bogus", T(kv))
 
 
 # ---- selection ------------------------------------------------------------
