@@ -143,6 +143,30 @@ Phases, each printing its name and seconds as it ends:
              ``select_tolerance`` / ``attend_tolerance`` with their
              controls; one training micro-step at 2 x 4096 (rows 1, 4, 5),
              its loss and gradients against the plain path.
+16. configs - the NSA configurations that JAX runs on its XLA path, at the
+             reference widths from a seeded init (float32 masters, bf16
+             compute): per-head selection and selection block = stride
+             (compress 16, stride 16, selection block 16) each prefill 16 x
+             3900 and 32 captured greedy steps (no kernel but row 11, a layer
+             a step at stride = block), captured against eager bit for bit,
+             the teacher-forced steps' logits against the full forward over
+             the same ids within 2% of max |logit| with a control that
+             drops each query's own block from the decode, row 11's blocks
+             bit for bit its plain version, 8 engine requests on the dense
+             pool (in float32 each request's tokens equal its own
+             greedy_decode; in bf16 counted), and one training step at 4 x
+             4096 in bf16 against the same step in float32 (loss within
+             2e-3, every gradient within rel L2 0.1) with a control that
+             zeroes layer 0's fine branch, its peak memory; non-causal
+             attention the forward 16 x 3900 and the training step.  Then
+             the hybrid route (rows 2 + 7) on the committed weights at the
+             serving cell: launches, the split route's tokens stepped on
+             both routes from one cache state (2% gate on the rows whose
+             selections agree, with a dropped-block control), row 7's
+             launch plan at bs 64, captured tok/s in turns (split, hybrid,
+             hybrid, split); and rows 6-7 with the FF outside
+             (``NSA_NO_FF_FUSE``) at bs 8 against the FF inside, with a
+             control that leaves layer 0's FF out.
 
 The kernels phase holds the split route's two decode kernels (rows 2-3)
 at the serving cell's shapes (bs 64, t = 3999, seeded inputs): c_out
@@ -190,8 +214,8 @@ as device time from the profiler launch by launch, with the event-timed
 figure and the host time of a call beside it; the attend kernel's grid,
 shared memory and ptxas registers; the block gather of the ragged split route
 at the engine cell and at 64 rows, bit for bit its plain version and
-advanced indexing on contiguous ids and on the strided view of the info
-rows the route passes, a wrong-id control giving other bits, its launch
+advanced indexing on contiguous ids (as the XLA decode branches pass them)
+and on a strided view of info rows, a wrong-id control giving other bits, its launch
 geometry and ptxas registers, its device time and advanced indexing's under
 the zeroing and the clean-cold L2 flush (``kernel_times.Flush``); and the
 flash attention kernel of the full-attention baseline at the serving cell's
@@ -205,6 +229,7 @@ exits non-zero; nothing catches it.  Imports nothing of JAX or ``nsa_tpu``.
 """
 
 import contextlib
+import dataclasses
 import faulthandler
 import functools
 import inspect
@@ -295,18 +320,19 @@ from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
 # each phase's budget against its longest time on the H100: about twice it
-# for eval 60 s (32.1 s), graph 150 s (73.6 s), cpt 60 s (27.8 s), compress
-# 90 s (43.7 s), full 30 s (12.2 s);
+# for eval 60 s (32.1 s) and cpt 60 s (27.8 s);
 # at least 10 s for the phases of a few seconds (device, weights, measure:
 # 3.6 s at most), whose time is host noise; under twice, to keep the sum
 # under 1,000 s, for kernels 130 s (99.9 s: the plain flash attention at
 # full size, flex_attention's compiles, forward and backward), serve 40 s
-# (23 s), train 200 s (104.9 s, both models); over it for build 120 s
-# (48 s), main 15 s (5.2 s), profile 30 s (13.2 s) and small 20 s (8.3 s);
-# 975 s in all
-BUDGET_S = {"device": 10, "build": 120, "weights": 10, "kernels": 130, "main": 15,
-            "measure": 10, "profile": 30, "small": 20, "serve": 40, "full": 30,
-            "eval": 60, "graph": 150, "train": 200, "cpt": 60, "compress": 90}
+# (23 s), train 150 s (104.9 s, both models), graph 100 s (73.6 s), configs
+# 170 s (91.2 s), compress 80 s (43.7 s), full 25 s (12.2 s) and profile
+# 25 s (13.2 s); over it for build 90 s (48 s), main 15 s (5.2 s) and small
+# 20 s (8.3 s); 995 s in all
+BUDGET_S = {"device": 10, "build": 90, "weights": 10, "kernels": 130, "main": 15,
+            "measure": 10, "profile": 25, "small": 20, "serve": 40, "full": 25,
+            "eval": 60, "graph": 100, "train": 150, "cpt": 60, "compress": 80,
+            "configs": 170}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
 SMALL_BATCHES = (8, 1)       # the small-batch cell: the whole-model decode route
 FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
@@ -340,6 +366,32 @@ COMPRESS_BATCH, COMPRESS_PROMPT, COMPRESS_GEN, COMPRESS_MICRO = 8, 2048, 16, 2
 # held, under TOL_GRAD_REL_L2, relative to the gradient of the same layer's
 # query bias instead.
 ZERO_GRAD_LEAF = "['b_k']"
+# the configs phase: the NSA configurations JAX runs on its XLA path, at the
+# reference widths (compress 16, stride 16, selection block 16 for the
+# second); prefill CONFIG_BATCH x PROMPT into MAX_LEN rows, CONFIG_GEN
+# captured greedy steps, an engine run of CONFIG_REQUESTS requests (prompts
+# 256-3900, 16-32 new tokens), a training step at CONFIG_MICRO x SEQ; the
+# hybrid route at the serving cell, the FF outside rows 6-7 at
+# FF_OUTSIDE_BATCH over FF_STEPS teacher-forced steps
+CONFIG_NSA = {"per_head": dict(query_heads_share_selected_kv=False),
+              "stride_eq_block": dict(compress_block_sliding_stride=16),
+              "non_causal": {}}
+CONFIG_BATCH, CONFIG_GEN, CONFIG_REQUESTS, CONFIG_MICRO = 16, 32, 8, 4
+CONFIG_PROMPT_MIN = 256
+# The key compressor's output bias adds q.b2 to the logit of every compressed
+# key of a query's softmax (and of the selection's), which cancels it but for
+# the mem slots' share: its gradient is that share's alone, near zero where
+# a query sees hundreds of compressed keys (every query when non-causal),
+# and bf16 rounding noise dominates it.  Its difference from the float32
+# gradient is held, under TOL_GRAD_REL_L2, relative to the gradient of the
+# same layer's value-compressor output bias instead (as ZERO_GRAD_LEAF is).
+SHIFT_GRAD_LEAF = "['k_compress']['b2']"
+FF_OUTSIDE_BATCH, FF_STEPS = 8, 8
+# The hybrid gate holds the row-steps whose every layer selected the same
+# blocks on both routes: at least this share of them (62% on the H100), and
+# every batch row in some step.  Row 7 is held on its own operands in every
+# launch of the route's first HYBRID_HELD_STEPS steps at bs 64.
+HYBRID_HELD_MIN, HYBRID_HELD_STEPS = 0.5, 4
 DECODE_T = PROMPT + GEN - 1  # the last decode position of the cell
 SEED = 0
 DEVICE = "cuda"
@@ -1742,8 +1794,8 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
 
     # ---- row 11: the block gather of the ragged split route ----------------
     # at the engine cell and at the serving batch (64 rows of seeded blocks);
-    # the ids as the split route passes them, the first columns of the info
-    # rows (a strided view), and contiguous
+    # the ids contiguous, as the XLA decode branches pass them, and as a
+    # strided view of the info rows' first columns, which the wrapper takes
     clean = kernel_times.Flush(clean=True)
     blk_ids = torch.randint(0, MAX_LEN // Bs, (BATCH, kvh, nsa_decode.INFO_WIDTH),
                             generator=gen, device=DEVICE, dtype=torch.int32)
@@ -2735,7 +2787,9 @@ def eval_phase(sparse_params, sparse_cfg, sparse_step, smi):
                 inc_s = s_ev.elapsed_time(e_ev) / 1e3
                 want = {**none, prefill_kernel: cfg.depth}
                 if cfg.use_sparse_attn:
-                    want["decode_step_mega"] = EVAL_SEQ - 1
+                    # the 1-byte prefill has no selectable block: JAX's XLA
+                    # path, as JAX's use_fused_kernel takes it, and no row 1
+                    want.update(prefill_fwd=0, decode_step_mega=EVAL_SEQ - 1)
                 print(f"  {name} incremental ppl: {ppl_i:.6f} over {n_i} bytes in {inc_s:.3f}s "
                       f"({n_i / inc_s:.1f} steps/s); launches "
                       f"{ {k: v for k, v in got.items() if v} }; {smi}", flush=True)
@@ -2858,6 +2912,7 @@ GRAPH_KERNELS = {
 }
 GRAPH_TURNS = ("eager", "captured", "captured", "eager")
 PROFILE_PAD_S = 0.05   # host idle seconds at each end of a profile_run window
+REPLAYS_MARK = "counted replays"   # replayed_kernels' marked range
 
 
 def profile_run(fn, label, per):
@@ -2882,24 +2937,48 @@ def profile_run(fn, label, per):
 
 def replayed_kernels(run, kind, depth, per, label):
     """Profile ``run()``, ``per`` replays of a kept graph (a few: a profile
-    of thousands of records may drop some), and hold each kernel of the
-    step (``GRAPH_KERNELS[kind]``) to the device's own record: its device
-    records a replay, the step's launches, and its wrapper's counter a
-    replay (what the graph adds on each replay) are one number, and no
-    other wrapper counts."""
+    of thousands of records may drop some), twice: a lead run, then after
+    PROFILE_PAD_S of idle host the counted run inside the range
+    REPLAYS_MARK.  Each kernel of the step (``GRAPH_KERNELS[kind]``) is held
+    to the device records that start in the counted run's part of the
+    window (after the midpoint of the pad, so that clock skew of less than
+    half of it does not matter): its records a replay, the step's launches,
+    and its wrapper's counter a replay (what the graph adds on each replay)
+    are one number, and no other wrapper counts.  The lead run takes the
+    window's first records, which the profiler can lose (on the H100, the
+    first whole-model replay's even with the pad of ``profile_run``); its
+    records a replay are printed beside the counted ones, unchecked."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    zero_launches(ALL_KERNELS)
-    prof = profile_run(run, f"{label}: {per} replays of the captured step", per)[0]
-    counters = read_launches(ALL_KERNELS)
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    seen = {k: sum(k in n for n in names) / per for k in GRAPH_KERNELS[kind]}
     want = {k: depth if n == "depth" else n for k, (_, n) in GRAPH_KERNELS[kind].items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        run()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        zero_launches(ALL_KERNELS)
+        with record_function(REPLAYS_MARK):
+            run()
+            torch.cuda.synchronize()
+        counters = read_launches(ALL_KERNELS)
+        time.sleep(PROFILE_PAD_S)
+    events = prof.events()
+    marks = [e for e in events if e.name == REPLAYS_MARK and e.device_type == DeviceType.CPU]
+    check(len(marks) == 1, f"{label}: {len(marks)} host records of the counted range")
+    split = marks[0].time_range.start - PROFILE_PAD_S * 1e6 / 2     # microseconds
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name != REPLAYS_MARK]
+    counted_run = [e.name for e in device if e.time_range.start >= split]
+    lead_run = [e.name for e in device if e.time_range.start < split]
+    seen = {k: sum(k in n for n in counted_run) / per for k in GRAPH_KERNELS[kind]}
+    lead = {k: sum(k in n for n in lead_run) / per for k in GRAPH_KERNELS[kind]}
     counted = {k: counters[fn] / per for k, (fn, _) in GRAPH_KERNELS[kind].items()}
     others = {k: v for k, v in counters.items()
               if v and k not in {fn for fn, _ in GRAPH_KERNELS[kind].values()}}
-    print(f"  {label}: device records a replay {seen}; launches a step {want}; counters a "
-          f"replay {counted}", flush=True)
+    print(f"  {label}: {per} replays of the captured step, twice in one profile: device records "
+          f"a replay in the counted run {seen} (the lead run's {lead}, unchecked); launches a "
+          f"step {want}; counters a replay {counted}", flush=True)
     check(seen == want == counted and not others,
           f"{label}: a replay's device record {seen}, counters {counted}, others {others}, "
           f"expected {want}")
@@ -3748,6 +3827,606 @@ def compress_phase(smi):
     return out
 
 
+def config_model(name):
+    """The reference widths with ``name``'s NSA settings (CONFIG_NSA), bf16
+    compute, float32 masters from a seeded random init on the card."""
+    base = nsa_tpu_torch.reference_model_config().replace(dtype="bfloat16")
+    cfg = base.replace(nsa=dataclasses.replace(base.nsa, **CONFIG_NSA[name]),
+                       causal=name != "non_causal")
+    return cfg, pretrain.trainable(init_transformer(cfg, torch.Generator().manual_seed(SEED),
+                                                    device="cpu"), DEVICE)
+
+
+def no_launches(label, launches, **want):
+    """Every counted kernel launched 0 times but ``want``'s."""
+    want = {**dict.fromkeys(launches, 0), **want}
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+
+
+@contextlib.contextmanager
+def dropped_diagonal_block():
+    """The XLA decode branches with each query's own selection block (the
+    last trailing block, the fine branch's diagonal) left out of the step:
+    its id marked before the sequence start.  The control the incremental
+    decode gate must fail."""
+    real = nsa_layer.trailing_blocks
+
+    def dropped(t, sel_block, n_slide, device):
+        trail = real(t, sel_block, n_slide, device)
+        return torch.cat([trail[..., :-1], torch.full_like(trail[..., -1:], -1)], dim=-1)
+
+    nsa_layer.trailing_blocks = dropped
+    try:
+        yield
+    finally:
+        nsa_layer.trailing_blocks = real
+
+
+@contextlib.contextmanager
+def zeroed_fine_branch():
+    """The XLA path's fine branch zeroed in the first layer that runs it (the
+    layer's blocks, ``kb``, identify its chunks, recomputed ones too).  The
+    control the training gates must fail."""
+    real = nsa_layer.fine_attend_core
+    first = []
+
+    def zeroed(q, kb, *a, **k):
+        out = real(q, kb, *a, **k)
+        first.append(first[0] if first else kb.data_ptr())
+        return out * 0 if kb.data_ptr() == first[0] else out
+
+    nsa_layer.fine_attend_core = zeroed
+    try:
+        yield
+    finally:
+        nsa_layer.fine_attend_core = real
+
+
+@contextlib.contextmanager
+def recorded_gather():
+    """Row 11 in the NSA layer wrapped so that its first call's operands
+    and output are kept in the list yielded."""
+    rec, real = [], nsa_layer.paged_gather
+
+    def gather(kv, idx, Bs):
+        out = real(kv, idx, Bs)
+        if not rec:
+            rec.append((kv.clone(), idx.clone(), Bs, out.clone()))
+        return out
+
+    nsa_layer.paged_gather = gather
+    try:
+        yield rec
+    finally:
+        nsa_layer.paged_gather = real
+
+
+def teacher_forced(params, cfg, tokens, cache, **kw):
+    """Eager decode steps from ``cache`` (written in place), each consuming
+    its column of ``tokens`` (``kw``: transformer_decode_step's keywords):
+    the logits [b, steps, vocab]."""
+    outs = []
+    for i in range(tokens.shape[1]):
+        lg, cache = transformer_decode_step(params, cfg, tokens[:, i], cache, **kw)
+        outs.append(lg)
+    return torch.stack(outs, 1)
+
+
+@contextlib.contextmanager
+def recorded_selections():
+    """The info rows of every ``decode_select`` call of the layer, kernel
+    or plain, in call order (one a layer a step), in the list yielded."""
+    rec, real = [], (nsa_layer.decode_select, nsa_layer.decode_select_plain)
+
+    def recording(fn):
+        def select(*a, **k):
+            c_out, info = fn(*a, **k)
+            rec.append(info)
+            return c_out, info
+        return select
+
+    nsa_layer.decode_select, nsa_layer.decode_select_plain = map(recording, real)
+    try:
+        yield rec
+    finally:
+        nsa_layer.decode_select, nsa_layer.decode_select_plain = real
+
+
+def paired_steps(params, cfg, tokens, cache, ref, variants, same_selections=False):
+    """Decode steps consuming ``tokens`` from ``cache`` on the reference
+    route (``ref``: transformer_decode_step's keywords), and before each
+    step every variant (name: (a context manager factory, keywords)) from a
+    copy of the same cache state, so the routes' caches never drift apart:
+    for each variant, the largest ``rel_gate`` figure over the steps.
+
+    With ``same_selections`` (routes whose layers select through
+    ``decode_select``) a row is held only where every layer selected the
+    same blocks on both routes: the routes round a layer's output at other
+    points, which moves a later layer's query by a rounding and can flip a
+    near tie among its selection scores, a discrete change the gate is not
+    about.  Layer 0, whose inputs are the same bits on both routes, must
+    select the same blocks.  Returns (figures, {name: (row-steps left out,
+    row-steps whose layer 0 selected other blocks, the figure over every
+    row, the steps held of each batch row [b])})."""
+    spare = clone_cache(cache)
+    worst = dict.fromkeys(variants, 0.0)
+    every = dict.fromkeys(variants, 0.0)
+    flipped = {name: [0, 0] for name in variants}
+    held = {name: torch.zeros(tokens.shape[0], dtype=torch.long, device=tokens.device)
+            for name in variants}
+    cols = 2 * cfg.nsa.num_selected_blocks + \
+        -(-cfg.nsa.sliding_window_size // cfg.nsa.selection_block_size) + 1
+
+    def selections(rec):       # [b, layers, kvh * cols]
+        return torch.stack([x.reshape(x.shape[0], -1, x.shape[-1])[..., :cols].flatten(1)
+                            for x in rec], 1) if rec else None
+
+    for i in range(tokens.shape[1]):
+        got, sel = {}, {}
+        spare = spare._replace(seq_len=cache.seq_len)
+        for name, (ctx, kw) in variants.items():
+            copy_cache(spare, cache)
+            with ctx(), recorded_selections() as rec:
+                got[name], _ = transformer_decode_step(params, cfg, tokens[:, i], spare, **kw)
+            sel[name] = selections(rec)
+        with recorded_selections() as rec:
+            want, cache = transformer_decode_step(params, cfg, tokens[:, i], cache, **ref)
+        sel_ref = selections(rec)
+        scale = max(want.abs().max().item(), 1.0)
+        for name, lg in got.items():
+            err = (lg.float() - want.float()).abs().amax(-1)
+            every[name] = max(every[name], err.max().item() / scale)
+            if same_selections:
+                equal = sel[name] == sel_ref                       # [b, layers, kvh * cols]
+                same = equal.flatten(1).all(-1)
+                flipped[name][0] += int((~same).sum())
+                flipped[name][1] += int((~equal[:, 0].all(-1)).sum())
+                held[name] += same.long()
+                err = err[same]
+            else:
+                held[name] += 1
+            worst[name] = max(worst[name], err.max().item() / scale if err.numel() else 0.0)
+    return worst, {name: (*flipped[name], every[name], held[name].cpu()) for name in variants}
+
+
+def rel_gate(got, want):
+    """max |got - want| over max |want| (at least 1): the 2% gate's figure."""
+    return max_err(got, want) / max(want.abs().max().item(), 1.0)
+
+
+def config_train_gate(name, params, cfg, micro):
+    """One training step's loss and every gradient in bf16 against the same
+    step in float32 on the card, and the same with one layer's fine branch
+    zeroed (the control); the bf16 step's peak memory and launches."""
+    zero_launches(ALL_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lb, gb = loss_and_grads(params, cfg, micro)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    no_launches(f"{name} training step", read_launches(ALL_KERNELS))
+    lf, gf = loss_and_grads(params, cfg.replace(dtype="float32"), micro)
+    with zeroed_fine_branch():
+        lc, gc = loss_and_grads(params, cfg, micro)
+    _, again = loss_and_grads(params, cfg, micro)
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(gb, again))
+    del again
+    keys = [k for k, _ in tree_items(params)]
+    out = {"bf16_repeat_bit_equal": repeat_equal}
+    for label, loss, grads in (("bf16", lb, gb), ("control", lc, gc)):
+        errs = grad_errs(params, grads, gf)
+        for i, key in enumerate(keys):
+            if key.endswith(SHIFT_GRAD_LEAF):
+                sibling = gf[keys.index(key.replace("['k_compress']", "['v_compress']"))]
+                errs[key] = (grads[i].float() - gf[i].float()).norm().item() / \
+                    sibling.float().norm().item()
+        top = sorted(errs, key=errs.get, reverse=True)[:3]
+        out[label] = {"loss": loss, "loss_rel": abs(loss - lf) / abs(lf),
+                      "grad_rel_l2_max": errs[top[0]], "at": top[0],
+                      "next": {k: errs[k] for k in top[1:]}}
+    del gb, gf, gc
+    b = out["bf16"]
+    print(f"  {name}: training step {tuple(micro.shape)} bf16 loss {lb:.6f} float32 {lf:.6f} "
+          f"(rel {b['loss_rel']:.2e}, tol {TOL_LOSS_REL}); gradients rel L2 max "
+          f"{b['grad_rel_l2_max']:.3e} at {b['at']} (tol {TOL_GRAD_REL_L2}; next {b['next']}; "
+          f"the bf16 step again bit for bit: {repeat_equal}); control (layer 0's "
+          f"fine branch zeroed) loss rel {out['control']['loss_rel']:.2e}, gradients "
+          f"{out['control']['grad_rel_l2_max']:.3e} at {out['control']['at']}; step "
+          f"{step_s:.2f}s, peak {peak / 2**30:.2f} GiB", flush=True)
+    check(math.isfinite(lb) and b["loss_rel"] <= TOL_LOSS_REL,
+          f"{name}: bf16 training loss disagrees with float32's")
+    check(b["grad_rel_l2_max"] <= TOL_GRAD_REL_L2, f"{name}: bf16 gradients disagree")
+    check(out["control"]["loss_rel"] > TOL_LOSS_REL
+          or out["control"]["grad_rel_l2_max"] > TOL_GRAD_REL_L2,
+          f"{name}: the training gates pass a step with a fine branch zeroed")
+    return {"loss_float32": lf, **out, "step_s": step_s, "peak_bytes": peak}
+
+
+def config_decode(name, params, cfg, smi):
+    """A decodable configuration: prefill, captured greedy decode, the
+    incremental-vs-full gate with its control, captured vs eager, row 11's
+    gather, the engine; launches counted around each path's run."""
+    out = {}
+    gathers = cfg.depth if cfg.nsa.num_compress_per_fine == 1 else 0  # row 11 a layer a step
+    ids = seeded_ids(CONFIG_BATCH, PROMPT, cfg.vocab_size, SEED, DEVICE)
+    with torch.inference_mode():
+        zero_launches(ALL_KERNELS)
+        t0 = time.perf_counter()
+        logits, cache = transformer_prefill(params, cfg, ids, MAX_LEN)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        no_launches(f"{name} prefill", read_launches(ALL_KERNELS))
+        first = logits[:, -1].argmax(-1)
+        run = clone_cache(cache)
+        zero_launches(ALL_KERNELS)
+        s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_.record()
+        tokens = greedy_decode(params, cfg, first, run, CONFIG_GEN)
+        e_.record()
+        launches = read_launches(ALL_KERNELS)
+        decode_s = s_.elapsed_time(e_) / 1e3
+        no_launches(f"{name} decode", launches, paged_gather=gathers * CONFIG_GEN)
+        out.update(decode_s=decode_s, decode_tok_s=CONFIG_BATCH * CONFIG_GEN / decode_s,
+                   decode_launches=launches)
+        check(tuple(tokens.shape) == (CONFIG_BATCH, CONFIG_GEN) and bool(torch.isfinite(
+            logits).all()), f"{name}: prefill or decode malformed")
+
+        # captured against eager, from the prefill's cache
+        caches = []
+        for capture in (False, True):
+            copy_cache(run, cache)
+            toks = greedy_decode(params, cfg, first, run, CONFIG_GEN, capture=capture)
+            caches.append((toks, [x.clone() for lc in run.layers for x in lc]))
+        check(torch.equal(caches[0][0], caches[1][0]) and torch.equal(caches[0][0], tokens)
+              and all(torch.equal(x, y) for x, y in zip(caches[0][1], caches[1][1])),
+              f"{name}: captured decode differs from eager")
+        del caches
+        lg = []
+        for capture in (False, True):
+            copy_cache(run, cache)
+            lg.append(step_logits(params, cfg, first, run, None, capture))
+        check(torch.equal(lg[0], lg[1]), f"{name}: captured step logits differ from eager")
+
+        # incremental decode against the full forward over the same ids
+        copy_cache(run, cache)
+        with recorded_gather() as rec:
+            inc = teacher_forced(params, cfg, tokens, run)
+        check(torch.equal(inc[:, :-1].argmax(-1), tokens[:, 1:]),
+              f"{name}: teacher-forced steps pick other tokens than the loop")
+        full = transformer_forward(params, cfg, torch.cat([ids, tokens], 1))[:, PROMPT:]
+        copy_cache(run, cache)
+        with dropped_diagonal_block():
+            ctrl = teacher_forced(params, cfg, tokens, run)
+        out["incremental_vs_full"], out["control_dropped_diagonal"] = \
+            rel_gate(inc, full), rel_gate(ctrl, full)
+        del full, ctrl, inc
+        if gathers:
+            kv, idx, Bs, got = rec[0]
+            out["gather_bit_equal"] = torch.equal(got, paged_gather.paged_gather_plain(kv, idx, Bs))
+            check(out["gather_bit_equal"], f"{name}: row 11 differs from its plain version")
+            del kv, got
+        print(f"  {name}: prefill {CONFIG_BATCH}x{PROMPT} {out['prefill_s']:.3f}s; "
+              f"{CONFIG_GEN} captured greedy steps {decode_s:.3f}s = {out['decode_tok_s']:.1f} "
+              f"tok/s; launches { {k: v for k, v in launches.items() if v} }; captured = eager; "
+              f"incremental vs full forward {out['incremental_vs_full']:.4f} of max|logit| "
+              f"(tol {TOL_LOGITS_REL}), control (diagonal block dropped) "
+              f"{out['control_dropped_diagonal']:.4f}" +
+              (f"; row 11 bit for bit its plain version" if gathers else "") + f"; {smi}",
+              flush=True)
+        check(out["incremental_vs_full"] <= TOL_LOGITS_REL,
+              f"{name}: incremental decode disagrees with the full forward")
+        check(out["control_dropped_diagonal"] > TOL_LOGITS_REL,
+              f"{name}: the incremental gate passes a decode without the diagonal block")
+        del cache, run, logits
+
+        # the engine on the dense pool, each request against its own
+        # greedy_decode: in bf16 (the share of equal tokens: the two run
+        # other matrix shapes, whose bf16 roundings differ, and a random
+        # init's near-flat logits turn on them), and in float32 token for token
+        rs = np.random.RandomState(SEED + 2)
+        reqs = [(rs.randint(32, 127, size=rs.randint(CONFIG_PROMPT_MIN, PROMPT + 1)).astype(
+                     np.int32), int(rs.randint(16, 33))) for _ in range(CONFIG_REQUESTS)]
+        for dtype in ("bfloat16", "float32"):
+            c = cfg.replace(dtype=dtype)
+            got, _, wall, launches, steps, waves, _, _ = run_engine(params, c, reqs,
+                                                                    steps_per_sync=SERVE_SYNC)
+            no_launches(f"{name} engine {dtype}", launches, paged_gather=gathers * steps)
+            equal = []
+            for (p, n), toks in zip(reqs, got):
+                lgp, c1 = transformer_prefill(params, c, torch.from_numpy(p)[None].to(DEVICE),
+                                              MAX_LEN)
+                own = greedy_decode(params, c, lgp[:, -1].argmax(-1), c1, n, capture=False)
+                equal.append(np.array_equal(toks, own[0].cpu().numpy()))
+            out[f"engine_{dtype}"] = {"s": wall, "steps": steps, "waves": waves,
+                                      "new_tok_s": sum(len(t) for t in got) / wall,
+                                      "requests_equal_own_greedy": sum(equal)}
+            print(f"  {name}: engine {dtype}, {CONFIG_REQUESTS} requests on the dense pool, "
+                  f"{steps} ragged steps, {waves} prefill waves, {wall:.3f}s, "
+                  f"{out[f'engine_{dtype}']['new_tok_s']:.1f} new tok/s; {sum(equal)} of "
+                  f"{len(reqs)} requests' tokens equal their own greedy_decode; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        check(all(equal), f"{name}: the float32 engine's tokens differ from the requests' own "
+                          f"greedy_decode")
+    decode_graph.clear()
+    return out
+
+
+@contextlib.contextmanager
+def hybrid_dropped_block():
+    """The hybrid route's plain attend with each (row, KV head)'s first
+    valid selected block left out (``without_first_selected``).  The control
+    the hybrid gate must fail."""
+    real = nsa_layer.decode_attend_fused_plain
+
+    def dropped(rq, kv, kv_new, info, *a, **k):
+        return real(rq, kv, kv_new, nsa_decode_ragged.without_first_selected(
+            info, k["num_sel"], k["n_slide"]), *a, **k)
+
+    nsa_layer.decode_attend_fused_plain = dropped
+    try:
+        yield
+    finally:
+        nsa_layer.decode_attend_fused_plain = real
+
+
+@contextlib.contextmanager
+def held_attend_fused(rec):
+    """Row 7 in the NSA layer wrapped so that each launch is held on its own
+    operands against its plain version, as the kernels phase holds it at
+    bs 8: the output within TOL_FUSED of the largest value, the kv cache it
+    leaves bit for bit the plain version's (the old one with row t
+    written), a second launch bit for bit, whose combined attention output
+    is held element by element to ``attend_tolerance``; and the plain
+    version with each (row, KV head)'s first selected block left out
+    (``without_first_selected``), the control.  One dict of figures a
+    launch, each over its bound, in ``rec``."""
+    real = nsa_layer.decode_attend_fused
+
+    def attend(rq, kv, kv_new, info, c_out, gates, x, w_out, t, ff=(), **k):
+        before = kv.clone()
+        out = real(rq, kv, kv_new, info, c_out, gates, x, w_out, t, ff, **k)
+        args = (kv_new, info, c_out, gates, x, w_out, t, ff)
+        kv_p, again, comb = before.clone(), before.clone(), torch.empty_like(rq)
+        out_p = nsa_decode_fused.decode_attend_fused_plain(rq, kv_p, *args, **k)
+        out_2 = real(rq, again, *args, attn_out=comb, **k)
+        dropped = nsa_decode_ragged.without_first_selected(info, k["num_sel"], k["n_slide"])
+        out_c = nsa_decode_fused.decode_attend_fused_plain(rq, before, kv_new, dropped,
+                                                           *args[2:], **k)
+        tkw = {n: v for n, v in k.items() if n != "eps"}
+        want, tol = nsa_decode_ragged.attend_tolerance(rq, kv_p, info, c_out, gates, t, **tkw)
+        wrong, _ = nsa_decode_ragged.attend_tolerance(rq, kv_p, dropped, c_out, gates, t, **tkw)
+        gate = TOL_FUSED * out_p.float().abs().max().item()
+        rec.append({"out": max_err(out, out_p) / gate,
+                    "attend": ((comb.float() - want.float()).abs() / tol).max().item(),
+                    "control_out": max_err(out_c, out_p) / gate,
+                    "control_attend": ((wrong.float() - want.float()).abs() / tol).max().item(),
+                    "kv_equal": torch.equal(kv, kv_p) and torch.equal(again, kv),
+                    "again_equal": torch.equal(out_2, out),
+                    "finite": bool(torch.isfinite(out.float()).all())})
+        del before, kv_p, again
+        return out
+
+    nsa_layer.decode_attend_fused = attend
+    try:
+        yield rec
+    finally:
+        nsa_layer.decode_attend_fused = real
+
+
+@contextlib.contextmanager
+def layer0_ff_left_out():
+    """``NSA_NO_FF_FUSE`` with layer 0's FF left out of every step (the
+    FF-outside route's first ``ff_apply_gelu`` call of each step returns
+    zeros).  The control the FF-outside gate must fail."""
+    real, calls = nsa_layer.ff_apply_gelu, [0]
+
+    def ff(ffp, c, x):
+        calls[0] += 1
+        return torch.zeros_like(x) if calls[0] % c.depth == 1 else real(ffp, c, x)
+
+    nsa_layer.ff_apply_gelu = ff
+    try:
+        with env_set("NSA_NO_FF_FUSE"):
+            yield
+    finally:
+        nsa_layer.ff_apply_gelu = real
+
+
+@contextlib.contextmanager
+def env_set(name, value="1"):
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def hybrid_route(params, cfg, smi):
+    """The hybrid route (rows 2 + 7) at the serving cell on the committed
+    weights: launches, the split route's tokens teacher-forced through both
+    routes with a dropped-block control, row 7's plan at bs 64, tok/s in
+    turns (split, hybrid, hybrid, split); then the FF outside rows 6-7 at
+    bs 8 (``NSA_NO_FF_FUSE``) against the FF inside, with a control."""
+    out = {}
+    packed = fuse_decode_params(params, cfg)
+    ids = seeded_ids(BATCH, PROMPT, cfg.vocab_size, SEED, DEVICE)
+    logits, cache = transformer_prefill(packed, cfg, ids, MAX_LEN)
+    first = logits[:, -1].argmax(-1)
+    run = clone_cache(cache)
+    tokens, _ = decode_run(packed, cfg, first, run, route="split")
+    copy_cache(run, cache)
+    zero_launches(ALL_KERNELS)
+    hyb_tokens, _ = decode_run(packed, cfg, first, run, route="hybrid")
+    launches = read_launches(ALL_KERNELS)
+    no_launches("hybrid route", launches, decode_select=cfg.depth * GEN,
+                decode_attend_fused=cfg.depth * GEN)
+    out["launches"] = launches
+    nsa = cfg.nsa
+    rq = torch.empty((BATCH, cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head),
+                     dtype=torch.bfloat16, device=DEVICE)
+    out["row7_plan_bs64"] = nsa_decode_ragged.attend_plan(
+        rq, cfg.dim, packed["layers"][0]["ff"]["decode_fused"]["w1"].shape[1],
+        sel_block=nsa.selection_block_size, num_sel=nsa.num_selected_blocks,
+        n_slide=-(-nsa.sliding_window_size // nsa.selection_block_size) + 1)
+    copy_cache(run, cache)
+    gate, flipped = paired_steps(packed, cfg, tokens, run, dict(route="split"), {
+        "hybrid": (contextlib.nullcontext, dict(route="hybrid")),
+        "control": (hybrid_dropped_block, dict(route="hybrid", use_kernels=False))},
+        same_selections=True)
+    out["hybrid_vs_split"], out["control_dropped_block"] = gate["hybrid"], gate["control"]
+    out["rows_selection_flipped"] = {k: v[0] for k, v in flipped.items()}
+    out["hybrid_vs_split_every_row"] = flipped["hybrid"][2]
+    held_rows = flipped["hybrid"][3]
+    out["held_share"] = held_rows.sum().item() / (BATCH * GEN)
+    out["held_steps_per_row"] = {"min": int(held_rows.min()), "max": int(held_rows.max())}
+    out["tokens_equal_share"] = (hyb_tokens == tokens).float().mean().item()
+    print(f"  hybrid route bs {BATCH} prompt {PROMPT} gen {GEN}: launches "
+          f"{ {k: v for k, v in launches.items() if v} }; each step of the split route's tokens "
+          f"from the split route's cache state, logits {out['hybrid_vs_split']:.4f} of "
+          f"max|logit| at most (tol {TOL_LOGITS_REL}) over the row-steps whose every layer "
+          f"selected the same blocks on both routes: {100 * out['held_share']:.1f}% of them "
+          f"(at least {100 * HYBRID_HELD_MIN:.0f}%; {flipped['hybrid'][0]} of {BATCH * GEN} "
+          f"left out, {flipped['hybrid'][1]} in layer 0), each batch row in "
+          f"{out['held_steps_per_row']['min']}-{out['held_steps_per_row']['max']} of {GEN} "
+          f"steps (at least 1); {flipped['hybrid'][2]:.4f} over every row; control (each "
+          f"row's first selected block dropped, plain) {out['control_dropped_block']:.4f} "
+          f"({flipped['control'][0]} row-steps left out); its own greedy tokens equal the "
+          f"split route's on {100 * out['tokens_equal_share']:.1f}%; row 7's plan at bs "
+          f"{BATCH} {out['row7_plan_bs64']}", flush=True)
+    check(out["hybrid_vs_split"] <= TOL_LOGITS_REL,
+          "hybrid route logits disagree with the split route's")
+    check(flipped["hybrid"][1] == 0,
+          f"layer 0 of the hybrid route selects other blocks than the split route's in "
+          f"{flipped['hybrid'][1]} row-steps: the same kernel on the same inputs")
+    check(out["held_share"] >= HYBRID_HELD_MIN and out["held_steps_per_row"]["min"] >= 1,
+          "the hybrid gate holds too few row-steps, or leaves a batch row out of every step")
+    check(out["control_dropped_block"] > TOL_LOGITS_REL,
+          "the hybrid gate passes an attend without a selected block")
+
+    # row 7 at the path's own shapes: every launch of the route's first
+    # HYBRID_HELD_STEPS steps, held on its own operands
+    copy_cache(run, cache)
+    rec = []
+    with held_attend_fused(rec):
+        teacher_forced(packed, cfg, tokens[:, :HYBRID_HELD_STEPS], run, route="hybrid")
+    check(len(rec) == cfg.depth * HYBRID_HELD_STEPS,
+          f"row 7 held on {len(rec)} launches, expected {cfg.depth * HYBRID_HELD_STEPS}")
+    r7 = {"launches": len(rec)}
+    for k in rec[0]:
+        v = [r[k] for r in rec]
+        r7[k] = max(v) if k in ("out", "attend") else min(v) if k.startswith("control") \
+            else all(v)
+    r7["control_out_max"] = max(r["control_out"] for r in rec)
+    out["row7_bs64"] = r7
+    print(f"  row 7 on the hybrid route at bs {BATCH}, {len(rec)} launches (every layer, "
+          f"{HYBRID_HELD_STEPS} steps), each on its own operands against its plain version: "
+          f"output worst |err| / (TOL_FUSED x max) {r7['out']:.4f} (<= 1), attention output "
+          f"worst |err| / attend_tolerance {r7['attend']:.4f} (<= 1), finite {r7['finite']}; "
+          f"kv cache bit for bit the plain version's: {r7['kv_equal']}; a second launch "
+          f"bit-equal: {r7['again_equal']}; the control (each row's first selected block left "
+          f"out) at least {r7['control_attend']:.1f} of attend_tolerance (> 1), output "
+          f"{r7['control_out']:.3f}-{r7['control_out_max']:.3f} of its gate (the largest > 1)",
+          flush=True)
+    check(r7["out"] <= 1.0 and r7["attend"] <= 1.0 and r7["finite"],
+          "decode_attend_fused on the hybrid route disagrees with its plain version")
+    check(r7["kv_equal"] and r7["again_equal"],
+          "decode_attend_fused on the hybrid route: the kv cache differs from the plain "
+          "version's, or a second launch gives other bits")
+    check(r7["control_attend"] > 1.0 and r7["control_out_max"] > 1.0,
+          "decode_attend_fused on the hybrid route: the dropped-block control passes")
+
+    tps = {"split": [], "hybrid": []}
+    for route in ("split", "hybrid", "hybrid", "split"):
+        copy_cache(run, cache)
+        _, sec = decode_run(packed, cfg, first, run, route=route)
+        tps[route].append(BATCH * GEN / sec)
+    out["tok_s"] = tps
+    print(f"  hybrid route bs {BATCH}: captured tok/s in turns split / hybrid / hybrid / "
+          f"split: {tps['split'][0]:.1f} / {tps['hybrid'][0]:.1f} / {tps['hybrid'][1]:.1f} / "
+          f"{tps['split'][1]:.1f}; {smi}", flush=True)
+    del run, cache, logits
+
+    # the FF outside the fused pair (rows 6-7) at bs 8, teacher-forced on
+    # the FF-inside route's greedy tokens
+    b = FF_OUTSIDE_BATCH
+    logits, cache = transformer_prefill(packed, cfg, ids[:b], MAX_LEN)
+    run = clone_cache(cache)
+    forced = greedy_decode(packed, cfg, logits[:, -1].argmax(-1), run, FF_STEPS, route="fused",
+                           capture=False)
+    copy_cache(run, cache)
+    zero_launches(ALL_KERNELS)
+    with env_set("NSA_NO_FF_FUSE"):
+        greedy_decode(packed, cfg, forced[:, 0], run, FF_STEPS, route="fused", capture=False)
+    counts = read_launches(ALL_KERNELS)
+    no_launches("FF outside", counts, decode_select_emit=cfg.depth * FF_STEPS,
+                decode_attend_fused=cfg.depth * FF_STEPS)
+    copy_cache(run, cache)
+    gate, _ = paired_steps(packed, cfg, forced, run, dict(route="fused"), {
+        "outside": (lambda: env_set("NSA_NO_FF_FUSE"), dict(route="fused")),
+        "control": (layer0_ff_left_out, dict(route="fused"))})
+    out["ff_outside_vs_inside"], out["ff_outside_control"] = gate["outside"], gate["control"]
+    print(f"  FF outside rows 6-7 (NSA_NO_FF_FUSE) bs {b}, {FF_STEPS} steps each from the FF "
+          f"inside's cache state: "
+          f"logits vs the FF inside {out['ff_outside_vs_inside']:.4f} of max|logit| (tol "
+          f"{TOL_LOGITS_REL}), control (layer 0's FF left out) "
+          f"{out['ff_outside_control']:.4f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; {smi}", flush=True)
+    check(out["ff_outside_vs_inside"] <= TOL_LOGITS_REL,
+          "FF-outside logits disagree with the FF inside the kernel")
+    check(out["ff_outside_control"] > TOL_LOGITS_REL,
+          "the FF-outside gate passes a step without layer 0's FF")
+    decode_graph.clear()
+    return out
+
+
+def configs_phase(smi):
+    """The NSA configurations that JAX runs on its XLA path (per-head
+    selection, selection block = stride, non-causal) at the reference
+    widths from a seeded init, and the hybrid and FF-outside decode routes
+    on the committed weights."""
+    out = {}
+    for name in CONFIG_NSA:
+        t0 = time.perf_counter()
+        cfg, params = config_model(name)
+        res = {}
+        if name == "non_causal":
+            with torch.inference_mode():
+                ids = seeded_ids(CONFIG_BATCH, PROMPT, cfg.vocab_size, SEED, DEVICE)
+                zero_launches(ALL_KERNELS)
+                f0 = time.perf_counter()
+                logits = transformer_forward(params, cfg, ids)
+                torch.cuda.synchronize()
+                res["forward_s"] = time.perf_counter() - f0
+                no_launches(f"{name} forward", read_launches(ALL_KERNELS))
+                check(tuple(logits.shape) == (CONFIG_BATCH, PROMPT, cfg.vocab_size)
+                      and bool(torch.isfinite(logits).all()), f"{name}: forward malformed")
+                print(f"  {name}: forward {CONFIG_BATCH}x{PROMPT} {res['forward_s']:.3f}s, "
+                      f"finite logits", flush=True)
+                del logits
+        else:
+            res.update(config_decode(name, params, cfg, smi))
+        micro = seeded_ids(CONFIG_MICRO, SEQ + 1, cfg.vocab_size, SEED + 1, DEVICE)
+        res["train"] = config_train_gate(name, params, cfg, micro)
+        res["seconds"] = time.perf_counter() - t0
+        out[name] = res
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params, meta = load_params_npz(WEIGHTS, device="cuda", dtype=torch.bfloat16)
+        cfg = model_config_from_meta(meta).replace(dtype="bfloat16")
+        out["hybrid"] = hybrid_route(params, cfg, smi)
+    out["hybrid"]["seconds"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t0 = time.perf_counter()
@@ -3903,6 +4582,9 @@ def main():
     compressors = compress_phase(smi)
     t0 = phase("compress", t0)
 
+    configs = configs_phase(smi)
+    t0 = phase("configs", t0)
+
     for k in kernels:
         # each kernel's count from its own path: serving at bs 64 for the
         # forward and split decode kernels, the fused route's run at bs 8
@@ -3925,6 +4607,7 @@ def main():
         "serve": served, "full": full, "eval": evaluated, "eval_launches": eval_launches,
         "graph": graphs, **train,
         "train_launches": train_launches, "cpt": cpt, "compress": compressors,
+        "configs": configs,
         "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them

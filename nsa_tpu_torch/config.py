@@ -29,7 +29,8 @@ class NSAConfig:
     selection_block_size: int = 16
     num_selected_blocks: int = 4
     num_compressed_mem_kv: int = 1
-    # the port implements only 'mlp' (GroupedMLP); see ops/compress.py
+    # 'mlp' (GroupedMLP), 'conv', 'attn', 'mean', 'shared_mlp', 'single' or
+    # 'transformer'; see ops/compress.py
     compressor: str = "mlp"
     compress_mlp_expand_factor: float = 1.0
     use_diff_topk: bool = True

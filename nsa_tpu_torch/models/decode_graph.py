@@ -18,6 +18,8 @@ loop with the same key, which ``decode_loop`` builds from what the caller
 names: the body's code, the tensors it reads or writes besides the state
 (``reads``: the weights and caches, by address, shape and dtype), the other
 values it closes over (``opts``: the config, the route, the temperature),
+the environment switches a step reads (named by the modules that read
+them, through ``key_env``),
 the generators it draws from (the objects themselves, which the key keeps
 alive), and the state's shapes.  The replaying loop's state tensors are the
 graph's own, into which the caller's starting values are copied.  Each replay adds to the kernel
@@ -30,6 +32,7 @@ against the eager steps), the same body runs eagerly ``n`` times.
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, Iterable, Sequence
 
@@ -56,6 +59,11 @@ COUNTED = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.pref
            flash.flash_attention)
 
 MAX_GRAPHS = 8      # graphs kept at once; the least recently used goes first
+
+# the environment switches that choose what a step launches, read as the
+# step runs, which the modules that read them name (``key_env``): a graph
+# is replayed only under the settings it was captured under
+_STEP_ENV: list = []
 
 State = Dict[str, torch.Tensor]
 
@@ -127,6 +135,12 @@ def clear() -> None:
     _GRAPHS.clear()
 
 
+def key_env(names: Iterable[str]) -> None:
+    """Key every graph also on the environment switches ``names``, which a
+    step reads as it runs."""
+    _STEP_ENV.extend(n for n in names if n not in _STEP_ENV)
+
+
 def decode_loop(state: State, body: Callable[[State], None], n: int, *,
                 reads=(), opts: Hashable = (), capture: bool = True,
                 generators: Sequence[torch.Generator] = ()) -> State:
@@ -146,7 +160,8 @@ def decode_loop(state: State, body: Callable[[State], None], n: int, *,
         for _ in range(n):
             body(state)
         return state
-    key = (body.__code__, opts, _addresses(reads), tuple(generators), device,
+    key = (body.__code__, opts, tuple(os.environ.get(k) for k in _STEP_ENV),
+           _addresses(reads), tuple(generators), device,
            tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(state.items())))
     step = _GRAPHS.get(key)
     if step is None:

@@ -11,9 +11,14 @@ package: at b <= 8 the whole-model kernel ``decode_step_mega`` (one launch
 for all layers, JAX's default there, ``use_mega_decode``); with
 ``NSA_MEGA_DECODE=0`` the fused pair ``decode_select_emit`` +
 ``decode_attend_fused`` per layer; above b = 8 the split pair
-``decode_select`` + ``decode_attend`` per layer.  The serving engine's
-ragged step (``transformer_decode_step_ragged``, one position per row)
-takes the ragged fused pair per layer.
+``decode_select`` + ``decode_attend`` per layer (the hybrid route,
+``decode_select`` + ``decode_attend_fused``, under
+``NSA_HYBRID_DECODE``).  The serving engine's ragged step
+(``transformer_decode_step_ragged``, one position per row) takes the
+ragged fused pair per layer.  The configurations the kernels do not take
+(per-head selection, ``selection_block_size == stride``) decode on JAX's
+XLA branches per layer at every batch size, and train on its XLA path
+(``ops/nsa.py``).
 
 The full-attention baseline (``use_sparse_attn=False``) runs its prefill
 and forward attention through the ``flash_attention`` kernel
@@ -41,6 +46,7 @@ from ..ops.common import mask_value, merge_heads, rms_norm, round_up_mult, split
 from ..ops.cuda.flash import flash_attention, flash_attention_plain
 from ..ops.cuda.nsa_decode_mega import MAX_BATCH, decode_step_mega, decode_step_mega_plain
 from ..ops.nsa import (
+    DECODE_ENV as LAYER_DECODE_ENV,
     NSADecodeCache,
     _fused_decode_applies,
     ff_apply_gelu,
@@ -53,6 +59,12 @@ from ..ops.nsa import (
 from ..ops.rotary import rotate_at_row_offsets, rotate_qk
 from ..utils.checkpoint import tree_to
 from . import decode_graph
+
+# the environment switches a decode step reads as it runs: the layer's and
+# the whole-model route's (``use_mega_decode``); every captured decode loop
+# is keyed on them
+DECODE_ENV = LAYER_DECODE_ENV + ("NSA_MEGA_DECODE", "NSA_MEGA_MAX_B")
+decode_graph.key_env(DECODE_ENV)
 
 
 class KVDecodeCache(NamedTuple):
@@ -411,10 +423,11 @@ def transformer_decode_step_mega(mp: dict, cfg: ModelConfig, token: torch.Tensor
 
 def _mega_route(cfg: ModelConfig, b: int, route: Optional[str]) -> bool:
     """Whether a decode step of ``b`` rows takes the whole-model kernel:
-    ``route`` None follows ``use_mega_decode``, "mega" forces it, "fused"
-    and "split" force a per-layer route."""
-    if route not in (None, "mega", "fused", "split"):
-        raise ValueError(f"route must be None, 'mega', 'fused' or 'split', got {route!r}")
+    ``route`` None follows ``use_mega_decode``, "mega" forces it, "fused",
+    "split" and "hybrid" force a per-layer route."""
+    if route not in (None, "mega", "fused", "split", "hybrid"):
+        raise ValueError(f"route must be None, 'mega', 'fused', 'split' or 'hybrid', "
+                         f"got {route!r}")
     if route == "mega" and not _mega_applies(cfg):
         raise ValueError("the mega decode route needs the sparse model with the gelu FF, "
                          "shared selection, selected blocks and the mlp compressor")
@@ -440,8 +453,10 @@ def transformer_decode_step(
     step reads instead (on the device, as a captured step replays it;
     ``models/decode_graph.py``).  ``route``: None takes the
     whole-model kernel where ``use_mega_decode`` holds, else the layer's
-    default (fused at b <= 8, split above); "mega", "fused" or "split"
-    forces one.  ``use_kernels=False`` runs the route's plain versions (see
+    default (fused at b <= 8, split above, JAX's XLA branches at every b
+    for the configurations the kernels do not take); "mega", "fused",
+    "split" or "hybrid" forces one (see ``sparse_attention_decode``).
+    ``use_kernels=False`` runs the route's plain versions (see
     ``sparse_attention_decode``).  Params packed by ``fuse_decode_params``
     save the per-step packing.  The full-attention model has one route,
     plain PyTorch attention over its ``KVDecodeCache``: ``route`` must be

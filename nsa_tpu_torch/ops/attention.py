@@ -286,3 +286,25 @@ def fine_attend_core(
     attn = torch.softmax(sim, dim=-1).to(q.dtype)
     out = torch.einsum("bhgnj,bhnjd->bhgnd", attn, fv)
     return out.reshape(b, h, m, d)
+
+
+def fine_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    sel_idx: torch.Tensor,
+    sel_mask: torch.Tensor,
+    gates: Optional[torch.Tensor],
+    selection_block_size: int,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The NSA fine branch over all rows at once, the oracle: q [b, h, n, d]
+    rotated; k, v [b, kvh, n, d]; sel_idx / sel_mask / gates [b, Hs, n, S],
+    Hs = kv_heads when the query heads share their selection, else heads.
+    The straight-through gates multiply the gathered keys."""
+    n, d = q.shape[2], q.shape[3]
+    scale = d ** -0.5 if scale is None else scale
+    kb, vb = blockify_kv(k, v, selection_block_size, sel_idx.shape[1])
+    return fine_attend_core(q, kb, vb, sel_idx, sel_mask, gates,
+                            torch.arange(n, device=q.device), causal, scale)

@@ -82,17 +82,18 @@ def gather_kv_blocks(kv, idx, sel_block: int, page_table=None) -> torch.Tensor:
     return kv[pages[..., None], heads, rows].reshape(b, kvh, S * Bs, d2)
 
 
-def select_scores_plain(q, ckv, mem_kv, num_cb, t, *, stride: int,
-                        sel_block: int, scale: float, weights_dtype=None):
-    """Branch 1 and the normalized fine-block scores.
+def compressed_attention_plain(q, ckv, mem_kv, num_cb, *, scale: float, weights_dtype=None):
+    """Branch 1 at one position per row over the live compressed rows and
+    the mem slots (JAX's ``_decode_compressed``, ``nsa_tpu/ops/nsa.py``).
 
-    q [b, kvh, g, d]; ckv [b, kvh, Wc, 2d]; mem_kv [2, kvh, M, d] ->
-    (c_out [b, kvh, g, d], scores [b, kvh, Wc // npf] float32).
-    The softmax weights are rounded to ``weights_dtype`` before P.V: q's
-    dtype by default (the XLA decode path), float32 for the fused kernels.
+    q [b, kvh, g, d]; ckv [b, kvh, Wc, 2d]; mem_kv [2, kvh, M, d]; num_cb
+    the live rows, an int or a 0-d or [b] tensor -> (c_out [b, kvh, g, d],
+    csim [b, kvh, g, M + Wc] the masked, scaled float32 logits).  The
+    softmax weights are rounded to ``weights_dtype`` before P.V: q's dtype
+    by default (the XLA decode path), float32 for the fused kernels.
     ``mem_kv`` is used in its own dtype: the callers cast it to q's, except
-    the whole-model decode, which keeps it in float32 as JAX's megakernel does.
-    """
+    the whole-model decode, which keeps it in float32 as JAX's megakernel
+    does."""
     b, kvh, g, d = q.shape
     wd = q.dtype if weights_dtype is None else weights_dtype
     Wc = ckv.shape[2]
@@ -108,8 +109,22 @@ def select_scores_plain(q, ckv, mem_kv, num_cb, t, *, stride: int,
     cattn = torch.softmax(csim, dim=-1).to(wd)
     cv_all = torch.cat([mem_v[None].expand(b, kvh, M, d).to(wd), ckv[..., d:].to(wd)], dim=2)
     c_out = torch.einsum("bhgj,bhjd->bhgd", cattn, cv_all).to(q.dtype)
+    return c_out, csim
 
-    importance = group_importance(csim.reshape(b, kvh * g, 1, -1), M, g, True)
+
+def select_scores_plain(q, ckv, mem_kv, num_cb, t, *, stride: int,
+                        sel_block: int, scale: float, weights_dtype=None):
+    """Branch 1 and the normalized fine-block scores of the KV heads'
+    shared selection.
+
+    q [b, kvh, g, d]; ckv [b, kvh, Wc, 2d]; mem_kv [2, kvh, M, d] ->
+    (c_out [b, kvh, g, d], scores [b, kvh, Wc // npf] float32);
+    ``weights_dtype`` and ``mem_kv`` as in ``compressed_attention_plain``.
+    """
+    b, kvh, g, _ = q.shape
+    c_out, csim = compressed_attention_plain(q, ckv, mem_kv, num_cb, scale=scale,
+                                             weights_dtype=weights_dtype)
+    importance = group_importance(csim.reshape(b, kvh * g, 1, -1), mem_kv.shape[2], g, True)
     q_pos = torch.as_tensor(t, device=q.device).reshape(-1, 1)        # [1 | b, 1]
     scores = fine_block_scores(importance, q_pos, sel_block, stride)
     return c_out, scores[:, :, 0]
@@ -218,20 +233,17 @@ decode_select.launches = 0
 
 def attend_combined_plain(rq, kv, info, c_out, gates, t, *, sel_block: int,
                           window: int, num_sel: int, n_slide: int, scale: float,
-                          weights_dtype=None, page_table=None,
-                          gathered: bool = False) -> torch.Tensor:
+                          weights_dtype=None, page_table=None) -> torch.Tensor:
     """The block gather, the fine and sliding masked softmaxes, and the gate
     combine, returned in float32 [b, kvh, g, d].  The softmax weights and
     each branch's P.V are rounded to ``weights_dtype``: rq's dtype by
     default (the XLA decode path), float32 for the fused kernels.  With
-    ``page_table`` kv is a page pool (see ``gather_kv_blocks``); with
-    ``gathered`` kv is already the gathered blocks [b, kvh, n_slots * Bs,
-    2d] (the ragged split route gathers them with ``paged_gather``)."""
+    ``page_table`` kv is a page pool (see ``gather_kv_blocks``)."""
     b, kvh, g, d = rq.shape
     wd = rq.dtype if weights_dtype is None else weights_dtype
     Bs = sel_block
     n_slots = num_sel + n_slide
-    fkv = kv if gathered else gather_kv_blocks(kv, info[..., :n_slots], Bs, page_table)
+    fkv = gather_kv_blocks(kv, info[..., :n_slots], Bs, page_table)
 
     trail = trailing_blocks(t, Bs, n_slide, rq.device)                  # [ns] | [b, ns]
     j_trail = trail[..., None] * Bs + torch.arange(Bs, device=rq.device)   # [(b,) ns, Bs]

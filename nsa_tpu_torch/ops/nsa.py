@@ -13,46 +13,61 @@ are never rotated; the gate bias starts at ``[-2, -2, 2]``; decode masks the
 diagonal block exactly as prefill does, so prefill and incremental decode
 agree.
 
-The prefill and training run branches 2 and 3 in one forward kernel and
-two backward kernels (``ops/cuda/nsa_prefill.py``).  The decode step takes
-one of two routes, as in the JAX package: at b <= 8 the fused pair
-``decode_select_emit`` + ``decode_attend_fused`` (``ops/cuda/nsa_decode_fused.py``)
-runs the whole layer, the FF included; above that the split pair
-``decode_select`` + ``decode_attend`` (``ops/cuda/nsa_decode.py``) with the
-cache writes, emission, projection and FF as separate ops.  The ragged
-step of the serving engine (one position per row, ``t`` a [b] tensor)
-takes the ragged fused pair at every batch size
-(``ops/cuda/nsa_decode_ragged.py``; over a paged kv pool with a page
-table), or, forced to the split route, JAX's XLA branches with the block
-gather as a kernel (``ops/cuda/paged_gather.py``).  The
-port covers the configuration those kernels take: causal, query heads
-sharing their KV head's selection, ``selection_block_size / stride > 1``;
-other configurations raise ``NotImplementedError`` (see ``ROADMAP.md``).
+The prefill and training of the default configuration (causal, query heads
+sharing their KV head's selection, ``selection_block_size / stride > 1``)
+run branches 2 and 3 in one forward kernel and two backward kernels
+(``ops/cuda/nsa_prefill.py``).  Every other configuration, per-head
+selection, ``selection_block_size == stride`` or non-causal attention,
+runs JAX's XLA path in plain PyTorch, as JAX does: branches 1 and 2 over
+query chunks (each recomputed in the backward), then the sliding window.
+
+The decode step takes one of these routes, as in the JAX package: at
+b <= 8 the fused pair ``decode_select_emit`` + ``decode_attend_fused``
+(``ops/cuda/nsa_decode_fused.py``) runs the whole layer, the FF included;
+above that the split pair ``decode_select`` + ``decode_attend``
+(``ops/cuda/nsa_decode.py``) with the cache writes, emission, projection
+and FF as separate ops; the hybrid route (``NSA_HYBRID_DECODE``) runs the
+split route's ``decode_select`` with the fused route's
+``decode_attend_fused``.  The ragged step of the serving engine (one
+position per row, ``t`` a [b] tensor) takes the ragged fused pair at every
+batch size (``ops/cuda/nsa_decode_ragged.py``; over a paged kv pool with a
+page table), or, forced to the split route, JAX's XLA branches
+(``_decode_compressed``, ``_decode_fine_sliding``) with the block gather
+as a kernel (``ops/cuda/paged_gather.py``).  The configurations the
+kernels do not take (per-head selection, ``selection_block_size ==
+stride``) decode on those XLA branches at every batch size, scalar or
+ragged, the block gather a kernel where the selection is the KV heads'.
 Every compressor trains and prefills through the same kernels, which take
 only the selections; the fused routes take only the ``mlp`` compressor, as
 in JAX, so the other kinds decode on the split route.
+``NSA_NO_FF_FUSE`` keeps the FF out of the fused and hybrid routes'
+attend kernels and applies it after them.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
-from .attention import attend
+from .attention import attend, blockify_kv, fine_attend_core, sliding_window_attention
 from ..utils.checkpoint import tree_to
-from .common import merge_heads, rms_norm, round_down_mult, round_up_mult, split_heads
+from .common import mask_value, merge_heads, rms_norm, round_down_mult, round_up_mult, split_heads
 from .compress import apply_compressor, init_compressor, split_compress_windows
 from .cuda.nsa_decode import (
-    attend_combined_plain,
+    INFO_WIDTH,
+    compressed_attention_plain,
     decode_attend,
     decode_attend_plain,
     decode_select,
     decode_select_plain,
     per_row,
+    trailing_blocks,
 )
 from .cuda.nsa_decode_fused import (
     decode_attend_fused,
@@ -98,16 +113,6 @@ def _ckv_width(max_len: int, stride: int, npf: int) -> int:
     npf = max(npf, 1)
     unit = npf * 8 // math.gcd(npf, 8)
     return round_up_mult(max_len // stride + npf, unit)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    nsa = cfg.nsa
-    if not (cfg.causal and nsa.query_heads_share_selected_kv
-            and nsa.num_compress_per_fine > 1):
-        raise NotImplementedError(
-            "the port implements causal NSA with shared selection and "
-            "selection_block_size / stride > 1 (see ROADMAP.md)"
-        )
 
 
 def init_sparse_attention(cfg: ModelConfig, generator: torch.Generator,
@@ -178,10 +183,17 @@ def sparse_attention_forward(
     Differentiable: the straight-through top-k gates go into the fine +
     sliding attention, so its ``d_gates`` reaches branch 1's logits, the
     compressors, ``mem_kv`` and the queries through the selection scores,
-    as in the JAX package.  ``use_kernels=False`` runs the plain versions
-    of the forward and backward kernels on any device (see
-    ``sparse_attention_decode``)."""
-    _check_supported(cfg)
+    as in the JAX package.
+
+    Branches 2 and 3 run in the forward kernel (and train through the two
+    backward kernels) exactly where JAX's ``use_fused_kernel`` holds:
+    causal, shared selection, ``selection_block_size / stride > 1`` and at
+    least one selectable block (a prompt of ``selection_block_size``
+    tokens or more).  ``use_kernels=False`` runs their plain versions on
+    any device (see ``sparse_attention_decode``).  Everywhere else the
+    layer runs JAX's XLA path: ``fine_attend_core`` over the chunk's
+    selected blocks (per query head when the heads do not share it), then
+    ``sliding_window_attention``, in plain PyTorch."""
     nsa = cfg.nsa
     b, n, _ = x.shape
     d, h, kvh = cfg.dim_head, cfg.heads, cfg.kv_heads
@@ -217,31 +229,70 @@ def sparse_attention_forward(
     ])
 
     rq, rk = rotate_qk(q, k, cfg.rope_theta)
+    share = nsa.query_heads_share_selected_kv
 
-    # ---- branch 1 + selection, chunked over queries ----------------------
-    couts, idxs, msks, gts = [], [], [], []
-    for c0 in range(0, n, cfg.attn_chunk_size):
-        positions = torch.arange(c0, min(c0 + cfg.attn_chunk_size, n), device=dev)
-        cmask = ck_ends[None, :] < positions[:, None]                # [m, mem+w]
-        c_out, csim = attend(q[:, :, c0:c0 + len(positions)], ck_full, cv_full,
-                             mask=cmask, scale=scale, return_sim=True)
-        importance = group_importance(csim, num_mem, g, True)
+    def compressed_and_select(q_chunk, positions):
+        """Branch 1's output and the fine-block selection of one query chunk."""
+        cmask = ck_ends[None, :] < positions[:, None] if cfg.causal else None   # [m, mem+w]
+        c_out, csim = attend(q_chunk, ck_full, cv_full, mask=cmask, scale=scale,
+                             return_sim=True)
+        importance = group_importance(csim, num_mem, g, share)
         scores = fine_block_scores(importance, positions, Bs, stride)
-        sel = select_blocks(scores, nsa.num_selected_blocks, nsa.use_diff_topk)
-        couts.append(c_out)
-        idxs.append(sel.indices)
-        msks.append(sel.mask)
-        gts.append(sel.gates)
-    compressed_out = torch.cat(couts, dim=2)
-    sel_idx = torch.cat(idxs, dim=2)
-    sel_mask = torch.cat(msks, dim=2)
-    gates = torch.cat(gts, dim=2) if nsa.use_diff_topk else None
+        return c_out, select_blocks(scores, nsa.num_selected_blocks, nsa.use_diff_topk)
 
-    # ---- branches 2 + 3: the fused fine + sliding kernel -----------------
-    fine_out, sliding_out = nsa_fine_sliding_attention(
-        rq.contiguous(), rk.contiguous(), v.contiguous(), sel_idx, sel_mask, gates,
-        Bs, nsa.sliding_window_size, scale, use_kernels=use_kernels,
-    )
+    def chunk_positions(c0, m):
+        return torch.arange(c0, c0 + m, device=dev)
+
+    chunk = cfg.attn_chunk_size
+    # the kernel path where JAX's use_fused_kernel holds; JAX's XLA path
+    # (branches_12 over query chunks, then the sliding window) elsewhere
+    S = min(nsa.num_selected_blocks, max(num_cblocks // nsa.num_compress_per_fine, 0))
+    if cfg.causal and share and nsa.num_compress_per_fine > 1 and S > 0:
+        # ---- branch 1 + selection, chunked over queries ------------------
+        couts, idxs, msks, gts = [], [], [], []
+        for c0 in range(0, n, chunk):
+            qc = q[:, :, c0:c0 + chunk]
+            c_out, sel = compressed_and_select(qc, chunk_positions(c0, qc.shape[2]))
+            couts.append(c_out)
+            idxs.append(sel.indices)
+            msks.append(sel.mask)
+            gts.append(sel.gates)
+        compressed_out = torch.cat(couts, dim=2)
+        sel_idx = torch.cat(idxs, dim=2)
+        sel_mask = torch.cat(msks, dim=2)
+        gates = torch.cat(gts, dim=2) if nsa.use_diff_topk else None
+
+        # ---- branches 2 + 3: the fused fine + sliding kernel -------------
+        fine_out, sliding_out = nsa_fine_sliding_attention(
+            rq.contiguous(), rk.contiguous(), v.contiguous(), sel_idx, sel_mask, gates,
+            Bs, nsa.sliding_window_size, scale, use_kernels=use_kernels,
+        )
+    else:
+        # ---- branches 1 + 2 over query chunks, then branch 3 -------------
+        # each chunk under torch.utils.checkpoint when autograd records, as
+        # JAX's jax.checkpoint per chunk: the backward recomputes a chunk's
+        # gathered blocks instead of keeping every chunk's
+        kb, vb = blockify_kv(rk, v, Bs, kvh if share else h)
+
+        def branches_12(q_chunk, rq_chunk, c0):
+            positions = chunk_positions(c0, q_chunk.shape[2])
+            c_out, sel = compressed_and_select(q_chunk, positions)
+            f_out = fine_attend_core(rq_chunk, kb, vb, sel.indices, sel.mask, sel.gates,
+                                     positions, cfg.causal, scale)
+            return c_out, f_out
+
+        recompute = torch.is_grad_enabled() and q.requires_grad and n > chunk
+        couts, fouts = [], []
+        for c0 in range(0, n, chunk):
+            args = (q[:, :, c0:c0 + chunk], rq[:, :, c0:c0 + chunk], c0)
+            c_out, f_out = (checkpoint(branches_12, *args, use_reentrant=False) if recompute
+                            else branches_12(*args))
+            couts.append(c_out)
+            fouts.append(f_out)
+        compressed_out = torch.cat(couts, dim=2)
+        fine_out = torch.cat(fouts, dim=2)
+        sliding_out = sliding_window_attention(rq, rk, v, nsa.sliding_window_size,
+                                               causal=cfg.causal, scale=scale)
 
     out = _gate_combine(params, cfg, normed, [compressed_out, fine_out, sliding_out])
     out = merge_heads(out) @ params["w_out"].to(x.dtype)
@@ -302,11 +353,25 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 # JAX's NSA_FUSED_DECODE_MAX_B default: the fused route's largest batch
 FUSED_DECODE_MAX_B = 8
 
+DECODE_ROUTES = (None, "fused", "split", "hybrid")
+
+# the environment switches the decode step reads as it runs, as JAX reads
+# them as it traces (a captured decode loop is keyed on them)
+DECODE_ENV = ("NSA_HYBRID_DECODE", "NSA_NO_FF_FUSE")
+
+
+def _split_decode_applies(cfg: ModelConfig) -> bool:
+    """The configurations the split pair (rows 2-3) takes, JAX's
+    ``use_decode_kernels``: shared selection, ``selection_block_size /
+    stride > 1``."""
+    nsa = cfg.nsa
+    return nsa.query_heads_share_selected_kv and nsa.num_compress_per_fine > 1
+
 
 def _fused_decode_applies(cfg: ModelConfig) -> bool:
     nsa = cfg.nsa
-    return (nsa.query_heads_share_selected_kv and nsa.num_compress_per_fine > 1
-            and nsa.num_selected_blocks > 0 and nsa.compressor == "mlp")
+    return (_split_decode_applies(cfg) and nsa.num_selected_blocks > 0
+            and nsa.compressor == "mlp")
 
 
 def _use_fused_decode(cfg: ModelConfig, b: int) -> bool:
@@ -315,6 +380,44 @@ def _use_fused_decode(cfg: ModelConfig, b: int) -> bool:
     further condition, batch tiles that Mosaic can lay out, holds for every
     b <= 8 and has no counterpart here."""
     return _fused_decode_applies(cfg) and b <= FUSED_DECODE_MAX_B
+
+
+def decode_route(cfg: ModelConfig, b: int, ragged: bool, route: Optional[str] = None) -> str:
+    """The route a decode step of ``b`` rows takes: "fused", "split",
+    "hybrid" or "xla" (JAX's XLA branches, ``_decode_compressed`` +
+    ``_decode_fine_sliding``).  ``route`` as in ``sparse_attention_decode``;
+    a route the configuration does not take raises.
+
+    ``NSA_HYBRID_DECODE`` (any non-empty value, read here as JAX reads it)
+    turns the one-position split route into the hybrid route wherever that
+    applies, whether the split route was the default or forced, as JAX's
+    flag turns its split path (``use_decode_kernels``) into the hybrid one.
+    The ragged split route is the XLA branches."""
+    nsa = cfg.nsa
+    if route not in DECODE_ROUTES:
+        raise ValueError(f"route must be one of {DECODE_ROUTES}, got {route!r}")
+    if route == "fused" and not _fused_decode_applies(cfg):
+        raise ValueError("the fused decode route needs shared selection, selection_block_size "
+                         "/ stride > 1, selected blocks and the mlp compressor")
+    if route in ("split", "hybrid") and not _split_decode_applies(cfg):
+        raise ValueError(f"the {route} decode route needs shared selection and "
+                         f"selection_block_size / stride > 1; this configuration decodes on "
+                         f"JAX's XLA branches (route None)")
+    hybrid_ok = not ragged and _split_decode_applies(cfg) and nsa.num_selected_blocks > 0
+    if route == "hybrid" and not hybrid_ok:
+        raise ValueError("the hybrid decode route takes one position for every row and "
+                         "selected blocks")
+    if route is not None:
+        chosen = route
+    elif ragged:
+        chosen = "fused" if _fused_decode_applies(cfg) else "xla"
+    elif _use_fused_decode(cfg, b):
+        chosen = "fused"
+    else:
+        chosen = "split" if _split_decode_applies(cfg) else "xla"
+    if chosen == "split" and hybrid_ok and os.environ.get("NSA_HYBRID_DECODE"):
+        return "hybrid"
+    return "xla" if ragged and chosen == "split" else chosen
 
 
 def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -392,11 +495,21 @@ def sparse_attention_decode(
     int is written to the device once, and the caller of a device position
     keeps it inside the cache.
 
-    ``route``: ``None`` takes the fused pair at b <= 8 and the split pair
-    above (JAX's default), and the ragged fused pair at every b for a
-    ragged ``t``; ``"fused"`` or ``"split"`` forces one (JAX's
-    ``NSA_FUSED_DECODE_MAX_B`` / ``NSA_NO_FUSED_DECODE``).  On the fused
-    route the layer owns the FF: ``decode_attend_fused`` runs it.  Packed
+    ``route`` (see ``decode_route``): ``None`` takes the fused pair at
+    b <= 8 and the split pair above (JAX's default), and the ragged fused
+    pair at every b for a ragged ``t``; ``"fused"`` or ``"split"`` forces
+    one (JAX's ``NSA_FUSED_DECODE_MAX_B`` / ``NSA_NO_FUSED_DECODE``);
+    ``"hybrid"`` (JAX's ``NSA_HYBRID_DECODE=1``, which also selects it)
+    runs the split route's ``decode_select`` and then the fused route's
+    ``decode_attend_fused`` on its info rows, which writes the kv row,
+    projects, adds the residual and runs the FF: one position, selected
+    blocks.  The configurations the kernels do not take (per-head
+    selection, ``selection_block_size == stride``) have one route, None:
+    JAX's XLA branches at every batch size, scalar or ragged, the block
+    gather through ``paged_gather`` where the selection is the KV heads'.
+    On the fused and hybrid routes the layer owns the FF:
+    ``decode_attend_fused`` runs it, or, with ``NSA_NO_FF_FUSE`` set (read
+    here as JAX reads it), ``ff_apply_gelu`` after the kernel.  Packed
     weights from ``fuse_decode_layer`` are used when present
     (``params["decode_fused"]``, ``ff_params["decode_fused"]``), else packed
     here.
@@ -410,7 +523,6 @@ def sparse_attention_decode(
     card; otherwise the wrappers choose (kernel on CUDA, plain version on
     the CPU).
     """
-    _check_supported(cfg)
     nsa = cfg.nsa
     b = x.shape[0]
     d, h, kvh = cfg.dim_head, cfg.heads, cfg.kv_heads
@@ -426,16 +538,8 @@ def sparse_attention_decode(
     max_len = page_table.shape[1] * cache.kv.shape[2] if paged else cache.kv.shape[2]
     if isinstance(t, int) and not 0 <= t < max_len:
         raise ValueError(f"position {t} is outside the cache of {max_len}")
-    if route not in (None, "fused", "split"):
-        raise ValueError(f"route must be None, 'fused' or 'split', got {route!r}")
-    if route == "fused" and not _fused_decode_applies(cfg):
-        raise ValueError("the fused decode route needs shared selection, selected "
-                         "blocks and the mlp compressor")
-    if route is None:
-        fused = _fused_decode_applies(cfg) if ragged else _use_fused_decode(cfg, b)
-    else:
-        fused = route == "fused"
-    if paged and not (ragged and fused):
+    chosen = decode_route(cfg, b, ragged, route)
+    if paged and not (ragged and chosen == "fused"):
         raise NotImplementedError("paged KV decode requires ragged positions and the fused "
                                   "route (mlp compressor, shared-KV selection)")
     if isinstance(t, torch.Tensor):
@@ -445,7 +549,7 @@ def sparse_attention_decode(
     num_cb = t // stride
 
     fp = params.get("decode_fused")
-    if fp is None and fused:
+    if fp is None and chosen == "fused":
         fp = _pack_attn(params, x.dtype)
     w_fused = (fp["w_qkvg"] if fp is not None else torch.cat(
         [params["w_q"], params["w_k"], params["w_v"], params["gate_w"]], dim=1
@@ -468,8 +572,20 @@ def sparse_attention_decode(
                num_sel=nsa.num_selected_blocks, n_slide=n_slide, scale=scale)
     akw = dict(sel_block=Bs, window=window, num_sel=nsa.num_selected_blocks,
                n_slide=n_slide, scale=scale)
+    # the FF inside the fused and hybrid routes' attend kernel, unless
+    # NSA_NO_FF_FUSE keeps it out; with_ff then applies it after the kernel
+    ff = ()
+    if ff_params is not None and chosen in ("fused", "hybrid") \
+            and not os.environ.get("NSA_NO_FF_FUSE"):
+        ffp = ff_params.get("decode_fused") or _pack_ff(ff_params, x.dtype)
+        ff = tuple(ffp[k] for k in ("norm_scale", "w1", "b1", "w2", "b2"))
 
-    if fused:
+    def with_ff(out_x):
+        if ff_params is not None and not ff:
+            out_x = out_x + ff_apply_gelu(ff_params, cfg, out_x)
+        return out_x
+
+    if chosen == "fused":
         # ---- the fused pair: ring shift, emission, kv row write, attention,
         # projection, residual and FF in two kernels -----------------------
         if not ragged:
@@ -492,24 +608,23 @@ def sparse_attention_decode(
             t, num_cb, **skw,
         )
         kv_new_rot = torch.cat([rk_new, v_new], dim=-1)[:, :, None].to(cache.kv.dtype)
-        ff = ()
-        if ff_params is not None:
-            ffp = ff_params.get("decode_fused") or _pack_ff(ff_params, x.dtype)
-            ff = tuple(ffp[k] for k in ("norm_scale", "w1", "b1", "w2", "b2"))
         out_x = attend_fn(
             rq.reshape(b, kvh, g, d), *kv_operands, kv_new_rot, info, c_out,
             gates.reshape(b, kvh, g, 3), x, fp["w_out"], t, ff, eps=cfg.norm_eps, **akw,
         )
-        return out_x, cache
+        return with_ff(out_x), cache
 
-    # ---- caches: ring shift, kv row write, in place ----------------------
+    # ---- caches: ring shift, kv row write (in the hybrid route's attend
+    # kernel instead), in place --------------------------------------------
     ring = cache.ring
     ring[:, :, :-1].copy_(ring[:, :, 1:].clone())    # through a copy: the views overlap
     ring[:, :, -1].copy_(kv_new)
     kv_cache = cache.kv
     rows = torch.arange(b, device=x.device)
     tv = t if ragged else t.expand(b)                 # each row's position
-    kv_cache[rows, :, tv.long()] = torch.cat([rk_new, v_new], dim=-1).to(kv_cache.dtype)
+    kv_row = torch.cat([rk_new, v_new], dim=-1).to(kv_cache.dtype)
+    if chosen != "hybrid":
+        kv_cache[rows, :, tv.long()] = kv_row
 
     # ---- predicated compressed-block emission ----------------------------
     # when t+1 completes a stride the ring holds the window [t+1-Bc, t+1)
@@ -529,20 +644,24 @@ def sparse_attention_decode(
     qg, rqg = q.reshape(b, kvh, g, d).contiguous(), rq.reshape(b, kvh, g, d)
     gates4 = gates.reshape(b, kvh, g, 3).contiguous()
     mem_kv = params["mem_kv"].to(x.dtype)
-    if ragged:
-        # JAX's XLA branches (its ragged rows under NSA_NO_FUSED_DECODE):
-        # the plain branch 1 and selection, the block gather as a kernel
-        c_out, info = decode_select_plain(qg, ckv_cache, mem_kv, t, num_cb, **skw)
-        gather = paged_gather if use_kernels else paged_gather_plain
-        fkv = gather(kv_cache, info[..., :nsa.num_selected_blocks + n_slide], Bs)
-        out = attend_combined_plain(rqg, fkv, info, c_out, gates4, t, gathered=True,
-                                    **akw).to(x.dtype)
+    if chosen == "xla":
+        c_out, csim = _decode_compressed(qg, ckv_cache, mem_kv, num_cb, scale)
+        fine_out, sliding_out = _decode_fine_sliding(cfg, csim, rq, kv_cache, t,
+                                                     use_kernels=use_kernels)
+        stacked = torch.stack([c_out, fine_out, sliding_out], dim=-1)     # [b, h, d, 3]
+        out = torch.einsum("bhs,bhds->bhd", gates.reshape(b, h, 3).to(stacked.dtype), stacked)
     else:
-        select, attend_fn = (
-            (decode_select, decode_attend) if use_kernels
-            else (decode_select_plain, decode_attend_plain)
-        )
+        select = decode_select if use_kernels else decode_select_plain
         c_out, info = select(qg, ckv_cache, mem_kv, t, num_cb, **skw)
+        if chosen == "hybrid":
+            # decode_select's info rows are decode_attend_fused's, per batch row
+            attend_fn = decode_attend_fused if use_kernels else decode_attend_fused_plain
+            w_out = fp["w_out"] if fp is not None and "w_out" in fp else \
+                params["w_out"].to(x.dtype)
+            out_x = attend_fn(rqg, kv_cache, kv_row[:, :, None], info.reshape(b, kvh * INFO_WIDTH),
+                              c_out, gates4, x, w_out, t, ff, eps=cfg.norm_eps, **akw)
+            return with_ff(out_x), cache
+        attend_fn = decode_attend if use_kernels else decode_attend_plain
         out = attend_fn(rqg, kv_cache, info, c_out, gates4, t, **akw)
     out = out.reshape(b, 1, h * d) @ params["w_out"].to(x.dtype)
 
@@ -550,3 +669,86 @@ def sparse_attention_decode(
     if ff_params is not None:
         out_x = out_x + ff_apply_gelu(ff_params, cfg, out_x)
     return out_x, cache
+
+
+def _decode_compressed(qg, ckv, mem_kv, num_cb, scale: float):
+    """Branch 1 of JAX's XLA decode path (``_decode_compressed``): qg [b,
+    kvh, g, d] unrotated queries over the live compressed rows and the mem
+    slots -> (c_out [b, h, d], csim [b, kvh, g, M + Wc] float32 logits)."""
+    b, kvh, g, d = qg.shape
+    c_out, csim = compressed_attention_plain(qg, ckv, mem_kv, num_cb, scale=scale)
+    return c_out.reshape(b, kvh * g, d), csim
+
+
+def _decode_fine_sliding(cfg: ModelConfig, csim, rq, kv_cache, t, *, use_kernels: bool = True):
+    """Branches 2 and 3 of JAX's XLA decode path (``_decode_fine_sliding``)
+    from one gathered block set: the selection from branch 1's logits csim
+    (shared by each KV head's query heads, or per query head), then the S
+    selected blocks and the ``n_slide`` blocks ending at the query's own
+    block, one q.K and two masked softmaxes.  rq [b, h, d] rotated; kv_cache
+    [b, kvh, max_len, 2d] holding row t; t a 0-d or [b] int32 tensor.
+    Returns (fine_out, sliding_out), each [b, h, d].
+
+    Block ids are clamped to the cache, as JAX's gathers clamp them (with
+    ``selection_block_size == stride`` the unselectable slots past the live
+    blocks can name blocks past the cache; their columns are masked).  With
+    the KV heads' selection the blocks come through ``paged_gather`` (row
+    11; its plain version under ``use_kernels=False``); per query head each
+    head's blocks are read from its own KV head's rows, the values JAX
+    gathers from its ``repeat_kv`` copy of the cache, without the copy."""
+    nsa = cfg.nsa
+    Bs, window = nsa.selection_block_size, nsa.sliding_window_size
+    b, h, d = rq.shape
+    kvh = kv_cache.shape[1]
+    n_blocks = kv_cache.shape[2] // Bs
+    dev = rq.device
+    importance = group_importance(csim.reshape(b, h, 1, -1), nsa.num_compressed_mem_kv,
+                                  cfg.num_grouped_queries, nsa.query_heads_share_selected_kv)
+    scores = fine_block_scores(importance, t.reshape(-1, 1), Bs,
+                               nsa.compress_block_sliding_stride)
+    sel = select_blocks(scores, nsa.num_selected_blocks, use_diff_topk=False)
+    Hs, S = sel.indices.shape[1], sel.indices.shape[-1]
+    n_slide = -(-window // Bs) + 1
+    J = S + n_slide
+
+    trail = trailing_blocks(t, Bs, n_slide, dev)                     # [ns] | [b, ns]
+    idx_all = torch.cat([
+        sel.indices[:, :, 0].clamp(0, n_blocks - 1),
+        trail.clamp(0, n_blocks - 1).to(torch.int32).reshape(-1, 1, n_slide).expand(b, Hs, n_slide),
+    ], dim=-1)                                                       # [b, Hs, J]
+    if Hs == kvh:
+        gather = paged_gather if use_kernels else paged_gather_plain
+        fkv = gather(kv_cache, idx_all, Bs)                          # [b, kvh, J * Bs, 2d]
+    else:
+        kvb = kv_cache.reshape(b, kvh, n_blocks, Bs, 2 * d)
+        heads = torch.arange(Hs, device=dev) // (Hs // kvh)          # each head's KV head
+        fkv = kvb[torch.arange(b, device=dev)[:, None, None], heads[None, :, None],
+                  idx_all.long()].reshape(b, Hs, J * Bs, 2 * d)
+
+    # global positions of the trailing columns, from the unclipped ids
+    j_trail = trail[..., None] * Bs + torch.arange(Bs, device=dev)   # [(b,) ns, Bs]
+    trail_ok = (trail >= 0)[..., None]
+    tt = t.reshape(-1, 1, 1)
+    diag_only = torch.zeros((n_slide, 1), dtype=torch.bool, device=dev)
+    diag_only[-1] = True
+    fine_trail = diag_only & (j_trail <= tt) & trail_ok
+    slide_trail = (j_trail >= tt - window) & (j_trail <= tt) & trail_ok
+
+    def heads_of(m):    # [(b,) ns, Bs] -> [b, Hs, ns, Bs]
+        return m.reshape(-1, 1, n_slide, Bs).expand(b, Hs, n_slide, Bs)
+
+    fine_sel = sel.mask[:, :, 0, :, None].expand(b, Hs, S, Bs)
+    fine_mask = torch.cat([fine_sel, heads_of(fine_trail)], dim=2).reshape(b, Hs, 1, J * Bs)
+    slide_mask = torch.cat([torch.zeros_like(fine_sel), heads_of(slide_trail)], dim=2
+                           ).reshape(b, Hs, 1, J * Bs)
+
+    sim = torch.einsum("bhgd,bhjd->bhgj", rq.reshape(b, Hs, h // Hs, d).float(),
+                       fkv[..., :d].float()) * d ** -0.5
+    fv = fkv[..., d:].to(rq.dtype)
+
+    def masked_out(mask):
+        s = sim.masked_fill(~mask, mask_value(torch.float32))
+        attn = torch.softmax(s, dim=-1).to(rq.dtype)
+        return torch.einsum("bhgj,bhjd->bhgd", attn, fv).reshape(b, h, d)
+
+    return masked_out(fine_mask), masked_out(slide_mask)

@@ -18,8 +18,10 @@ or the full-attention model's kv cache (``nsa_tpu/serve.py``).
   (``models/decode_graph.py``), as JAX jits its window's scan.
 
 The engine allocates its caches on the params' device, so params on the
-card serve on the card.  The full-attention model serves on the dense pool
-only; its paged pool raises, as in JAX.  Not ported: the ``mesh`` argument
+card serve on the card.  The full-attention model, and the sparse
+configurations that the fused kernels do not take (per-head selection,
+``selection_block_size == stride``: JAX's XLA branches decode them), serve
+on the dense pool only; their paged pool raises, as in JAX.  Not ported: the ``mesh`` argument
 (serving over a (data, heads) mesh waits for the port's parallelism,
 ``ROADMAP.md``).
 """
@@ -46,7 +48,7 @@ from .models.transformer import (
     transformer_prefill,
 )
 from .ops.common import round_up_mult
-from .ops.nsa import NSADecodeCache, _ckv_width
+from .ops.nsa import NSADecodeCache, _ckv_width, _fused_decode_applies
 
 
 def ragged_decode_step(params, cfg: ModelConfig, tokens, cache_layers, seq_lens, *,
@@ -238,6 +240,11 @@ class ContinuousBatchingEngine:
                 raise NotImplementedError("the paged KV pool is sparse-attention only")
             if route == "split":
                 raise NotImplementedError("the paged KV pool takes the fused route only")
+            if not _fused_decode_applies(cfg):
+                raise NotImplementedError(
+                    "the paged KV pool takes the fused route only, which needs shared "
+                    "selection, selection_block_size / stride > 1, selected blocks and the mlp "
+                    "compressor; this configuration serves on the dense pool")
             stride = nsa.compress_block_sliding_stride
             lcm = page_tokens * stride // math.gcd(page_tokens, stride)
             if page_tokens % nsa.selection_block_size or page_tokens % 8 or max_len % lcm:

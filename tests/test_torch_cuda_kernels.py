@@ -50,6 +50,7 @@ the same kernels and ops as their eager steps, in the same order: tokens,
 caches, logits and launch counts are held to the eager steps' bit for bit.
 """
 
+import dataclasses
 import gc
 
 import numpy as np
@@ -82,6 +83,7 @@ from nsa_tpu_torch.ops.cuda import (
     nsa_prefill,
     paged_gather,
 )
+from nsa_tpu_torch.ops import nsa as nsa_layer
 from nsa_tpu_torch.ops.nsa import _ckv_width
 from nsa_tpu_torch.train.pretrain import trainable
 from nsa_tpu_torch.utils.checkpoint import tree_leaves, tree_to
@@ -1339,3 +1341,102 @@ def test_tempered_engines_in_turn_give_the_seeds_tokens(gen):
     assert decode_graph.graph_count() == 2            # one window graph each
     for a, b in zip(*outs):
         assert np.array_equal(a, b)
+
+
+# ---- the configurations on JAX's XLA decode branches, and the hybrid route ----
+
+# name: (NSA overrides of the reference widths, route); b 9 (the split
+# route's batch there), 12 steps from 195 cross the emissions at t = 199
+# (stride 8) and t = 207 (stride 16)
+CONFIG_LOOPS = {"per_head": (dict(query_heads_share_selected_kv=False), None),
+                "stride_eq_block": (dict(compress_block_sliding_stride=16), None),
+                "hybrid": ({}, "hybrid")}
+
+
+def config_model(name):
+    overrides, route = CONFIG_LOOPS[name]
+    cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
+    cfg = cfg.replace(nsa=dataclasses.replace(cfg.nsa, **overrides))
+    params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cuda"),
+                     dtype=torch.bfloat16)
+    return fuse_decode_params(params, cfg), cfg, route
+
+
+def config_launches(name, cfg, steps):
+    """Each counted wrapper's launches on ``name``'s decode path: row 11 a
+    layer a step at stride == block, none per head, rows 2 and 7 a layer a
+    step on the hybrid route."""
+    want = [0] * len(decode_graph.COUNTED)
+    per_step = {"per_head": (), "stride_eq_block": (paged_gather.paged_gather,),
+                "hybrid": (nsa_decode.decode_select, nsa_decode_fused.decode_attend_fused)}[name]
+    for fn in per_step:
+        want[decode_graph.COUNTED.index(fn)] = cfg.depth * steps
+    return want
+
+
+@pytest.mark.parametrize("name", list(CONFIG_LOOPS))
+def test_config_decode_loops_captured_equal_eager(gen, name):
+    """greedy_decode on each new path eager (under ``set_sync_debug_mode(
+    "error")``: no host sync in the step), captured and replayed from copies
+    of one prefilled cache: tokens and every cache tensor bit for bit, the
+    launches each path makes and no other."""
+    params, cfg, route = config_model(name)
+    b = 9
+    ids = torch.randint(0, 256, (b, LOOP_PROMPT), generator=gen, device="cuda")
+    decode_graph.clear()
+    runs = []
+    with torch.inference_mode():
+        logits, cache = transformer_prefill(params, cfg, ids, LOOP_MAX_LEN)
+        first = logits[:, -1].argmax(-1)
+        run = clone_cache(cache)
+        for capture in (False, True, True):
+            copy_cache(run, cache)
+            before = launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("default" if capture else "error")
+            try:
+                toks = greedy_decode(params, cfg, first, run, LOOP_GEN, route=route,
+                                     capture=capture)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            runs.append((toks, [x.clone() for lc in run.layers for x in lc],
+                         [a - b for a, b in zip(launch_counts(), before)]))
+    toks_e, cache_e, ran_e = runs[0]
+    assert ran_e == config_launches(name, cfg, LOOP_GEN)
+    for toks_c, cache_c, ran_c in runs[1:]:
+        assert torch.equal(toks_c, toks_e)
+        assert all(torch.equal(x, y) for x, y in zip(cache_c, cache_e))
+        assert ran_c == ran_e
+
+
+@pytest.mark.parametrize("name", list(CONFIG_LOOPS))
+def test_config_decode_steps_kernels_match_plain(gen, name, monkeypatch):
+    """Three steps of each new path through the kernels against the plain
+    versions from copies of one cache, teacher-forced on the plain tokens,
+    within chip_smoke.py's 2% of the logits' scale; row 11's gathered
+    blocks on the path bit for bit ``paged_gather_plain``; the hybrid
+    route's logits against the split route's within the same 2%."""
+    params, cfg, route = config_model(name)
+    b = 16
+    ids = torch.randint(0, 256, (b, LOOP_PROMPT), generator=gen, device="cuda")
+    gathers = []
+    real = nsa_layer.paged_gather
+    monkeypatch.setattr(nsa_layer, "paged_gather", lambda kv, idx, Bs: gathers.append(
+        (real(kv, idx, Bs), paged_gather.paged_gather_plain(kv, idx, Bs))) or gathers[-1][0])
+    with torch.inference_mode():
+        logits, cache = transformer_prefill(params, cfg, ids, LOOP_MAX_LEN)
+        token = logits[:, -1].argmax(-1)
+        plain, split = clone_cache(cache), clone_cache(cache)
+        for _ in range(3):
+            got, cache = transformer_decode_step(params, cfg, token, cache, route=route)
+            want, plain = transformer_decode_step(params, cfg, token, plain, route=route,
+                                                  use_kernels=False)
+            assert torch.isfinite(got).all()
+            assert max_err(got, want) <= 0.02 * max(want.abs().max().item(), 1.0)
+            if route == "hybrid":
+                other, split = transformer_decode_step(params, cfg, token, split, route="split")
+                assert max_err(got, other) <= 0.02 * max(other.abs().max().item(), 1.0)
+            token = want.argmax(-1)
+    assert len(gathers) == (3 * cfg.depth if name == "stride_eq_block" else 0)
+    assert all(torch.equal(k, p) for k, p in gathers)

@@ -126,14 +126,21 @@ def plain_and_wrapper_paths_agree(route):
 
 
 def test_unported_configurations_raise():
+    """The configurations the port once refused (non-causal, selection block
+    = stride, per-head selection) now run, the forward with its cache
+    (tests/test_torch_configs.py holds them against JAX); the cache widths
+    and shapes are JAX's."""
     _, port = layer_params()
-    x = torch.zeros(1, 4, 64)
+    x = torch.from_numpy(inputs(4, seed=3, b=1))
+    nsa = t_tiny().nsa
     for cfg in (t_tiny(causal=False),
-                t_tiny(nsa=t_tiny().nsa.__class__(compress_block_size=4,
-                                                  compress_block_sliding_stride=4,
-                                                  selection_block_size=4))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_nsa.sparse_attention_forward(port["attn"], cfg, x)
+                t_tiny(nsa=nsa.__class__(compress_block_size=4, compress_block_sliding_stride=4,
+                                         selection_block_size=4)),
+                t_tiny(nsa=nsa.__class__(query_heads_share_selected_kv=False))):
+        out, cache = t_nsa.sparse_attention_forward(port["attn"], cfg, x, return_cache_max_len=8)
+        assert tuple(out.shape) == (1, 4, 64) and bool(torch.isfinite(out).all())
+        assert tuple(cache.ckv.shape) == (1, 2, t_nsa._ckv_width(
+            8, cfg.nsa.compress_block_sliding_stride, cfg.nsa.num_compress_per_fine), 32)
     assert t_nsa._ckv_width(4096, 8, 2) == j_nsa._ckv_width(4096, 8, 2) == 520
     empty = t_nsa.init_decode_cache(t_tiny(), 2, 32, device="cpu")
     j_empty = j_nsa.init_decode_cache(j_tiny(), 2, 32)
