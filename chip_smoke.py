@@ -28,7 +28,17 @@ Phases, each printing its name and seconds as it ends:
 6. measure - decode and prefill tok/s over 3 more timed runs each
              (``measure_decode``, ``measure_prefill``).
 7. profile - ``torch.profiler`` over one prefill and 5 decode steps: device
-             time by op and the device's busy share of the wall time.
+             time by op and the device's busy share of the wall time.  Then
+             the ablation script's cell (``python -m
+             nsa_tpu_torch.profile_decode``: the reference model from its
+             seed, bs 64 x prompt 128, 50 greedy steps, 4096 rows) in full
+             and under each ``NSA_ABLATE`` value: the captured loop against
+             the same steps eager, tokens and every cache tensor bit for
+             bit; launches (rows 2-3 once a layer a step in full and under
+             ``no_emit``, never under ``no_fine``, ``no_compressed`` (row 11
+             instead) or ``attn_only``); the ckv cache bit-unchanged over the
+             run under ``no_emit`` and ``attn_only`` and changed otherwise;
+             the script's ms a step.
 8. small   - the small-batch decode path (b <= 8: the whole-model kernel,
              JAX's default there) on the trained model at bs 8 and bs 1:
              prefill of 3900 seeded tokens, 100 greedy steps with the
@@ -164,9 +174,33 @@ Phases, each printing its name and seconds as it ends:
              both routes from one cache state (2% gate on the rows whose
              selections agree, with a dropped-block control), row 7's
              launch plan at bs 64, captured tok/s in turns (split, hybrid,
-             hybrid, split); and rows 6-7 with the FF outside
+             hybrid, split); row 7 on its own operands at bs 64, its
+             output gate with a control that leaves the FF out (at least
+             twice the gate on every launch), and the element that sets its
+             attention output's figure; and rows 6-7 with the FF outside
              (``NSA_NO_FF_FUSE``) at bs 8 against the FF inside, with a
              control that leaves layer 0's FF out.
+17. long   - JAX's 16k path: ``python -m nsa_tpu_torch.eval.efficiency_16k``
+             with its defaults (both committed weight files in bf16, bs 1,
+             8, 16 x prompt 8,000, 15,000, gen 100, 16,384 rows), its rows,
+             launch counts (rows 1, 2, 3, 12, 13, added to the kernels
+             line's), sparse against full decode tok/s and prefill seconds a
+             cell; rows 1 and 13 against their plain versions element by
+             element at n_k 8,192 and 16,384 (b 1, seeded) and on the
+             layer-0 operands of the sweep's bs 1 x prompt 15,000 prefill,
+             each with its control (each row's first selected block left out;
+             64 middle keys left out of the last 512 query rows); rows 2-3 at
+             bs 16 and row 12 at bs 8 on a 16,384-row cache at t = 16,383 and
+             16,382 (the kernels phase's harnesses, gates and controls); the
+             incremental decode against the full forward at positions
+             15,000-15,003 (bs 16) within 2% of max |logit| on both models,
+             with a control (the split pair's plain versions without each
+             query's own block; the full model's attention without the
+             steps' own 64-key block) that must fail; captured decode
+             against eager bit for bit at 16k (split bs 16, whole-model bs
+             8, full bs 16); the cell's largest prefill (bs 16 x 16,384) of
+             each model timed by events beside its row 1 or row 13
+             launches; the phase's peak memory.
 
 The kernels phase holds the split route's two decode kernels (rows 2-3)
 at the serving cell's shapes (bs 64, t = 3999, seeded inputs): c_out
@@ -257,6 +291,7 @@ from nsa_tpu_torch.eval.efficiency import (  # noqa: E402
     measure_decode,
     measure_prefill,
     measure_train,
+    prefill_bucket,
     run_efficiency_sweep,
     seeded_ids,
 )
@@ -304,6 +339,8 @@ from nsa_tpu_torch.ops import attention as attention_module  # noqa: E402
 from nsa_tpu_torch.ops.nsa import _ckv_width, fuse_decode_layer  # noqa: E402
 from nsa_tpu_torch import bench as port_bench  # noqa: E402
 from nsa_tpu_torch import kernel_times  # noqa: E402
+from nsa_tpu_torch import profile_decode as ablation_script  # noqa: E402
+from nsa_tpu_torch.eval import efficiency_16k  # noqa: E402
 from nsa_tpu_torch import serve  # noqa: E402
 from nsa_tpu_torch.train import continuous_pretrain, pretrain  # noqa: E402
 from nsa_tpu_torch.train.data import load_byte_corpus, load_cs441_qa_bytes  # noqa: E402
@@ -319,20 +356,21 @@ from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
 from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
-# each phase's budget against its longest time on the H100: about twice it
-# for eval 60 s (32.1 s) and cpt 60 s (27.8 s);
-# at least 10 s for the phases of a few seconds (device, weights, measure:
-# 3.6 s at most), whose time is host noise; under twice, to keep the sum
-# under 1,000 s, for kernels 130 s (99.9 s: the plain flash attention at
-# full size, flex_attention's compiles, forward and backward), serve 40 s
-# (23 s), train 150 s (104.9 s, both models), graph 100 s (73.6 s), configs
-# 170 s (91.2 s), compress 80 s (43.7 s), full 25 s (12.2 s) and profile
-# 25 s (13.2 s); over it for build 90 s (48 s), main 15 s (5.2 s) and small
-# 20 s (8.3 s); 995 s in all
-BUDGET_S = {"device": 10, "build": 90, "weights": 10, "kernels": 130, "main": 15,
-            "measure": 10, "profile": 25, "small": 20, "serve": 40, "full": 25,
-            "eval": 60, "graph": 100, "train": 150, "cpt": 60, "compress": 80,
-            "configs": 170}
+# each phase's budget against its longest time on the H100 (PR 20's runs and
+# PR 21's): about twice it for the long phase, 69 s (29.1 s alone, its sweep
+# cut to one timed run a cell); at least 10 s for the phases of a few
+# seconds (device, weights, main, measure: 5.2 s at most), whose time is
+# host noise; about 1.5 times it, to keep the sum under 1,000 s, for build
+# 72 s (48 s), profile 36 s (24.2 s with the ablation script), small 13 s
+# (8.3 s), serve 36 s (24.1 s), full 19 s (12.4 s), eval 53 s (35.1 s), cpt
+# 42 s (27.8 s) and compress 69 s (46.2 s); under 1.5 times for kernels
+# 130 s (99.9 s: the plain flash attention at full size, flex_attention's
+# compiles, forward and backward), train 150 s (107.9 s, both models),
+# graph 100 s (73.6 s) and configs 170 s (117.8 s); 999 s in all
+BUDGET_S = {"device": 10, "build": 72, "weights": 10, "kernels": 130, "main": 10,
+            "measure": 10, "profile": 36, "small": 13, "serve": 36, "full": 19,
+            "eval": 53, "graph": 100, "train": 150, "cpt": 42, "compress": 69,
+            "configs": 170, "long": 69}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
 SMALL_BATCHES = (8, 1)       # the small-batch cell: the whole-model decode route
 FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
@@ -392,6 +430,30 @@ FF_OUTSIDE_BATCH, FF_STEPS = 8, 8
 # every batch row in some step.  Row 7 is held on its own operands in every
 # launch of the route's first HYBRID_HELD_STEPS steps at bs 64.
 HYBRID_HELD_MIN, HYBRID_HELD_STEPS = 0.5, 4
+# the long phase: JAX's 16k cell (scripts/efficiency_16k.py's defaults,
+# python -m nsa_tpu_torch.eval.efficiency_16k); rows 1 and 13 at LONG_NK keys
+# (JAX's STREAM_MIN_NK, where its streaming bodies start, and the cell's
+# cache) at b 1, and on the layer-0 operands of the sweep cell LONG_OPERANDS
+# (bs, prompt); the control of row 13 drops LONG_DROPPED_KEYS (the 64 keys
+# before the middle) from the last LONG_CONTROL_ROWS query rows; rows 2-3 at
+# LONG_SPLIT_BATCH and row 12 at LONG_MEGA_BATCH at the last position of the
+# cache; the incremental gate at LONG_GATE_BATCH x LONG_GATE_PROMPT, then
+# LONG_GATE_STEPS teacher-forced steps (positions 15,000-15,003); captured
+# against eager over LONG_GRAPH_STEPS steps from that prefill
+LONG_MAX_LEN, LONG_NK = 16384, (8192, 16384)
+LONG_T = LONG_MAX_LEN - 1
+LONG_OPERANDS = (1, 15000)
+LONG_CONTROL_ROWS = 512
+LONG_SPLIT_BATCH, LONG_MEGA_BATCH = 16, 8
+LONG_GATE_BATCH, LONG_GATE_PROMPT, LONG_GATE_STEPS = 16, 15000, 4
+LONG_GRAPH_STEPS = 25
+# the sweep's timed runs a cell after its warm-up, cut from JAX's 3 to keep
+# the phase inside its budget (its shapes are JAX's)
+LONG_SWEEP_ITERS = 1
+# the ablation script's cell (python -m nsa_tpu_torch.profile_decode)
+ABLATE_KERNELS = {"": ("decode_select", "decode_attend"), "no_emit": ("decode_select",
+                                                                      "decode_attend"),
+                  "no_compressed": ("paged_gather",), "no_fine": (), "attn_only": ()}
 DECODE_T = PROMPT + GEN - 1  # the last decode position of the cell
 SEED = 0
 DEVICE = "cuda"
@@ -678,13 +740,14 @@ def flex_prefill(rq, rk, v, sel_idx, sel_mask, sel_block, window, scale):
     return run
 
 
-def check_prefill(name, inputs, flush, cfg):
+def check_prefill(name, inputs, flush, cfg, library=True, plain_iters=2):
     """Row 1 on one set of inputs: both outputs against the plain version
     element by element (``fine_sliding_tolerance``), both log-sum-exps
     within TOL_LSE, and a control (the plain fine output with each row's
     first valid selected block left out, on 2 sequences) that must fail the
-    rule; the union sizes per 16- and 64-row tile; kernel, plain, bound and
-    flex_attention times."""
+    rule; the union sizes per 16- and 64-row tile; kernel, bound, plain (over
+    ``plain_iters`` runs, none at 0) and (with ``library``) flex_attention
+    times."""
     nsa = cfg.nsa
     G, d = cfg.num_grouped_queries, cfg.dim_head
     Bs, window, scale = nsa.selection_block_size, nsa.sliding_window_size, d ** -0.5
@@ -718,15 +781,20 @@ def check_prefill(name, inputs, flush, cfg):
     flops = sum(needed_keys(sel_idx, sel_mask, cfg)) * G * 4 * d
     bms, by = bound_ms(nbytes(rq, rk, v, sel_idx, sel_mask, *got), flops)
     ms = timed_ms(lambda: nsa_prefill.prefill_fwd(*args), 10, flush)
-    plain = timed_ms(lambda: nsa_prefill.fine_sliding_plain(*args), 2, flush)
-    t0 = time.perf_counter()
-    library = flex_prefill(*args)
-    lib_err = max(max_err(x, y) for x, y in zip(library()[:2], want[:2]))
-    setup = time.perf_counter() - t0
-    lib = timed_ms(library, 10, flush)
-    print(f"  {name} {ms:.4f} ms (bound {bms:.4f} ms by {by}: {ms / bms:.2f}x), plain "
-          f"{plain:.3f} ms, flex_attention (both branches) {lib:.4f} ms, its outputs vs plain "
-          f"max|err| {lib_err:.5f} (block masks and compile {setup:.1f}s)", flush=True)
+    plain = timed_ms(lambda: nsa_prefill.fine_sliding_plain(*args), plain_iters, flush) \
+        if plain_iters else None
+    lib = None
+    if library:
+        t0 = time.perf_counter()
+        run_lib = flex_prefill(*args)
+        lib_err = max(max_err(x, y) for x, y in zip(run_lib()[:2], want[:2]))
+        setup = time.perf_counter() - t0
+        lib = timed_ms(run_lib, 10, flush)
+    print(f"  {name} {ms:.4f} ms (bound {bms:.4f} ms by {by}: {ms / bms:.2f}x)"
+          + (f", plain {plain:.3f} ms" if plain_iters else "")
+          + (f", flex_attention (both branches) {lib:.4f} ms, its outputs vs plain max|err| "
+             f"{lib_err:.5f} (block masks and compile {setup:.1f}s)" if library else ""),
+          flush=True)
     return {"name": name, "route": "cuda", "source": "nsa_tpu_torch/csrc/nsa_prefill.cu",
             "replaces": "nsa_tpu/ops/pallas/nsa_prefill.py:315",
             "max_abs_err": max(max_err(x, y) for x, y in zip(got[:2], want[:2])), "ms": ms,
@@ -1179,7 +1247,7 @@ def kernel_decode_fused(gen, flush, cfg, params, b, log):
     return sel, att
 
 
-def mega_selection_gate(mp, insp, start, after, plain, t, cfg):
+def mega_selection_gate(mp, insp, start, after, plain, t, cfg, max_len=MAX_LEN):
     """Each layer's selection of the whole-model kernel, held as row 8's
     is: the plain select-emit on the kernel's own query and new row of that
     layer (``inspect``; the caches as they were before the step) must pick
@@ -1194,7 +1262,7 @@ def mega_selection_gate(mp, insp, start, after, plain, t, cfg):
     L, b, kvh = cfg.depth, insp["q"].shape[1], cfg.kv_heads
     stride, Bs = nsa.compress_block_sliding_stride, nsa.selection_block_size
     num_sel, n_slide = nsa.num_selected_blocks, -(-nsa.sliding_window_size // Bs) + 1
-    kw = dict(max_len=MAX_LEN, stride=stride, sel_block=Bs, num_sel=num_sel, n_slide=n_slide,
+    kw = dict(max_len=max_len, stride=stride, sel_block=Bs, num_sel=num_sel, n_slide=n_slide,
               scale=cfg.dim_head ** -0.5)
     gkw = dict(num_sel=num_sel, n_slide=n_slide, tie=TIE)
     slot = min(t // stride, after[1].shape[3] - 1)
@@ -1242,15 +1310,17 @@ def mega_selection_gate(mp, insp, start, after, plain, t, cfg):
             "cross_ratio": max(cross), "ids_equal_to_plain_run": same_ids}
 
 
-def kernel_decode_mega(gen, flush, cfg, packed, b, log):
+def kernel_decode_mega(gen, flush, cfg, packed, b, log, max_len=MAX_LEN, t_emit=DECODE_T,
+                       profiled=True):
     """Row 12 at bs ``b``: the whole model's trained weights (packed);
-    seeded tokens and caches at full length; an emission step and the step
-    before it.  The rows a step writes (kv row t, the ring's new row, the
-    emitted ckv row) come from bf16 roundings of float32 sums that the two
-    versions take in another order, so they are held within TOL_FUSED of the
-    largest value; every other cache row, and the ring's shifted rows, must
-    be bit-equal to what was there.  Two controls, the plain version with
-    one emission chunk left out (``dropped_emission_chunk``) and with each
+    seeded tokens and caches at full length (``max_len`` rows); an emission
+    step (``t_emit``) and the step before it.  The rows a step writes (kv row
+    t, the ring's new row, the emitted ckv row) come from bf16 roundings of
+    float32 sums that the two versions take in another order, so they are
+    held within TOL_FUSED of the largest value; every other cache row, and
+    the ring's shifted rows, must be bit-equal to what was there.  Two
+    controls, the plain version with one emission chunk left out
+    (``dropped_emission_chunk``) and with each
     (row, head)'s first selected block left out in every layer
     (``dropped_selected_block``): the first must fail the emitted-row gate;
     the second the logits gate and the written rows' do not see (their
@@ -1261,12 +1331,13 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
     left out must fail it at every layer.  Each layer's selection, c_out,
     gates and emitted row are held too (``mega_selection_gate``), with a
     selection one rank short as the control.  Also the launch plan, ptxas's
-    registers and the time by phase and layer."""
+    registers and the time by phase and layer.  The time is the profiler's
+    device time, or without ``profiled`` the event-timed one."""
     nsa = cfg.nsa
     L, kvh, d, stride = cfg.depth, cfg.kv_heads, cfg.dim_head, nsa.compress_block_sliding_stride
     Bc, Bs, window = nsa.compress_block_size, nsa.selection_block_size, nsa.sliding_window_size
     num_sel, n_slide = nsa.num_selected_blocks, -(-window // nsa.selection_block_size) + 1
-    Wc = _ckv_width(MAX_LEN, stride, nsa.num_compress_per_fine)
+    Wc = _ckv_width(max_len, stride, nsa.num_compress_per_fine)
     mp = packed["mega"]
     dev = DEVICE
     tkw = dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=d ** -0.5)
@@ -1274,7 +1345,7 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    kv, ckv, ring = randn(L, b, kvh, MAX_LEN, 2 * d), randn(L, b, kvh, Wc, 2 * d), \
+    kv, ckv, ring = randn(L, b, kvh, max_len, 2 * d), randn(L, b, kvh, Wc, 2 * d), \
         randn(L, b, kvh, Bc, 2 * d)
     token = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=dev)
     # the plain run's own per-layer values: the selections (also for the
@@ -1295,7 +1366,7 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
         return real_attend(rq, kv_l, kv_row, info, c_out, gates, *a, **k)
 
     times, plain_times, errs, phases, controls, timed, sel_gates = {}, {}, [], {}, {}, {}, {}
-    for t in (DECODE_T, DECODE_T - 1):           # an emission step, then one without
+    for t in (t_emit, t_emit - 1):           # an emission step, then one without
         num_cb, emit = t // stride, nsa_decode_fused.emits(t, stride)
         caches = [(kv.clone(), ckv.clone(), ring.clone()) for _ in range(2)]
         insp = {}
@@ -1391,8 +1462,8 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
         print(f"  decode_step_mega bs {b} t={t}: each layer's attention output worst |err| / "
               f"attend_tolerance {[round(r, 4) for r in ratios]} (<= 1), the dropped-block "
               f"control {[round(r, 1) for r in ratios_ctl]} (> 1)", flush=True)
-        sel_gate = mega_selection_gate(mp, insp, (kv, ckv, ring), caches[0], (infos, plain_sel,
-                                                                             plain_att), t, cfg)
+        sel_gate = mega_selection_gate(mp, insp, (kv, ckv, ring), caches[0],
+                                       (infos, plain_sel, plain_att), t, cfg, max_len)
         controls[(t, "selection one rank short (layers failing)")] = sel_gate["control_fails"]
         sel_gates[t] = sel_gate
         print(f"  decode_step_mega bs {b} t={t}: controls over their gate "
@@ -1409,8 +1480,9 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
         # device time from the profiler (the call's launches: the token's
         # cast and the kernel), as for rows 8-10: the wrapper's host time now
         # exceeds the kernel's, and the event-timed figure reads it
-        timed[t] = breakdown(f"decode_step_mega t={t}", lambda: transformer_decode_step_mega(
-            mp, cfg, token, *work, device_t(t), greedy=True), flush)
+        timed[t] = (breakdown if profiled else event_timed)(
+            f"decode_step_mega t={t}", lambda: transformer_decode_step_mega(
+                mp, cfg, token, *work, device_t(t), greedy=True), flush)
         times[t] = timed[t]["ms"]
         plain_times[t] = timed_ms(lambda: transformer_decode_step_mega(
             mp, cfg, token, *work, t, greedy=True, use_kernels=False), 3, flush)
@@ -1420,21 +1492,21 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
         print(f"  decode_step_mega bs {b} t={t}: us per phase (mean over layers): "
               f"{ {k: round(v, 2) for k, v in phases[t].items() if k != 'by_layer'} }; "
               f"layer by layer {phases[t]['by_layer']}", flush=True)
-    amort = (times[DECODE_T] + (stride - 1) * times[DECODE_T - 1]) / stride
-    amort_event = (timed[DECODE_T]["event_ms"]
-                   + (stride - 1) * timed[DECODE_T - 1]["event_ms"]) / stride
-    amort_plain = (plain_times[DECODE_T] + (stride - 1) * plain_times[DECODE_T - 1]) / stride
+    amort = (times[t_emit] + (stride - 1) * times[t_emit - 1]) / stride
+    amort_event = (timed[t_emit]["event_ms"]
+                   + (stride - 1) * timed[t_emit - 1]["event_ms"]) / stride
+    amort_plain = (plain_times[t_emit] + (stride - 1) * plain_times[t_emit - 1]) / stride
 
     # the bound of the amortised step: each layer's weights, the live ckv
     # rows, the kv rows the masks keep, the ring read and written, the row
     # written; the compressors at 1 step in `stride`
-    num_cb = DECODE_T // stride
+    num_cb = t_emit // stride
     dense = [mp[k] for k in ("attn_norm", "w_qkvg", "gate_b", "mem_kv", "w_out", "ff_norm",
                              "fw1", "fb1", "fw2", "fb2", "out_norm", "to_logits")]
     comp = [mp[k] for k in ("pos_kv", "b1k", "b1v", "b2c", "w1k", "w1v", "w2c")]
     rows = sum(attend_rows(info.reshape(b, kvh, -1)[..., num_sel + n_slide:
                                                     2 * num_sel + n_slide],
-                           DECODE_T, Bs, n_slide, window, b * kvh) for info in emit_infos)
+                           t_emit, Bs, n_slide, window, b * kvh) for info in emit_infos)
     step_bytes = (nbytes(*dense) + b * cfg.dim * 2 + L * b * kvh * num_cb * 2 * d * 2
                   + rows * 2 * d * 2 + 2 * nbytes(ring) + L * b * kvh * 2 * d * 2
                   + b * cfg.vocab_size * 4 + b * 4)
@@ -1447,12 +1519,12 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
                   + rows * g * 4 * d)
     emit_flops = L * b * kvh * 2 * (Bc * d * hid + hid * d) * 2
     bms, by = bound_ms(step_bytes + emit_bytes / stride, step_flops + emit_flops / stride)
-    print(f"  decode_step_mega bs {b}: device {times[DECODE_T]:.4f} ms emitting, "
-          f"{times[DECODE_T - 1]:.4f} ms not, {amort:.4f} ms amortised over {stride} steps "
+    print(f"  decode_step_mega bs {b}: device {times[t_emit]:.4f} ms emitting, "
+          f"{times[t_emit - 1]:.4f} ms not, {amort:.4f} ms amortised over {stride} steps "
           f"(event-timed {amort_event:.4f}; bound {bms:.5f} ms, by {by}); plain "
           f"{amort_plain:.4f} ms", flush=True)
     plan = nsa_decode_mega.launch_plan(DEVICE, [
-        L, b, kvh, cfg.num_grouped_queries, MAX_LEN, Wc, Bc, nsa.num_compressed_mem_kv,
+        L, b, kvh, cfg.num_grouped_queries, max_len, Wc, Bc, nsa.num_compressed_mem_kv,
         mp["w1k"].shape[3], cfg.dim, cfg.vocab_size, mp["fw1"].shape[2], 1, 0, stride, Bs,
         num_sel, n_slide, window, nsa_decode.INFO_WIDTH])
     regs, spill = kernel_times.ptxas_usage(log, f"mega_kernelILi{cfg.num_grouped_queries}E")
@@ -1466,9 +1538,9 @@ def kernel_decode_mega(gen, flush, cfg, packed, b, log):
             "replaces": "nsa_tpu/ops/pallas/nsa_megakernel.py:1234",
             "max_abs_err": max(errs), "ms": amort, "plain_ms": amort_plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "ms_emit_step": times[DECODE_T], "ms_other_step": times[DECODE_T - 1],
-            "event_ms": amort_event, "host_ms_other_step": timed[DECODE_T - 1]["host_ms"],
-            "phase_us_emit_step": phases[DECODE_T], "phase_us_other_step": phases[DECODE_T - 1],
+            "ms_emit_step": times[t_emit], "ms_other_step": times[t_emit - 1],
+            "event_ms": amort_event, "host_ms_other_step": timed[t_emit - 1]["host_ms"],
+            "phase_us_emit_step": phases[t_emit], "phase_us_other_step": phases[t_emit - 1],
             "plan": plan, "registers": regs, "spill_bytes": spill,
             "controls_over_gate": {f"t={k[0]} {k[1]}": v for k, v in controls.items()},
             "selection_gates": {f"t={k}": v for k, v in sel_gates.items()}}
@@ -1525,6 +1597,22 @@ def mega_phase_us(mp, cfg, token, caches, t):
     return {**{name: per_layer[i].item() for i, name in enumerate(nsa_decode_mega.PHASE_NAMES)},
             "lm_head": us[5 * L].item(), "span": (marks[-1] - marks[0]).item() / 1e3,
             "by_layer": [[round(v, 2) for v in row] for row in by_layer.tolist()]}
+
+
+def event_timed(name, fn, flush):
+    """``breakdown``'s keys without the profiler: "ms" is the event-timed
+    median, with the host time of a call beside it."""
+    ms = kernel_times.event_ms(fn, 30, flush)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    host_ms = sorted(host)[2]
+    print(f"  {name}: event-timed {ms:.4f} ms; host {host_ms:.4f} ms a call", flush=True)
+    return {"ms": ms, "event_ms": ms, "host_ms": host_ms}
 
 
 def ragged_attend_rows(info, t, cfg):
@@ -1862,25 +1950,26 @@ def kernel_decode_ragged(gen, flush, cfg, params, b, log):
     return sel, att, pag, gat
 
 
-def split_kw(cfg):
-    """The split pair's keyword arguments: (row 2's, row 3's)."""
+def split_kw(cfg, max_len=MAX_LEN):
+    """The split pair's keyword arguments at a cache of ``max_len`` rows:
+    (row 2's, row 3's)."""
     nsa = cfg.nsa
     Bs, window, num_sel = nsa.selection_block_size, nsa.sliding_window_size, \
         nsa.num_selected_blocks
     n_slide, scale = -(-window // Bs) + 1, cfg.dim_head ** -0.5
-    return (dict(max_blocks=MAX_LEN // Bs, stride=nsa.compress_block_sliding_stride,
+    return (dict(max_blocks=max_len // Bs, stride=nsa.compress_block_sliding_stride,
                  sel_block=Bs, num_sel=num_sel, n_slide=n_slide, scale=scale),
             dict(sel_block=Bs, window=window, num_sel=num_sel, n_slide=n_slide, scale=scale))
 
 
-def select_gate(q, ckv, mem_kv, t, num_cb, cfg, label):
+def select_gate(q, ckv, mem_kv, t, num_cb, cfg, label, max_len=MAX_LEN):
     """Row 2 against its plain version at position ``t`` (an int): c_out
     within TOL_OUT and element by element under ``select_tolerance``, with
     the plain c_out over all but the first 64 live rows as a control that
     must fail it; the selected ids equal but for ties; a second launch bit
     for bit.  Returns (c_k, info_k, c_p, info_p, figures)."""
     nsa, b, kvh = cfg.nsa, q.shape[0], q.shape[1]
-    kw, akw = split_kw(cfg)
+    kw, akw = split_kw(cfg, max_len)
     pt = device_t(t)                              # the kernels read t on the device
     c_k, info_k = nsa_decode.decode_select(q, ckv, mem_kv, pt, num_cb, **kw)
     c_2, info_2 = nsa_decode.decode_select(q, ckv, mem_kv, pt, num_cb, **kw)
@@ -1944,20 +2033,21 @@ def attend_gate(rq, kv, info, c_out, gates, t, cfg, label):
                    "control_ratio": ratio_ctl}
 
 
-def kernel_decode(gen, flush, cfg, log):
-    """Rows 2 and 3 at the serving cell (bs 64, t = 3999, seeded inputs):
-    ``select_gate`` and ``attend_gate``; each kernel's launch geometry and
-    ptxas registers / spills, its time, its plain version's and its bound."""
+def kernel_decode(gen, flush, cfg, log, b=BATCH, max_len=MAX_LEN, t=DECODE_T, suffix=""):
+    """Rows 2 and 3 at the serving cell (bs 64, t = 3999, seeded inputs), or
+    at ``b`` rows of a ``max_len``-row cache at position ``t`` (the labels
+    ending in ``suffix``): ``select_gate`` and ``attend_gate``; each
+    kernel's launch geometry and ptxas registers / spills, its time, its
+    plain version's and its bound."""
     nsa = cfg.nsa
-    b, kvh, g, d = BATCH, cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head
+    kvh, g, d = cfg.kv_heads, cfg.num_grouped_queries, cfg.dim_head
     stride, Bs, window = nsa.compress_block_sliding_stride, nsa.selection_block_size, \
         nsa.sliding_window_size
     num_sel, M = nsa.num_selected_blocks, nsa.num_compressed_mem_kv
-    kw, akw = split_kw(cfg)
+    kw, akw = split_kw(cfg, max_len)
     n_slide = akw["n_slide"]
-    t = DECODE_T
     num_cb = t // stride
-    Wc = _ckv_width(MAX_LEN, stride, nsa.num_compress_per_fine)
+    Wc = _ckv_width(max_len, stride, nsa.num_compress_per_fine)
     dev = DEVICE
 
     def randn(*shape):
@@ -1972,12 +2062,12 @@ def kernel_decode(gen, flush, cfg, log):
               f"{x['smem_optin']}); ptxas: {x['registers']} registers, spills (stores, loads) "
               f"{x['spill_bytes']}", flush=True)
     c_k, info_k, c_p, info_p, figures = select_gate(q, ckv, mem_kv, t, num_cb, cfg,
-                                                    "decode_select")
+                                                    "decode_select" + suffix, max_len)
     vp = info_p[..., num_sel + n_slide:num_sel + n_slide + num_sel]
     rows_read = b * kvh * num_cb * 2 * d * 2
     bms, by = bound_ms(nbytes(q, mem_kv, c_k, info_k) + rows_read,
                        b * kvh * g * (num_cb + M) * 4 * d)
-    sel = {"name": "decode_select", "route": "cuda",
+    sel = {"name": "decode_select" + suffix, "route": "cuda",
            "source": "nsa_tpu_torch/csrc/nsa_decode.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode.py:195",
            "max_abs_err": figures["max_abs_err"],
@@ -1991,13 +2081,13 @@ def kernel_decode(gen, flush, cfg, log):
            **geometry["decode_select"]}
 
     # attend: both versions get the same info, c_out and gates
-    rq, kv = randn(b, kvh, g, d), randn(b, kvh, MAX_LEN, 2 * d)
+    rq, kv = randn(b, kvh, g, d), randn(b, kvh, max_len, 2 * d)
     gates = torch.sigmoid(randn(b, kvh, g, 3).float()).to(torch.bfloat16)
-    out_k, figures = attend_gate(rq, kv, info_p, c_p, gates, t, cfg, "decode_attend")
+    out_k, figures = attend_gate(rq, kv, info_p, c_p, gates, t, cfg, "decode_attend" + suffix)
     rows = attend_rows(vp, t, Bs, n_slide, window, b * kvh)
     bms, by = bound_ms(nbytes(rq, info_p, c_p, gates, out_k) + rows * 2 * d * 2,
                        rows * g * 4 * d)
-    att = {"name": "decode_attend", "route": "cuda",
+    att = {"name": "decode_attend" + suffix, "route": "cuda",
            "source": "nsa_tpu_torch/csrc/nsa_decode.cu",
            "replaces": "nsa_tpu/ops/pallas/nsa_decode.py:325",
            "max_abs_err": figures["max_abs_err"],
@@ -2012,12 +2102,13 @@ def kernel_decode(gen, flush, cfg, log):
     return sel, att
 
 
-def dropped_key_attention(q, k, v, keys):
+def dropped_key_attention(q, k, v, keys, first_row=0):
     """Causal attention in the plain version's float32 numerics with keys
     keys[0] .. keys[1] - 1 left out of every query row past them: what a
-    flash kernel that skipped one key tile of the late query tiles returns."""
-    n, g = q.shape[2], q.shape[1] // k.shape[1]
-    rows = torch.arange(n, device=q.device)[:, None]
+    flash kernel that skipped one key tile of the late query tiles returns.
+    Query rows from ``first_row`` on (q holds those rows)."""
+    n, g = k.shape[2], q.shape[1] // k.shape[1]
+    rows = torch.arange(first_row, first_row + q.shape[2], device=q.device)[:, None]
     cols = torch.arange(n, device=q.device)[None, :]
     valid = (rows >= cols) & ~((cols >= keys[0]) & (cols < keys[1]) & (rows >= keys[1]))
     kf, vf = (x.float().repeat_interleave(g, 1) for x in (k, v))
@@ -2026,14 +2117,22 @@ def dropped_key_attention(q, k, v, keys):
     return ((p @ vf) / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
-def kernel_flash(gen, flush, cfg):
+def kernel_flash(gen, flush, cfg, b=BATCH, n=PROMPT, inputs=None, dropped=FLASH_DROPPED_KEYS,
+                 control_rows=None, name="flash_attention"):
     """Row 13 at the full-attention serving cell: seeded bf16 q [64, 8, 3900,
     64], k / v [64, 4, 3900, 64], causal, against its plain version; SDPA
-    on the same inputs is the library yardstick."""
-    b, h, kvh, d, n = BATCH, cfg.heads, cfg.kv_heads, cfg.dim_head, PROMPT
-    q = torch.randn((b, h, n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
-    k = torch.randn((b, kvh, n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
-    v = torch.randn((b, kvh, n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    on the same inputs is the library yardstick.  Or at ``b`` x ``n``, or on
+    ``inputs`` (q, k, v), with the control's keys ``dropped`` and, where
+    ``control_rows`` is given, the control held on the last
+    ``control_rows`` query rows only (its logits are dense)."""
+    h, kvh, d = cfg.heads, cfg.kv_heads, cfg.dim_head
+    if inputs is None:
+        q = torch.randn((b, h, n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+        k = torch.randn((b, kvh, n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+        v = torch.randn((b, kvh, n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    else:
+        q, k, v = inputs
+        b, n = q.shape[0], q.shape[2]
     got = flash.flash_attention(q, k, v)
     want = flash.flash_attention_plain(q, k, v)
     tol = flash.flash_attention_tolerance(q, k, v, want)
@@ -2041,29 +2140,30 @@ def kernel_flash(gen, flush, cfg):
     err = max_err(got, want)
     ratio = ((got.float() - want.float()).abs() / tol).max().item()
     # the control: a wrong kernel's output on the first 2 sequences
-    wrong = dropped_key_attention(q[:2], k[:2], v[:2], FLASH_DROPPED_KEYS)
-    control = ((wrong.float() - want[:2].float()).abs() / tol[:2]).max().item()
+    r0 = 0 if control_rows is None else n - control_rows
+    wrong = dropped_key_attention(q[:2, :, r0:], k[:2], v[:2], dropped, r0)
+    control = ((wrong.float() - want[:2, :, r0:].float()).abs() / tol[:2, :, r0:]).max().item()
     del tol, wrong
 
     def library():
         return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
     lib_err = max_err(library(), want)
-    print(f"  flash_attention bs {b} n {n}: max|err| {err:.5f}, max |err| / bound {ratio:.4f} "
-          f"(<= 1: 2^-7 |plain| + 2^-8 attention over |v|); keys {FLASH_DROPPED_KEYS[0]}.."
-          f"{FLASH_DROPPED_KEYS[1] - 1} left out of the later rows: {control:.2f} (must be > 1); "
+    print(f"  {name} bs {b} n {n}: max|err| {err:.5f}, max |err| / bound {ratio:.4f} "
+          f"(<= 1: 2^-7 |plain| + 2^-8 attention over |v|); keys {dropped[0]}.."
+          f"{dropped[1] - 1} left out of the later rows: {control:.2f} (must be > 1); "
           f"the SDPA yardstick vs plain max|err| {lib_err:.5f}", flush=True)
-    check(control > 1.0, "the flash rule passes a kernel that leaves out a key tile")
+    check(control > 1.0, f"{name}: the flash rule passes a kernel that leaves out a key tile")
     check(bool(torch.isfinite(got.float()).all()) and ratio <= 1.0,
-          "flash_attention disagrees with its plain version")
+          f"{name} disagrees with its plain version")
     flops = 4 * b * h * d * (n * (n + 1) // 2)            # q.k and p.v per (row, key <= row)
     bms, by = bound_ms(nbytes(q, k, v, got), flops)
     ms = timed_ms(lambda: flash.flash_attention(q, k, v), 10, flush)
     plain = timed_ms(lambda: flash.flash_attention_plain(q, k, v), 2, flush)
     lib = timed_ms(library, 10, flush)
-    print(f"  flash_attention {ms:.4f} ms (bound {bms:.4f} ms by {by}: {ms / bms:.2f}x), plain "
+    print(f"  {name} {ms:.4f} ms (bound {bms:.4f} ms by {by}: {ms / bms:.2f}x), plain "
           f"{plain:.3f} ms, SDPA {lib:.4f} ms", flush=True)
-    return {"name": "flash_attention", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "nsa_tpu_torch/csrc/flash_attention.cu",
             "replaces": "nsa_tpu/ops/pallas/flash.py:248",
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
@@ -3845,21 +3945,21 @@ def no_launches(label, launches, **want):
 
 @contextlib.contextmanager
 def dropped_diagonal_block():
-    """The XLA decode branches with each query's own selection block (the
-    last trailing block, the fine branch's diagonal) left out of the step:
-    its id marked before the sequence start.  The control the incremental
-    decode gate must fail."""
+    """The XLA decode branches, and the split pair's plain versions, with
+    each query's own selection block (the last trailing block, the fine
+    branch's diagonal) left out of the step: its id marked before the
+    sequence start.  The control the incremental decode gates must fail."""
     real = nsa_layer.trailing_blocks
 
     def dropped(t, sel_block, n_slide, device):
         trail = real(t, sel_block, n_slide, device)
         return torch.cat([trail[..., :-1], torch.full_like(trail[..., -1:], -1)], dim=-1)
 
-    nsa_layer.trailing_blocks = dropped
+    nsa_layer.trailing_blocks = nsa_decode.trailing_blocks = dropped
     try:
         yield
     finally:
-        nsa_layer.trailing_blocks = real
+        nsa_layer.trailing_blocks = nsa_decode.trailing_blocks = real
 
 
 @contextlib.contextmanager
@@ -4179,8 +4279,13 @@ def held_attend_fused(rec):
     written), a second launch bit for bit, whose combined attention output
     is held element by element to ``attend_tolerance``; and the plain
     version with each (row, KV head)'s first selected block left out
-    (``without_first_selected``), the control.  One dict of figures a
-    launch, each over its bound, in ``rec``."""
+    (``without_first_selected``), the control of the attention output; the
+    plain version with the FF left out (a kernel that returned before its
+    FF), the output gate's control, which perturbs the layer's own
+    contribution to the output and not the residual stream that sets the
+    gate's scale.  One dict of figures a launch, each over its bound, in
+    ``rec``, with the element that sets the attention output's figure
+    (``worst_element``)."""
     real = nsa_layer.decode_attend_fused
 
     def attend(rq, kv, kv_new, info, c_out, gates, x, w_out, t, ff=(), **k):
@@ -4193,18 +4298,32 @@ def held_attend_fused(rec):
         dropped = nsa_decode_ragged.without_first_selected(info, k["num_sel"], k["n_slide"])
         out_c = nsa_decode_fused.decode_attend_fused_plain(rq, before, kv_new, dropped,
                                                            *args[2:], **k)
+        out_f = nsa_decode_fused.decode_attend_fused_plain(rq, before.clone(), *args[:-1], (),
+                                                           **k)
         tkw = {n: v for n, v in k.items() if n != "eps"}
         want, tol = nsa_decode_ragged.attend_tolerance(rq, kv_p, info, c_out, gates, t, **tkw)
         wrong, _ = nsa_decode_ragged.attend_tolerance(rq, kv_p, dropped, c_out, gates, t, **tkw)
         gate = TOL_FUSED * out_p.float().abs().max().item()
+        ratio = (comb.float() - want.float()).abs() / tol
+        worst = int(ratio.argmax())
+        got_w, want_w, tol_w = (z.flatten()[worst].float().item() for z in (comb, want, tol))
+        rel_w = 2.0 ** -7 * abs(want_w)
         rec.append({"out": max_err(out, out_p) / gate,
-                    "attend": ((comb.float() - want.float()).abs() / tol).max().item(),
+                    "attend": ratio.max().item(),
+                    "worst_element": {
+                        "index (row, kv head, query, dim)": [int(i) for i in np.unravel_index(
+                            worst, tuple(comb.shape))],
+                        "kernel": got_w, "plain": want_w, "bound": tol_w,
+                        "bound 2^-7 |plain|": rel_w, "bound 2^-15 |combine|": tol_w - rel_w,
+                        "bf16 ulps of plain": abs(got_w - want_w) / 2.0 ** (
+                            math.floor(math.log2(abs(want_w))) - 7) if want_w else None},
+                    "control_ff": max_err(out_f, out_p) / gate if ff else None,
                     "control_out": max_err(out_c, out_p) / gate,
                     "control_attend": ((wrong.float() - want.float()).abs() / tol).max().item(),
                     "kv_equal": torch.equal(kv, kv_p) and torch.equal(again, kv),
                     "again_equal": torch.equal(out_2, out),
                     "finite": bool(torch.isfinite(out.float()).all())})
-        del before, kv_p, again
+        del before, kv_p, again, ratio
         return out
 
     nsa_layer.decode_attend_fused = attend
@@ -4318,10 +4437,13 @@ def hybrid_route(params, cfg, smi):
           f"row 7 held on {len(rec)} launches, expected {cfg.depth * HYBRID_HELD_STEPS}")
     r7 = {"launches": len(rec)}
     for k in rec[0]:
+        if k == "worst_element":
+            continue
         v = [r[k] for r in rec]
         r7[k] = max(v) if k in ("out", "attend") else min(v) if k.startswith("control") \
             else all(v)
     r7["control_out_max"] = max(r["control_out"] for r in rec)
+    r7["attend_worst_element"] = max(rec, key=lambda r: r["attend"])["worst_element"]
     out["row7_bs64"] = r7
     print(f"  row 7 on the hybrid route at bs {BATCH}, {len(rec)} launches (every layer, "
           f"{HYBRID_HELD_STEPS} steps), each on its own operands against its plain version: "
@@ -4330,8 +4452,10 @@ def hybrid_route(params, cfg, smi):
           f"kv cache bit for bit the plain version's: {r7['kv_equal']}; a second launch "
           f"bit-equal: {r7['again_equal']}; the control (each row's first selected block left "
           f"out) at least {r7['control_attend']:.1f} of attend_tolerance (> 1), output "
-          f"{r7['control_out']:.3f}-{r7['control_out_max']:.3f} of its gate (the largest > 1)",
-          flush=True)
+          f"{r7['control_out']:.3f}-{r7['control_out_max']:.3f} of its gate (the largest > 1); the "
+          f"output gate's control (the FF left out) at least {r7['control_ff']:.2f} of its gate "
+          f"(>= 2 on every launch); the attention output's worst element "
+          f"{r7['attend_worst_element']}", flush=True)
     check(r7["out"] <= 1.0 and r7["attend"] <= 1.0 and r7["finite"],
           "decode_attend_fused on the hybrid route disagrees with its plain version")
     check(r7["kv_equal"] and r7["again_equal"],
@@ -4339,6 +4463,9 @@ def hybrid_route(params, cfg, smi):
           "version's, or a second launch gives other bits")
     check(r7["control_attend"] > 1.0 and r7["control_out_max"] > 1.0,
           "decode_attend_fused on the hybrid route: the dropped-block control passes")
+    check(r7["control_ff"] >= 2.0,
+          "decode_attend_fused on the hybrid route: the FF-left-out control fails the output "
+          "gate by less than twice it on some launch")
 
     tps = {"split": [], "hybrid": []}
     for route in ("split", "hybrid", "hybrid", "split"):
@@ -4423,6 +4550,324 @@ def configs_phase(smi):
         out["hybrid"] = hybrid_route(params, cfg, smi)
     out["hybrid"]["seconds"] = time.perf_counter() - t0
     del params
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def dropped_own_block(lo, hi):
+    """The full model's decode with keys ``lo`` .. ``hi`` - 1 (the block of
+    64 that holds the steps' own positions) left out of every step's
+    attention.  The control the full model's incremental gate must fail."""
+    real = model_module._scores
+
+    def dropped(q, k):
+        out = real(q, k)
+        out[..., lo:hi] = -1e30
+        return out
+
+    model_module._scores = dropped
+    try:
+        yield
+    finally:
+        model_module._scores = real
+
+
+def long_sweep(sparse_cfg, full_cfg, smi, work):
+    """JAX's 16k cell through its entry point (``python -m
+    nsa_tpu_torch.eval.efficiency_16k``, its defaults, the committed
+    weights): the rows, launch counts, and sparse against full a cell."""
+    zero_launches(ALL_KERNELS)
+    t0 = time.perf_counter()
+    rows = efficiency_16k.main(["--csv", os.path.join(work, "efficiency_seq16k.csv"),
+                                "--iters", str(LONG_SWEEP_ITERS)])
+    wall = time.perf_counter() - t0
+    launches = read_launches(ALL_KERNELS)
+    sweep = {"batch_sizes": (1, 8, 16), "prompts": (8000, 15000), "gen": 100}
+    runs = (1 + LONG_SWEEP_ITERS) * len(sweep["prompts"])    # warm-up + timed, each prompt
+    small = [b for b in sweep["batch_sizes"] if use_mega_decode(sparse_cfg, b)]
+    split = runs * (len(sweep["batch_sizes"]) - len(small)) * sweep["gen"] * sparse_cfg.depth
+    want = {**dict.fromkeys(launches, 0),
+            "prefill_fwd": runs * len(sweep["batch_sizes"]) * sparse_cfg.depth,
+            "flash_attention": runs * len(sweep["batch_sizes"]) * full_cfg.depth,
+            "decode_step_mega": runs * len(small) * sweep["gen"] // MEGA_STEPS,
+            "decode_select": split, "decode_attend": split}
+    print(f"  16k sweep (both models) in {wall:.1f}s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; {smi}", flush=True)
+    check(launches == want, f"16k sweep launches {launches}, expected {want}")
+    check(len(rows) == 2 * len(sweep["batch_sizes"]) * len(sweep["prompts"])
+          and all(r["max_len"] == LONG_MAX_LEN and r["decode_tokens_per_s"] > 0
+                  and r["prefill_tokens_per_s"] > 0 for r in rows), "16k sweep rows malformed")
+    check([r["prefill_bucket"] for r in rows] == [8192, 16384] * 6,
+          "16k sweep buckets are not JAX's")
+    by = {(r["model_type"], r["batch_size"], r["prompt_len"]): r for r in rows}
+    cells = []
+    for b in sweep["batch_sizes"]:
+        for p in sweep["prompts"]:
+            sp, fu = by[("sparse_mlp", b, p)], by[("full", b, p)]
+            cell = {"bs": b, "prompt": p,
+                    "sparse_decode_tok_s": sp["decode_tokens_per_s"],
+                    "full_decode_tok_s": fu["decode_tokens_per_s"],
+                    "sparse_over_full": sp["decode_tokens_per_s"] / fu["decode_tokens_per_s"],
+                    "sparse_prefill_s": b * p / sp["prefill_tokens_per_s"],
+                    "full_prefill_s": b * p / fu["prefill_tokens_per_s"]}
+            cells.append(cell)
+            print(f"  16k bs {b} prompt {p} (bucket {sp['prefill_bucket']}): decode tok/s "
+                  f"sparse {cell['sparse_decode_tok_s']:.1f} full {cell['full_decode_tok_s']:.1f}"
+                  f" ({cell['sparse_over_full']:.3f}x); prefill s sparse "
+                  f"{cell['sparse_prefill_s']:.4f} full {cell['full_prefill_s']:.4f}; {smi}",
+                  flush=True)
+    return {"rows": rows, "cells": cells, "launches": launches, "wall_s": wall}
+
+
+def recorded_flash_inputs(params, cfg, run):
+    """Row 13's operands as layer 0 of ``run(params, cfg)`` gives them."""
+    recorded, real = [], model_module.flash_attention
+
+    def recording(q, k, v, **kw):
+        if not recorded:
+            recorded.append([x.clone() for x in (q, k, v)])
+        return real(q, k, v, **kw)
+
+    model_module.flash_attention = recording
+    try:
+        run(params, cfg)
+    finally:
+        model_module.flash_attention = real
+    return recorded[0]
+
+
+def long_incremental(name, params, cfg, control, control_kw, smi):
+    """The incremental decode against the full forward over the same ids at
+    positions 15,000-15,003, within 2% of max |logit|, and the same steps
+    under ``control`` (with ``control_kw``), which must fail; returns the
+    prefill's first token and cache (LONG_MAX_LEN rows) and the figures."""
+    b, n = LONG_GATE_BATCH, LONG_GATE_PROMPT
+    ids = seeded_ids(b, n, cfg.vocab_size, SEED + 3, DEVICE)
+    tokens = seeded_ids(b, LONG_GATE_STEPS, cfg.vocab_size, SEED + 4, DEVICE)
+    logits, cache = transformer_prefill(params, cfg, ids, LONG_MAX_LEN)
+    first = logits[:, -1].argmax(-1)
+    del logits
+    run = clone_cache(cache)
+    inc = teacher_forced(params, cfg, tokens, run)
+    full = transformer_forward(params, cfg, torch.cat([ids, tokens], 1))[:, n:]
+    copy_cache(run, cache)
+    with control():
+        ctrl = teacher_forced(params, cfg, tokens, run, **control_kw)
+    out = {"incremental_vs_full": rel_gate(inc, full), "control": rel_gate(ctrl, full)}
+    print(f"  {name} bs {b}: prefill {n} into {LONG_MAX_LEN} rows, {LONG_GATE_STEPS} "
+          f"teacher-forced steps at positions {n}-{n + LONG_GATE_STEPS - 1} against the full "
+          f"forward: {out['incremental_vs_full']:.4f} of max|logit| (tol {TOL_LOGITS_REL}), "
+          f"control {out['control']:.4f}; {smi}", flush=True)
+    check(bool(torch.isfinite(inc).all()) and out["incremental_vs_full"] <= TOL_LOGITS_REL,
+          f"{name} at 16k: the incremental decode disagrees with the full forward")
+    check(out["control"] > TOL_LOGITS_REL,
+          f"{name} at 16k: the incremental gate passes the control")
+    del run, inc, full, ctrl
+    return first, cache, out
+
+
+def long_graphs(label, params, cfg, first, cache, steps, want, n=LONG_GRAPH_STEPS):
+    """Captured decode against eager over ``n`` steps from ``cache``
+    (``decode_turns``: tokens, caches and launches equal)."""
+    run_cache = clone_cache(cache)
+
+    def run(capture):
+        toks = greedy_decode(params, cfg, first, run_cache, n, steps=steps, capture=capture)
+        return toks, [x for lc in run_cache.layers for x in lc]
+
+    def check_launches(got, where):
+        no_launches(where, got, **want)
+
+    out = decode_turns(f"16k {label}", run, lambda: copy_cache(run_cache, cache),
+                       first.shape[0] * n, check_launches)
+    del run_cache
+    return out
+
+
+def kernel_share(params, cfg, module, name, label, smi):
+    """The 16k cell's largest prefill (bs 16 x 16,384 seeded ids) timed by
+    CUDA events, and the launches of the kernel ``module.name`` in it (row 1
+    or 13, a layer each) timed the same way: how much of the prefill the
+    kernel is, and how much the rest of the layers' work."""
+    ids = seeded_ids(16, LONG_MAX_LEN, cfg.vocab_size, SEED, DEVICE)
+    real, spans = getattr(module, name), []
+
+    def timed(*a, **k):
+        s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_.record()
+        out = real(*a, **k)
+        e_.record()
+        spans.append((s_, e_))
+        return out
+
+    timed.launches = 0      # the wrapper counts where the module looks it up
+    transformer_prefill(params, cfg, ids, LONG_MAX_LEN)            # warm
+    setattr(module, name, timed)
+    try:
+        s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_.record()
+        transformer_prefill(params, cfg, ids, LONG_MAX_LEN)
+        e_.record()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, real)
+    total = s_.elapsed_time(e_)
+    kernel = sum(a.elapsed_time(b) for a, b in spans)
+    print(f"  {label} prefill 16x{LONG_MAX_LEN}: {total:.1f} ms, of which {name} "
+          f"{kernel:.1f} ms in {len(spans)} launches ({100 * kernel / total:.1f}%); {smi}",
+          flush=True)
+    return {"prefill_ms": total, "kernel_ms": kernel, "launches": len(spans)}
+
+
+def long_phase(smi, log):
+    """JAX's 16k path on the card: the efficiency_16k sweep of both models,
+    rows 1 and 13 at LONG_NK keys and on the sweep's own operands, rows 2-3
+    and 12 at a 16,384-row cache, the incremental gate past position 15,000
+    on both models, captured decode against eager; the phase's peak memory."""
+    out, parts, t0 = {}, {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sparse, meta = load_params_npz(WEIGHTS, device="cuda", dtype=torch.bfloat16)
+    sparse_cfg = model_config_from_meta(meta).replace(dtype="bfloat16")
+    full, meta = load_params_npz(FULL_WEIGHTS, device="cuda", dtype=torch.bfloat16)
+    full_cfg = model_config_from_meta(meta).replace(dtype="bfloat16")
+    with tempfile.TemporaryDirectory() as work:
+        out["sweep"] = long_sweep(sparse_cfg, full_cfg, smi, work)
+    torch.cuda.empty_cache()
+    part("sweep")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    flush = kernel_times.Flush()
+    kernels = []
+    for n in LONG_NK:
+        kernels.append(check_prefill(f"prefill_fwd_n{n}", prefill_inputs(gen, sparse_cfg, 1, n),
+                                     flush, sparse_cfg, library=False, plain_iters=0))
+        kernels.append(kernel_flash(gen, flush, full_cfg, b=1, n=n,
+                                    dropped=(n // 2 - 64, n // 2),
+                                    control_rows=LONG_CONTROL_ROWS,
+                                    name=f"flash_attention_n{n}"))
+    ob, op = LONG_OPERANDS
+    ids = seeded_ids(ob, prefill_bucket(op, LONG_MAX_LEN), sparse_cfg.vocab_size, SEED, DEVICE)
+
+    def sweep_prefill(params, cfg):
+        transformer_prefill(params, cfg, ids, LONG_MAX_LEN, true_len=op)
+
+    kernels.append(check_prefill("prefill_fwd_sweep", layer0_prefill_inputs(
+        sparse, sparse_cfg, sweep_prefill), flush, sparse_cfg, library=False, plain_iters=0))
+    n = ids.shape[1]
+    kernels.append(kernel_flash(gen, flush, full_cfg, inputs=recorded_flash_inputs(
+        full, full_cfg, sweep_prefill), dropped=(n // 2 - 64, n // 2),
+        control_rows=LONG_CONTROL_ROWS, name="flash_attention_sweep"))
+    del ids
+    part("rows 1 and 13")
+    kernels += kernel_decode(gen, flush, sparse_cfg, log, b=LONG_SPLIT_BATCH,
+                             max_len=LONG_MAX_LEN, t=LONG_T, suffix="_16k")
+    packed = fuse_decode_params(sparse, sparse_cfg)
+    part("rows 2 and 3")
+    mega = kernel_decode_mega(gen, flush, sparse_cfg, packed, LONG_MEGA_BATCH, log,
+                              max_len=LONG_MAX_LEN, t_emit=LONG_T, profiled=False)
+    kernels.append({**mega, "name": "decode_step_mega_16k"})
+    del flush
+    torch.cuda.empty_cache()
+    out["kernels"] = kernels
+    part("row 12")
+    out["prefill_share"] = {
+        "sparse": kernel_share(packed, sparse_cfg, nsa_prefill, "prefill_fwd", "sparse", smi),
+        "full": kernel_share(full, full_cfg, model_module, "flash_attention", "full", smi)}
+    part("prefill shares")
+
+    # the incremental gate and captured against eager, both models
+    first, cache, out["sparse_incremental"] = long_incremental(
+        "sparse", packed, sparse_cfg, dropped_diagonal_block, dict(use_kernels=False), smi)
+    depth = sparse_cfg.depth
+    out["sparse_graphs_split"] = long_graphs(
+        f"sparse bs {LONG_GATE_BATCH} (split)", packed, sparse_cfg, first, cache, 1,
+        dict(decode_select=depth * LONG_GRAPH_STEPS, decode_attend=depth * LONG_GRAPH_STEPS))
+    # the whole-model loop at MEGA_STEPS tokens a launch: a replay needs
+    # two launches
+    b8 = LONG_MEGA_BATCH
+    small = first_rows(cache, b8)
+    out["sparse_graphs_mega"] = long_graphs(
+        f"sparse bs {b8} (whole-model, {MEGA_STEPS} tokens a launch)", packed, sparse_cfg,
+        first[:b8].contiguous(), small, MEGA_STEPS, dict(decode_step_mega=2),
+        n=2 * MEGA_STEPS)
+    del cache, small, packed, sparse
+    torch.cuda.empty_cache()
+    part("sparse incremental and graphs")
+    lo = LONG_GATE_PROMPT // 64 * 64
+    first, cache, out["full_incremental"] = long_incremental(
+        "full", full, full_cfg, lambda: dropped_own_block(lo, lo + 64), {}, smi)
+    out["full_graphs"] = long_graphs(f"full bs {LONG_GATE_BATCH}", full, full_cfg, first,
+                                     cache, 1, {})
+    del cache, full
+    decode_graph.clear()
+    torch.cuda.empty_cache()
+    part("full incremental and graphs")
+    out["peak_bytes"], out["parts_s"] = torch.cuda.max_memory_allocated(), parts
+    print(f"  long phase peak memory {out['peak_bytes'] / 2**30:.2f} GiB; seconds by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }; {smi}", flush=True)
+    return out
+
+
+def first_rows(cache, b):
+    """The first ``b`` rows of a cache, as a cache of their own."""
+    return cache._replace(layers=tuple(type(lc)(*(x[:b].clone() for x in lc))
+                                       for lc in cache.layers))
+
+
+def ablation_phase(smi):
+    """The ablation script (``python -m nsa_tpu_torch.profile_decode``):
+    its cell (the reference model from its seed, bs 64 x prompt 128, 50
+    steps, 4096 rows) in full and under each ``NSA_ABLATE`` value: captured
+    against eager bit for bit (tokens and every cache tensor), launches a
+    step (rows 2-3 once a layer in full and under no_emit, none under the
+    others), the ckv cache bit-unchanged under no_emit, and the script's ms
+    a step."""
+    A = ablation_script
+    params, cfg = A.seeded_model(DEVICE)
+    params = fuse_decode_params(params, cfg)
+    first, cache = A.prefilled(params, cfg, A.BATCH, A.PROMPT, A.MAX_LEN, DEVICE)
+    run = clone_cache(cache)
+    out = {}
+    for value in ("",) + nsa_layer.ABLATIONS:
+        label = value or "full"
+        res = {}
+        with A.ablation(value):
+            turns = []
+            for capture in (False, True):
+                copy_cache(run, cache)
+                zero_launches(ALL_KERNELS)
+                toks = greedy_decode(params, cfg, first, run, A.GEN, capture=capture)
+                turns.append((toks, [x.clone() for lc in run.layers for x in lc],
+                              read_launches(ALL_KERNELS)))
+            ckv_same = all(torch.equal(a.ckv, b.ckv) for a, b in zip(run.layers, cache.layers))
+            res["ms_per_step"] = A.step_ms(params, cfg, first, cache, A.GEN, A.ITERS,
+                                           torch.device(DEVICE))
+        want = {k: cfg.depth * A.GEN for k in ABLATE_KERNELS[value]}
+        for toks, caches, launches in turns:
+            no_launches(f"ablation {label}", launches, **want)
+        same = torch.equal(turns[0][0], turns[1][0]) and all(
+            torch.equal(x, y) for x, y in zip(turns[0][1], turns[1][1]))
+        res.update(captured_equals_eager=same, launches=turns[1][2], ckv_unchanged=ckv_same)
+        print(f"  ablation {label}: {res['ms_per_step']:.4f} ms a step "
+              f"({A.BATCH / res['ms_per_step'] * 1e3:.0f} tok/s); captured = eager bit for bit: "
+              f"{same}; launches {dict((k, v) for k, v in turns[1][2].items() if v)}; ckv "
+              f"unchanged over the run: {ckv_same}; {smi}", flush=True)
+        check(same, f"ablation {label}: captured decode differs from eager")
+        if value in ("no_emit", "attn_only"):
+            check(ckv_same, f"ablation {label}: the ckv cache changed")
+        else:
+            check(not ckv_same, f"ablation {label}: no compressed row was emitted")
+        out[label] = res
+    decode_graph.clear()
+    del run, cache, params
     torch.cuda.empty_cache()
     return out
 
@@ -4543,6 +4988,7 @@ def main():
         busy = profile_main_path(params, cfg, ids, first)
         del ids, logits
         torch.cuda.empty_cache()
+        ablations = ablation_phase(smi)
         t0 = phase("profile", t0)
 
         small_launches, fused_launches, small = small_batch_phase(params, cfg, smi)
@@ -4585,6 +5031,10 @@ def main():
     configs = configs_phase(smi)
     t0 = phase("configs", t0)
 
+    with torch.inference_mode():
+        long = long_phase(smi, lib.log)
+    t0 = phase("long", t0)
+
     for k in kernels:
         # each kernel's count from its own path: serving at bs 64 for the
         # forward and split decode kernels, the fused route's run at bs 8
@@ -4600,6 +5050,9 @@ def main():
                          else split_launches if k["name"] == "paged_gather"
                          else dense_launches if k["name"].endswith("_ragged")
                          else launches)[k["name"].removesuffix("_trained")]
+        # and the long phase's 16k sweep (rows 1, 2, 3, 12, 13)
+        k["long_launches"] = long["sweep"]["launches"][k["name"].removesuffix("_trained")]
+        k["launches"] += k["long_launches"]
     print(json.dumps({"main": {
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,
         "measure_decode_tok_s": tps, "measure_prefill_tok_s": prefill_tps, "peak_bytes": peak,
@@ -4607,7 +5060,7 @@ def main():
         "serve": served, "full": full, "eval": evaluated, "eval_launches": eval_launches,
         "graph": graphs, **train,
         "train_launches": train_launches, "cpt": cpt, "compress": compressors,
-        "configs": configs,
+        "configs": configs, "ablation": ablations, "long": long,
         "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them

@@ -20,6 +20,7 @@ input").
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -90,6 +91,18 @@ def timed_ms(fn, device) -> float:
     return start.elapsed_time(end)
 
 
+def host_ms(fn, device) -> float:
+    """Milliseconds of host time that ``fn()`` takes, the device drained at
+    both ends: the CPU tests' clock, never a device figure."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) * 1e3
+
+
 def _pick_mega_steps(gen_len: int) -> int:
     """Tokens per whole-model kernel launch for a ``gen_len`` rollout
     (``nsa_tpu.eval.efficiency._pick_mega_steps``): the largest divisor of
@@ -143,20 +156,20 @@ def decode_run_ms(params, cfg: ModelConfig, batch_size: int, prompt_len: int,
 
 
 def _decode_runs_ms(params, cfg: ModelConfig, first: torch.Tensor, cache: ModelCache,
-                    gen_len: int, iters: int, device) -> list:
-    """Device milliseconds of ``iters`` greedy decode runs of ``gen_len``
-    steps from ``first`` and ``cache`` (left as it is), after one warm-up
-    run; each run starts from a copy of ``cache`` in one run cache.  Where
-    ``use_mega_decode`` holds, ``_pick_mega_steps(gen_len)`` tokens a
-    launch."""
+                    gen_len: int, iters: int, device, clock=timed_ms) -> list:
+    """Milliseconds (``clock``: device time by default) of ``iters`` greedy
+    decode runs of ``gen_len`` steps from ``first`` and ``cache`` (left as
+    it is), after one warm-up run; each run starts from a copy of ``cache``
+    in one run cache.  Where ``use_mega_decode`` holds,
+    ``_pick_mega_steps(gen_len)`` tokens a launch."""
     steps = _pick_mega_steps(gen_len) if use_mega_decode(cfg, first.shape[0]) else 1
     run_cache = clone_cache(cache)
     runs = []
     for i in range(iters + 1):
         if i:
             copy_cache(run_cache, cache)
-        ms = timed_ms(lambda: greedy_decode(params, cfg, first, run_cache, gen_len,
-                                            steps=steps), device)
+        ms = clock(lambda: greedy_decode(params, cfg, first, run_cache, gen_len,
+                                         steps=steps), device)
         if i:
             runs.append(ms)
     return runs
@@ -192,6 +205,8 @@ def run_efficiency_sweep(
     *,
     device="cuda",
     log=print,
+    host_clock: bool = False,
+    iters: int = 3,
 ) -> list:
     """Prefill and decode throughput over batch sizes x prompt lengths
     (``nsa_tpu.eval.efficiency.run_efficiency_sweep``), one CSV row a cell.
@@ -202,16 +217,19 @@ def run_efficiency_sweep(
     Every decode runs ``gen_len`` greedy steps against one cache of
     ``sweep_max_len`` rows (``_decode_runs_ms``: the whole-model kernel at
     ``_pick_mega_steps`` tokens a launch where ``use_mega_decode`` holds, the
-    split pair above b = 8).  Prefill time is the mean of 3 timed runs
-    after one warm-up, decode time the mean of 3 runs, as in JAX.  The row
-    records ``max_len``, the bucket, ``prefill_tokens_per_s`` over the true
+    split pair above b = 8).  Prefill time is the mean of ``iters`` timed
+    runs after one warm-up, decode time the mean of ``iters`` runs (3 each,
+    as in JAX).  The row records ``max_len``, the bucket, ``prefill_tokens_per_s`` over the true
     prompt tokens and ``prefill_bucket_tokens_per_s`` over the padded ones;
-    ``log`` gets each row as a line.  Raises without a card: it measures."""
-    device = require_cuda(device)
+    ``log`` gets each row as a line.  Raises without a card: it measures,
+    unless ``host_clock`` asks for the host clock (``host_ms``) on any
+    device, the CPU tests' path, whose figures are no device time."""
+    device = torch.device(device) if host_clock else require_cuda(device)
+    clock = host_ms if host_clock else timed_ms
     prompt_lens = list(prompt_lens)
     params = fuse_decode_params(params, cfg)
     max_len = sweep_max_len(cfg, prompt_lens, gen_len, seq_len)
-    iters, rows = 3, []
+    rows = []
     with torch.no_grad():
         for bs in batch_sizes:
             for prompt_len in prompt_lens:
@@ -228,9 +246,9 @@ def run_efficiency_sweep(
                         prefill_first()
 
                 first, cache = prefill_first()
-                dt_pre = timed_ms(prefills, device) / iters / 1e3
+                dt_pre = clock(prefills, device) / iters / 1e3
                 dt_dec = sum(_decode_runs_ms(params, cfg, first, cache, gen_len, iters,
-                                             device)) / iters / 1e3
+                                             device, clock)) / iters / 1e3
                 row = {
                     "model_type": model_type,
                     "step": step,

@@ -78,12 +78,19 @@ class Flush:
             self.clean.sum(dtype=torch.int64)
 
 
+# host idle seconds inside a profile's window before the call: the profiler
+# can lose the device records of its window's first milliseconds (a late
+# profile in a long process lost every record of a 0.5 ms call)
+PROFILE_PAD_S = 0.05
+
+
 def launch_breakdown(fn, flush, iters: int = 5) -> dict:
     """One ``torch.profiler`` profile per call of ``fn`` (L2 flushed and the
-    card idle before each): the device ms of each launch in order, the gaps
-    between them, their sum and the span from the first start to the last
-    end, medians over ``iters`` calls: only profiles that recorded as many
-    of the call's launches as the longest count, and profiles are taken
+    card idle before each, ``PROFILE_PAD_S`` of it inside the window): the
+    device ms of each launch in order, the gaps between them, their sum and
+    the span from the first start to the last end, medians over ``iters``
+    calls: only profiles that recorded as many of the call's launches as
+    the longest count, and profiles are taken
     until ``iters`` of those are in hand, at most 3 x ``iters`` in all
     (``profiles``: how many the medians used); with the event-timed median
     and the host ms of the call."""
@@ -99,6 +106,7 @@ def launch_breakdown(fn, flush, iters: int = 5) -> dict:
         flush()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             fn()
             torch.cuda.synchronize()
         ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),

@@ -141,6 +141,16 @@ def key_env(names: Iterable[str]) -> None:
     _STEP_ENV.extend(n for n in names if n not in _STEP_ENV)
 
 
+def step_key(state: State, body: Callable[[State], None], reads=(), opts: Hashable = (),
+             generators: Sequence[torch.Generator] = ()) -> tuple:
+    """The key a captured step is kept and replayed by (see the module
+    note), the environment switches' values as they stand now among it."""
+    device = next(iter(state.values())).device
+    return (body.__code__, opts, tuple(os.environ.get(k) for k in _STEP_ENV),
+            _addresses(reads), tuple(generators), device,
+            tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(state.items())))
+
+
 def decode_loop(state: State, body: Callable[[State], None], n: int, *,
                 reads=(), opts: Hashable = (), capture: bool = True,
                 generators: Sequence[torch.Generator] = ()) -> State:
@@ -160,9 +170,7 @@ def decode_loop(state: State, body: Callable[[State], None], n: int, *,
         for _ in range(n):
             body(state)
         return state
-    key = (body.__code__, opts, tuple(os.environ.get(k) for k in _STEP_ENV),
-           _addresses(reads), tuple(generators), device,
-           tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(state.items())))
+    key = step_key(state, body, reads, opts, generators)
     step = _GRAPHS.get(key)
     if step is None:
         step = StepGraph(body, state, generators)          # runs the first step

@@ -41,7 +41,8 @@ Every compressor trains and prefills through the same kernels, which take
 only the selections; the fused routes take only the ``mlp`` compressor, as
 in JAX, so the other kinds decode on the split route.
 ``NSA_NO_FF_FUSE`` keeps the FF out of the fused and hybrid routes'
-attend kernels and applies it after them.
+attend kernels and applies it after them.  ``NSA_ABLATE``, JAX's
+profiling hook (``decode_ablation``), drops a part of the decode step.
 """
 
 from __future__ import annotations
@@ -357,7 +358,25 @@ DECODE_ROUTES = (None, "fused", "split", "hybrid")
 
 # the environment switches the decode step reads as it runs, as JAX reads
 # them as it traces (a captured decode loop is keyed on them)
-DECODE_ENV = ("NSA_HYBRID_DECODE", "NSA_NO_FF_FUSE")
+DECODE_ENV = ("NSA_HYBRID_DECODE", "NSA_NO_FF_FUSE", "NSA_ABLATE")
+
+# NSA_ABLATE's values (JAX's, ``nsa_tpu/ops/nsa.py:540-545``): the part of
+# the decode step each one drops
+ABLATIONS = ("no_fine", "no_compressed", "no_emit", "attn_only")
+
+
+def decode_ablation() -> str:
+    """``NSA_ABLATE`` as JAX reads it, a profiling hook that no user path
+    sets (``python -m nsa_tpu_torch.profile_decode`` does): one of
+    ``ABLATIONS`` or "" (any other value, like JAX's, drops nothing).
+    ``no_fine`` zeroes the fine and sliding branches, ``no_compressed`` the
+    compressed branch and its logits (so the selection reads zeros),
+    ``no_emit`` leaves the ``ckv`` cache as it was, ``attn_only`` all
+    three.  Any of them turns the fused route off; all but ``no_emit`` the
+    split and hybrid routes too, so the step takes JAX's XLA branches
+    (``decode_route``).  The whole-model kernel at b <= 8 never reads it."""
+    value = os.environ.get("NSA_ABLATE", "")
+    return value if value in ABLATIONS else ""
 
 
 def _split_decode_applies(cfg: ModelConfig) -> bool:
@@ -392,7 +411,14 @@ def decode_route(cfg: ModelConfig, b: int, ragged: bool, route: Optional[str] = 
     turns the one-position split route into the hybrid route wherever that
     applies, whether the split route was the default or forced, as JAX's
     flag turns its split path (``use_decode_kernels``) into the hybrid one.
-    The ragged split route is the XLA branches."""
+    The ragged split route is the XLA branches.
+
+    ``NSA_ABLATE`` (``decode_ablation``) then moves the step off the
+    kernels it drops, whether its route was the default or forced: off the
+    fused route to the split one (one position) or the XLA branches
+    (ragged), and under ``no_fine``, ``no_compressed`` or ``attn_only``
+    off the split and hybrid routes to the XLA branches, as JAX's hook
+    turns off its ``use_fused`` and ``use_decode_kernels``."""
     nsa = cfg.nsa
     if route not in DECODE_ROUTES:
         raise ValueError(f"route must be one of {DECODE_ROUTES}, got {route!r}")
@@ -415,6 +441,11 @@ def decode_route(cfg: ModelConfig, b: int, ragged: bool, route: Optional[str] = 
         chosen = "fused"
     else:
         chosen = "split" if _split_decode_applies(cfg) else "xla"
+    ablation = decode_ablation()
+    if ablation and chosen == "fused":
+        chosen = "split" if _split_decode_applies(cfg) else "xla"
+    if ablation not in ("", "no_emit") and chosen in ("split", "hybrid"):
+        return "xla"
     if chosen == "split" and hybrid_ok and os.environ.get("NSA_HYBRID_DECODE"):
         return "hybrid"
     return "xla" if ragged and chosen == "split" else chosen
@@ -512,7 +543,8 @@ def sparse_attention_decode(
     here as JAX reads it), ``ff_apply_gelu`` after the kernel.  Packed
     weights from ``fuse_decode_layer`` are used when present
     (``params["decode_fused"]``, ``ff_params["decode_fused"]``), else packed
-    here.
+    here.  ``NSA_ABLATE`` (``decode_ablation``, read here as JAX reads it)
+    moves the route (``decode_route``) and drops its part of the step.
 
     ``page_table`` [b, max_pages] int32 makes ``cache.kv`` a page pool [P,
     kvh, PAGE, 2d] shared by the rows (the paged serving engine): it needs a
@@ -629,25 +661,39 @@ def sparse_attention_decode(
     # ---- predicated compressed-block emission ----------------------------
     # when t+1 completes a stride the ring holds the window [t+1-Bc, t+1)
     # (zero before the sequence start) and its compression lands in slot
-    # num_cb; otherwise the candidate goes to the never-read trash row
-    row_pos = torch.arange(Bc, device=x.device) + (per_row(t) + 1 - Bc)   # [(b,) Bc]
-    win = ring.masked_fill((row_pos < 0).reshape(-1, 1, Bc, 1), 0.0)
-    new_ck, new_cv = _compress_kv(params, cfg, win[:, :, None, :, :d], win[:, :, None, :, d:])
-    cand = torch.cat([new_ck, new_cv], dim=-1)[:, :, 0]
+    # num_cb; otherwise the candidate goes to the never-read trash row.
+    # NSA_ABLATE=no_emit / attn_only leave the ckv cache as it was.
+    ablation = decode_ablation()
     ckv_cache = cache.ckv
-    trash = ckv_cache.shape[2] - 1
-    ncb = tv // stride
-    slot = torch.where(ragged_emits(tv, ncb, stride), ncb.clamp(0, trash), trash)
-    ckv_cache[rows, :, slot.long()] = cand.to(ckv_cache.dtype)
+    if ablation not in ("no_emit", "attn_only"):
+        row_pos = torch.arange(Bc, device=x.device) + (per_row(t) + 1 - Bc)   # [(b,) Bc]
+        win = ring.masked_fill((row_pos < 0).reshape(-1, 1, Bc, 1), 0.0)
+        new_ck, new_cv = _compress_kv(params, cfg, win[:, :, None, :, :d],
+                                      win[:, :, None, :, d:])
+        cand = torch.cat([new_ck, new_cv], dim=-1)[:, :, 0]
+        trash = ckv_cache.shape[2] - 1
+        ncb = tv // stride
+        slot = torch.where(ragged_emits(tv, ncb, stride), ncb.clamp(0, trash), trash)
+        ckv_cache[rows, :, slot.long()] = cand.to(ckv_cache.dtype)
 
     # ---- branch 1 + selection, then branches 2 + 3 + gate ----------------
     qg, rqg = q.reshape(b, kvh, g, d).contiguous(), rq.reshape(b, kvh, g, d)
     gates4 = gates.reshape(b, kvh, g, 3).contiguous()
     mem_kv = params["mem_kv"].to(x.dtype)
     if chosen == "xla":
-        c_out, csim = _decode_compressed(qg, ckv_cache, mem_kv, num_cb, scale)
-        fine_out, sliding_out = _decode_fine_sliding(cfg, csim, rq, kv_cache, t,
-                                                     use_kernels=use_kernels)
+        # NSA_ABLATE drops a branch as zeros (no_compressed: its logits too,
+        # which the selection then reads)
+        if ablation in ("no_compressed", "attn_only"):
+            c_out = torch.zeros((b, h, d), dtype=q.dtype, device=x.device)
+            csim = torch.zeros((b, kvh, g, nsa.num_compressed_mem_kv + ckv_cache.shape[2]),
+                               dtype=torch.float32, device=x.device)
+        else:
+            c_out, csim = _decode_compressed(qg, ckv_cache, mem_kv, num_cb, scale)
+        if ablation in ("no_fine", "attn_only"):
+            fine_out = sliding_out = torch.zeros((b, h, d), dtype=q.dtype, device=x.device)
+        else:
+            fine_out, sliding_out = _decode_fine_sliding(cfg, csim, rq, kv_cache, t,
+                                                         use_kernels=use_kernels)
         stacked = torch.stack([c_out, fine_out, sliding_out], dim=-1)     # [b, h, d, 3]
         out = torch.einsum("bhs,bhds->bhd", gates.reshape(b, h, 3).to(stacked.dtype), stacked)
     else:

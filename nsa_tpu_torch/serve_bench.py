@@ -19,7 +19,6 @@ requests.  A measurement needs a CUDA card: without one it raises.
 from __future__ import annotations
 
 import argparse
-import os
 import time
 from typing import Optional, Sequence
 
@@ -30,28 +29,15 @@ from .config import reference_model_config
 from .eval.efficiency import require_cuda
 from .models.transformer import init_transformer
 from .serve import ContinuousBatchingEngine
-from .utils.checkpoint import (
-    latest_checkpoint,
-    load_params_npz,
-    model_config_from_meta,
-    restore_checkpoint,
-    tree_to,
-)
+from .utils.checkpoint import load_params, tree_to
 
 
 def load_model(args, device):
     """(params, cfg) from ``--ckpt`` or a seeded random init, in the
     compute dtype on ``device``."""
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    if args.ckpt and args.ckpt.endswith(".npz"):
-        params, meta = load_params_npz(args.ckpt, device=device, dtype=dtype)
-        cfg = model_config_from_meta(meta)
-    elif args.ckpt:
-        path = args.ckpt
-        if not os.path.exists(os.path.join(path, "meta.json")):
-            path = latest_checkpoint(path) or path
-        state, meta = restore_checkpoint(path, ("params",), device)
-        params, cfg = tree_to(state["params"], device, dtype), model_config_from_meta(meta)
+    if args.ckpt:
+        params, cfg, _ = load_params(args.ckpt, device, dtype)
     else:
         cfg = reference_model_config(use_sparse_attn=not args.full_attention)
         params = tree_to(init_transformer(cfg, torch.Generator().manual_seed(0), device="cpu"),

@@ -222,6 +222,20 @@ def restore_checkpoint(
     return state, meta
 
 
+def load_params(path: str, device="cuda",
+                dtype: Optional[torch.dtype] = None) -> Tuple[dict, ModelConfig, dict]:
+    """(params, cfg, meta) from an exported ``.npz`` (``load_params_npz``)
+    or a training checkpoint: one ``step_*`` directory or a run directory,
+    whose newest is read.  ``dtype`` casts every floating leaf."""
+    if path.endswith(".npz"):
+        params, meta = load_params_npz(path, device=device, dtype=dtype)
+        return params, model_config_from_meta(meta), meta
+    if not os.path.isfile(os.path.join(path, "meta.json")):
+        path = latest_checkpoint(path) or path
+    state, meta = restore_checkpoint(path, ("params",), device)
+    return tree_to(state["params"], device, dtype), model_config_from_meta(meta), meta
+
+
 def export_params_npz(
     path: str,
     params: Any,

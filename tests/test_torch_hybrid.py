@@ -119,7 +119,8 @@ def test_captured_loops_are_keyed_on_every_decode_switch():
     read = set()
     for module in (t_nsa, tt):
         read |= set(re.findall(r"os\.environ\.get\(\"(\w+)\"", inspect.getsource(module)))
-    assert read == {"NSA_HYBRID_DECODE", "NSA_NO_FF_FUSE", "NSA_MEGA_DECODE", "NSA_MEGA_MAX_B"}
+    assert read == {"NSA_HYBRID_DECODE", "NSA_NO_FF_FUSE", "NSA_ABLATE", "NSA_MEGA_DECODE",
+                    "NSA_MEGA_MAX_B"}
     assert read == set(tt.DECODE_ENV) and set(t_nsa.DECODE_ENV) < read
     assert read <= set(decode_graph._STEP_ENV)
 
