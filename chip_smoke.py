@@ -162,9 +162,10 @@ Phases, each printing its name and seconds as it ends:
              the teacher-forced steps' logits against the full forward over
              the same ids within 2% of max |logit| with a control that
              drops each query's own block from the decode, row 11's blocks
-             bit for bit its plain version, 8 engine requests on the dense
-             pool (in float32 each request's tokens equal its own
-             greedy_decode; in bf16 counted), and one training step at 4 x
+             bit for bit its plain version, 4 engine requests on the dense
+             pool (8 before the mesh phase; in float32 each request's
+             tokens equal its own greedy_decode; in bf16 counted), and one
+             training step at 4 x
              4096 in bf16 against the same step in float32 (loss within
              2e-3, every gradient within rel L2 0.1) with a control that
              zeroes layer 0's fine branch, its peak memory; non-causal
@@ -201,6 +202,30 @@ Phases, each printing its name and seconds as it ends:
              8, full bs 16); the cell's largest prefill (bs 16 x 16,384) of
              each model timed by events beside its row 1 or row 13
              launches; the phase's peak memory.
+18. mesh   - the (data, heads) mesh (``nsa_tpu_torch/parallel``): 4 gloo
+             ranks spawned on the one card (NCCL refuses two ranks on one
+             device), each joined through a ``FileStore`` and loading the
+             kernels built here, against the single process on the same
+             weights and inputs.  A 2 x 2 mesh: the trained sparse
+             weights' training step at 8 x 4096 (loss within 2e-3, every
+             gradient within rel L2 0.1, a control without the FF's heads
+             all-reduce that must fail the loss gate, and a step without
+             copy_to_heads's backward all-reduce that must fail the
+             gradient gate), prefill 16 x 3900
+             and 32 greedy split-route steps (first step's logits within
+             2% of max |logit|, the share of equal tokens, the gloo
+             collectives' share of the eager steps), 4 engine requests of
+             16 tokens at 8 a sync (equal, or a near-tie within 2% at the
+             first parting); a 4 x 1 mesh: 10 whole-model decode steps at
+             local bs 2 (logits 2%); the full weights' row-13 loss and
+             training step on the 2 x 2 mesh (2e-3); which collectives
+             gloo takes on CUDA tensors; each rank's launch counts run by
+             run, the engine's exact (added to the kernels line as
+             ``mesh_launches``), and in each run the first launch of
+             every kernel of rows 1-5, 11 and 13 launched again on that
+             rank's own operands (4 heads over 2 KV heads on the 2 x 2
+             mesh) and held against its plain version under the kernels
+             phase's rules, each with its control.
 
 The kernels phase holds the split route's two decode kernels (rows 2-3)
 at the serving cell's shapes (bs 64, t = 3999, seeded inputs): c_out
@@ -272,6 +297,7 @@ import math
 import os
 import subprocess
 import sys
+import shutil
 import tempfile
 import time
 
@@ -336,6 +362,7 @@ from nsa_tpu_torch.models import decode_graph  # noqa: E402
 from nsa_tpu_torch.models import transformer as model_module  # noqa: E402
 from nsa_tpu_torch.ops import nsa as nsa_layer  # noqa: E402
 from nsa_tpu_torch.ops import attention as attention_module  # noqa: E402
+from nsa_tpu_torch.ops.common import rms_norm  # noqa: E402
 from nsa_tpu_torch.ops.nsa import _ckv_width, fuse_decode_layer  # noqa: E402
 from nsa_tpu_torch import bench as port_bench  # noqa: E402
 from nsa_tpu_torch import kernel_times  # noqa: E402
@@ -352,25 +379,29 @@ from nsa_tpu_torch.utils.checkpoint import (  # noqa: E402
     save_checkpoint,
     tree_items,
     tree_leaves,
+    tree_to,
 )
 from nsa_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
 TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
-# each phase's budget against its longest time on the H100 (PR 20's runs and
-# PR 21's): about twice it for the long phase, 69 s (29.1 s alone, its sweep
-# cut to one timed run a cell); at least 10 s for the phases of a few
-# seconds (device, weights, main, measure: 5.2 s at most), whose time is
-# host noise; about 1.5 times it, to keep the sum under 1,000 s, for build
-# 72 s (48 s), profile 36 s (24.2 s with the ablation script), small 13 s
-# (8.3 s), serve 36 s (24.1 s), full 19 s (12.4 s), eval 53 s (35.1 s), cpt
-# 42 s (27.8 s) and compress 69 s (46.2 s); under 1.5 times for kernels
-# 130 s (99.9 s: the plain flash attention at full size, flex_attention's
-# compiles, forward and backward), train 150 s (107.9 s, both models),
-# graph 100 s (73.6 s) and configs 170 s (117.8 s); 999 s in all
+# each phase's budget against its longest time on the H100 in the runs
+# before the mesh phase: at least 10 s for the phases of a few seconds
+# (device, weights, main, measure: 5.2 s at most), whose time is host noise;
+# about 1.5 times it, to keep the sum under 1,000 s, for build 72 s (48 s),
+# profile 36 s (24.2 s with the ablation script), small 13 s (8.3 s), serve
+# 36 s (24.1 s), full 19 s (12.4 s), eval 53 s (35.1 s), cpt 42 s (27.8 s),
+# compress 69 s (46.2 s) and long 45 s (29.3 s, its sweep cut to one timed
+# run a cell); under 1.5 times for kernels 130 s (99.9 s: the plain flash
+# attention at full size, flex_attention's compiles, forward and backward),
+# train 150 s (107.9 s, both models) and graph 100 s (73.6 s).  The mesh
+# phase's 60 s (44.9 s in its first whole run) were paid for by the configs
+# phase's depth (4 engine requests where it ran 8: 78.7 s, where 8 took up
+# to 117.8 s; 134 s where it had 170 s) and the long phase's margin (69 s
+# before); 999 s in all
 BUDGET_S = {"device": 10, "build": 72, "weights": 10, "kernels": 130, "main": 10,
             "measure": 10, "profile": 36, "small": 13, "serve": 36, "full": 19,
             "eval": 53, "graph": 100, "train": 150, "cpt": 42, "compress": 69,
-            "configs": 170, "long": 69}
+            "configs": 134, "long": 45, "mesh": 60}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
 SMALL_BATCHES = (8, 1)       # the small-batch cell: the whole-model decode route
 FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
@@ -414,7 +445,7 @@ ZERO_GRAD_LEAF = "['b_k']"
 CONFIG_NSA = {"per_head": dict(query_heads_share_selected_kv=False),
               "stride_eq_block": dict(compress_block_sliding_stride=16),
               "non_causal": {}}
-CONFIG_BATCH, CONFIG_GEN, CONFIG_REQUESTS, CONFIG_MICRO = 16, 32, 8, 4
+CONFIG_BATCH, CONFIG_GEN, CONFIG_REQUESTS, CONFIG_MICRO = 16, 32, 4, 4
 CONFIG_PROMPT_MIN = 256
 # The key compressor's output bias adds q.b2 to the logit of every compressed
 # key of a query's softmax (and of the selection's), which cancels it but for
@@ -455,6 +486,23 @@ ABLATE_KERNELS = {"": ("decode_select", "decode_attend"), "no_emit": ("decode_se
                                                                       "decode_attend"),
                   "no_compressed": ("paged_gather",), "no_fine": (), "attn_only": ()}
 DECODE_T = PROMPT + GEN - 1  # the last decode position of the cell
+# the mesh phase: MESH_RANKS gloo ranks on the one card (NCCL refuses two
+# ranks on one device), a 2 x 2 (data, heads) mesh for the sparse model's
+# training step at MESH_TRAIN_BATCH x SEQ (accum 1), its prefill of
+# MESH_BATCH x PROMPT and MESH_GEN greedy steps on the split route, and
+# MESH_REQUESTS engine requests of MESH_NEW tokens at MESH_SYNC tokens a
+# sync; a 4 x 1 mesh for MESH_MEGA_STEPS whole-model decode steps at
+# MESH_MEGA_BATCH (local bs 2); the full model's training step on the 2 x 2
+# mesh.  The ranks join within MESH_TIMEOUT_S or fail the phase.
+MESH_RANKS, MESH_TIMEOUT_S = 4, 55
+MESH_TRAIN_BATCH = 8
+MESH_BATCH, MESH_GEN = 16, 32
+MESH_REQUESTS, MESH_SYNC, MESH_NEW = 4, 8, 16
+MESH_MEGA_BATCH, MESH_MEGA_STEPS = 8, 10
+# the kernels whose first launch in each of a rank's runs is held against
+# its plain version at the rank's own shapes (rows 1-5, 11, 13)
+MESH_HELD_KERNELS = ("prefill_fwd", "prefill_bwd_dq", "prefill_bwd_dkv", "decode_select",
+                     "decode_attend", "paged_gather", "flash_attention")
 SEED = 0
 DEVICE = "cuda"
 WEIGHTS = os.path.join(HERE, "ckpt_export", "sparse_mlp_seq4096.npz")
@@ -740,20 +788,14 @@ def flex_prefill(rq, rk, v, sel_idx, sel_mask, sel_block, window, scale):
     return run
 
 
-def check_prefill(name, inputs, flush, cfg, library=True, plain_iters=2):
-    """Row 1 on one set of inputs: both outputs against the plain version
-    element by element (``fine_sliding_tolerance``), both log-sum-exps
-    within TOL_LSE, and a control (the plain fine output with each row's
-    first valid selected block left out, on 2 sequences) that must fail the
-    rule; the union sizes per 16- and 64-row tile; kernel, bound, plain (over
-    ``plain_iters`` runs, none at 0) and (with ``library``) flex_attention
-    times."""
-    nsa = cfg.nsa
-    G, d = cfg.num_grouped_queries, cfg.dim_head
-    Bs, window, scale = nsa.selection_block_size, nsa.sliding_window_size, d ** -0.5
-    rq, rk, v, sel_idx, sel_mask = inputs
-    args = (rq, rk, v, sel_idx, sel_mask, Bs, window, scale)
-
+def prefill_gate(name, args):
+    """Row 1 on its arguments (rq, rk, v, sel_idx, sel_mask, sel_block,
+    window, scale): both outputs against the plain version element by
+    element (``fine_sliding_tolerance``), both log-sum-exps within TOL_LSE,
+    and a control (the plain fine output with each row's first valid
+    selected block left out, on 2 sequences) that must fail the rule.
+    Returns (the kernel's outputs, the plain version's, the figures)."""
+    rq, rk, v, sel_idx, sel_mask, Bs, window, scale = args
     got = nsa_prefill.prefill_fwd(*args)
     want = nsa_prefill.fine_sliding_plain(*args)
     tols = nsa_prefill.fine_sliding_tolerance(*args, want)
@@ -767,17 +809,30 @@ def check_prefill(name, inputs, flush, cfg, library=True, plain_iters=2):
         scale)[0]
     control = ((wrong.float() - want[0][:2].float()).abs() / tols[0][:2]).max().item()
     del tols, wrong
-    unions = {f"u{r}": union_sizes(sel_idx, sel_mask, Bs, r) for r in (16, 64)}
-    print(f"  {name}: max |err| / bound fine {ratios[0]:.4f} sliding {ratios[1]:.4f} (<= 1: "
-          f"2^-7 |plain| + 2^-8 attention over |v|), lse max|err| {lse[0]:.2e} {lse[1]:.2e} "
-          f"(tol {TOL_LSE}); each row's first selected block left out: {control:.2f} (must be "
-          f"> 1); union blocks per 16 rows {unions['u16']}, per 64 rows {unions['u64']}",
-          flush=True)
+    print(f"  {name} {tuple(rq.shape)}: max |err| / bound fine {ratios[0]:.4f} sliding "
+          f"{ratios[1]:.4f} (<= 1: 2^-7 |plain| + 2^-8 attention over |v|), lse max|err| "
+          f"{lse[0]:.2e} {lse[1]:.2e} (tol {TOL_LSE}); each row's first selected block left "
+          f"out: {control:.2f} (must be > 1)", flush=True)
     check(control > 1.0, f"{name}: the prefill rule passes a kernel that leaves out a block")
     check(all(torch.isfinite(x.float()).all().item() for x in got)
           and max(ratios) <= 1.0, f"{name}: outputs disagree with the plain version")
     check(max(lse) <= TOL_LSE, f"{name}: log-sum-exps disagree with the plain version")
+    return got, want, {"ratio": max(ratios), "lse_err": max(lse), "control_ratio": control}
 
+
+def check_prefill(name, inputs, flush, cfg, library=True, plain_iters=2):
+    """Row 1 on one set of inputs: ``prefill_gate``; the union sizes per
+    16- and 64-row tile; kernel, bound, plain (over ``plain_iters`` runs,
+    none at 0) and (with ``library``) flex_attention times."""
+    nsa = cfg.nsa
+    G, d = cfg.num_grouped_queries, cfg.dim_head
+    Bs, window, scale = nsa.selection_block_size, nsa.sliding_window_size, d ** -0.5
+    rq, rk, v, sel_idx, sel_mask = inputs
+    args = (rq, rk, v, sel_idx, sel_mask, Bs, window, scale)
+    got, want, _ = prefill_gate(name, args)
+    unions = {f"u{r}": union_sizes(sel_idx, sel_mask, Bs, r) for r in (16, 64)}
+    print(f"  {name}: union blocks per 16 rows {unions['u16']}, per 64 rows {unions['u64']}",
+          flush=True)
     flops = sum(needed_keys(sel_idx, sel_mask, cfg)) * G * 4 * d
     bms, by = bound_ms(nbytes(rq, rk, v, sel_idx, sel_mask, *got), flops)
     ms = timed_ms(lambda: nsa_prefill.prefill_fwd(*args), 10, flush)
@@ -802,23 +857,55 @@ def check_prefill(name, inputs, flush, cfg, library=True, plain_iters=2):
             "unions": unions}
 
 
-def layer0_prefill_inputs(params, cfg, run):
-    """Row 1's inputs as layer 0 of ``run(params, cfg)`` gives them: rq,
-    rk, v and the selections, recorded around the kernel's wrapper."""
-    recorded, real = [], nsa_prefill.prefill_fwd
+@contextlib.contextmanager
+def first_launch_operands():
+    """The wrappers of rows 1-5, 11 and 13 replaced where the model calls
+    them, so that each one's first launch keeps its positional operands
+    (tensors cloned) in the dict yielded, under the wrapper's name."""
+    rec = {}
+    sites = [(nsa_prefill, "prefill_fwd"), (nsa_prefill, "prefill_bwd_dq"),
+             (nsa_prefill, "prefill_bwd_dkv"), (nsa_layer, "decode_select"),
+             (nsa_layer, "decode_attend"), (nsa_layer, "paged_gather"),
+             (model_module, "flash_attention")]
+    real = [getattr(module, name) for module, name in sites]
 
-    def recording(*a, **k):
-        if not recorded:
-            recorded.append([x.clone() for x in a[:5]])
-        return real(*a, **k)
+    class Keeping:
+        """A wrapper that keeps its first call's operands.  Rows 1, 4 and 5
+        are replaced in their own module, where each wrapper counts its
+        launch through its module's name: ``launches`` reads and writes
+        the wrapper's own count."""
 
-    recording.launches = 0
-    nsa_prefill.prefill_fwd = recording
+        def __init__(self, name, fn):
+            self.name, self.fn = name, fn
+
+        def __call__(self, *args, **kw):
+            if self.name not in rec:
+                rec[self.name] = [a.clone() if torch.is_tensor(a) else a for a in args]
+            return self.fn(*args, **kw)
+
+        @property
+        def launches(self):
+            return self.fn.launches
+
+        @launches.setter
+        def launches(self, n):
+            self.fn.launches = n
+
+    for (module, name), fn in zip(sites, real):
+        setattr(module, name, Keeping(name, fn))
     try:
-        run(params, cfg)
+        yield rec
     finally:
-        nsa_prefill.prefill_fwd = real
-    return recorded[0]
+        for (module, name), fn in zip(sites, real):
+            setattr(module, name, fn)
+
+
+def first_operands(kernel, run, *args):
+    """The positional operands of ``kernel``'s first launch in ``run(*args)``
+    (``first_launch_operands``)."""
+    with first_launch_operands() as rec:
+        run(*args)
+    return rec[kernel]
 
 
 def serving_prefill(params, cfg):
@@ -838,7 +925,8 @@ def kernel_prefill(gen, flush, cfg, params):
     case)."""
     random = check_prefill("prefill_fwd", prefill_inputs(gen, cfg, BATCH, PROMPT), flush, cfg)
     trained = check_prefill("prefill_fwd_trained",
-                            layer0_prefill_inputs(params, cfg, serving_prefill), flush, cfg)
+                            first_operands("prefill_fwd", serving_prefill, params, cfg)[:5],
+                            flush, cfg)
     return random, trained
 
 
@@ -927,14 +1015,65 @@ def flex_backward(inputs, fo_grad, so_grad, sel_block, window, scale, flush, ite
     return ts[len(ts) // 2], grads
 
 
+def prefill_bwd_gate(name, dq_args, deltas=None):
+    """Rows 4 and 5 on row 4's arguments (rq, rk, v, sel_idx, sel_mask, fo,
+    so, flse, slse, dfo, dso, sel_block, window, scale), row 5 reading
+    ``deltas`` (fine, sliding) where given, else the plain version's: dq,
+    dk, dv against the plain versions element by element
+    (``prefill_bwd_tolerance``) with a control (the plain backward with each
+    row's first selected block left out, on 2 sequences) that must fail the
+    rule; d_gates and the deltas within TOL_BWD_F32; each kernel bit-equal
+    on a second launch.  Returns (row 5's arguments, row 4's outputs and
+    its plain version's, row 5's and its plain version's, the figures)."""
+    sel, (flse, slse, dfo, dso), rest = dq_args[:5], dq_args[7:11], dq_args[11:]
+    got_q = nsa_prefill.prefill_bwd_dq(*dq_args)
+    want_q = nsa_prefill.prefill_bwd_dq_plain(*dq_args)
+    terms = (flse, slse, *(want_q[2:4] if deltas is None else deltas), dfo, dso)
+    dkv_args = (*sel, *terms, *rest)
+    got_kv = nsa_prefill.prefill_bwd_dkv(*dkv_args)
+    want_kv = nsa_prefill.prefill_bwd_dkv_plain(*dkv_args)
+    again = (*nsa_prefill.prefill_bwd_dq(*dq_args), *nsa_prefill.prefill_bwd_dkv(*dkv_args))
+    torch.cuda.synchronize()
+    want = (want_q[0], *want_kv)
+    tols = nsa_prefill.prefill_bwd_tolerance(*sel, *terms, *rest, want)
+    ratios = {k: ((x.float() - y.float()).abs() / t).max().item()
+              for k, x, y, t in zip(("dq", "dk", "dv"), (got_q[0], *got_kv), want, tols)}
+    f32 = {k: max_err(x, y) / y.float().abs().max().item()
+           for k, x, y in zip(("d_gates", "fine_delta", "sliding_delta"), got_q[1:], want_q[1:])}
+    two = [x[:2] for x in sel]
+    dropped = nsa_prefill.without_first_block(two[3], two[4], rest[0])
+    wrong = (nsa_prefill.prefill_bwd_dq_plain(*two[:4], dropped,
+                                              *[x[:2] for x in dq_args[5:11]], *rest)[0],
+             *nsa_prefill.prefill_bwd_dkv_plain(*two[:4], dropped,
+                                                *[x[:2] for x in terms], *rest))
+    control = [((x.float() - y[:2].float()).abs() / t[:2]).max().item()
+               for x, y, t in zip(wrong, want, tols)]
+    del tols, wrong
+    print(f"  {name} {tuple(sel[0].shape)}: max |err| / bound dq {ratios['dq']:.4f} dk "
+          f"{ratios['dk']:.4f} dv {ratios['dv']:.4f} (<= 1: 2^-7 |plain| + 2^-8 of the sum over "
+          f"absolute values); max |err| / max |plain| d_gates {f32['d_gates']:.2e} deltas "
+          f"{f32['fine_delta']:.2e} {f32['sliding_delta']:.2e} (tol {TOL_BWD_F32}); each row's "
+          f"first selected block left out: dq {control[0]:.2f} dk {control[1]:.2f} dv "
+          f"{control[2]:.2f} (dq and dk or dv must be > 1)", flush=True)
+    check(control[0] > 1.0 and max(control[1:]) > 1.0,
+          f"{name}: the backward rule passes a kernel that leaves out a block")
+    check(all(torch.isfinite(x.float()).all().item() for x in (*got_q, *got_kv))
+          and max(ratios.values()) <= 1.0, f"{name}: dq, dk or dv disagree with the plain version")
+    check(max(f32.values()) <= TOL_BWD_F32, f"{name}: d_gates or a delta disagrees")
+    check(all(torch.equal(x, y) for x, y in zip((*got_q, *got_kv), again)),
+          f"{name}: a backward kernel is not deterministic")
+    return dkv_args, got_q, want_q, got_kv, want_kv, {
+        "prefill_bwd_dq": {"ratio": ratios["dq"], "f32_err": max(f32.values()),
+                           "control_ratio": control[0]},
+        "prefill_bwd_dkv": {"ratio": max(ratios["dk"], ratios["dv"]),
+                            "control_ratio": max(control[1:])}}
+
+
 def check_prefill_bwd(name, inputs, gen, flush, cfg, log):
     """Rows 4 and 5 on one set of inputs at the training cell: the forward
-    kernel's outputs, seeded cotangents; dq, dk, dv against the plain
-    versions element by element (``prefill_bwd_tolerance``) with a control
-    (the plain backward with each row's first selected block left out, on
-    2 sequences) that must fail the rule; d_gates and the deltas within
-    TOL_BWD_F32; each kernel bit-equal on a second launch; the lists' and
-    unions' sizes; kernel, plain, bound and flex_attention backward times."""
+    kernel's outputs, seeded cotangents; ``prefill_bwd_gate`` (row 5 on the
+    plain deltas); the lists' and unions' sizes; kernel, plain, bound and
+    flex_attention backward times."""
     nsa = cfg.nsa
     G, d = cfg.num_grouped_queries, cfg.dim_head
     Bs, window, scale = nsa.selection_block_size, nsa.sliding_window_size, d ** -0.5
@@ -943,45 +1082,11 @@ def check_prefill_bwd(name, inputs, gen, flush, cfg, log):
     dfo = torch.randn(fo.shape, generator=gen, device=DEVICE).to(torch.bfloat16)
     dso = torch.randn(so.shape, generator=gen, device=DEVICE).to(torch.bfloat16)
     dq_args = (*sel, fo, so, flse, slse, dfo, dso, Bs, window, scale)
-    got_q = nsa_prefill.prefill_bwd_dq(*dq_args)
-    want_q = nsa_prefill.prefill_bwd_dq_plain(*dq_args)
-    # the dkv kernel and its plain version read the same (plain) deltas
-    terms = (flse, slse, want_q[2], want_q[3], dfo, dso)
-    dkv_args = (*sel, *terms, Bs, window, scale)
-    got_kv = nsa_prefill.prefill_bwd_dkv(*dkv_args)
-    want_kv = nsa_prefill.prefill_bwd_dkv_plain(*dkv_args)
-    again = (*nsa_prefill.prefill_bwd_dq(*dq_args), *nsa_prefill.prefill_bwd_dkv(*dkv_args))
-    torch.cuda.synchronize()
+    dkv_args, got_q, want_q, got_kv, want_kv, _ = prefill_bwd_gate(name, dq_args)
     want = (want_q[0], *want_kv)
-    tols = nsa_prefill.prefill_bwd_tolerance(*sel, *terms, Bs, window, scale, want)
-    ratios = {k: ((x.float() - y.float()).abs() / t).max().item()
-              for k, x, y, t in zip(("dq", "dk", "dv"), (got_q[0], *got_kv), want, tols)}
-    f32 = {k: max_err(x, y) / y.float().abs().max().item()
-           for k, x, y in zip(("d_gates", "fine_delta", "sliding_delta"), got_q[1:], want_q[1:])}
-    two = [x[:2] for x in sel]
-    dropped = nsa_prefill.without_first_block(two[3], two[4], Bs)
-    wrong = (nsa_prefill.prefill_bwd_dq_plain(*two[:4], dropped,
-                                              *[x[:2] for x in dq_args[5:11]], *dq_args[11:])[0],
-             *nsa_prefill.prefill_bwd_dkv_plain(*two[:4], dropped,
-                                                *[x[:2] for x in dkv_args[5:11]], *dkv_args[11:]))
-    control = [((x.float() - y[:2].float()).abs() / t[:2]).max().item()
-               for x, y, t in zip(wrong, want, tols)]
-    del tols, wrong
     stats = selection_stats(sel_idx, sel_mask, Bs)
-    print(f"  {name}: max |err| / bound dq {ratios['dq']:.4f} dk {ratios['dk']:.4f} dv "
-          f"{ratios['dv']:.4f} (<= 1: 2^-7 |plain| + 2^-8 of the sum over absolute values); "
-          f"max |err| / max |plain| d_gates {f32['d_gates']:.2e} deltas {f32['fine_delta']:.2e} "
-          f"{f32['sliding_delta']:.2e} (tol {TOL_BWD_F32}); each row's first selected block left "
-          f"out: dq {control[0]:.2f} dk {control[1]:.2f} dv {control[2]:.2f} (dq and dk or dv "
-          f"must be > 1); rows per inverted list {stats['rows_per_list']}, union blocks per 16 "
+    print(f"  {name}: rows per inverted list {stats['rows_per_list']}, union blocks per 16 "
           f"rows {stats['u16']}", flush=True)
-    check(control[0] > 1.0 and max(control[1:]) > 1.0,
-          f"{name}: the backward rule passes a kernel that leaves out a block")
-    check(all(torch.isfinite(x.float()).all().item() for x in (*got_q, *got_kv))
-          and max(ratios.values()) <= 1.0, f"{name}: dq, dk or dv disagree with the plain version")
-    check(max(f32.values()) <= TOL_BWD_F32, f"{name}: d_gates or a delta disagrees")
-    check(all(torch.equal(x, y) for x, y in zip((*got_q, *got_kv), again)),
-          f"{name}: a backward kernel is not deterministic")
 
     fine, band = needed_keys(sel_idx, sel_mask, cfg)
     common = nbytes(*sel, flse, slse, dfo, dso)
@@ -1028,7 +1133,8 @@ def kernel_prefill_bwd(gen, flush, cfg, params, log):
     random = check_prefill_bwd("prefill_bwd", prefill_inputs(gen, cfg, MICRO, SEQ), gen, flush,
                                cfg, log)
     trained = check_prefill_bwd("prefill_bwd_trained",
-                                layer0_prefill_inputs(params, cfg, training_forward), gen,
+                                first_operands("prefill_fwd", training_forward, params,
+                                               cfg)[:5], gen,
                                 flush, cfg, log)
     return [*random, *trained]
 
@@ -2117,6 +2223,35 @@ def dropped_key_attention(q, k, v, keys, first_row=0):
     return ((p @ vf) / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
+def flash_gate(name, q, k, v, dropped=FLASH_DROPPED_KEYS, control_rows=None):
+    """Row 13 on causal q, k, v against its plain version, element by
+    element (``flash_attention_tolerance``), with a control (the keys
+    ``dropped`` left out of the later rows, on 2 sequences and, where
+    ``control_rows`` is given, the last ``control_rows`` query rows) that
+    must fail the rule.  Returns (the kernel's output, the plain
+    version's, the figures)."""
+    n = q.shape[2]
+    got = flash.flash_attention(q, k, v)
+    want = flash.flash_attention_plain(q, k, v)
+    tol = flash.flash_attention_tolerance(q, k, v, want)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    ratio = ((got.float() - want.float()).abs() / tol).max().item()
+    # the control: a wrong kernel's output on the first 2 sequences
+    r0 = 0 if control_rows is None else n - control_rows
+    wrong = dropped_key_attention(q[:2, :, r0:], k[:2], v[:2], dropped, r0)
+    control = ((wrong.float() - want[:2, :, r0:].float()).abs() / tol[:2, :, r0:]).max().item()
+    del tol, wrong
+    print(f"  {name} {tuple(q.shape)} over {k.shape[1]} KV heads: max|err| {err:.5f}, max "
+          f"|err| / bound {ratio:.4f} (<= 1: 2^-7 |plain| + 2^-8 attention over |v|); keys "
+          f"{dropped[0]}..{dropped[1] - 1} left out of the later rows: {control:.2f} (must be "
+          f"> 1)", flush=True)
+    check(control > 1.0, f"{name}: the flash rule passes a kernel that leaves out a key tile")
+    check(bool(torch.isfinite(got.float()).all()) and ratio <= 1.0,
+          f"{name} disagrees with its plain version")
+    return got, want, {"max_abs_err": err, "ratio": ratio, "control_ratio": control}
+
+
 def kernel_flash(gen, flush, cfg, b=BATCH, n=PROMPT, inputs=None, dropped=FLASH_DROPPED_KEYS,
                  control_rows=None, name="flash_attention"):
     """Row 13 at the full-attention serving cell: seeded bf16 q [64, 8, 3900,
@@ -2133,29 +2268,14 @@ def kernel_flash(gen, flush, cfg, b=BATCH, n=PROMPT, inputs=None, dropped=FLASH_
     else:
         q, k, v = inputs
         b, n = q.shape[0], q.shape[2]
-    got = flash.flash_attention(q, k, v)
-    want = flash.flash_attention_plain(q, k, v)
-    tol = flash.flash_attention_tolerance(q, k, v, want)
-    torch.cuda.synchronize()
-    err = max_err(got, want)
-    ratio = ((got.float() - want.float()).abs() / tol).max().item()
-    # the control: a wrong kernel's output on the first 2 sequences
-    r0 = 0 if control_rows is None else n - control_rows
-    wrong = dropped_key_attention(q[:2, :, r0:], k[:2], v[:2], dropped, r0)
-    control = ((wrong.float() - want[:2, :, r0:].float()).abs() / tol[:2, :, r0:]).max().item()
-    del tol, wrong
+    got, want, figures = flash_gate(name, q, k, v, dropped, control_rows)
+    err = figures["max_abs_err"]
 
     def library():
         return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
-    lib_err = max_err(library(), want)
-    print(f"  {name} bs {b} n {n}: max|err| {err:.5f}, max |err| / bound {ratio:.4f} "
-          f"(<= 1: 2^-7 |plain| + 2^-8 attention over |v|); keys {dropped[0]}.."
-          f"{dropped[1] - 1} left out of the later rows: {control:.2f} (must be > 1); "
-          f"the SDPA yardstick vs plain max|err| {lib_err:.5f}", flush=True)
-    check(control > 1.0, f"{name}: the flash rule passes a kernel that leaves out a key tile")
-    check(bool(torch.isfinite(got.float()).all()) and ratio <= 1.0,
-          f"{name} disagrees with its plain version")
+    print(f"  {name}: the SDPA yardstick vs plain max|err| {max_err(library(), want):.5f}",
+          flush=True)
     flops = 4 * b * h * d * (n * (n + 1) // 2)            # q.k and p.v per (row, key <= row)
     bms, by = bound_ms(nbytes(q, k, v, got), flops)
     ms = timed_ms(lambda: flash.flash_attention(q, k, v), 10, flush)
@@ -3430,7 +3550,8 @@ def train_sparse(smi):
                                                  device="cpu"), DEVICE)
     ids = seeded_ids(MICRO, SEQ + 1, cfg.vocab_size, SEED + 1, DEVICE)
     with torch.no_grad():
-        stats = selection_stats(*layer0_prefill_inputs(params, cfg, training_forward)[3:],
+        stats = selection_stats(*first_operands("prefill_fwd", training_forward, params,
+                                                cfg)[3:5],
                                 cfg.nsa.selection_block_size)
     print(f"  layer 0 of the random-init model at {MICRO}x{SEQ}: rows per inverted list "
           f"{stats['rows_per_list']}, union blocks per 16 rows {stats['u16']}", flush=True)
@@ -3803,27 +3924,6 @@ def cpt_phase(smi):
     return out
 
 
-@contextlib.contextmanager
-def recorded_split_inputs():
-    """Rows 2-3 in the NSA layer wrapped so that the first call of each keeps
-    its inputs (layer 0 of the first split step) in the dict yielded."""
-    rec, real_sel, real_att = {}, nsa_layer.decode_select, nsa_layer.decode_attend
-
-    def sel(q, ckv, mem_kv, t, num_cb, **kw):
-        rec.setdefault("select", (q.clone(), ckv.clone(), mem_kv.clone(), int(t)))
-        return real_sel(q, ckv, mem_kv, t, num_cb, **kw)
-
-    def att(rq, kv, info, c_out, gates, t, **kw):
-        rec.setdefault("attend", (rq.clone(), kv.clone(), gates.clone()))
-        return real_att(rq, kv, info, c_out, gates, t, **kw)
-
-    nsa_layer.decode_select, nsa_layer.decode_attend = sel, att
-    try:
-        yield rec
-    finally:
-        nsa_layer.decode_select, nsa_layer.decode_attend = real_sel, real_att
-
-
 def compress_phase(smi):
     """Each compressor the trained exports do not use, on the reference
     model from a seeded random init (float32 masters, bf16 compute):
@@ -3851,7 +3951,7 @@ def compress_phase(smi):
             logits, cache = transformer_prefill(params, cfg, ids, MAX_LEN)
             first = logits[:, -1].argmax(-1)
             plain_cache = clone_cache(cache)
-            with recorded_split_inputs() as rec:
+            with first_launch_operands() as rec:
                 step0, cache = transformer_decode_step(params, cfg, first, cache)
             tokens = greedy_decode(params, cfg, step0.argmax(-1), cache, COMPRESS_GEN - 1)
             launches = read_launches(counted)
@@ -3873,10 +3973,11 @@ def compress_phase(smi):
                   f"{kind}: kernel-path prefill logits disagree with the plain path")
             check(err0 <= TOL_LOGITS_REL * max(scale0, 1.0),
                   f"{kind}: kernel-path decode logits disagree with the plain path")
-            q, ckv, mem_kv, t = rec["select"]
+            q, ckv, mem_kv, t = rec["decode_select"][:4]
+            t = int(t)
             _, _, c_p, info_p, sel = select_gate(q, ckv, mem_kv, t, t // stride, cfg,
                                                  f"{kind} decode_select")
-            rq, kv, gates = rec["attend"]
+            rq, kv, _, _, gates = rec["decode_attend"][:5]
             _, att = attend_gate(rq, kv, info_p, c_p, gates, t, cfg, f"{kind} decode_attend")
             del cache, rec, logits
 
@@ -3980,25 +4081,6 @@ def zeroed_fine_branch():
         yield
     finally:
         nsa_layer.fine_attend_core = real
-
-
-@contextlib.contextmanager
-def recorded_gather():
-    """Row 11 in the NSA layer wrapped so that its first call's operands
-    and output are kept in the list yielded."""
-    rec, real = [], nsa_layer.paged_gather
-
-    def gather(kv, idx, Bs):
-        out = real(kv, idx, Bs)
-        if not rec:
-            rec.append((kv.clone(), idx.clone(), Bs, out.clone()))
-        return out
-
-    nsa_layer.paged_gather = gather
-    try:
-        yield rec
-    finally:
-        nsa_layer.paged_gather = real
 
 
 def teacher_forced(params, cfg, tokens, cache, **kw):
@@ -4190,7 +4272,7 @@ def config_decode(name, params, cfg, smi):
 
         # incremental decode against the full forward over the same ids
         copy_cache(run, cache)
-        with recorded_gather() as rec:
+        with first_launch_operands() as rec:
             inc = teacher_forced(params, cfg, tokens, run)
         check(torch.equal(inc[:, :-1].argmax(-1), tokens[:, 1:]),
               f"{name}: teacher-forced steps pick other tokens than the loop")
@@ -4202,10 +4284,8 @@ def config_decode(name, params, cfg, smi):
             rel_gate(inc, full), rel_gate(ctrl, full)
         del full, ctrl, inc
         if gathers:
-            kv, idx, Bs, got = rec[0]
-            out["gather_bit_equal"] = torch.equal(got, paged_gather.paged_gather_plain(kv, idx, Bs))
-            check(out["gather_bit_equal"], f"{name}: row 11 differs from its plain version")
-            del kv, got
+            out["gather_bit_equal"] = gather_gate(f"{name} paged_gather",
+                                                  *rec["paged_gather"])["bit_equal"]
         print(f"  {name}: prefill {CONFIG_BATCH}x{PROMPT} {out['prefill_s']:.3f}s; "
               f"{CONFIG_GEN} captured greedy steps {decode_s:.3f}s = {out['decode_tok_s']:.1f} "
               f"tok/s; launches { {k: v for k, v in launches.items() if v} }; captured = eager; "
@@ -4620,23 +4700,6 @@ def long_sweep(sparse_cfg, full_cfg, smi, work):
     return {"rows": rows, "cells": cells, "launches": launches, "wall_s": wall}
 
 
-def recorded_flash_inputs(params, cfg, run):
-    """Row 13's operands as layer 0 of ``run(params, cfg)`` gives them."""
-    recorded, real = [], model_module.flash_attention
-
-    def recording(q, k, v, **kw):
-        if not recorded:
-            recorded.append([x.clone() for x in (q, k, v)])
-        return real(q, k, v, **kw)
-
-    model_module.flash_attention = recording
-    try:
-        run(params, cfg)
-    finally:
-        model_module.flash_attention = real
-    return recorded[0]
-
-
 def long_incremental(name, params, cfg, control, control_kw, smi):
     """The incremental decode against the full forward over the same ids at
     positions 15,000-15,003, within 2% of max |logit|, and the same steps
@@ -4759,11 +4822,12 @@ def long_phase(smi, log):
     def sweep_prefill(params, cfg):
         transformer_prefill(params, cfg, ids, LONG_MAX_LEN, true_len=op)
 
-    kernels.append(check_prefill("prefill_fwd_sweep", layer0_prefill_inputs(
-        sparse, sparse_cfg, sweep_prefill), flush, sparse_cfg, library=False, plain_iters=0))
+    kernels.append(check_prefill("prefill_fwd_sweep", first_operands(
+        "prefill_fwd", sweep_prefill, sparse, sparse_cfg)[:5], flush, sparse_cfg, library=False,
+        plain_iters=0))
     n = ids.shape[1]
-    kernels.append(kernel_flash(gen, flush, full_cfg, inputs=recorded_flash_inputs(
-        full, full_cfg, sweep_prefill), dropped=(n // 2 - 64, n // 2),
+    kernels.append(kernel_flash(gen, flush, full_cfg, inputs=first_operands(
+        "flash_attention", sweep_prefill, full, full_cfg)[:3], dropped=(n // 2 - 64, n // 2),
         control_rows=LONG_CONTROL_ROWS, name="flash_attention_sweep"))
     del ids
     part("rows 1 and 13")
@@ -4871,6 +4935,671 @@ def ablation_phase(smi):
     torch.cuda.empty_cache()
     return out
 
+def grad_tree(params):
+    """The params' gradients in the params' tree layout."""
+    if isinstance(params, dict):
+        return {k: grad_tree(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [grad_tree(v) for v in params]
+    return params.grad
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Host seconds spent in ``torch.distributed``'s all_reduce and
+    all_gather (the only collectives ``parallel/comm.py`` calls), each
+    between two synchronisations of the card; yields a dict that adds up."""
+    real = {n: getattr(torch.distributed, n) for n in ("all_reduce", "all_gather")}
+    acc = {"seconds": 0.0, "calls": 0}
+
+    def timed(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc["seconds"] += time.perf_counter() - t0
+            acc["calls"] += 1
+            return res
+        return run
+
+    for n, fn in real.items():
+        setattr(torch.distributed, n, timed(fn))
+    try:
+        yield acc
+    finally:
+        for n, fn in real.items():
+            setattr(torch.distributed, n, fn)
+
+
+def ff_without_heads_reduce(ffp, cfg, x):
+    """The FF with its heads all-reduce of ``hid @ w2`` left out (each heads
+    rank adds its partial sum)."""
+    hid = rms_norm(x, ffp["norm_scale"], cfg.norm_eps)
+    hid = F.gelu(hid @ ffp["w1"].to(hid.dtype) + ffp["b1"].to(hid.dtype))
+    return hid @ ffp["w2"].to(hid.dtype) + ffp["b2"].to(hid.dtype)
+
+
+@contextlib.contextmanager
+def ff_heads_reduce_left_out():
+    """The mesh gates' control: every FF block (the model's forward and the
+    layer's decode step) without its heads all-reduce."""
+    real = model_module.ff_apply_gelu, nsa_layer.ff_apply_gelu
+    model_module.ff_apply_gelu = nsa_layer.ff_apply_gelu = ff_without_heads_reduce
+    try:
+        yield
+    finally:
+        model_module.ff_apply_gelu, nsa_layer.ff_apply_gelu = real
+
+
+@contextlib.contextmanager
+def copy_to_heads_reduce_left_out():
+    """``comm.copy_to_heads`` with the plain identity as its backward: the
+    gradient of a replicated input (the normed activations before q / k / v
+    / gate and the FF's ``w1``) keeps only this rank's heads' part.  The
+    loss stays right; the norm scales' gradients and everything upstream
+    go wrong.  The control the mesh's gradient gate must fail."""
+    from nsa_tpu_torch.parallel import comm
+
+    real = comm._CopyToHeads.__dict__["backward"]
+    comm._CopyToHeads.backward = staticmethod(lambda ctx, g: (g, None))
+    try:
+        yield
+    finally:
+        comm._CopyToHeads.backward = real
+
+
+def gather_gate(name, kv, idx, Bs):
+    """Row 11 on its operands: bit for bit its plain version, and the
+    first id moved back one block (mod the blocks: before it lie the
+    written rows, and block 0 moves to the last, which a cache not yet
+    full holds as zeros) must give other bits."""
+    got = paged_gather.paged_gather(kv, idx, Bs)
+    want = paged_gather.paged_gather_plain(kv, idx, Bs)
+    n = kv.shape[2] // Bs
+    moved = idx.clone()
+    moved[0, 0, 0] = (moved[0, 0, 0].clamp(0, n - 1) + n - 1) % n
+    equal = torch.equal(got, want)
+    control = torch.equal(paged_gather.paged_gather_plain(kv, moved, Bs), want)
+    print(f"  {name} {tuple(idx.shape)} blocks of {Bs} rows from {tuple(kv.shape)}: bit for "
+          f"bit its plain version {equal}; one id moved back a block gives the same bits "
+          f"{control} (must be False)", flush=True)
+    check(equal, f"{name} is not the blocks it was asked for")
+    check(not control, f"{name}: the moved-id control gives the same bits")
+    return {"bit_equal": equal, "control_equal": control}
+
+
+def hold_first_launches(rec, cfg, label):
+    """Each kernel's first launch kept in ``rec`` (``first_launch_operands``)
+    launched again on the same operands and held against its plain version
+    under the kernels phase's rules and controls: rows 1 (``prefill_gate``),
+    4-5 (``prefill_bwd_gate``, row 5 on the deltas row 4 gave it), 2-3
+    (``select_gate``, then ``attend_gate`` on the plain selection), 11
+    (``gather_gate``) and 13 (``flash_gate``).  Returns {kernel: figures}."""
+    held = {}
+    if "prefill_fwd" in rec:
+        held["prefill_fwd"] = prefill_gate(f"{label} prefill_fwd", rec["prefill_fwd"])[-1]
+    if "prefill_bwd_dq" in rec:
+        held.update(prefill_bwd_gate(f"{label} prefill_bwd", rec["prefill_bwd_dq"],
+                                     rec["prefill_bwd_dkv"][7:9])[-1])
+    if "decode_select" in rec:
+        q, ckv, mem_kv, t = rec["decode_select"][:4]
+        t = int(t)
+        *_, c_p, info_p, held["decode_select"] = select_gate(
+            q, ckv, mem_kv, t, t // cfg.nsa.compress_block_sliding_stride, cfg,
+            f"{label} decode_select")
+        rq, kv, _, _, gates = rec["decode_attend"][:5]
+        held["decode_attend"] = attend_gate(rq, kv, info_p, c_p, gates, t, cfg,
+                                            f"{label} decode_attend")[1]
+    if "paged_gather" in rec:
+        held["paged_gather"] = gather_gate(f"{label} paged_gather", *rec["paged_gather"])
+    if "flash_attention" in rec:
+        held["flash_attention"] = flash_gate(f"{label} flash_attention",
+                                             *rec["flash_attention"])[-1]
+    return held
+
+
+def mesh_inputs(vocab, device):
+    """The mesh phase's token inputs, the same from its seeds in the parent
+    and in every rank: the training batch [1, MESH_TRAIN_BATCH, SEQ + 1],
+    the decode prompts [MESH_BATCH, PROMPT] and the whole-model prompts
+    [MESH_MEGA_BATCH, PROMPT]."""
+    return (seeded_ids(MESH_TRAIN_BATCH, SEQ + 1, vocab, SEED + 3, device)[None],
+            seeded_ids(MESH_BATCH, PROMPT, vocab, SEED, device),
+            seeded_ids(MESH_MEGA_BATCH, PROMPT, vocab, SEED + 4, device))
+
+
+def wait_for(path, timeout_s):
+    """Wait until ``path`` exists (written whole: its writer renames it into
+    place) or raise."""
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear within {timeout_s}s")
+        time.sleep(0.1)
+
+
+def mesh_requests():
+    """The mesh engine's requests: the serving cell's first MESH_REQUESTS
+    prompts, MESH_NEW new tokens each."""
+    return [(prompt, MESH_NEW) for prompt, _ in serve_requests(MESH_REQUESTS, SEED)]
+
+
+def mesh_engine(params, cfg, reqs, mesh=None):
+    """The tokens of ``reqs`` through an engine of MESH_REQUESTS slots at
+    MESH_SYNC tokens a sync, over ``mesh`` (eager) or in one process."""
+    eng = serve.ContinuousBatchingEngine(
+        params, cfg, max_batch=MESH_REQUESTS, max_len=MAX_LEN, prefill_buckets=SERVE_BUCKETS,
+        steps_per_sync=MESH_SYNC, mesh=mesh, capture=mesh is None)
+    rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+    done = eng.run()
+    return [done[r].tolist() for r in rids]
+
+
+def gloo_cuda_collectives(dev):
+    """Which collectives this gloo world takes on CUDA tensors: each one's
+    result checked, or the error it raised (``parallel/comm.py`` stages
+    all_gather through the host under gloo)."""
+    dist = torch.distributed
+    world, rank = dist.get_world_size(), dist.get_rank()
+    x = torch.full((4,), float(rank + 1), device=dev)
+    total = float(sum(range(1, world + 1)))
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return bool((y == total).all())
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0)
+        return bool((y == 1).all())
+
+    def all_gather():
+        ys = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(ys, x)
+        return [float(y[0]) for y in ys] == [float(r + 1) for r in range(world)]
+
+    def reduce_scatter():
+        y = torch.empty(1, device=dev)
+        dist.reduce_scatter_tensor(y, torch.full((world,), float(rank + 1), device=dev))
+        return float(y[0]) == total
+
+    out = {}
+    for fn in (all_reduce, broadcast, all_gather, reduce_scatter):
+        try:
+            out[fn.__name__] = "ok" if fn() else "wrong result"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[fn.__name__] = f"{type(e).__name__}: {str(e).splitlines()[0][:80]}"
+    return out
+
+
+def mesh_rank(work):
+    """One of the mesh phase's ranks, on the one card with gloo: every run
+    the phase holds, each with its launch counts, its seconds and its
+    kernels held at the rank's shapes (``hold_first_launches``).  The inputs
+    come from the seeds (``mesh_inputs``); the single process's gradients,
+    which the parent computes while the ranks start, from ``work``."""
+    from nsa_tpu_torch.parallel import comm, sharding
+    from nsa_tpu_torch.parallel import train_step as pstep
+    from nsa_tpu_torch.parallel.mesh import make_mesh, rank_device
+
+    entered = time.perf_counter()
+    dev = rank_device(DEVICE)
+    runtime.require_built()             # the parent built the kernels; a rank only loads them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(2, 2)
+    out = {"coords": mesh.coords, "launches": {}, "s": {}, "held": {},
+           "gloo_cuda": gloo_cuda_collectives(dev),
+           "marks": {"started": entered, "on the card with its groups": time.perf_counter()}}
+    full, meta = load_params_npz(WEIGHTS, device="cpu", dtype=torch.float32)
+    cfg = model_config_from_meta(meta).replace(dtype="bfloat16")
+    lcfg = sharding.local_config(cfg, mesh)
+
+    def counted(label, fn):
+        """fn()'s result, its launches and seconds; then the first launch
+        of each kernel it ran held at this rank's shapes (not counted)."""
+        zero_launches(ALL_KERNELS)
+        t0 = time.perf_counter()
+        with first_launch_operands() as rec:
+            res = fn()
+        torch.cuda.synchronize()
+        out["s"][label] = time.perf_counter() - t0
+        out["launches"][label] = read_launches(ALL_KERNELS)
+        print(f"{label} {out['s'][label]:.2f}s", flush=True)   # into the rank's log
+        out["held"][label] = hold_first_launches(rec, lcfg, label)
+        return res
+
+    # (a) the sparse model's training step on the 2 x 2 mesh, after two
+    # controls: a forward without the FF's heads all-reduce, and a step
+    # without copy_to_heads's backward all-reduce
+    params = pstep.shard_trainable(full, mesh, cfg, dev)
+    out["marks"]["weights sharded"] = time.perf_counter()
+    batch, decode_ids, mega_ids = mesh_inputs(cfg.vocab_size, dev)
+    with torch.no_grad(), mesh, ff_heads_reduce_left_out():
+        local = sharding.shard_batch(batch[0], mesh)
+        out["train_control_loss"] = comm.mean_over_batch(
+            transformer_loss(params, lcfg, local)).item()
+    out["marks"]["control forward"] = time.perf_counter()
+    cparams = pstep.shard_trainable(full, mesh, cfg, dev)
+    del full
+    with copy_to_heads_reduce_left_out():
+        out["grad_control_loss"] = float(pstep.sharded_train_step(
+            cparams, pretrain.make_optimizer(TrainConfig(), cparams), batch, cfg, 1, mesh))
+    control_grads = grad_tree(cparams)
+    del cparams
+    out["marks"]["control step"] = time.perf_counter()
+    opt = pretrain.make_optimizer(TrainConfig(), params)
+    out["train_loss"] = counted("train", lambda: float(pstep.sharded_train_step(
+        params, opt, batch, cfg, 1, mesh)))
+    out["marks"]["train step"] = time.perf_counter()
+    if mesh.coord("data") == 0:
+        # each heads rank holds the same slices of the single process's
+        # gradients against its own and the control's: squared norms of the
+        # difference and of the reference, leaf by leaf (no gather)
+        grads = os.path.join(work, "grads.pt")
+        wait_for(grads, MESH_TIMEOUT_S)
+        want = tree_leaves(sharding.shard_params(torch.load(grads, weights_only=True), mesh,
+                                                 cfg))
+        for key, got in (("grad_sq", grad_tree(params)), ("control_grad_sq", control_grads)):
+            out[key] = {k: ((g.float() - w.to(dev)).square().sum().item(),
+                            w.square().sum().item())
+                        for (k, g), w in zip(tree_items(got), want)}
+        del want
+    del params, opt, control_grads
+    torch.cuda.empty_cache()
+    out["marks"]["gradients held"] = time.perf_counter()
+
+    # (b) prefill and greedy decode on the split route
+    bparams, _ = load_params_npz(WEIGHTS, device=dev, dtype=torch.bfloat16)
+    with mesh:                           # packed from the rank's own shard
+        local = fuse_decode_params(sharding.shard_params(bparams, mesh, cfg), lcfg)
+    ids = sharding.shard_batch(decode_ids, mesh)
+
+    def decode():
+        with torch.no_grad(), mesh:
+            logits, cache = transformer_prefill(local, lcfg, ids, MAX_LEN)
+            first = logits[:, -1].argmax(-1)
+            with ff_heads_reduce_left_out():
+                control, _ = transformer_decode_step(local, lcfg, first, clone_cache(cache))
+            out["decode_control_logits"] = control.float().cpu()
+            step0, cache = transformer_decode_step(local, lcfg, first, cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with timed_collectives() as coll:
+                toks = greedy_decode(local, lcfg, step0.argmax(-1), cache, MESH_GEN - 1,
+                                     capture=False)
+            torch.cuda.synchronize()
+            out["decode_s"], out["decode_collectives"] = time.perf_counter() - t0, coll
+        return step0, torch.cat([first[:, None], toks], 1)
+
+    step0, toks = counted("decode", decode)
+    out["decode_logits"], out["decode_tokens"] = step0.float().cpu(), toks.cpu()
+    del local
+    torch.cuda.empty_cache()
+
+    # (c) the serving engine on the mesh
+    reqs = mesh_requests()
+    out["engine_tokens"] = counted("engine", lambda: mesh_engine(bparams, cfg, reqs, mesh))
+
+    # (d) the data-only 4 x 1 mesh on the whole-model kernel (row 12)
+    dmesh = make_mesh(4, 1)
+    dlocal = fuse_decode_params(sharding.shard_params(bparams, dmesh, cfg), cfg)
+    mids = sharding.shard_batch(mega_ids, dmesh)
+
+    def mega():
+        with torch.no_grad(), dmesh:
+            logits, cache = transformer_prefill(dlocal, cfg, mids, MAX_LEN)
+            step0, cache = transformer_decode_step(dlocal, cfg, logits[:, -1].argmax(-1), cache)
+            greedy_decode(dlocal, cfg, step0.argmax(-1), cache, MESH_MEGA_STEPS - 1,
+                          capture=False)
+        return step0
+
+    out["mega_logits"] = counted("mega", mega).float().cpu()
+    del bparams, dlocal
+    torch.cuda.empty_cache()
+
+    # (e) the full model on the 2 x 2 mesh: row 13's loss, then a training step
+    ffull, fmeta = load_params_npz(FULL_WEIGHTS, device="cpu", dtype=torch.float32)
+    fcfg = model_config_from_meta(fmeta).replace(dtype="bfloat16")
+    fparams = pstep.shard_trainable(ffull, mesh, fcfg, dev)
+    del ffull
+
+    def full_eval():
+        with torch.no_grad(), mesh:
+            local = sharding.shard_batch(batch[0], mesh)
+            return comm.mean_over_batch(transformer_loss(
+                fparams, sharding.local_config(fcfg, mesh), local)).item()
+
+    out["full_eval_loss"] = counted("full_eval", full_eval)
+    with ff_heads_reduce_left_out():
+        out["full_control_loss"] = full_eval()
+    fopt = pretrain.make_optimizer(TrainConfig(), fparams)
+    out["full_train_loss"] = counted("full_train", lambda: float(pstep.sharded_train_step(
+        fparams, fopt, batch, fcfg, 1, mesh)))
+    out["marks"]["done"] = time.perf_counter()
+    return out
+
+
+def mesh_refs(work):
+    """The single process's figures for the mesh phase on the same inputs
+    and weights, its gradients written to ``work`` for the ranks; returns
+    them, with the seconds of each part under ``"s"``."""
+    refs, laps, t0 = {}, {}, time.perf_counter()
+
+    def lap(label):
+        nonlocal t0
+        torch.cuda.synchronize()
+        laps[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    full, meta = load_params_npz(WEIGHTS, device="cpu", dtype=torch.float32)
+    cfg = model_config_from_meta(meta).replace(dtype="bfloat16")
+    params = pretrain.trainable(full, DEVICE)
+    batch, ids, mids = mesh_inputs(cfg.vocab_size, DEVICE)
+    opt = pretrain.make_optimizer(TrainConfig(), params)
+    with torch.no_grad():
+        refs["train_control_ref"] = transformer_loss(params, cfg, batch[0]).item()
+    refs["train_loss"] = float(pretrain.train_step(params, opt, batch, cfg, 1))
+    torch.save(tree_to(grad_tree(params), "cpu"), os.path.join(work, "grads.pt.tmp"))
+    os.replace(os.path.join(work, "grads.pt.tmp"), os.path.join(work, "grads.pt"))
+    del params, opt, full
+    lap("train")
+
+    bparams, _ = load_params_npz(WEIGHTS, device=DEVICE, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        logits, cache = transformer_prefill(bparams, cfg, ids, MAX_LEN)
+        first = logits[:, -1].argmax(-1)
+        step0, cache = transformer_decode_step(bparams, cfg, first, cache, route="split")
+        toks = greedy_decode(bparams, cfg, step0.argmax(-1), cache, MESH_GEN - 1, route="split")
+        refs.update(decode_logits=step0.float().cpu(),
+                    decode_tokens=torch.cat([first[:, None], toks], 1).cpu())
+        del logits, cache
+        logits, cache = transformer_prefill(bparams, cfg, mids, MAX_LEN)
+        step0, _ = transformer_decode_step(bparams, cfg, logits[:, -1].argmax(-1), cache)
+        refs["mega_logits"] = step0.float().cpu()
+        del logits, cache
+    lap("decode")
+    refs["engine_tokens"] = mesh_engine(bparams, cfg, mesh_requests())
+    del bparams
+    lap("engine")
+
+    ffull, fmeta = load_params_npz(FULL_WEIGHTS, device="cpu", dtype=torch.float32)
+    fcfg = model_config_from_meta(fmeta).replace(dtype="bfloat16")
+    fparams = pretrain.trainable(ffull, DEVICE)
+    with torch.no_grad():
+        refs["full_eval_loss"] = transformer_loss(fparams, fcfg, batch[0]).item()
+    refs["full_train_loss"] = float(pretrain.train_step(
+        fparams, pretrain.make_optimizer(TrainConfig(), fparams), batch, fcfg, 1))
+    del fparams, ffull
+    decode_graph.clear()
+    torch.cuda.empty_cache()
+    lap("full")
+    refs["s"] = laps
+    return refs
+
+
+def engine_partings(params, cfg, reqs, got, want):
+    """Where a request's tokens over the mesh part from the single
+    process's, the gap between the two tokens' logits at the parting (the
+    single process's forward over the prompt and the common prefix),
+    relative to the largest |logit| there; an empty list where all agree."""
+    gaps = []
+    for (prompt, _), a, b in zip(reqs, got, want):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        ids = torch.from_numpy(np.concatenate([prompt, np.asarray(b[:j], np.int32)]))
+        with torch.inference_mode():
+            logits = transformer_forward(params, cfg, ids[None].to(DEVICE).long())[0, -1]
+        gaps.append((logits[b[j]] - logits[a[j]]).item() / logits.abs().max().item())
+    return gaps
+
+
+def mesh_grad_errs(ranks, cfg, sq="grad_sq"):
+    """Each gradient's relative L2 error over the whole leaf from the heads
+    ranks' squared norms of their slices under ``sq`` (a replicated leaf's
+    from one)."""
+    from nsa_tpu_torch.parallel.sharding import param_spec
+
+    errs = {}
+    shapes = load_params_npz(WEIGHTS, device="cpu")[0]
+    for leaf_key, leaf in tree_items(shapes):
+        path = tuple(int(k) if k.isdigit() else k.strip("'")
+                     for k in leaf_key.strip("[]").split("]["))
+        split = "heads" in param_spec(path, leaf, cfg.nsa.compressor)
+        parts = [r[sq][leaf_key] for r in (ranks if split else ranks[:1])]
+        diff, ref = sum(p[0] for p in parts), sum(p[1] for p in parts)
+        errs[leaf_key] = math.sqrt(diff / ref) if ref > 0 else math.sqrt(diff)
+    return errs
+
+
+def mesh_expected_launches(cfg, label):
+    """A mesh rank's launches in one of its runs."""
+    none = {fn.__name__: 0 for fn in ALL_KERNELS}
+    d = cfg.depth
+    want = {"train": {"prefill_fwd": d, "prefill_bwd_dq": d, "prefill_bwd_dkv": d},
+            # the MESH_GEN steps and the control's step
+            "decode": {"prefill_fwd": d, "decode_select": d * (MESH_GEN + 1),
+                       "decode_attend": d * (MESH_GEN + 1)},
+            "mega": {"prefill_fwd": d, "decode_step_mega": MESH_MEGA_STEPS},
+            # one prefill wave, then windows of MESH_SYNC steps until every
+            # request has its MESH_NEW tokens (the first from the prefill)
+            "engine": {"prefill_fwd": d,
+                       "paged_gather": d * MESH_SYNC * -(-(MESH_NEW - 1) // MESH_SYNC)},
+            "full_eval": {"flash_attention": d},
+            "full_train": {}}
+    return {**none, **want[label]}
+
+
+def start_bytecode_cache():
+    """Start a process that imports what the mesh phase's ranks import
+    (this script, ``torch.distributed``, what an optimizer's step reaches)
+    and writes the bytecode into a fresh cache directory
+    (``PYTHONPYCACHEPREFIX``); returns
+    (the process, the directory).  Where no bytecode is written
+    (``PYTHONDONTWRITEBYTECODE``, as on the H100's machine) every process
+    compiles torch from source: there ~10 s for ``import torch`` and ~12 s
+    more for ``torch._dynamo``, which a process's first optimizer imports
+    (torch.optim keeps dynamo out of its methods).  Started with the script,
+    it runs beside the build; the ranks then start on compiled bytecode."""
+    prefix = tempfile.mkdtemp(prefix="pycache_")
+    env = {**os.environ, "PYTHONPYCACHEPREFIX": prefix}
+    env.pop("PYTHONDONTWRITEBYTECODE", None)
+    # an optimizer's step imports the rest of what torch.optim reaches
+    code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke, torch, "
+            f"torch.distributed; p = torch.zeros(1, requires_grad=True); p.sum().backward(); "
+            f"o = torch.optim.Adam([p]); o.step(); o.zero_grad()")
+    with open(os.path.join(prefix, "imports.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=HERE, env=env,
+                                stdout=log, stderr=subprocess.STDOUT)
+    return proc, prefix
+
+
+@contextlib.contextmanager
+def bytecode_cache(bytecode):
+    """The processes started inside read and write the cache of
+    ``start_bytecode_cache`` (its process finished first, or it raises)."""
+    proc, prefix = bytecode
+    if proc.wait(timeout=MESH_TIMEOUT_S):
+        with open(os.path.join(prefix, "imports.log")) as f:
+            raise RuntimeError(f"the bytecode cache's imports failed: {f.read()[-2000:]}")
+    saved = {k: os.environ.get(k) for k in ("PYTHONPYCACHEPREFIX", "PYTHONDONTWRITEBYTECODE")}
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_phase(smi, bytecode):
+    """The (data, heads) mesh on the one card (``nsa_tpu_torch/parallel``):
+    MESH_RANKS gloo ranks against the single process on the same weights
+    and inputs (see MESH_RANKS), started on the compiled bytecode in ``bytecode``
+    (``start_bytecode_cache``); returns the phase's figures and each rank's
+    launch counts."""
+    from nsa_tpu_torch.parallel.mesh import run_ranks
+
+    refs = {}
+
+    def single_process():          # on the card while the ranks start
+        t = time.perf_counter()
+        refs.update(mesh_refs(work))
+        refs["seconds"] = time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as work, bytecode_cache(bytecode):
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank, MESH_RANKS, "gloo", (work,), timeout_s=MESH_TIMEOUT_S,
+                          workdir=work, meanwhile=single_process)
+        ranks_s = time.perf_counter() - t0
+    refs_s = refs["seconds"]
+    _, meta = load_params_npz(WEIGHTS, device="cpu")
+    cfg = model_config_from_meta(meta).replace(dtype="bfloat16")
+    marks = {k: round(max(r["marks"][k] for r in ranks) - t0, 2) for k in ranks[0]["marks"]}
+    print(f"  mesh: {MESH_RANKS} gloo ranks on one card {ranks_s:.2f}s, the last rank's "
+          f"seconds from the spawn: {marks}; meanwhile the single process's figures "
+          f"{refs_s:.2f}s "
+          f"{ {k: round(v, 2) for k, v in refs['s'].items()} }; {smi}", flush=True)
+    out = {"refs_s": refs_s, "ranks_s": ranks_s, "rank_marks_s": marks, "ranks": [],
+           "gloo_cuda_collectives": ranks[0]["gloo_cuda"]}
+    print(f"  gloo on CUDA tensors: {ranks[0]['gloo_cuda']}", flush=True)
+
+    # the 2 x 2 training step, its gradients and the control
+    ref = refs["train_loss"]
+    losses = [r["train_loss"] for r in ranks]
+    heads_ranks = [r for r in ranks if r["coords"][0] == 0]
+    errs = mesh_grad_errs(heads_ranks, cfg)
+    worst = max(errs, key=errs.get)
+    cerrs = mesh_grad_errs(heads_ranks, cfg, "control_grad_sq")
+    cworst = max(cerrs, key=cerrs.get)
+    control = ranks[0]["train_control_loss"]
+    ctrl_ref = refs["train_control_ref"]
+    print(f"  mesh 2x2 train step {MESH_TRAIN_BATCH}x{SEQ}: loss {losses[0]:.6f} (ranks "
+          f"{len(set(losses))} value(s)) vs one process {ref:.6f}, rel "
+          f"{abs(losses[0] - ref) / abs(ref):.3e} (tol {TOL_LOSS_REL}); gradients rel L2 max "
+          f"{errs[worst]:.3e} at {worst} (tol {TOL_GRAD_REL_L2}), median "
+          f"{sorted(errs.values())[len(errs) // 2]:.3e} over {len(errs)}; control (the FF's "
+          f"heads all-reduce left out) loss {control:.6f} vs {ctrl_ref:.6f}, rel "
+          f"{abs(control - ctrl_ref) / abs(ctrl_ref):.3e}; control (copy_to_heads's backward "
+          f"all-reduce left out) loss {ranks[0]['grad_control_loss']:.6f}, gradients rel L2 max "
+          f"{cerrs[cworst]:.3e} at {cworst} (must be > {TOL_GRAD_REL_L2}), median "
+          f"{sorted(cerrs.values())[len(cerrs) // 2]:.3e}", flush=True)
+    check(len(set(losses)) == 1 and abs(losses[0] - ref) <= TOL_LOSS_REL * abs(ref),
+          "the mesh training step's loss disagrees with one process's")
+    check(errs[worst] <= TOL_GRAD_REL_L2, "the mesh training step's gradients disagree")
+    check(abs(control - ctrl_ref) > TOL_LOSS_REL * abs(ctrl_ref),
+          "the mesh loss gate passes a forward without the FF's heads all-reduce")
+    check(cerrs[cworst] > TOL_GRAD_REL_L2,
+          "the mesh gradient gate passes a step without copy_to_heads's backward all-reduce")
+    out.update(train_loss=losses[0], train_loss_ref=ref, grad_rel_l2_max=errs[worst],
+               train_control_rel=abs(control - ctrl_ref) / abs(ctrl_ref),
+               grad_control_rel_l2_max=cerrs[cworst])
+
+    # prefill + decode on the split route, the first step's logits
+    half = MESH_BATCH // 2
+    err = agree = 0.0
+    control = math.inf
+    for r in ranks:
+        rows = slice(r["coords"][0] * half, (r["coords"][0] + 1) * half)
+        want = refs["decode_logits"][rows]
+        scale = max(want.abs().max().item(), 1.0)
+        err = max(err, max_err(r["decode_logits"], want) / scale)
+        control = min(control, max_err(r["decode_control_logits"], want) / scale)
+        agree += (r["decode_tokens"] == refs["decode_tokens"][rows]).float().mean().item()
+    agree /= len(ranks)
+    coll = [r["decode_collectives"] for r in ranks]
+    share = [c["seconds"] / r["decode_s"] for c, r in zip(coll, ranks)]
+    print(f"  mesh 2x2 prefill {MESH_BATCH}x{PROMPT} + {MESH_GEN} greedy steps (split route, "
+          f"eager): first step's logits max|err| {err:.4f} of max|logit| (tol "
+          f"{TOL_LOGITS_REL}; control without the FF's heads all-reduce {control:.4f}); "
+          f"tokens equal one process's {100 * agree:.1f}%; "
+          f"{MESH_GEN - 1} steps {ranks[0]['decode_s']:.3f}s on rank 0 "
+          f"({(MESH_GEN - 1) / ranks[0]['decode_s']:.1f} steps/s), gloo collectives "
+          f"{coll[0]['calls']} calls {coll[0]['seconds']:.3f}s = "
+          f"{100 * min(share):.1f}-{100 * max(share):.1f}% of the steps' time over the ranks; "
+          f"{smi}", flush=True)
+    check(err <= TOL_LOGITS_REL, "the mesh decode's logits disagree with one process's")
+    check(control > TOL_LOGITS_REL, "the mesh decode gate passes a step without the FF's "
+                                    "heads all-reduce")
+    out.update(decode_logits_rel=err, decode_control_rel=control, decode_tokens_equal=agree,
+               decode_s=[r["decode_s"] for r in ranks], collective_share=share,
+               collective_calls=coll[0]["calls"])
+
+    # the engine
+    reqs = mesh_requests()
+    bparams, _ = load_params_npz(WEIGHTS, device=DEVICE, dtype=torch.bfloat16)
+    gaps = {}
+    for r in ranks:
+        check(r["engine_tokens"] == ranks[0]["engine_tokens"], "the ranks' engines disagree")
+    gaps = engine_partings(bparams, cfg, reqs, ranks[0]["engine_tokens"], refs["engine_tokens"])
+    del bparams
+    equal = MESH_REQUESTS - len(gaps)
+    print(f"  mesh 2x2 engine, {MESH_REQUESTS} requests at {MESH_SYNC} tokens a sync: {equal} of "
+          f"{MESH_REQUESTS} token for token one process's; at each parting the two tokens' "
+          f"logits apart by {[round(g, 5) for g in gaps]} of max|logit| (tol {TOL_LOGITS_REL})",
+          flush=True)
+    check(all(abs(g) <= TOL_LOGITS_REL for g in gaps),
+          "the mesh engine parts from one process's tokens on other than a near-tie")
+    out.update(engine_equal=equal, engine_parting_gaps=gaps)
+
+    # the data-only mesh on row 12: rank i holds rows 2i, 2i + 1; the
+    # control holds each rank's logits against the next rank's rows
+    merr, mctrl, local = 0.0, math.inf, MESH_MEGA_BATCH // MESH_RANKS
+    for i, r in enumerate(ranks):
+        for j in (i, (i + 1) % MESH_RANKS):
+            want = refs["mega_logits"][j * local:(j + 1) * local]
+            e = max_err(r["mega_logits"], want) / max(want.abs().max().item(), 1.0)
+            merr, mctrl = (max(merr, e), mctrl) if j == i else (merr, min(mctrl, e))
+    print(f"  mesh 4x1 (data only) prefill {MESH_MEGA_BATCH}x{PROMPT} (local bs 2) + "
+          f"{MESH_MEGA_STEPS} steps on the whole-model kernel: first step's logits max|err| "
+          f"{merr:.4f} of max|logit| (tol {TOL_LOGITS_REL}; control, another rank's rows, "
+          f"{mctrl:.4f})", flush=True)
+    check(merr <= TOL_LOGITS_REL, "the data-only mesh's logits disagree with one process's")
+    check(mctrl > TOL_LOGITS_REL, "the data-only mesh's gate passes another rank's rows")
+    out.update(mega_logits_rel=merr, mega_control_rel=mctrl)
+
+    # the full model
+    for key in ("full_eval_loss", "full_train_loss"):
+        got = [r[key] for r in ranks]
+        rel = abs(got[0] - refs[key]) / abs(refs[key])
+        print(f"  mesh 2x2 full model {key.replace('_', ' ')}: {got[0]:.6f} vs one process "
+              f"{refs[key]:.6f}, rel {rel:.3e} (tol {TOL_LOSS_REL})", flush=True)
+        check(len(set(got)) == 1 and rel <= TOL_LOSS_REL,
+              f"the mesh full model's {key} disagrees with one process's")
+        out[key + "_rel"] = rel
+    ctrl = abs(ranks[0]["full_control_loss"] - refs["full_eval_loss"]) / refs["full_eval_loss"]
+    print(f"  mesh 2x2 full model control (the FF's heads all-reduce left out): loss rel "
+          f"{ctrl:.3e}", flush=True)
+    check(ctrl > TOL_LOSS_REL, "the mesh full model's loss gate passes a forward without "
+                               "the FF's heads all-reduce")
+    out["full_control_rel"] = ctrl
+
+    # each rank's launches, run by run
+    for i, r in enumerate(ranks):
+        for label, got in r["launches"].items():
+            want = mesh_expected_launches(cfg, label)
+            check(got == want, f"rank {i} {label} launches {got}, expected {want}")
+            launched = {k for k, n in got.items() if n and k in MESH_HELD_KERNELS}
+            check(set(r["held"][label]) == launched,
+                  f"rank {i} {label}: held {sorted(r['held'][label])}, launched {sorted(launched)}")
+            held = {k: {f: float(f"{x:.4g}") if isinstance(x, float) else x
+                        for f, x in v.items()} for k, v in r["held"][label].items()}
+            print(f"  rank {i} {r['coords']} {label}: launches "
+                  f"{ {k: v for k, v in got.items() if v} }; the first launch of each at this "
+                  f"rank's shapes against its plain version {held}", flush=True)
+        print(f"  rank {i} {r['coords']}: seconds { {k: round(v, 3) for k, v in r['s'].items()} }",
+              flush=True)
+        out["ranks"].append({"coords": r["coords"], "launches": r["launches"], "s": r["s"],
+                             "held": r["held"]})
+    return out
+
+
 
 def main():
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
@@ -4879,6 +5608,18 @@ def main():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU", file=sys.stderr)
         sys.exit(1)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    bytecode = start_bytecode_cache()   # for the mesh phase's ranks, beside the build
+    try:
+        run_phases(t0, kind, count, bytecode)
+    finally:
+        if bytecode[0].poll() is None:
+            bytecode[0].kill()
+        bytecode[0].wait()
+        shutil.rmtree(bytecode[1], ignore_errors=True)
+
+
+def run_phases(t0, kind, count, bytecode):
+    """Every phase after the device check; prints the result lines."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=30, check=True).stdout.strip().splitlines()[0]
@@ -5035,6 +5776,9 @@ def main():
         long = long_phase(smi, lib.log)
     t0 = phase("long", t0)
 
+    mesh = mesh_phase(smi, bytecode)
+    t0 = phase("mesh", t0)
+
     for k in kernels:
         # each kernel's count from its own path: serving at bs 64 for the
         # forward and split decode kernels, the fused route's run at bs 8
@@ -5053,6 +5797,10 @@ def main():
         # and the long phase's 16k sweep (rows 1, 2, 3, 12, 13)
         k["long_launches"] = long["sweep"]["launches"][k["name"].removesuffix("_trained")]
         k["launches"] += k["long_launches"]
+        # and each mesh rank's, over the phase's runs
+        k["mesh_launches"] = [sum(g[k["name"].removesuffix("_trained")]
+                                  for g in r["launches"].values()) for r in mesh["ranks"]]
+        k["launches"] += sum(k["mesh_launches"])
     print(json.dumps({"main": {
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,
         "measure_decode_tok_s": tps, "measure_prefill_tok_s": prefill_tps, "peak_bytes": peak,
@@ -5060,7 +5808,7 @@ def main():
         "serve": served, "full": full, "eval": evaluated, "eval_launches": eval_launches,
         "graph": graphs, **train,
         "train_launches": train_launches, "cpt": cpt, "compress": compressors,
-        "configs": configs, "ablation": ablations, "long": long,
+        "configs": configs, "ablation": ablations, "long": long, "mesh": mesh,
         "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them

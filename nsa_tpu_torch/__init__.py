@@ -8,6 +8,7 @@ kernel wrapper runs its plain PyTorch version.
 """
 
 from .config import (
+    MeshConfig,
     ModelConfig,
     NSAConfig,
     model_config_from_json,
@@ -16,6 +17,7 @@ from .config import (
 )
 
 __all__ = [
+    "MeshConfig",
     "ModelConfig",
     "NSAConfig",
     "model_config_from_json",

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -143,6 +143,21 @@ class DataConfig:
     # corpus so that the pipeline stays runnable end to end
     allow_synthetic_fallback: bool = True
     synthetic_bytes: int = 32_000_000
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The (data, heads) mesh's shape (``nsa_tpu/config.py``'s): data
+    parallelism over ``data`` ranks and tensor parallelism over KV heads on
+    ``heads`` ranks (``parallel/mesh.py``).  NSA selection is per KV head,
+    so a ``heads`` axis keeps every block-index gather local to a rank."""
+
+    data: int = 1
+    heads: int = 1
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.heads)
 
 
 def config_to_json(cfg) -> str:

@@ -27,7 +27,10 @@ wrappers' ``launches`` counters what one captured step launched.  A capture
 or launch error raises; nothing falls back to the eager loop.
 
 On the CPU, or with ``capture=False`` on the card (to hold the graph
-against the eager steps), the same body runs eagerly ``n`` times.
+against the eager steps), the same body runs eagerly ``n`` times.  Under a
+mesh (``parallel/mesh.py``) ``capture=True`` raises: the steps' collectives
+go through ``gloo``, which copies through the host and cannot be captured
+(``nccl``, which could be, is not verified on a machine with one card).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..ops.cuda import (
     nsa_prefill,
     paged_gather,
 )
+from ..parallel.mesh import current_mesh
 
 # every kernel wrapper's launch counter, which a replay advances as the
 # captured step's launches did
@@ -164,6 +168,9 @@ def decode_loop(state: State, body: Callable[[State], None], n: int, *,
     Captured, the returned tensors are the graph's own: copy out what is
     kept before the next loop with this key."""
     device = next(iter(state.values())).device
+    if capture and current_mesh() is not None:
+        raise ValueError("a decode loop under a mesh runs eagerly: its collectives cannot be "
+                         "captured in a CUDA graph; pass capture=False")
     if n <= 0:
         return state
     if device.type != "cuda" or not capture:

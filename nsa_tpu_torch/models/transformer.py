@@ -57,6 +57,8 @@ from ..ops.nsa import (
     sparse_attention_forward,
 )
 from ..ops.rotary import rotate_at_row_offsets, rotate_qk
+from ..parallel.comm import copy_to_heads, reduce_from_heads
+from ..parallel.mesh import heads_parallel
 from ..utils.checkpoint import tree_to
 from . import decode_graph
 
@@ -151,7 +153,7 @@ def _full_attn_forward(params, cfg: ModelConfig, x, *, return_cache_max_len=None
     query rows, each recomputed in the backward, as JAX trains the model."""
     b, n, _ = x.shape
     d = cfg.dim_head
-    normed = rms_norm(x, params["norm_scale"], cfg.norm_eps)
+    normed = copy_to_heads(rms_norm(x, params["norm_scale"], cfg.norm_eps))
     q = split_heads(normed @ params["w_q"].to(x.dtype), d)
     k = split_heads(normed @ params["w_k"].to(x.dtype), d)
     v = split_heads(normed @ params["w_v"].to(x.dtype), d).contiguous()
@@ -162,7 +164,7 @@ def _full_attn_forward(params, cfg: ModelConfig, x, *, return_cache_max_len=None
     else:
         attn = flash_attention if use_kernels else flash_attention_plain
         out = attn(q.contiguous(), k.contiguous(), v, causal=cfg.causal)
-    out = merge_heads(out) @ params["w_out"].to(x.dtype)
+    out = reduce_from_heads(merge_heads(out) @ params["w_out"].to(x.dtype))
     if return_cache_max_len is None:
         return out
     kv = x.new_zeros((b, cfg.kv_heads, return_cache_max_len, 2 * d))
@@ -201,7 +203,7 @@ def _full_attn_decode(params, cfg: ModelConfig, x, cache: KVDecodeCache, t):
     if not (torch.is_tensor(t) and t.dim() == 1):
         t = (t if torch.is_tensor(t) else decode_graph.device_scalar(t, x.device)).expand(b)
     d, kvh, g, heads = cfg.dim_head, cfg.kv_heads, cfg.num_grouped_queries, cfg.heads
-    normed = rms_norm(x, params["norm_scale"], cfg.norm_eps)
+    normed = copy_to_heads(rms_norm(x, params["norm_scale"], cfg.norm_eps))
     w = params.get("w_qkv")
     if w is None:
         w = _full_qkv_weight(params, x.dtype)
@@ -220,7 +222,7 @@ def _full_attn_decode(params, cfg: ModelConfig, x, cache: KVDecodeCache, t):
     sim = sim.masked_fill(~valid[:, None, None, :], mask_value(torch.float32))
     attn = torch.softmax(sim, dim=-1).to(x.dtype)
     out = (attn @ kv[..., d:]).reshape(b, 1, heads * d)
-    return x + out @ params["w_out"].to(x.dtype)
+    return x + reduce_from_heads(out @ params["w_out"].to(x.dtype))
 
 
 def init_layer_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
@@ -306,8 +308,9 @@ def use_mega_decode(cfg: ModelConfig, batch: int) -> bool:
     never above 16.  JAX's further conditions, ``attn_impl == "pallas"``
     and the ``NSA_SCOPED_VMEM_KIB`` opt-in for b 9-16, are TPU compiler
     matters (which kernel implementation, how much VMEM) with no
-    counterpart here."""
-    if os.environ.get("NSA_MEGA_DECODE", "") == "0":
+    counterpart here.  Under a heads axis above 1 it is false: the kernel
+    folds every layer's ``w_out`` and FF in (see ``decode_route``)."""
+    if os.environ.get("NSA_MEGA_DECODE", "") == "0" or heads_parallel():
         return False
     max_b = int(os.environ.get("NSA_MEGA_MAX_B", "8"))
     return _mega_applies(cfg) and batch <= min(max_b, MAX_BATCH)
@@ -381,7 +384,7 @@ def fuse_decode_params(params: dict, cfg: ModelConfig) -> dict:
         return params
     packed = {**params, "layers": [fuse_decode_layer(layer, dtype, cfg.nsa.compressor)
                                    for layer in params["layers"]]}
-    if _mega_applies(cfg):
+    if _mega_applies(cfg) and not heads_parallel():
         packed["mega"] = pack_mega_params(params, cfg)
     return packed
 
@@ -431,6 +434,9 @@ def _mega_route(cfg: ModelConfig, b: int, route: Optional[str]) -> bool:
     if route == "mega" and not _mega_applies(cfg):
         raise ValueError("the mega decode route needs the sparse model with the gelu FF, "
                          "shared selection, selected blocks and the mlp compressor")
+    if route == "mega" and heads_parallel():
+        raise ValueError("the mega decode route folds every layer's w_out and FF into one "
+                         "kernel, which a heads axis above 1 cannot split")
     return route == "mega" or (route is None and use_mega_decode(cfg, b))
 
 

@@ -94,14 +94,28 @@ def _nvcc() -> str:
     return path
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> KernelLibrary:
-    """Build (if needed) and load the kernel library, once per process."""
+def library_path() -> Path:
+    """Where the library of the current sources and flags is built."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    path = BUILD_DIR / f"libnsa_kernels_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libnsa_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def require_built() -> None:
+    """Raise unless the library is built: processes that share one build
+    (the ranks of a mesh) must not race ``nvcc``, so one builds it first
+    (``library()``) and the others only load it."""
+    if not library_path().is_file():
+        raise RuntimeError(f"the kernel library {library_path().name} is not built: build it "
+                           f"once (runtime.library()) before starting the ranks")
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library, once per process."""
+    path = library_path()
     seconds, log = 0.0, ""
     if not path.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

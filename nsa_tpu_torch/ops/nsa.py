@@ -56,6 +56,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
+from ..parallel.comm import copy_to_heads, gather_from_heads, reduce_from_heads, scatter_to_heads
+from ..parallel.mesh import heads_parallel
 from .attention import attend, blockify_kv, fine_attend_core, sliding_window_attention
 from ..utils.checkpoint import tree_to
 from .common import mask_value, merge_heads, rms_norm, round_down_mult, round_up_mult, split_heads
@@ -146,12 +148,25 @@ def init_sparse_attention(cfg: ModelConfig, generator: torch.Generator,
 
 def _compress_kv(params, cfg: ModelConfig, k_windows, v_windows):
     """Intra-block positions, then the K and V compressors:
-    [b, kvh, w, Bc, d] -> [b, kvh, w, d] each."""
+    [b, kvh, w, Bc, d] -> [b, kvh, w, d] each.
+
+    Under a heads axis (``parallel/sharding.py``) the per-head compressors
+    run on the rank's own KV heads; a weight shared by the heads is summed
+    over them in the backward; the ``transformer`` compressor, which mixes
+    the heads, runs on every rank over all of them, gathered, and keeps the
+    rank's own."""
+    kind = cfg.nsa.compressor
     kin = k_windows + params["k_pos"].to(k_windows.dtype)[None, :, None]
     vin = v_windows + params["v_pos"].to(v_windows.dtype)[None, :, None]
-    ck = apply_compressor(params["k_compress"], cfg.nsa.compressor, kin)
-    cv = apply_compressor(params["v_compress"], cfg.nsa.compressor, vin)
-    return ck, cv
+    if kind == "transformer":
+        ck, cv = (scatter_to_heads(apply_compressor(params[name], kind,
+                                                    gather_from_heads(x, 1)), 1)
+                  for name, x in (("k_compress", kin), ("v_compress", vin)))
+        return ck, cv
+    kc, vc = params["k_compress"], params["v_compress"]
+    if kind not in ("mlp", "conv"):
+        kc, vc = ({k: copy_to_heads(w) for k, w in c.items()} for c in (kc, vc))
+    return apply_compressor(kc, kind, kin), apply_compressor(vc, kind, vin)
 
 
 def _gate_combine(params, cfg: ModelConfig, normed, branch_outs):
@@ -208,7 +223,8 @@ def sparse_attention_forward(
     compress_divisible = round_down_mult(n, stride)
     num_cblocks = compress_divisible // stride
 
-    normed = rms_norm(x, params["norm_scale"], cfg.norm_eps)
+    # the heads ranks' shared input; their partial outputs are summed after w_out
+    normed = copy_to_heads(rms_norm(x, params["norm_scale"], cfg.norm_eps))
     q = split_heads(normed @ params["w_q"].to(normed.dtype), d)     # [b, h, n, d]
     k = split_heads(normed @ params["w_k"].to(normed.dtype), d)     # [b, kvh, n, d]
     v = split_heads(normed @ params["w_v"].to(normed.dtype), d)
@@ -296,7 +312,7 @@ def sparse_attention_forward(
                                                causal=cfg.causal, scale=scale)
 
     out = _gate_combine(params, cfg, normed, [compressed_out, fine_out, sliding_out])
-    out = merge_heads(out) @ params["w_out"].to(x.dtype)
+    out = reduce_from_heads(merge_heads(out) @ params["w_out"].to(x.dtype))
     if return_cache_max_len is None:
         return out
 
@@ -418,10 +434,22 @@ def decode_route(cfg: ModelConfig, b: int, ragged: bool, route: Optional[str] = 
     fused route to the split one (one position) or the XLA branches
     (ragged), and under ``no_fine``, ``no_compressed`` or ``attn_only``
     off the split and hybrid routes to the XLA branches, as JAX's hook
-    turns off its ``use_fused`` and ``use_decode_kernels``."""
+    turns off its ``use_fused`` and ``use_decode_kernels``.
+
+    Under a heads axis above 1 (``parallel/mesh.py``) the default is the
+    split route (one position) or the ragged split route, and the fused and
+    hybrid routes raise, forced or through ``NSA_HYBRID_DECODE``: their
+    attend kernels fold ``w_out``, the residual and the FF in, where a heads
+    rank holds only a partial sum of ``out @ w_out``.  A data-only mesh
+    keeps every route."""
     nsa = cfg.nsa
     if route not in DECODE_ROUTES:
         raise ValueError(f"route must be one of {DECODE_ROUTES}, got {route!r}")
+    heads_split = heads_parallel()
+    if heads_split and route in ("fused", "hybrid"):
+        raise ValueError(f"the {route} decode route folds w_out, the residual and the FF "
+                         f"into its kernels, which a heads axis above 1 cannot split: each "
+                         f"heads rank holds a partial sum of out @ w_out; take the split route")
     if route == "fused" and not _fused_decode_applies(cfg):
         raise ValueError("the fused decode route needs shared selection, selection_block_size "
                          "/ stride > 1, selected blocks and the mlp compressor")
@@ -436,8 +464,8 @@ def decode_route(cfg: ModelConfig, b: int, ragged: bool, route: Optional[str] = 
     if route is not None:
         chosen = route
     elif ragged:
-        chosen = "fused" if _fused_decode_applies(cfg) else "xla"
-    elif _use_fused_decode(cfg, b):
+        chosen = "fused" if _fused_decode_applies(cfg) and not heads_split else "xla"
+    elif _use_fused_decode(cfg, b) and not heads_split:
         chosen = "fused"
     else:
         chosen = "split" if _split_decode_applies(cfg) else "xla"
@@ -447,6 +475,9 @@ def decode_route(cfg: ModelConfig, b: int, ragged: bool, route: Optional[str] = 
     if ablation not in ("", "no_emit") and chosen in ("split", "hybrid"):
         return "xla"
     if chosen == "split" and hybrid_ok and os.environ.get("NSA_HYBRID_DECODE"):
+        if heads_split:
+            raise ValueError("NSA_HYBRID_DECODE: the hybrid route's attend kernel folds w_out "
+                             "and the FF in, which a heads axis above 1 cannot split")
         return "hybrid"
     return "xla" if ragged and chosen == "split" else chosen
 
@@ -501,10 +532,12 @@ def fuse_decode_layer(layer: dict, dtype: torch.dtype, compressor: str = "mlp") 
 def ff_apply_gelu(ffp, cfg: ModelConfig, x):
     """The prenorm FF block: RMSNorm, then Linear-GELU(exact erf)-Linear with
     biases; the model's FF in prefill, and the decode step's when it is
-    handed the FF params."""
-    hid = rms_norm(x, ffp["norm_scale"], cfg.norm_eps)
+    handed the FF params.  Under a heads axis ``w1`` is split by columns and
+    ``w2`` by rows: the ranks' partial products are summed, then ``b2`` is
+    added once."""
+    hid = copy_to_heads(rms_norm(x, ffp["norm_scale"], cfg.norm_eps))
     hid = F.gelu(hid @ ffp["w1"].to(hid.dtype) + ffp["b1"].to(hid.dtype))
-    return hid @ ffp["w2"].to(hid.dtype) + ffp["b2"].to(hid.dtype)
+    return reduce_from_heads(hid @ ffp["w2"].to(hid.dtype)) + ffp["b2"].to(hid.dtype)
 
 
 def sparse_attention_decode(
@@ -587,7 +620,7 @@ def sparse_attention_decode(
         [params["w_q"], params["w_k"], params["w_v"], params["gate_w"]], dim=1
     )).to(x.dtype)
 
-    normed = rms_norm(x, params["norm_scale"], cfg.norm_eps)
+    normed = copy_to_heads(rms_norm(x, params["norm_scale"], cfg.norm_eps))
     proj = (normed @ w_fused)[:, 0]                 # [b, h*d + 2*kvh*d + 3h]
     hd, kd = cfg.dim_inner, cfg.dim_kv_inner
     q = proj[:, :hd].reshape(b, h, d)
@@ -709,7 +742,7 @@ def sparse_attention_decode(
             return with_ff(out_x), cache
         attend_fn = decode_attend if use_kernels else decode_attend_plain
         out = attend_fn(rqg, kv_cache, info, c_out, gates4, t, **akw)
-    out = out.reshape(b, 1, h * d) @ params["w_out"].to(x.dtype)
+    out = reduce_from_heads(out.reshape(b, 1, h * d) @ params["w_out"].to(x.dtype))
 
     out_x = x + out
     if ff_params is not None:

@@ -21,13 +21,24 @@ The engine allocates its caches on the params' device, so params on the
 card serve on the card.  The full-attention model, and the sparse
 configurations that the fused kernels do not take (per-head selection,
 ``selection_block_size == stride``: JAX's XLA branches decode them), serve
-on the dense pool only; their paged pool raises, as in JAX.  Not ported: the ``mesh`` argument
-(serving over a (data, heads) mesh waits for the port's parallelism,
-``ROADMAP.md``).
+on the dense pool only; their paged pool raises, as in JAX.
+
+Over a (data, heads) mesh (``mesh=``, ``parallel/mesh.py``; the dense pool
+only, as in JAX) every rank runs the same host-side scheduler on the same
+requests: admission, slots and retirement are deterministic, so they agree
+across ranks.  A rank holds the caches of its data slice of the slots over
+its own KV heads (the weights split by ``parallel/sharding.py``), prefills
+the wave's rows that fall in its slice and decodes its slots; once per
+step or sync window the new logits or tokens are gathered over the data
+slices (``comm.gather_batch``, host tensors under ``gloo``), so every
+scheduler sees every slot.  Greedy serving is token for token the single
+process's; sampled serving draws its noise per rank.  The decode runs
+eagerly there (``capture=False``): the collectives cannot be captured.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections import deque
 from dataclasses import dataclass, field
@@ -49,6 +60,9 @@ from .models.transformer import (
 )
 from .ops.common import round_up_mult
 from .ops.nsa import NSADecodeCache, _ckv_width, _fused_decode_applies
+from .parallel.comm import gather_batch
+from .parallel.mesh import AXIS_BATCH
+from .parallel.sharding import local_config, shard_params
 
 
 def ragged_decode_step(params, cfg: ModelConfig, tokens, cache_layers, seq_lens, *,
@@ -212,14 +226,38 @@ class ContinuousBatchingEngine:
         takes the fused route only, and the sparse model only.  Sampling at ``temperature > 0`` draws
         its noise from ``torch.Generator``s seeded with ``seed``.  The
         multi-token window runs as a captured CUDA graph on the card
-        (``ragged_decode_multi``); ``capture=False`` runs it eagerly."""
-        if mesh is not None:
-            raise NotImplementedError("serving over a device mesh is not ported yet "
-                                      "(see ROADMAP.md, parallelism)")
+        (``ragged_decode_multi``); ``capture=False`` runs it eagerly.
+
+        ``mesh`` serves over a (data, heads) mesh (see the module note):
+        ``params`` are the full weights, which the engine splits; every
+        rank constructs the engine and makes the same calls.  It needs the
+        dense pool, ``capture=False`` and ``max_batch`` a multiple of the
+        data slices; under a heads axis above 1 the ragged step takes the
+        split route (``route`` None or "split")."""
         _check_model(cfg)
-        # pack the decode weights once (fused projection, compressors, FF)
-        self.params = params = fuse_decode_params(params, cfg)
+        self.mesh = mesh
         self.cfg = cfg
+        # the slots this rank holds: [lo, hi) of max_batch
+        self._slots = (0, max_batch)
+        if mesh is not None:
+            if paged_pool_pages is not None:
+                raise NotImplementedError("the paged KV pool is single-process: its leading "
+                                          "dim is pages, not slots, so it has no data slices")
+            if capture:
+                raise ValueError("serving over a mesh decodes eagerly: its collectives "
+                                 "cannot be captured; pass capture=False")
+            if max_batch % mesh.batch:
+                raise ValueError(f"max_batch {max_batch} does not split over "
+                                 f"{mesh.batch} data slices")
+            local = max_batch // mesh.batch
+            self._slots = (mesh.coord(AXIS_BATCH) * local, (mesh.coord(AXIS_BATCH) + 1) * local)
+            params = shard_params(params, mesh, cfg)
+            cfg = local_config(cfg, mesh)
+        # the config the rank's shard runs (the local heads under a mesh)
+        self._run_cfg = cfg
+        # pack the decode weights once (fused projection, compressors, FF)
+        with self._on_mesh():
+            self.params = params = fuse_decode_params(params, cfg)
         self.device = params["token_emb"].device
         dtype = _compute_dtype(cfg) if dtype is None else dtype
         self.max_batch = max_batch
@@ -271,8 +309,8 @@ class ContinuousBatchingEngine:
             self._free_pages: deque = deque(range(paged_pool_pages))
             self._slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
         else:
-            self.cache_layers = tuple(init_layer_cache(cfg, max_batch, max_len, dtype,
-                                                       self.device)
+            self.cache_layers = tuple(init_layer_cache(cfg, self._slots[1] - self._slots[0],
+                                                       max_len, dtype, self.device)
                                       for _ in range(cfg.depth))
         self.seq_lens = np.zeros(max_batch, np.int32)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
@@ -283,6 +321,15 @@ class ContinuousBatchingEngine:
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _on_mesh(self):
+        return self.mesh if self.mesh is not None else contextlib.nullcontext()
+
+    def _gather(self, x: torch.Tensor) -> np.ndarray:
+        """The rank's [its slots, ...] on the device -> [max_batch, ...] on
+        the host, the same on every rank (one readback, and under a mesh one
+        gather over the data slices)."""
+        return gather_batch(x.cpu()).numpy()
 
     # -- request API ------------------------------------------------------
 
@@ -363,7 +410,23 @@ class ContinuousBatchingEngine:
             ids[i, :len(req.prompt)] = req.prompt
             tls[i] = len(req.prompt)
         slots = [slot for slot, _ in wave]
-        if self.paged:
+        lo, hi = self._slots
+        if self.mesh is not None:
+            # this rank prefills the wave's rows in its slice of the slots
+            own = [i for i, slot in enumerate(slots) if lo <= slot < hi]
+            first = np.zeros(hi - lo, np.int64)
+            if own:
+                toks, cache = wave_prefill(self.params, self._run_cfg,
+                                           self._to_dev(ids[own]).long(), self.max_len,
+                                           self._to_dev(tls[own]))
+                local = torch.as_tensor([slots[i] - lo for i in own], dtype=torch.long,
+                                        device=self.device)
+                for pool, new in zip(self.cache_layers, cache.layers):
+                    for leaf, new_leaf in zip(pool, new):
+                        leaf.index_copy_(0, local, new_leaf.to(leaf.dtype))
+                first[[slots[i] - lo for i in own]] = toks.cpu().numpy()
+            first_toks = self._gather(torch.from_numpy(first))[slots]
+        elif self.paged:
             # prefill at the bucket (page-rounded), not max_len: decode goes
             # on past it through the reserved pages
             bucket_up = round_up_mult(bucket, self._page_lcm)
@@ -384,7 +447,8 @@ class ContinuousBatchingEngine:
             for pool, new in zip(self.cache_layers, cache.layers):
                 for leaf, new_leaf in zip(pool, new):
                     leaf.index_copy_(0, slot_idx, new_leaf.to(leaf.dtype))
-        first_toks = first_toks.cpu().numpy()                   # one [n] readback
+        if self.mesh is None:
+            first_toks = first_toks.cpu().numpy()               # one [n] readback
         for i, (slot, req) in enumerate(wave):
             req.slot = slot
             self.seq_lens[slot] = len(req.prompt)
@@ -411,11 +475,16 @@ class ContinuousBatchingEngine:
             self._finish(slot)
 
     def _decode_args(self):
-        return (self.params, self.cfg, self._to_dev(self._next_token).long(),
-                self.cache_layers, self._to_dev(self.seq_lens))
+        lo, hi = self._slots
+        return (self.params, self._run_cfg, self._to_dev(self._next_token[lo:hi]).long(),
+                self.cache_layers, self._to_dev(self.seq_lens[lo:hi]))
 
     def step(self):
         """One engine iteration: admit, ragged-decode, retire."""
+        with self._on_mesh():
+            self._step()
+
+    def _step(self):
         self._admit()
         if self.num_active == 0:
             return
@@ -429,7 +498,7 @@ class ContinuousBatchingEngine:
                                                                  self._pt_dev, route=self.route)
         else:
             logits, self.cache_layers = ragged_decode_step(*self._decode_args(), route=self.route)
-        nxt_all = self._sample_host(logits.cpu().numpy())
+        nxt_all = self._sample_host(self._gather(logits))
         for slot, req in enumerate(self.slot_req):
             if req is None:
                 continue
@@ -472,7 +541,7 @@ class ContinuousBatchingEngine:
                                                                 self._pt_dev, k, **kw)
         else:
             toks, self.cache_layers = ragged_decode_multi(*self._decode_args(), k, **kw)
-        toks = toks.cpu().numpy()                               # one [B, k] readback
+        toks = self._gather(toks)                               # one [B, k] readback
         for slot, req in enumerate(self.slot_req):
             if req is None:
                 continue

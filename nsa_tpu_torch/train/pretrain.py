@@ -33,6 +33,7 @@ import torch
 
 from ..config import DataConfig, ModelConfig, TrainConfig, reference_model_config
 from ..models.transformer import init_transformer, transformer_greedy, transformer_loss
+from ..parallel.comm import average_grads, grad_norm
 from ..utils.checkpoint import (
     export_params_npz,
     latest_checkpoint,
@@ -50,8 +51,11 @@ class ClippedAdam(torch.optim.Adam):
 
     Adam's update is optax's formula (same defaults: betas 0.9 / 0.999, eps
     1e-8 outside the square root).  Clipping differs in one place:
-    ``clip_grad_norm_`` scales by ``max_norm / (norm + 1e-6)`` where optax
-    scales by ``max_norm / norm``, a relative difference of 1e-6 / norm.
+    ``clip_grads_with_norm_`` scales by ``max_norm / (norm + 1e-6)`` where
+    optax scales by ``max_norm / norm``, a relative difference of 1e-6 /
+    norm.  The norm is ``parallel/comm.py::grad_norm``'s: under a mesh the
+    global one (the leaves split over heads summed over the heads ranks,
+    the replicated ones counted once).
     """
 
     def __init__(self, params, lr: float, max_norm: float):
@@ -61,7 +65,7 @@ class ClippedAdam(torch.optim.Adam):
     @torch.no_grad()
     def step(self, closure=None):
         params = [p for group in self.param_groups for p in group["params"]]
-        torch.nn.utils.clip_grad_norm_(params, self.max_norm)
+        torch.nn.utils.clip_grads_with_norm_(params, self.max_norm, grad_norm(params))
         return super().step(closure)
 
 
@@ -83,13 +87,16 @@ def train_step(params, optimizer: ClippedAdam, batch: torch.Tensor, model_cfg: M
                accum: int) -> torch.Tensor:
     """One optimizer step over ``accum`` micro-batches; params are updated in
     place.  batch: [accum, micro_batch, seq_len + 1] token ids.  Returns the
-    mean loss as a device scalar (reading it synchronises)."""
+    mean loss as a device scalar (reading it synchronises).  Under a mesh
+    (``parallel/train_step.py::sharded_train_step``) the gradients are
+    averaged over the data slices before the step."""
     optimizer.zero_grad(set_to_none=True)
     loss_sum = torch.zeros((), device=batch.device)
     for micro in batch:
         loss = transformer_loss(params, model_cfg, micro)
         (loss / accum).backward()
         loss_sum += loss.detach()
+    average_grads(tree_leaves(params))
     optimizer.step()
     return loss_sum / accum
 

@@ -1440,3 +1440,70 @@ def test_config_decode_steps_kernels_match_plain(gen, name, monkeypatch):
             token = want.argmax(-1)
     assert len(gathers) == (3 * cfg.depth if name == "stride_eq_block" else 0)
     assert all(torch.equal(k, p) for k, p in gathers)
+
+
+def mesh_kernel_rank(ids):
+    """One of 4 gloo ranks on cuda:0 (``test_mesh_kernel_path``): the 2 x 2
+    mesh's training step and one decode step on the kernels, with the
+    kernels' launches."""
+    from nsa_tpu_torch.ops.cuda import runtime
+    from nsa_tpu_torch.parallel import sharding
+    from nsa_tpu_torch.parallel import train_step as pstep
+    from nsa_tpu_torch.parallel.mesh import make_mesh, rank_device
+    from nsa_tpu_torch.train.pretrain import make_optimizer
+    from nsa_tpu_torch.config import TrainConfig
+
+    dev = rank_device("cuda")
+    runtime.require_built()
+    cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
+    mesh = make_mesh(2, 2)
+    full = init_transformer(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = pstep.shard_trainable(full, mesh, cfg, dev)
+    opt = make_optimizer(TrainConfig(), params)
+    counted = (nsa_prefill.prefill_fwd, nsa_prefill.prefill_bwd_dq, nsa_prefill.prefill_bwd_dkv,
+               nsa_decode.decode_select, nsa_decode.decode_attend)
+    ids = ids.to(dev)
+    loss = float(pstep.sharded_train_step(params, opt, ids[None], cfg, 1, mesh))
+    lcfg = sharding.local_config(cfg, mesh)
+    local = tree_to(sharding.shard_params(full, mesh, cfg), dev, torch.bfloat16)
+    with torch.inference_mode(), mesh:
+        logits, cache = transformer_prefill(local, lcfg, sharding.shard_batch(ids[:, :-1], mesh),
+                                            1024)
+        step, _ = transformer_decode_step(local, lcfg, logits[:, -1].argmax(-1), cache)
+    torch.cuda.synchronize()
+    return loss, step.float().cpu(), mesh.coords, {fn.__name__: fn.launches for fn in counted}
+
+
+def test_mesh_kernel_path(gen, tmp_path):
+    """The 2 x 2 (data, heads) mesh on the one card, 4 gloo ranks on cuda:0
+    (NCCL refuses two ranks on one device): the training step's loss within
+    2e-3 of the single process's (bf16 sums over heads in another order,
+    chip_smoke.py's loss gate) and the first decode step's logits within
+    2% of max |logit| (the logits gate), each rank launching rows 1, 4, 5
+    once a layer and rows 2-3 once a layer (2 heads of each rank's 4 at
+    2 KV heads)."""
+    from nsa_tpu_torch.config import TrainConfig
+    from nsa_tpu_torch.ops.cuda import runtime
+    from nsa_tpu_torch.parallel.mesh import run_ranks
+    from nsa_tpu_torch.train.pretrain import make_optimizer, train_step
+
+    runtime.library()                    # built once here; the ranks only load it
+    cfg = reference_model_config().replace(depth=2, dtype="bfloat16")
+    ids = torch.randint(0, 256, (4, 513), generator=gen, device="cuda")
+    full = init_transformer(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = trainable(full, "cuda")
+    want_loss = float(train_step(params, make_optimizer(TrainConfig(), params), ids[None], cfg, 1))
+    with torch.inference_mode():
+        bf = tree_to(full, "cuda", torch.bfloat16)
+        logits, cache = transformer_prefill(bf, cfg, ids[:, :-1], 1024)
+        want, _ = transformer_decode_step(bf, cfg, logits[:, -1].argmax(-1), cache,
+                                          route="split")
+    results = run_ranks(mesh_kernel_rank, 4, "gloo", (ids.cpu(),), timeout_s=300,
+                        workdir=str(tmp_path))
+    for loss, step, (data, _), launches in results:
+        assert abs(loss - want_loss) <= 2e-3 * abs(want_loss)
+        rows = want[2 * data:2 * data + 2].float().cpu()
+        assert max_err(step, rows) <= 0.02 * max(rows.abs().max().item(), 1.0)
+        assert launches == {"prefill_fwd": 2 * cfg.depth, "prefill_bwd_dq": cfg.depth,
+                            "prefill_bwd_dkv": cfg.depth, "decode_select": cfg.depth,
+                            "decode_attend": cfg.depth}

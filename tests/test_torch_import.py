@@ -19,6 +19,9 @@ def test_import_leaves_jax_and_nsa_tpu_out():
         "import nsa_tpu_torch.eval.efficiency, nsa_tpu_torch.utils.checkpoint\n"
         "import nsa_tpu_torch.serve, nsa_tpu_torch.serve_bench\n"
         "import nsa_tpu_torch.bench, nsa_tpu_torch.ops.cuda.flash\n"
+        "import nsa_tpu_torch.parallel.mesh, nsa_tpu_torch.parallel.comm\n"
+        "import nsa_tpu_torch.parallel.sharding, nsa_tpu_torch.parallel.train_step\n"
+        "import nsa_tpu_torch.train.continuous_pretrain\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nsa_tpu', 'ml_dtypes', 'triton'))\n"
         "print(','.join(bad))\n"

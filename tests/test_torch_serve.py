@@ -8,8 +8,8 @@ plain versions on the CPU), dense and paged, and on the split route.  The
 cases mirror ``tests/test_serve.py``: one request and an exact-bucket
 prompt, concurrent requests, continuous admission, ``steps_per_sync`` 1 and
 3, the capacity tail, stop bytes, pool exhaustion, the paged pool's
-capacity, oversize rejection, and what the port does not take (a mesh, the
-full-attention model on the paged pool) raising.  Greedy tokens compare exactly; sampling at
+capacity, oversize rejection, and what the port does not take (a paged
+pool over a mesh, the full-attention model on the paged pool) raising.  Greedy tokens compare exactly; sampling at
 temperature > 0 must repeat under the same seed.  Float32 on the CPU, the
 tiny test configuration.
 """
@@ -25,6 +25,7 @@ from nsa_tpu.config import tiny_test_config as j_tiny
 from nsa_tpu.models.transformer import init_transformer
 from nsa_tpu.serve import ContinuousBatchingEngine as JaxEngine
 from nsa_tpu_torch import tiny_test_config as t_tiny
+from nsa_tpu_torch.parallel.mesh import Mesh
 from nsa_tpu_torch.serve import ContinuousBatchingEngine
 from nsa_tpu_torch.utils.checkpoint import params_from_numpy
 
@@ -165,11 +166,14 @@ def test_oversize_requests_rejected():
 
 
 def test_unported_options_raise():
-    """A mesh, the full-attention model on the paged pool and a paged pool on
-    the split route raise NotImplementedError."""
+    """A paged pool over a mesh (serving over a mesh takes the dense pool,
+    as JAX's; ``tests/test_torch_parallel.py`` runs it), the full-attention
+    model on the paged pool and a paged pool on the split route raise
+    NotImplementedError."""
     _, port = model_params()
     with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(port, t_tiny(), max_len=64, mesh=object())
+        ContinuousBatchingEngine(port, t_tiny(), max_len=64, paged_pool_pages=8, page_tokens=8,
+                                 mesh=Mesh(("data", "heads"), (1, 1), (0, 0)), capture=False)
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine(port, t_tiny(use_sparse_attn=False), max_len=64,
                                  paged_pool_pages=8, page_tokens=8)
