@@ -226,6 +226,38 @@ Phases, each printing its name and seconds as it ends:
              rank's own operands (4 heads over 2 KV heads on the 2 x 2
              mesh) and held against its plain version under the kernels
              phase's rules, each with its control.
+19. context - context parallelism (``nsa_tpu_torch/parallel/context.py``):
+             4 gloo ranks on a seq mesh on the one card, each committed
+             model at 2 x 4096 ids (1,024 rows a rank), float32: the loss,
+             the whole logits and the gradients summed over the ranks
+             against one process's XLA path (the context code on one rank)
+             on the blocks the ranks selected (loss rel 1e-5, logits 2e-4
+             of max |logit|, gradients rel L2 1e-3; the count of
+             selections its own top-k makes otherwise), and against the
+             model's plain path on its own selections (loss 1e-5, logits
+             2%); two controls that must fail: every rank's own K/V only
+             (logits) and a gather whose backward only slices (gradients);
+             the bf16 loss against one process's kernel path (2e-3); no
+             kernel launched on a rank; each rank's forward and forward +
+             backward seconds and the gloo collectives' share.  Then, in
+             the same world, ``parallel/scaling_bench.py``'s rank body on
+             meshes over its first 1, 2 and 4 ranks and its rows (shared
+             card: step times, no efficiency).
+20. adapter - the adapter / distillation line in bf16: ``run_finetune``
+             from the committed full-attention teacher on the QA pairs at
+             bs 8 x seq 256 (4 steps of kl_output_only, one of each other
+             mode; every loss finite; launches of rows 1, 4, 5, 13 a step),
+             ``verify_gradient_flow``, one 'ce' step's loss (2e-3) and
+             gradients (rel L2 0.1) against the plain path and the
+             teacher's logits (2%), ``evaluate_qa_accuracy`` on 4 test
+             questions x 32 tokens at fixed length 256, base and adapted;
+             then a random checkpoint of Llama-3.2-1B's shape cut to 2
+             layers, written as bf16 safetensors and converted by
+             ``llama_import``: the teacher's forward (row 13) and one
+             distillation step (rows 1, 4, 5) at G = 4, the first launch
+             of each held against its plain version under the kernels
+             phase's rules and controls.  Its launches join the kernels
+             line's counts.
 
 The kernels phase holds the split route's two decode kernels (rows 2-3)
 at the serving cell's shapes (bs 64, t = 3999, seeded inputs): c_out
@@ -292,6 +324,7 @@ import dataclasses
 import faulthandler
 import functools
 import inspect
+import itertools
 import json
 import math
 import os
@@ -387,21 +420,27 @@ TIME_LIMIT_S = 1100          # hard stop: dump the stacks and exit 1
 # each phase's budget against its longest time on the H100 in the runs
 # before the mesh phase: at least 10 s for the phases of a few seconds
 # (device, weights, main, measure: 5.2 s at most), whose time is host noise;
-# about 1.5 times it, to keep the sum under 1,000 s, for build 72 s (48 s),
-# profile 36 s (24.2 s with the ablation script), small 13 s (8.3 s), serve
-# 36 s (24.1 s), full 19 s (12.4 s), eval 53 s (35.1 s), cpt 42 s (27.8 s),
-# compress 69 s (46.2 s) and long 45 s (29.3 s, its sweep cut to one timed
-# run a cell); under 1.5 times for kernels 130 s (99.9 s: the plain flash
-# attention at full size, flex_attention's compiles, forward and backward),
-# train 150 s (107.9 s, both models) and graph 100 s (73.6 s).  The mesh
-# phase's 60 s (44.9 s in its first whole run) were paid for by the configs
-# phase's depth (4 engine requests where it ran 8: 78.7 s, where 8 took up
-# to 117.8 s; 134 s where it had 170 s) and the long phase's margin (69 s
-# before); 999 s in all
-BUDGET_S = {"device": 10, "build": 72, "weights": 10, "kernels": 130, "main": 10,
+# about 1.5 times it, to keep the sum under 1,000 s, for profile 36 s (24.2
+# s with the ablation script), small 13 s (8.3 s), serve 36 s (24.1 s), full
+# 19 s (12.4 s), cpt 42 s (27.8 s), compress 69 s (46.2 s) and long 45 s
+# (29.3 s, its sweep cut to one timed run a cell); under 1.5 times for
+# kernels 130 s (99.9 s: the plain flash attention at full size,
+# flex_attention's compiles, forward and backward).  The mesh phase's 60 s
+# (44.9 s in its first whole run) were paid for by the configs phase's
+# depth (4 engine requests where it ran 8).  The context phase's 45 s (its
+# longest run 44.7 s with scaling_bench in a spawn of its own; ~1.5 times
+# the ~30 s with the bench's rank body in the phase's world) and the
+# adapter phase's 27 s (18.1 s) were paid for by: configs 134 -> 118 s (1.5
+# times its 78.7 s with 4 engine requests), graph 100 -> 80 s (73.6 s with
+# the engine at 48 requests, now GRAPH_REQUESTS), train 150 -> 136 s
+# (107.9 s with measure_train at 3 + 2 timed steps, now
+# TRAIN_MEASURE_ITERS), eval 53 -> 45 s (35.1 s with the sweep at 3 timed
+# runs a cell, now EVAL_SWEEP_ITERS) and build 72 -> 58 s (1.2 times its
+# longest 48 s; 21.1-31.3 s in five later builds on the H100); 999 s in all
+BUDGET_S = {"device": 10, "build": 58, "weights": 10, "kernels": 130, "main": 10,
             "measure": 10, "profile": 36, "small": 13, "serve": 36, "full": 19,
-            "eval": 53, "graph": 100, "train": 150, "cpt": 42, "compress": 69,
-            "configs": 134, "long": 45, "mesh": 60}
+            "eval": 45, "graph": 80, "train": 136, "cpt": 42, "compress": 69,
+            "configs": 118, "long": 45, "mesh": 60, "context": 45, "adapter": 27}
 BATCH, PROMPT, GEN, MAX_LEN = 64, 3900, 100, 4096
 SMALL_BATCHES = (8, 1)       # the small-batch cell: the whole-model decode route
 FUSED_KERNELS = ("decode_select_emit", "decode_attend_fused")
@@ -409,6 +448,9 @@ MEGA_STEPS = _pick_mega_steps(GEN)   # tokens per launch in measure_decode: 25
 # the training cell: the JAX trainer's settings (nsa_tpu/config.py:137-159)
 MICRO, ACCUM, SEQ = 16, 4, 4096
 TRAIN_STEPS, CKPT_STEP = 3, 2
+# measure_train's timed steps after its warm-up, the sparse and the full
+# model: cut from 3 and 2 to pay for the context and adapter phases
+TRAIN_MEASURE_ITERS = (2, 1)
 # synthetic corpus cut from the default 32,000,000 bytes to keep its
 # generation (pure Python, ~2 s per MB) inside the phase budget; the train
 # and cpt phases share one copy in their working directory
@@ -503,6 +545,44 @@ MESH_MEGA_BATCH, MESH_MEGA_STEPS = 8, 10
 # its plain version at the rank's own shapes (rows 1-5, 11, 13)
 MESH_HELD_KERNELS = ("prefill_fwd", "prefill_bwd_dq", "prefill_bwd_dkv", "decode_select",
                      "decode_attend", "paged_gather", "flash_attention")
+# the context phase: CONTEXT_RANKS gloo ranks on the one card on a seq mesh
+# (parallel/context.py), each committed model at CONTEXT_BATCH x CONTEXT_SEQ
+# (CONTEXT_SEQ / CONTEXT_RANKS rows a rank), the single process's figures
+# beside them; then, in the same world, parallel/scaling_bench.py's rank
+# body over its first SCALING_RANKS ranks (its defaults: seq 128, 2 rows a
+# rank; SCALING_ITERS timed steps, cut from 5).
+# The float32 gates: the loss rel TOL_CP_LOSS_REL, the logits within
+# TOL_CP_LOGITS of max |logit|, the summed gradients rel L2 TOL_CP_GRAD_REL_L2;
+# the bf16 loss against the kernel path within TOL_LOSS_REL.
+CONTEXT_RANKS, CONTEXT_TIMEOUT_S = 4, 90
+CONTEXT_BATCH, CONTEXT_SEQ = 2, 4096
+SCALING_RANKS, SCALING_SEQ, SCALING_BATCH, SCALING_ITERS = (1, 2, 4), 128, 2, 3
+TOL_CP_LOSS_REL, TOL_CP_LOGITS, TOL_CP_GRAD_REL_L2 = 1e-5, 2e-4, 1e-3
+# the single process's two references: the float32 gates hold against the
+# first, the same math in one process on the blocks the ranks selected (a
+# matrix of another shape rounds apart, which flips a top-k near-tie at a
+# few positions); against the second, whose branches 2-3 are row 1's plain
+# version on its own selections, the loss gate and the repo's logits gate
+CONTEXT_REFS = {"xla": "XLA path (the context code on one rank) on the ranks' selections",
+                "plain": "plain path (row 1's plain version), its own selections"}
+# the adapter phase: JAX's fine-tune defaults (scripts/finetune_cs441.py: bs
+# 8 x seq 256), ADAPTER_KL_STEPS steps of kl_output_only and one of each
+# other mode; QA accuracy on ADAPTER_QA test questions x ADAPTER_GEN tokens
+# at fixed length ADAPTER_SEQ; LLAMA_CONFIG is Llama-3.2-1B's published
+# config.json cut from 16 layers to 2 (its rope_scaling, which the converter
+# ignores as JAX's does, kept), run at LLAMA_BATCH x ADAPTER_SEQ
+ADAPTER_BATCH, ADAPTER_SEQ, ADAPTER_KL_STEPS = 8, 256, 4
+ADAPTER_QA, ADAPTER_GEN = 4, 32
+LLAMA_CONFIG = {"hidden_size": 2048, "intermediate_size": 8192, "num_attention_heads": 32,
+                "num_key_value_heads": 8, "head_dim": 64, "vocab_size": 128256,
+                "num_hidden_layers": 2, "rope_theta": 500000.0, "rms_norm_eps": 1e-5,
+                "tie_word_embeddings": True, "max_position_embeddings": 131072,
+                "hidden_act": "silu", "torch_dtype": "bfloat16",
+                "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0,
+                                 "low_freq_factor": 1.0,
+                                 "original_max_position_embeddings": 8192,
+                                 "rope_type": "llama3"}}
+LLAMA_BATCH = 2
 SEED = 0
 DEVICE = "cuda"
 WEIGHTS = os.path.join(HERE, "ckpt_export", "sparse_mlp_seq4096.npz")
@@ -584,6 +664,9 @@ SERVE_CHECK_REQUESTS = 4
 # the sweep over bs x prompt at the serving cell's gen and cache length
 EVAL_SEQ, EVAL_ID_TOKENS, EVAL_GEN = 4096, 65_536, 128
 EVAL_SWEEP_BATCHES, EVAL_SWEEP_PROMPTS = (1, 8, 64), (500, 3900)
+# the sweep's timed runs a cell after its warm-up, cut from JAX's 3 (its
+# shapes are JAX's) to pay for the context and adapter phases
+EVAL_SWEEP_ITERS = 1
 EVAL_EAGER_BYTES = 513       # the incremental loop eager against captured
 # nsa_tpu's own float32 compute_ppl of the first 2 x 4096 + 1 validation
 # bytes of the 4,000,000-byte synthetic corpus, on the committed weights,
@@ -3086,13 +3169,14 @@ def eval_phase(sparse_params, sparse_cfg, sparse_step, smi):
                 t0 = time.perf_counter()
                 rows = run_efficiency_sweep(params, cfg, name, EVAL_SWEEP_BATCHES,
                                             EVAL_SWEEP_PROMPTS, GEN, seq_len=MAX_LEN,
+                                            iters=EVAL_SWEEP_ITERS,
                                             csv_path=os.path.join(tmp, "efficiency.csv"),
                                             step=step, device=DEVICE,
                                             log=lambda line: print(f"  {line}; {smi}",
                                                                    flush=True))
                 wall = time.perf_counter() - t0
                 got = launches[f"{name} sweep"] = read_launches(ALL_KERNELS)
-                runs = 4 * len(EVAL_SWEEP_PROMPTS)      # warm-up + 3 timed, each prompt
+                runs = (1 + EVAL_SWEEP_ITERS) * len(EVAL_SWEEP_PROMPTS)  # warm-up + timed
                 want = {**none, prefill_kernel: runs * len(EVAL_SWEEP_BATCHES) * cfg.depth}
                 if cfg.use_sparse_attn:
                     small = [b for b in EVAL_SWEEP_BATCHES if use_mega_decode(cfg, b)]
@@ -3131,6 +3215,10 @@ GRAPH_KERNELS = {
     "full": {},
 }
 GRAPH_TURNS = ("eager", "captured", "captured", "eager")
+# the engine's requests in the graph phase: one wave of its 16 slots (the
+# serve phase runs all 48, captured, on both pools), cut from 48 to pay for
+# the context and adapter phases
+GRAPH_REQUESTS = 16
 PROFILE_PAD_S = 0.05   # host idle seconds at each end of a profile_run window
 REPLAYS_MARK = "counted replays"   # replayed_kernels' marked range
 
@@ -3372,9 +3460,10 @@ def graph_phase(sparse_params, sparse_cfg, smi):
     del run, cache, logits
     torch.cuda.empty_cache()
 
-    # the 48-request engine, dense and paged, captured against eager
+    # the engine, dense and paged, captured against eager, on the serve
+    # phase's first GRAPH_REQUESTS requests
     L = cfg.depth
-    reqs = serve_requests(SERVE_REQUESTS)
+    reqs = serve_requests(GRAPH_REQUESTS)
     for pool, kw, attend in (
             ("dense", {}, "decode_attend_fused_ragged"),
             ("paged", dict(paged_pool_pages=POOL_PAGES, page_tokens=PAGE_TOKENS),
@@ -3583,9 +3672,10 @@ def train_sparse(smi):
         check(errs[worst] <= tol, f"kernel-path gradients disagree with the {label}")
     del gk, gp, gh
 
-    tps = measure_train(params, cfg, MICRO, ACCUM, SEQ, iters=3, seed=SEED, device=DEVICE)
+    tps = measure_train(params, cfg, MICRO, ACCUM, SEQ, iters=TRAIN_MEASURE_ITERS[0], seed=SEED,
+                        device=DEVICE)
     print(f"  measure_train micro {MICRO} accum {ACCUM} seq {SEQ}: {tps:.1f} tokens/s "
-          f"(mean of 3 steps); {smi}", flush=True)
+          f"(mean of {TRAIN_MEASURE_ITERS[0]} steps); {smi}", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -3686,9 +3776,10 @@ def train_full(smi):
     check(launches == want, f"full-model train launches {launches}, expected {want}")
     params = pretrain.trainable(init_transformer(cfg, torch.Generator().manual_seed(SEED),
                                                  device="cpu"), DEVICE)
-    tps = measure_train(params, cfg, MICRO, ACCUM, SEQ, iters=2, seed=SEED, device=DEVICE)
+    tps = measure_train(params, cfg, MICRO, ACCUM, SEQ, iters=TRAIN_MEASURE_ITERS[1], seed=SEED,
+                        device=DEVICE)
     print(f"  full model measure_train micro {MICRO} accum {ACCUM} seq {SEQ}: {tps:.1f} "
-          f"tokens/s (mean of 2 steps); run peak memory {peak / 2**30:.2f} GiB; {smi}",
+          f"tokens/s (mean of {TRAIN_MEASURE_ITERS[1]} steps); run peak memory {peak / 2**30:.2f} GiB; {smi}",
           flush=True)
     del params
 
@@ -5054,8 +5145,14 @@ def hold_first_launches(rec, cfg, label):
     if "paged_gather" in rec:
         held["paged_gather"] = gather_gate(f"{label} paged_gather", *rec["paged_gather"])
     if "flash_attention" in rec:
+        q = rec["flash_attention"][0]
+        n = q.shape[2]
+        # the control's key tile: FLASH_DROPPED_KEYS, or for a sequence that
+        # ends before them the 64-key tile before its middle
+        lo = (n // 2 - 64) // 64 * 64
+        dropped = FLASH_DROPPED_KEYS if n > FLASH_DROPPED_KEYS[1] else (lo, lo + 64)
         held["flash_attention"] = flash_gate(f"{label} flash_attention",
-                                             *rec["flash_attention"])[-1]
+                                             *rec["flash_attention"][:3], dropped=dropped)[-1]
     return held
 
 
@@ -5302,8 +5399,7 @@ def mesh_refs(work):
     with torch.no_grad():
         refs["train_control_ref"] = transformer_loss(params, cfg, batch[0]).item()
     refs["train_loss"] = float(pretrain.train_step(params, opt, batch, cfg, 1))
-    torch.save(tree_to(grad_tree(params), "cpu"), os.path.join(work, "grads.pt.tmp"))
-    os.replace(os.path.join(work, "grads.pt.tmp"), os.path.join(work, "grads.pt"))
+    save_atomic(tree_to(grad_tree(params), "cpu"), os.path.join(work, "grads.pt"))
     del params, opt, full
     lap("train")
 
@@ -5588,8 +5684,7 @@ def mesh_phase(smi, bytecode):
             launched = {k for k, n in got.items() if n and k in MESH_HELD_KERNELS}
             check(set(r["held"][label]) == launched,
                   f"rank {i} {label}: held {sorted(r['held'][label])}, launched {sorted(launched)}")
-            held = {k: {f: float(f"{x:.4g}") if isinstance(x, float) else x
-                        for f, x in v.items()} for k, v in r["held"][label].items()}
+            held = short_figures(r["held"][label])
             print(f"  rank {i} {r['coords']} {label}: launches "
                   f"{ {k: v for k, v in got.items() if v} }; the first launch of each at this "
                   f"rank's shapes against its plain version {held}", flush=True)
@@ -5599,6 +5694,578 @@ def mesh_phase(smi, bytecode):
                              "held": r["held"]})
     return out
 
+
+
+def context_inputs(vocab, device):
+    """The context phase's token ids [CONTEXT_BATCH, CONTEXT_SEQ + 1], the
+    same from their seed in the parent and in every rank."""
+    return seeded_ids(CONTEXT_BATCH, CONTEXT_SEQ + 1, vocab, SEED + 5, device)
+
+
+def context_model(path):
+    """The committed weights at ``path`` as float32 leaves on the CPU and
+    their config in float32."""
+    full, meta = load_params_npz(path, device="cpu", dtype=torch.float32)
+    return full, model_config_from_meta(meta).replace(dtype="float32")
+
+
+@contextlib.contextmanager
+def seq_gather_backward_only_slices():
+    """The context phase's gradient control: ``gather_from_seq`` with a
+    backward that keeps this rank's slice of the gradient and drops the
+    other ranks' parts (the heads axis's gather backward)."""
+    from nsa_tpu_torch.parallel import comm
+
+    real = comm._GatherFromSeq.__dict__["backward"]
+    comm._GatherFromSeq.backward = staticmethod(
+        lambda ctx, g: (comm._local_slice(g, ctx.group, ctx.dim), None, None))
+    try:
+        yield
+    finally:
+        comm._GatherFromSeq.backward = real
+
+
+@contextlib.contextmanager
+def seq_local_kv_only():
+    """The context phase's logits control: every layer's K/V gather keeps
+    this rank's own rows and zeros for the other ranks'."""
+    from nsa_tpu_torch.parallel import context
+
+    real = context.gather_from_seq
+
+    def local_only(x, dim, mesh):
+        full = real(x, dim, mesh)
+        keep = torch.zeros(full.shape[dim], dtype=full.dtype, device=full.device)
+        n, r = x.shape[dim], mesh.coord(context.AXIS_SEQ)
+        keep[r * n:(r + 1) * n] = 1
+        return full * keep.view([-1 if i == dim else 1 for i in range(full.dim())])
+
+    context.gather_from_seq = local_only
+    try:
+        yield
+    finally:
+        context.gather_from_seq = real
+
+
+@contextlib.contextmanager
+def cp_selections(given=None):
+    """``select_blocks`` in the context code recorded (its indices, in call
+    order: one a layer a forward, in the list yielded) or, with ``given``
+    (one [b, Hs, n, S] index tensor a layer), made to pick those blocks:
+    the scores at the given ids become the straight-through gates and the
+    mask, as ``select_blocks`` makes them from its own top-k."""
+    from nsa_tpu_torch.ops.selection import SCORE_EPS, Selection
+    from nsa_tpu_torch.parallel import context
+
+    real, rec = context.select_blocks, []
+
+    def select(scores, num_selected_blocks, use_diff_topk):
+        if given is None:
+            sel = real(scores, num_selected_blocks, use_diff_topk)
+            rec.append(sel.indices.cpu())
+            return sel
+        idx = given[len(rec) % len(given)].to(scores.device)
+        rec.append(idx)
+        vals = scores.gather(-1, idx.long())
+        gates = vals + (1.0 - vals).detach() if use_diff_topk else None
+        return Selection(indices=idx, scores=vals, mask=vals > SCORE_EPS, gates=gates)
+
+    context.select_blocks = select
+    try:
+        yield rec
+    finally:
+        context.select_blocks = real
+
+
+def save_atomic(obj, path):
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def context_rank(work):
+    """One rank of the context phase on the one card with gloo: each
+    committed model's float32 logits, loss and summed gradients over the
+    seq mesh, the two controls, the bf16 loss, the seconds of its forward +
+    backward and of the collectives in it, and its kernel launches (none:
+    JAX's context parallelism runs on its XLA path).  Each held against
+    the single process's figures that the parent writes to ``work``."""
+    from nsa_tpu_torch.parallel import context, scaling_bench
+    from nsa_tpu_torch.parallel.mesh import make_seq_mesh, rank_device
+
+    dev = rank_device(DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_seq_mesh()
+    out = {"coord": mesh.coord(context.AXIS_SEQ), "models": {}}
+    kept = {}
+    zero_launches(ALL_KERNELS)
+    for name, path in (("sparse", WEIGHTS), ("full", FULL_WEIGHTS)):
+        full, cfg = context_model(path)
+        params = pretrain.trainable(full, dev)
+        ids = context_inputs(cfg.vocab_size, dev)
+        res = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), cp_selections() as sel:
+            logits = context.context_parallel_forward(params, cfg, ids[:, :-1], mesh)
+        torch.cuda.synchronize()
+        res["forward_s"] = time.perf_counter() - t0
+        # this rank's selections, for the single process's XLA path
+        save_atomic(sel, os.path.join(work, f"sel_{name}_{out['coord']}.pt"))
+        with timed_collectives() as coll:
+            t0 = time.perf_counter()
+            loss = context.context_parallel_value_and_grad(params, cfg, ids, mesh)
+            torch.cuda.synchronize()
+            res["fwd_bwd_s"] = time.perf_counter() - t0
+        res.update(loss=float(loss), collective_s=coll["seconds"], collective_calls=coll["calls"])
+        with torch.no_grad(), seq_local_kv_only():
+            control_logits = context._cp_forward_local(
+                params, cfg, context._local(ids[:, :-1], mesh), mesh)
+        cparams = pretrain.trainable(full, dev)
+        with seq_gather_backward_only_slices():
+            context.context_parallel_value_and_grad(cparams, cfg, ids, mesh)
+        with torch.no_grad():
+            res["bf16_loss"] = float(context.context_parallel_loss(
+                params, cfg.replace(dtype="bfloat16"), ids, mesh))
+        n_loc = (ids.shape[1] - 1) // mesh.size(context.AXIS_SEQ)
+        kept[name] = (logits.cpu(), control_logits.cpu(), n_loc,
+                      [p.grad.cpu() for p in tree_leaves(params)],
+                      [p.grad.cpu() for p in tree_leaves(cparams)],
+                      [k for k, _ in tree_items(params)])
+        out["models"][name] = res
+        del params, cparams, full, logits, control_logits
+        torch.cuda.empty_cache()
+    out["launches"] = read_launches(ALL_KERNELS)
+    # held against the single process's figures, which it writes meanwhile
+    for name, (logits, control_logits, n_loc, grads, cgrads, keys) in kept.items():
+        for kind in CONTEXT_REFS:
+            ref_path = os.path.join(work, f"context_{name}_{kind}.pt")
+            wait_for(ref_path, CONTEXT_TIMEOUT_S)
+            ref = torch.load(ref_path, weights_only=True)
+            scale = max(ref["logits"].abs().max().item(), 1.0)
+            err = (logits - ref["logits"]).abs().amax(-1) / scale      # [b, n] a position
+            fig = {"logits_rel": err.max().item(),
+                   "positions_over": int((err > TOL_CP_LOGITS).sum()),
+                   "worst_position": [int(i) for i in divmod(int(err.argmax()), err.shape[1])]}
+            mine = ref["logits"][:, out["coord"] * n_loc:(out["coord"] + 1) * n_loc]
+            fig["control_logits_rel"] = max_err(control_logits, mine) / scale
+            want = tree_leaves(ref["grads"])
+            for key, got in (("grad_sq", grads), ("control_grad_sq", cgrads)):
+                fig[key] = {k: ((g.float() - w).square().sum().item(), w.square().sum().item())
+                            for k, g, w in zip(keys, got, want)}
+            out["models"][name][kind] = fig
+    # scaling_bench's rank body in this world: meshes over its first ranks
+    t0 = time.perf_counter()
+    out["scaling"] = scaling_bench._bench_rank(SCALING_RANKS, SCALING_SEQ, SCALING_BATCH,
+                                               SCALING_ITERS, DEVICE)
+    out["scaling_s"] = time.perf_counter() - t0
+    return out
+
+
+def context_refs(work):
+    """The single process's figures for the context phase on the same ids,
+    each model's float32 logits and gradients written to ``work`` for the
+    ranks: the model's plain path ("plain": ``transformer_forward`` /
+    ``transformer_loss`` with ``use_kernels=False``, row 1's plain version
+    for branches 2-3) and JAX's XLA path in one process ("xla": the context
+    code on a one-rank seq mesh, which gathers nothing) on the blocks the
+    ranks selected, with the count of selections its own top-k makes
+    otherwise; and its bf16 kernel-path loss.  Returns the losses."""
+    from nsa_tpu_torch.parallel import context
+
+    one = context.Mesh((context.AXIS_SEQ,), (1,), (0,))
+    refs = {"sparse": {}, "full": {}}
+    # the plain path first: the ranks' selections come while it runs
+    for kind, (name, path) in itertools.product(("plain", "xla"), (("sparse", WEIGHTS),
+                                                                    ("full", FULL_WEIGHTS))):
+        full, cfg = context_model(path)
+        ids = context_inputs(cfg.vocab_size, DEVICE)
+        params = pretrain.trainable(full, DEVICE)
+        if kind == "plain":
+            with torch.no_grad():
+                logits = transformer_forward(params, cfg, ids[:, :-1], use_kernels=False)
+            loss = transformer_loss(params, cfg, ids, use_kernels=False)
+            loss.backward()
+        else:
+            given = None
+            if cfg.use_sparse_attn:
+                # the ranks' selections, layer by layer over the sequence,
+                # and how many (row, head, position) this process's own
+                # top-k picks other blocks for
+                files = [os.path.join(work, f"sel_{name}_{r}.pt")
+                         for r in range(CONTEXT_RANKS)]
+                for f in files:
+                    wait_for(f, CONTEXT_TIMEOUT_S)
+                ranks = [torch.load(f, weights_only=True) for f in files]
+                given = [torch.cat(layer, dim=2) for layer in zip(*ranks)]
+                with torch.no_grad(), cp_selections() as own:
+                    context.context_parallel_forward(params, cfg, ids[:, :-1], one)
+                refs[name]["selections_differ"] = sum(
+                    int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                    for a, b in zip(own, given))
+                refs[name]["selections"] = sum(a[..., 0].numel() for a in given)
+            with torch.no_grad(), cp_selections(given):
+                logits = context.context_parallel_forward(params, cfg, ids[:, :-1], one)
+            with cp_selections(given):
+                loss = context.context_parallel_value_and_grad(params, cfg, ids, one)
+        save_atomic({"logits": logits.cpu(), "grads": tree_to(grad_tree(params), "cpu")},
+                    os.path.join(work, f"context_{name}_{kind}.pt"))
+        refs[name][kind] = loss.item()
+        del params, logits, loss
+        torch.cuda.empty_cache()
+        if kind == "plain":
+            with torch.no_grad():
+                refs[name]["bf16"] = transformer_loss(tree_to(full, DEVICE),
+                                                      cfg.replace(dtype="bfloat16"), ids).item()
+            torch.cuda.empty_cache()
+    return refs
+
+
+def context_phase(smi, bytecode):
+    """Context parallelism on the one card (``nsa_tpu_torch/parallel/
+    context.py``): CONTEXT_RANKS gloo ranks on a seq mesh against the single
+    process on the same weights and ids, then ``scaling_bench`` over their
+    first SCALING_RANKS ranks; returns the phase's figures."""
+    from nsa_tpu_torch.parallel import scaling_bench
+    from nsa_tpu_torch.parallel.mesh import run_ranks
+
+    refs = {}
+
+    def single_process():          # on the card while the ranks start
+        t = time.perf_counter()
+        refs.update(context_refs(work))
+        refs["seconds"] = time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as work, bytecode_cache(bytecode):
+        t0 = time.perf_counter()
+        ranks = run_ranks(context_rank, CONTEXT_RANKS, "gloo", (work,),
+                          timeout_s=CONTEXT_TIMEOUT_S, workdir=work, meanwhile=single_process)
+        ranks_s = time.perf_counter() - t0
+    scaling = scaling_bench.scaling_rows(SCALING_RANKS, SCALING_SEQ, SCALING_BATCH,
+                                         ranks[0]["scaling"], DEVICE)
+    scaling_s = ranks[0]["scaling_s"]
+    print(f"  context: {CONTEXT_RANKS} gloo ranks on a seq mesh on one card {ranks_s:.2f}s "
+          f"(the single process's figures meanwhile {refs['seconds']:.2f}s); "
+          f"{CONTEXT_BATCH} x {CONTEXT_SEQ} ids, {CONTEXT_SEQ // CONTEXT_RANKS} rows a rank; "
+          f"{smi}", flush=True)
+    out = {"ranks_s": ranks_s, "refs_s": refs["seconds"], "models": {}}
+    for r in ranks:
+        check(not any(r["launches"].values()), f"context rank {r['coord']} launched kernels "
+                                               f"{r['launches']}: its path is JAX's XLA path")
+        check(sorted(r["scaling"]) == [n for n in SCALING_RANKS if r["coord"] < n],
+              f"context rank {r['coord']}: scaling_bench ran the sizes {sorted(r['scaling'])}")
+    for name in ("sparse", "full"):
+        got = [r["models"][name] for r in ranks]
+        ref = refs[name]
+        figs = {}
+        for kind in CONTEXT_REFS:
+            loss_rel = max(abs(g["loss"] - ref[kind]) / abs(ref[kind]) for g in got)
+            logits_rel = max(g[kind]["logits_rel"] for g in got)
+            over = sum(g[kind]["positions_over"] for g in got) // len(got)
+            errs = seq_grad_errs(got[0][kind]["grad_sq"])
+            worst = max(errs, key=errs.get)
+            figs[kind] = {"loss_rel": loss_rel, "logits_rel": logits_rel,
+                          "positions_over": over, "grad_rel_l2_max": errs[worst]}
+            print(f"  context {name} float32 vs one process's {CONTEXT_REFS[kind]}: loss "
+                  f"{got[0]['loss']:.6f} vs {ref[kind]:.6f}, rel max {loss_rel:.3e} over the "
+                  f"ranks; logits max|err| {logits_rel:.3e} of max|logit| at (row, position) "
+                  f"{got[0][kind]['worst_position']}, {over} of {CONTEXT_BATCH * CONTEXT_SEQ} "
+                  f"positions over {TOL_CP_LOGITS}; summed gradients rel L2 max "
+                  f"{errs[worst]:.3e} at {worst}, median "
+                  f"{sorted(errs.values())[len(errs) // 2]:.3e} over {len(errs)}", flush=True)
+        xla = got[0]["xla"]
+        control_logits = max(g["xla"]["control_logits_rel"] for g in got)
+        cerrs = seq_grad_errs(xla["control_grad_sq"])
+        cworst = max(cerrs, key=cerrs.get)
+        same = all(g["xla"]["grad_sq"] == xla["grad_sq"] for g in got)
+        bf16_rel = max(abs(g["bf16_loss"] - ref["bf16"]) / abs(ref["bf16"]) for g in got)
+        share = [g["collective_s"] / g["fwd_bwd_s"] for g in got]
+        if "selections" in ref:
+            print(f"  context {name}: the one-process XLA path's own top-k picks other blocks "
+                  f"than the ranks at {ref['selections_differ']} of {ref['selections']} "
+                  f"(layer, row, KV head, position)", flush=True)
+        print(f"  context {name}: the gates against the XLA path: loss (tol {TOL_CP_LOSS_REL}), "
+              f"logits (tol {TOL_CP_LOGITS}; control, each rank's own K/V only: "
+              f"{control_logits:.3e}), gradients (tol {TOL_CP_GRAD_REL_L2}, equal on every rank "
+              f"{same}; control, the gather's backward only slicing: {cerrs[cworst]:.3e} at "
+              f"{cworst}); against the plain path: loss (tol {TOL_CP_LOSS_REL}), logits (tol "
+              f"{TOL_LOGITS_REL}); bf16 loss {got[0]['bf16_loss']:.6f} vs one process's kernel "
+              f"path {ref['bf16']:.6f}, rel {bf16_rel:.3e} (tol {TOL_LOSS_REL})", flush=True)
+        print(f"  context {name} seconds a rank: forward {[round(g['forward_s'], 3) for g in got]}, "
+              f"forward + backward {[round(g['fwd_bwd_s'], 3) for g in got]}, gloo collectives "
+              f"{got[0]['collective_calls']} calls, {100 * min(share):.1f}-{100 * max(share):.1f}% "
+              f"of the forward + backward; {smi}", flush=True)
+        x, pl = figs["xla"], figs["plain"]
+        check(x["loss_rel"] <= TOL_CP_LOSS_REL and pl["loss_rel"] <= TOL_CP_LOSS_REL,
+              f"context {name}: the loss disagrees")
+        check(x["logits_rel"] <= TOL_CP_LOGITS and pl["logits_rel"] <= TOL_LOGITS_REL,
+              f"context {name}: the logits disagree")
+        check(control_logits > TOL_CP_LOGITS, f"context {name}: the logits gate passes ranks "
+                                              f"that see only their own K/V")
+        check(x["grad_rel_l2_max"] <= TOL_CP_GRAD_REL_L2 and same,
+              f"context {name}: the summed gradients disagree")
+        check(cerrs[cworst] > TOL_CP_GRAD_REL_L2, f"context {name}: the gradient gate passes a "
+                                                  f"gather whose backward only slices")
+        check(bf16_rel <= TOL_LOSS_REL, f"context {name}: the bf16 loss disagrees")
+        out["models"][name] = {
+            **figs, "selections_differ": ref.get("selections_differ"),
+            "control_logits_rel": control_logits,
+            "control_grad_rel_l2_max": cerrs[cworst], "bf16_loss_rel": bf16_rel,
+            "forward_s": [g["forward_s"] for g in got],
+            "fwd_bwd_s": [g["fwd_bwd_s"] for g in got], "collective_share": share}
+    print(f"  scaling_bench {SCALING_RANKS} ranks (seq {SCALING_SEQ}, {SCALING_BATCH} rows a "
+          f"rank, {SCALING_ITERS} timed steps; its rank body in the same world, over its first "
+          f"ranks) {scaling_s:.2f}s: "
+          f"{[(r['n_devices'], r['step_ms'], r['tokens_per_s']) for r in scaling]} "
+          f"(ranks, step ms, tok/s); {scaling[0]['metric_validity']}", flush=True)
+    check(all(r["metric_validity"] == "shared_card" and r["weak_scaling_efficiency"] == ""
+              for r in scaling), "scaling_bench gave an efficiency on ranks sharing one card")
+    out.update(scaling=scaling, scaling_s=scaling_s)
+    return out
+
+
+def seq_grad_errs(sq):
+    """Each gradient's relative L2 error from its (squared difference,
+    squared reference) sums."""
+    return {k: math.sqrt(d / r) if r > 0 else math.sqrt(d) for k, (d, r) in sq.items()}
+
+
+def write_random_llama(path, gen):
+    """A random checkpoint of LLAMA_CONFIG's shape in the HF layout:
+    ``config.json`` and one bf16 ``model.safetensors`` (tied embeddings, so
+    no ``lm_head``), the weights N(0, 0.02) and the norms ones, drawn on the
+    card from ``gen``."""
+    from nsa_tpu_torch.models.llama_import import write_safetensors
+
+    c = LLAMA_CONFIG
+    d, inter, dh = c["hidden_size"], c["intermediate_size"], c["head_dim"]
+    q, kv = c["num_attention_heads"] * dh, c["num_key_value_heads"] * dh
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16).cpu()
+
+    def ones():
+        return torch.ones(d, dtype=torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": w(c["vocab_size"], d), "model.norm.weight": ones()}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": ones(),
+                   p + "post_attention_layernorm.weight": ones(),
+                   p + "self_attn.q_proj.weight": w(q, d), p + "self_attn.k_proj.weight": w(kv, d),
+                   p + "self_attn.v_proj.weight": w(kv, d), p + "self_attn.o_proj.weight": w(d, q),
+                   p + "mlp.gate_proj.weight": w(inter, d), p + "mlp.up_proj.weight": w(inter, d),
+                   p + "mlp.down_proj.weight": w(d, inter)})
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({**c, "architectures": ["LlamaForCausalLM"], "model_type": "llama"}, f)
+    write_safetensors(os.path.join(path, "model.safetensors"), sd)
+    return sum(t.numel() for t in sd.values())
+
+
+def short_figures(held):
+    """``hold_first_launches``'s figures with their floats to 4 digits."""
+    return {k: {f: float(f"{x:.4g}") if isinstance(x, float) else x for f, x in v.items()}
+            for k, v in held.items()}
+
+
+def adapter_expected(depth, steps, hidden_steps=0):
+    """Launches of ``steps`` distillation steps, ``hidden_steps`` of them
+    with the teacher's hiddens: the teacher's forward on row 13 (again for
+    the hiddens), the student's on row 1, its backward on rows 4 and 5."""
+    return {**{fn.__name__: 0 for fn in ALL_KERNELS},
+            "flash_attention": depth * (steps + hidden_steps), "prefill_fwd": depth * steps,
+            "prefill_bwd_dq": depth * steps, "prefill_bwd_dkv": depth * steps}
+
+
+def adapter_phase(smi):
+    """The adapter / distillation line on the card, bf16 (see ADAPTER_*):
+    fine-tuning from the committed full-attention teacher in every mode,
+    the gradient flow, one step's loss and gradients against the plain
+    path, QA accuracy base and adapted, and a random checkpoint of
+    Llama-3.2-1B's shape through ``llama_import`` with a distillation step
+    at G = 4; returns (the launches over the phase, its figures)."""
+    from nsa_tpu_torch.eval import finetune_eval
+    from nsa_tpu_torch.models import adapter as adapter_module
+    from nsa_tpu_torch.models import llama_import
+    from nsa_tpu_torch.train import finetune
+    from nsa_tpu_torch.train.data import load_cs441_qa_pairs
+
+    out, total = {"losses": {}, "launches": {}, "s": {}}, {fn.__name__: 0 for fn in ALL_KERNELS}
+    teacher, meta = load_params_npz(FULL_WEIGHTS, device=DEVICE, dtype=torch.float32)
+    cfg_t = model_config_from_meta(meta).replace(dtype="bfloat16")
+    cfg_s = cfg_t.replace(use_sparse_attn=True)
+    train_pairs, test_pairs = (load_cs441_qa_pairs(split=s) for s in ("train", "test"))
+    d = cfg_t.depth
+    logger = MetricsLogger()
+
+    def counted(label, want, fn):
+        zero_launches(ALL_KERNELS)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["s"][label] = time.perf_counter() - t0
+        got = read_launches(ALL_KERNELS)
+        out["launches"][label] = {k: v for k, v in got.items() if v}
+        if want is not None:
+            check(got == want, f"adapter {label}: launches {got}, expected {want}")
+        for k, v in got.items():
+            total[k] += v
+        return res
+
+    # 1. run_finetune in every mode from the committed teacher
+    adapters, loss = counted(
+        "kl_output_only", adapter_expected(d, ADAPTER_KL_STEPS),
+        lambda: finetune.run_finetune(teacher, cfg_t, cfg_s, train_pairs,
+                                      num_steps=ADAPTER_KL_STEPS, batch_size=ADAPTER_BATCH,
+                                      seq_len=ADAPTER_SEQ, seed=SEED, logger=logger))
+    out["losses"]["kl_output_only"] = loss
+    for mode in adapter_module.MODES[1:]:
+        hidden = int(mode in ("mse_hidden", "mixed"))
+        _, out["losses"][mode] = counted(
+            mode, adapter_expected(d, 1, hidden),
+            lambda mode=mode: finetune.run_finetune(
+                teacher, cfg_t, cfg_s, train_pairs, num_steps=1, batch_size=ADAPTER_BATCH,
+                seq_len=ADAPTER_SEQ, mode=mode, seed=SEED, logger=logger, adapters=adapters))
+    print(f"  adapter run_finetune from {os.path.relpath(FULL_WEIGHTS, HERE)} on "
+          f"{len(train_pairs)} QA pairs, bs {ADAPTER_BATCH} x seq {ADAPTER_SEQ}, bf16: losses "
+          f"{ {k: round(v, 5) for k, v in out['losses'].items()} } ({ADAPTER_KL_STEPS} steps of "
+          f"kl_output_only, one of each other mode); seconds "
+          f"{ {k: round(v, 2) for k, v in out['s'].items()} }; launches "
+          f"{out['launches']['kl_output_only']} (kl_output_only); {smi}", flush=True)
+    check(all(math.isfinite(v) for v in out["losses"].values()), "adapter: a loss is not finite")
+
+    # 2. the gradient flow; 3. one step's loss and gradients against the plain path
+    ids_np, mask_np = finetune.qa_to_tokens(train_pairs[:ADAPTER_BATCH], ADAPTER_SEQ + 1)
+    ids = torch.from_numpy(ids_np).long().to(DEVICE)
+    mask = torch.from_numpy(mask_np).to(DEVICE)
+    ok, info = counted("gradient_flow", adapter_expected(d, 1), lambda: (
+        adapter_module.verify_gradient_flow(adapters, teacher, cfg_s, cfg_t, ids[:, :-1])))
+    print(f"  adapter verify_gradient_flow: {ok}, adapters' gradient norms "
+          f"{[round(n, 5) for n in info['adapter_grad_norms']]}, the teacher's "
+          f"{info['teacher_grad_norm']}", flush=True)
+    check(ok, f"adapter: the gradients do not flow as they should: {info}")
+    leaves = tree_leaves(adapters)
+
+    def step(use_kernels, mode):
+        loss = adapter_module.distillation_step_loss(
+            adapters, teacher, cfg_s, cfg_t, ids[:, :-1], label_mask=mask[:, 1:], mode=mode,
+            use_kernels=use_kernels)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    # the train gates on the student's cross-entropy ('ce'): a loss of the
+    # training phase's kind, whose rounding the gates were set for
+    kloss, kgrads = counted("step_kernels", adapter_expected(d, 1), lambda: step(True, "ce"))
+    ploss, pgrads = step(False, "ce")
+    errs = {key: rel_l2(a, b) for (key, _), a, b in zip(tree_items(adapters), kgrads, pgrads)}
+    worst = max(errs, key=errs.get)
+    rel = abs(kloss - ploss) / abs(ploss)
+    del kgrads, pgrads
+    # the teacher's logits (row 13) under the logits gate; and, for the
+    # record, the kl_output_only step: the KL of two close models is a
+    # small difference of sums, which bf16 rounding moves further
+    with torch.no_grad():
+        tk = counted("teacher_kernels", {**adapter_expected(d, 0), "flash_attention": d},
+                     lambda: transformer_forward(teacher, cfg_t, ids[:, :-1]))
+        tp = transformer_forward(teacher, cfg_t, ids[:, :-1], use_kernels=False)
+    t_err = max_err(tk, tp) / max(tp.abs().max().item(), 1.0)
+    del tk, tp
+    kl_k, kl_kg = counted("step_kl_kernels", adapter_expected(d, 1),
+                          lambda: step(True, "kl_output_only"))
+    kl_p, kl_pg = step(False, "kl_output_only")
+    kl_errs = [rel_l2(a, b) for a, b in zip(kl_kg, kl_pg)]
+    del kl_kg, kl_pg
+    print(f"  adapter step ('ce'), kernels vs plain: loss {kloss:.6f} vs {ploss:.6f}, rel "
+          f"{rel:.3e} (tol {TOL_LOSS_REL}); gradients rel L2 max {errs[worst]:.3e} at {worst} "
+          f"(tol {TOL_GRAD_REL_L2}), median {sorted(errs.values())[len(errs) // 2]:.3e} over "
+          f"{len(errs)}; the teacher's logits (row 13) max|err| {t_err:.4f} of max|logit| (tol "
+          f"{TOL_LOGITS_REL}); kl_output_only step, not gated: {kl_k:.6f} vs {kl_p:.6f}, rel "
+          f"{abs(kl_k - kl_p) / abs(kl_p):.3e}, gradients rel L2 max {max(kl_errs):.3e}",
+          flush=True)
+    check(rel <= TOL_LOSS_REL, "adapter: the kernel path's loss disagrees with the plain path")
+    check(errs[worst] <= TOL_GRAD_REL_L2, "adapter: the kernel path's gradients disagree")
+    check(t_err <= TOL_LOGITS_REL, "adapter: the teacher's logits disagree with the plain path")
+    out.update(step_loss_rel=rel, step_grad_rel_l2_max=errs[worst], teacher_logits_rel=t_err,
+               kl_step_loss_rel=abs(kl_k - kl_p) / abs(kl_p), kl_step_grad_rel_l2_max=max(kl_errs))
+
+    # 4. QA accuracy, base and adapted, at a fixed length
+    base_fn = finetune_eval.model_forward_fn(
+        lambda x: transformer_forward(teacher, cfg_t, x), teacher)
+    qa = counted("qa", None, lambda: finetune_eval.evaluate_qa_accuracy(
+        adapters, teacher, cfg_s, test_pairs, gen_len=ADAPTER_GEN, max_samples=ADAPTER_QA,
+        compare_base=base_fn, fixed_len=ADAPTER_SEQ))
+    got = out["launches"]["qa"]
+    print(f"  adapter evaluate_qa_accuracy, {qa['num_samples']} questions x {ADAPTER_GEN} "
+          f"tokens at fixed length {ADAPTER_SEQ}: adapted {qa['accuracy']:.3f} "
+          f"{tuple(round(float(x), 3) for x in qa['accuracy_ci95'])}, base "
+          f"{qa['base_accuracy']:.3f} "
+          f"{tuple(round(float(x), 3) for x in qa['base_accuracy_ci95'])}; "
+          f"{out['s']['qa']:.2f}s; "
+          f"launches {got}; predictions {[r['pred'] for r in qa['results']]}", flush=True)
+    check(qa["num_samples"] == ADAPTER_QA and got.get("prefill_fwd", 0) >= d * ADAPTER_QA
+          and got.get("flash_attention", 0) >= d * ADAPTER_QA
+          and not got.get("prefill_bwd_dq") and not got.get("prefill_bwd_dkv"),
+          f"adapter QA: {qa['num_samples']} questions, launches {got}")
+    out["qa"] = {k: qa[k] for k in ("accuracy", "accuracy_ci95", "base_accuracy",
+                                    "base_accuracy_ci95", "num_samples")}
+    del adapters, teacher
+    torch.cuda.empty_cache()
+
+    # 5. a random checkpoint of Llama-3.2-1B's shape, cut to 2 layers
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        n_params = write_random_llama(ckpt, gen)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lparams, lcfg = llama_import.convert_llama_checkpoint(ckpt, device=DEVICE)
+        convert_s = time.perf_counter() - t0
+    lcfg = lcfg.replace(dtype="bfloat16")
+    scfg = lcfg.replace(use_sparse_attn=True)
+    c = LLAMA_CONFIG
+    check((lcfg.heads, lcfg.kv_heads, lcfg.dim_head, lcfg.dim, lcfg.vocab_size, lcfg.depth,
+           lcfg.rope_theta, lcfg.ff_kind)
+          == (c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"],
+              c["hidden_size"], c["vocab_size"], c["num_hidden_layers"], c["rope_theta"],
+              "swiglu") and torch.equal(lparams["to_logits"].T, lparams["token_emb"]),
+          f"llama_import: config {lcfg}")
+    lids = seeded_ids(LLAMA_BATCH, ADAPTER_SEQ + 1, lcfg.vocab_size, SEED + 6, DEVICE)
+    ladapters = pretrain.trainable(adapter_module.init_adapters(
+        torch.Generator().manual_seed(SEED), scfg, lparams))
+
+    def llama_run():
+        with torch.no_grad():
+            logits = transformer_forward(lparams, lcfg, lids[:, :-1])
+        opt = finetune.make_finetune_optimizer(ladapters, 1e-4, 1)
+        loss = finetune.finetune_step(ladapters, opt, lparams, lids,
+                                      torch.ones_like(lids, dtype=torch.bool), scfg, lcfg)
+        return logits, loss.item()
+
+    with first_launch_operands() as rec:
+        llogits, lloss = counted("llama", None, llama_run)
+    want = adapter_expected(lcfg.depth, 1)
+    want["flash_attention"] += lcfg.depth            # the teacher's forward before the step
+    check(out["launches"]["llama"] == {k: v for k, v in want.items() if v},
+          f"adapter llama launches {out['launches']['llama']}, expected {want}")
+    held = hold_first_launches(rec, scfg, "llama G=4")
+    check(set(held) == {"prefill_fwd", "prefill_bwd_dq", "prefill_bwd_dkv", "flash_attention"},
+          f"llama: held {sorted(held)}")
+    print(f"  adapter llama_import: a random checkpoint of Llama-3.2-1B's shape cut to "
+          f"{lcfg.depth} layers ({n_params:,} parameters, bf16 safetensors written in "
+          f"{write_s:.2f}s, read and converted in {convert_s:.2f}s): heads {lcfg.heads}/"
+          f"{lcfg.kv_heads} (G {lcfg.num_grouped_queries}), dim {lcfg.dim}, vocab "
+          f"{lcfg.vocab_size}; the teacher's logits {tuple(llogits.shape)} finite "
+          f"{bool(torch.isfinite(llogits).all())}; one distillation step's loss {lloss:.6f}; "
+          f"{out['s']['llama']:.2f}s; launches {out['launches']['llama']}; the first launch "
+          f"of each against its plain version {short_figures(held)}; {smi}", flush=True)
+    check(tuple(llogits.shape) == (LLAMA_BATCH, ADAPTER_SEQ, lcfg.vocab_size)
+          and bool(torch.isfinite(llogits).all()) and math.isfinite(lloss),
+          "llama: the teacher's logits or the step's loss are not finite")
+    out.update(llama={"params": n_params, "write_s": write_s, "convert_s": convert_s,
+                      "loss": lloss, "held": held})
+    del lparams, ladapters, llogits
+    torch.cuda.empty_cache()
+    out["total_launches"] = total
+    return total, out
 
 
 def main():
@@ -5779,6 +6446,12 @@ def run_phases(t0, kind, count, bytecode):
     mesh = mesh_phase(smi, bytecode)
     t0 = phase("mesh", t0)
 
+    seq_parallel = context_phase(smi, bytecode)
+    t0 = phase("context", t0)
+
+    adapter_launches, adapter = adapter_phase(smi)
+    t0 = phase("adapter", t0)
+
     for k in kernels:
         # each kernel's count from its own path: serving at bs 64 for the
         # forward and split decode kernels, the fused route's run at bs 8
@@ -5801,6 +6474,9 @@ def run_phases(t0, kind, count, bytecode):
         k["mesh_launches"] = [sum(g[k["name"].removesuffix("_trained")]
                                   for g in r["launches"].values()) for r in mesh["ranks"]]
         k["launches"] += sum(k["mesh_launches"])
+        # and the adapter phase's (rows 1, 4, 5 and 13)
+        k["adapter_launches"] = adapter_launches[k["name"].removesuffix("_trained")]
+        k["launches"] += k["adapter_launches"]
     print(json.dumps({"main": {
         "prefill_s": prefill_s, "decode_tok_s": BATCH * GEN / decode_s,
         "measure_decode_tok_s": tps, "measure_prefill_tok_s": prefill_tps, "peak_bytes": peak,
@@ -5809,7 +6485,7 @@ def run_phases(t0, kind, count, bytecode):
         "graph": graphs, **train,
         "train_launches": train_launches, "cpt": cpt, "compress": compressors,
         "configs": configs, "ablation": ablations, "long": long, "mesh": mesh,
-        "phases_s": dict(PHASES)}}), flush=True)
+        "context": seq_parallel, "adapter": adapter, "phases_s": dict(PHASES)}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)   # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,10 @@
 """Byte-level GPT with native sparse or full attention
 (``nsa_tpu/models/transformer.py``).
 
-token embed -> depth x (attention + prenorm GELU FF) -> RMSNorm -> logits.
+token embed -> depth x (attention + prenorm FF) -> RMSNorm -> logits.  The
+FF is the byte-GPT's GELU block with biases or, for ``ff_kind ==
+"swiglu"`` (the HF Llama teacher of ``models/llama_import.py``), Llama's
+SwiGLU block without biases.
 The model is plain functions over a params dict in the JAX package's layout
 (see ``utils/checkpoint.py``); the decode cache is a ``ModelCache``
 threaded through ``transformer_decode_step``.
@@ -50,6 +53,7 @@ from ..ops.nsa import (
     NSADecodeCache,
     _fused_decode_applies,
     ff_apply_gelu,
+    ff_apply_swiglu,
     fuse_decode_layer,
     init_decode_cache,
     init_sparse_attention,
@@ -89,17 +93,35 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+FF_KINDS = ("gelu", "swiglu")
+
+
 def _check_model(cfg: ModelConfig) -> None:
-    if cfg.ff_kind != "gelu":
-        raise NotImplementedError(
-            "the port implements the sparse and full-attention models with the gelu FF; "
-            "swiglu waits (see ROADMAP.md)"
-        )
+    if cfg.ff_kind not in FF_KINDS:
+        raise ValueError(f"ff_kind must be one of {FF_KINDS}, got {cfg.ff_kind!r}")
+
+
+def _ff_apply(ffp, cfg: ModelConfig, x):
+    """The layer's prenorm FF block (``nsa_tpu.models.transformer._ff_apply``):
+    ``ff_apply_gelu`` or, for ``ff_kind == "swiglu"``, ``ff_apply_swiglu``."""
+    if cfg.ff_kind == "swiglu":
+        return ff_apply_swiglu(ffp, cfg, x)
+    return ff_apply_gelu(ffp, cfg, x)
+
+
+def _decode_ff(layer: dict, cfg: ModelConfig):
+    """The FF params a layer's decode step folds in: the gelu FF's, or None
+    for swiglu, which the step applies after the attention (JAX's
+    ``ffp = None``)."""
+    return layer["ff"] if cfg.ff_kind == "gelu" else None
 
 
 def init_transformer(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random parameters in ``init_transformer``'s layout and distributions
-    (the numbers differ from JAX's for the same seed)."""
+    (the numbers differ from JAX's for the same seed).  For ``ff_kind ==
+    "swiglu"`` the FF holds ``w1``, ``w3`` [dim, hidden] and ``w2``, without
+    biases, the leaves its FF reads (JAX's init makes the gelu leaves for
+    every kind; its swiglu models come from ``llama_import``)."""
     _check_model(cfg)
     hidden = int(cfg.dim * cfg.ff_expansion_factor)
 
@@ -119,13 +141,21 @@ def init_transformer(cfg: ModelConfig, generator: torch.Generator, device="cuda"
                 "w_v": uniform((cfg.dim, cfg.dim_kv_inner), cfg.dim),
                 "w_out": uniform((cfg.dim_inner, cfg.dim), cfg.dim_inner),
             }, device)
-        ff = {
-            "norm_scale": torch.ones(cfg.dim),
-            "w1": uniform((cfg.dim, hidden), cfg.dim),
-            "b1": uniform((hidden,), cfg.dim),
-            "w2": uniform((hidden, cfg.dim), hidden),
-            "b2": uniform((cfg.dim,), hidden),
-        }
+        if cfg.ff_kind == "swiglu":
+            ff = {
+                "norm_scale": torch.ones(cfg.dim),
+                "w1": uniform((cfg.dim, hidden), cfg.dim),
+                "w3": uniform((cfg.dim, hidden), cfg.dim),
+                "w2": uniform((hidden, cfg.dim), hidden),
+            }
+        else:
+            ff = {
+                "norm_scale": torch.ones(cfg.dim),
+                "w1": uniform((cfg.dim, hidden), cfg.dim),
+                "b1": uniform((hidden,), cfg.dim),
+                "w2": uniform((hidden, cfg.dim), hidden),
+                "b2": uniform((cfg.dim,), hidden),
+            }
         layers.append({"attn": attn, "ff": tree_to(ff, device)})
     top = {
         "token_emb": torch.randn((cfg.vocab_size, cfg.dim), generator=generator),
@@ -265,7 +295,7 @@ def transformer_forward(
             attn_out, lc = res
             caches.append(lc)
         x = x + attn_out
-        x = x + ff_apply_gelu(layer["ff"], cfg, x)
+        x = x + _ff_apply(layer["ff"], cfg, x)
     logits = _logits(params, cfg, x)
     if return_cache_max_len is None:
         return logits
@@ -382,7 +412,8 @@ def fuse_decode_params(params: dict, cfg: ModelConfig) -> dict:
             for layer in params["layers"]]}
     if all("decode_fused" in layer["attn"] for layer in params["layers"]):
         return params
-    packed = {**params, "layers": [fuse_decode_layer(layer, dtype, cfg.nsa.compressor)
+    packed = {**params, "layers": [fuse_decode_layer(layer, dtype, cfg.nsa.compressor,
+                                                     pack_ff=cfg.ff_kind == "gelu")
                                    for layer in params["layers"]]}
     if _mega_applies(cfg) and not heads_parallel():
         packed["mega"] = pack_mega_params(params, cfg)
@@ -482,10 +513,13 @@ def transformer_decode_step(
     if pos is None:             # one device position for every layer
         t = decode_graph.device_scalar(t, x.device)
     for layer, lc in zip(params["layers"], cache.layers):
+        ffp = _decode_ff(layer, cfg)
         x, _ = sparse_attention_decode(
-            layer["attn"], cfg, x, lc, t, ff_params=layer["ff"], use_kernels=use_kernels,
+            layer["attn"], cfg, x, lc, t, ff_params=ffp, use_kernels=use_kernels,
             route=route,
         )
+        if ffp is None:
+            x = x + _ff_apply(layer["ff"], cfg, x)
     return _logits(params, cfg, x)[:, 0], done
 
 
@@ -522,10 +556,13 @@ def transformer_decode_step_ragged(
     t = seq_lens.to(device=x.device, dtype=torch.int32)
     new_layers = []
     for layer, lc in zip(params["layers"], layer_caches):
+        ffp = _decode_ff(layer, cfg)
         x, lc = sparse_attention_decode(
-            layer["attn"], cfg, x, lc, t, ff_params=layer["ff"], use_kernels=use_kernels,
+            layer["attn"], cfg, x, lc, t, ff_params=ffp, use_kernels=use_kernels,
             route=route, page_table=page_table,
         )
+        if ffp is None:
+            x = x + _ff_apply(layer["ff"], cfg, x)
         new_layers.append(lc)
     return _logits(params, cfg, x)[:, 0], tuple(new_layers)
 
@@ -538,7 +575,7 @@ def _full_decode_layers(params, cfg: ModelConfig, tokens, layer_caches, t, route
     x = params["token_emb"][tokens][:, None].to(_compute_dtype(cfg))    # [b, 1, dim]
     for layer, lc in zip(params["layers"], layer_caches):
         x = _full_attn_decode(layer["attn"], cfg, x, lc, t)
-        x = x + ff_apply_gelu(layer["ff"], cfg, x)
+        x = x + _ff_apply(layer["ff"], cfg, x)
     return _logits(params, cfg, x)[:, 0]
 
 

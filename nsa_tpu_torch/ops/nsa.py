@@ -441,7 +441,9 @@ def decode_route(cfg: ModelConfig, b: int, ragged: bool, route: Optional[str] = 
     hybrid routes raise, forced or through ``NSA_HYBRID_DECODE``: their
     attend kernels fold ``w_out``, the residual and the FF in, where a heads
     rank holds only a partial sum of ``out @ w_out``.  A data-only mesh
-    keeps every route."""
+    keeps every route.  The swiglu FF (``ff_kind``) is held the same way:
+    those kernels fold the gelu FF, so a swiglu model decodes on the split
+    routes with its FF after the attention."""
     nsa = cfg.nsa
     if route not in DECODE_ROUTES:
         raise ValueError(f"route must be one of {DECODE_ROUTES}, got {route!r}")
@@ -450,6 +452,11 @@ def decode_route(cfg: ModelConfig, b: int, ragged: bool, route: Optional[str] = 
         raise ValueError(f"the {route} decode route folds w_out, the residual and the FF "
                          f"into its kernels, which a heads axis above 1 cannot split: each "
                          f"heads rank holds a partial sum of out @ w_out; take the split route")
+    gelu = cfg.ff_kind == "gelu"
+    if not gelu and route in ("fused", "hybrid"):
+        raise ValueError(f"the {route} decode route folds the gelu FF into its attend kernel; "
+                         f"the {cfg.ff_kind} FF decodes on the split route")
+    folds = gelu and not heads_split      # the fused kernels may run
     if route == "fused" and not _fused_decode_applies(cfg):
         raise ValueError("the fused decode route needs shared selection, selection_block_size "
                          "/ stride > 1, selected blocks and the mlp compressor")
@@ -464,8 +471,8 @@ def decode_route(cfg: ModelConfig, b: int, ragged: bool, route: Optional[str] = 
     if route is not None:
         chosen = route
     elif ragged:
-        chosen = "fused" if _fused_decode_applies(cfg) and not heads_split else "xla"
-    elif _use_fused_decode(cfg, b) and not heads_split:
+        chosen = "fused" if _fused_decode_applies(cfg) and folds else "xla"
+    elif _use_fused_decode(cfg, b) and folds:
         chosen = "fused"
     else:
         chosen = "split" if _split_decode_applies(cfg) else "xla"
@@ -475,9 +482,10 @@ def decode_route(cfg: ModelConfig, b: int, ragged: bool, route: Optional[str] = 
     if ablation not in ("", "no_emit") and chosen in ("split", "hybrid"):
         return "xla"
     if chosen == "split" and hybrid_ok and os.environ.get("NSA_HYBRID_DECODE"):
-        if heads_split:
+        if not folds:
             raise ValueError("NSA_HYBRID_DECODE: the hybrid route's attend kernel folds w_out "
-                             "and the FF in, which a heads axis above 1 cannot split")
+                             "and the gelu FF in, which a heads axis above 1 and the swiglu "
+                             "FF cannot take")
         return "hybrid"
     return "xla" if ragged and chosen == "split" else chosen
 
@@ -513,19 +521,22 @@ def _pack_ff(ff: dict, dtype: torch.dtype) -> dict:
             "b2": _cast(ff["b2"], f32)}
 
 
-def fuse_decode_layer(layer: dict, dtype: torch.dtype, compressor: str = "mlp") -> dict:
+def fuse_decode_layer(layer: dict, dtype: torch.dtype, compressor: str = "mlp",
+                      pack_ff: bool = True) -> dict:
     """A layer's decode weights packed once for the decode step
     (``fuse_decode_params``): ``attn["decode_fused"]`` holds the fused
     projection ``w_qkvg``, ``pos_kv = k_pos||v_pos``, the compressors'
     ``w1k``, ``w1v`` [kvh, Bc*d, hid] and ``w2 = w2_k||w2_v``, ``mem_kv``
     and ``w_out`` in ``dtype`` and the compressors' biases in float32 (for
     another ``compressor``, which decodes on the split route, ``w_qkvg``
-    alone); ``ff["decode_fused"]`` the FF's matrices in ``dtype`` and its
-    norm scale and biases in float32.  Returns a new layer dict; the input
-    is unchanged."""
-    return {**layer,
-            "attn": {**layer["attn"],
-                     "decode_fused": _pack_attn(layer["attn"], dtype, compressor)},
+    alone); with ``pack_ff`` (the gelu FF, which the fused routes fold in)
+    ``ff["decode_fused"]`` the FF's matrices in ``dtype`` and its norm
+    scale and biases in float32.  Returns a new layer dict; the input is
+    unchanged."""
+    attn = {**layer["attn"], "decode_fused": _pack_attn(layer["attn"], dtype, compressor)}
+    if not pack_ff:
+        return {**layer, "attn": attn}
+    return {**layer, "attn": attn,
             "ff": {**layer["ff"], "decode_fused": _pack_ff(layer["ff"], dtype)}}
 
 
@@ -538,6 +549,16 @@ def ff_apply_gelu(ffp, cfg: ModelConfig, x):
     hid = copy_to_heads(rms_norm(x, ffp["norm_scale"], cfg.norm_eps))
     hid = F.gelu(hid @ ffp["w1"].to(hid.dtype) + ffp["b1"].to(hid.dtype))
     return reduce_from_heads(hid @ ffp["w2"].to(hid.dtype)) + ffp["b2"].to(hid.dtype)
+
+
+def ff_apply_swiglu(ffp, cfg: ModelConfig, x):
+    """Llama's prenorm FF block (``_ff_apply``'s swiglu branch): RMSNorm,
+    then ``(silu(h @ w1) * (h @ w3)) @ w2``, no biases.  Under a heads axis
+    ``w1`` and ``w3`` are split by columns and ``w2`` by rows."""
+    hid = copy_to_heads(rms_norm(x, ffp["norm_scale"], cfg.norm_eps))
+    gate = F.silu(hid @ ffp["w1"].to(hid.dtype))
+    up = hid @ ffp["w3"].to(hid.dtype)
+    return reduce_from_heads((gate * up) @ ffp["w2"].to(hid.dtype))
 
 
 def sparse_attention_decode(

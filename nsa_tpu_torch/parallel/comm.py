@@ -16,7 +16,16 @@ itself, at the points the model calls these helpers (Megatron's pattern):
   applies to its own heads (the ``attn``, ``shared_mlp`` and ``single``
   compressors): its gradient is the sum of the ranks' parts;
 * ``average_grads`` and ``grad_norm`` - the optimizer step's data-group
-  gradient mean and the global norm it clips by.
+  gradient mean and the global norm it clips by;
+* on the ``seq`` mesh of context parallelism (``parallel/context.py``),
+  which takes its mesh as an argument: ``gather_from_seq`` (all-gather
+  forward; backward the gradient summed over the ranks and this rank's
+  slice kept, a reduce-scatter: every rank uses the gathered K/V with its
+  own queries, so each rank's slice collects every rank's part),
+  ``sum_over_seq`` (a sum with no gradient: the loss's totals) and
+  ``sum_grads_over_seq`` (the replicated weights' gradients summed over the
+  ranks, as JAX's transpose of a replicated ``in_specs=P()`` sums them, in
+  one all-reduce after the backward).
 
 Each reads the current mesh (``with mesh:``, ``parallel/mesh.py``) and is
 the identity without one, or where its axis has one rank, so the
@@ -39,7 +48,7 @@ from typing import Iterable
 import torch
 import torch.distributed as dist
 
-from .mesh import AXIS_BATCH, AXIS_HEADS, current_mesh
+from .mesh import AXIS_BATCH, AXIS_HEADS, AXIS_SEQ, Mesh, current_mesh
 
 # the attribute that marks a parameter split over the heads axis (set by
 # ``sharding.mark_sharded``); ``grad_norm`` sums its square over heads
@@ -110,6 +119,17 @@ class _GatherFromHeads(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _local_slice(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherFromSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _local_slice(_all_reduce(g, ctx.group), ctx.group, ctx.dim), None, None
 
 
 class _ScatterToHeads(torch.autograd.Function):
@@ -201,3 +221,35 @@ def grad_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
     split = torch.nn.utils.get_total_norm([p.grad for p, m in zip(params, marked) if m])
     whole = torch.nn.utils.get_total_norm([p.grad for p, m in zip(params, marked) if not m])
     return (_all_reduce(split.square(), group) + whole.square()).sqrt()
+
+
+def _seq_group(mesh: Mesh):
+    return None if mesh.size(AXIS_SEQ) == 1 else mesh.groups[AXIS_SEQ]
+
+
+def gather_from_seq(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """Every ``seq`` rank's slice of ``x`` along ``dim``, concatenated in
+    rank order; the gradient summed over the ranks, then sliced."""
+    group = _seq_group(mesh)
+    return x if group is None else _GatherFromSeq.apply(x, group, dim)
+
+
+def sum_over_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` summed over the ``seq`` ranks, outside autograd."""
+    group = _seq_group(mesh)
+    return x.detach() if group is None else _all_reduce(x.detach(), group)
+
+
+def sum_grads_over_seq(params: Iterable[torch.Tensor], mesh: Mesh) -> None:
+    """Sum every gradient over the ``seq`` ranks, in place, through one
+    all-reduce of the gradients laid end to end (in float32)."""
+    group = _seq_group(mesh)
+    if group is None:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()

@@ -12,7 +12,10 @@ coordinates, and one process group per axis (made with ``new_group``):
   parallel projections (``w_out``, the FF's ``w2``) are the only points
   where the activations are summed over it (``parallel/comm.py``);
 * ``dcn``   - on ``make_hierarchical_mesh``, the inter-host tier: batches
-  shard over (dcn, data), weights stay replicated over it.
+  shard over (dcn, data), weights stay replicated over it;
+* ``seq``   - on ``make_seq_mesh``, a mesh of its own: context parallelism
+  (``parallel/context.py``), the sequence split over the ranks, weights
+  replicated.  Under it the heads helpers of ``comm.py`` stay the identity.
 
 Ranks are laid out row-major over the axes (the last axis varies fastest),
 so the heads of one data slice are neighbouring ranks.  ``with mesh:``
@@ -52,9 +55,11 @@ from ..config import MeshConfig
 AXIS_DATA = "data"
 AXIS_HEADS = "heads"
 AXIS_DCN = "dcn"
-# the group over every axis but heads: the ranks that hold the same weight
-# shards and split the batch (data, or dcn x data)
+AXIS_SEQ = "seq"
+# the group over the batch axes: the ranks that hold the same weight shards
+# and split the batch (data, or dcn x data)
 AXIS_BATCH = "batch"
+BATCH_AXES = (AXIS_DCN, AXIS_DATA)
 
 # a collective that waits longer than this fails the rank instead of hanging
 GROUP_TIMEOUT_S = 120
@@ -77,14 +82,14 @@ class Mesh:
 
     def size(self, axis: str) -> int:
         if axis == AXIS_BATCH:
-            return math.prod(s for a, s in zip(self.axis_names, self.shape) if a != AXIS_HEADS)
+            return math.prod(s for a, s in zip(self.axis_names, self.shape) if a in BATCH_AXES)
         return dict(zip(self.axis_names, self.shape)).get(axis, 1)
 
     def coord(self, axis: str) -> int:
         if axis == AXIS_BATCH:       # the rank's place among the batch slices
             idx = 0
             for a, s, c in zip(self.axis_names, self.shape, self.coords):
-                if a != AXIS_HEADS:
+                if a in BATCH_AXES:
                     idx = idx * s + c
             return idx
         return dict(zip(self.axis_names, self.coords)).get(axis, 0)
@@ -120,22 +125,25 @@ def heads_parallel() -> bool:
     return mesh is not None and mesh.heads > 1
 
 
-def _build(axis_names: Tuple[str, ...], shape: Tuple[int, ...]) -> Mesh:
-    """The mesh of ``shape`` over the whole world, with a group for each
-    axis and for the batch axes; every rank makes every group, in one
-    order, as ``new_group`` requires."""
+def _build(axis_names: Tuple[str, ...], shape: Tuple[int, ...],
+           n_ranks: Optional[int] = None) -> Optional[Mesh]:
+    """The mesh of ``shape`` over the world's first ``n_ranks`` ranks (the
+    whole world by default), with a group for each axis and for the batch
+    axes; every rank of the world makes every group, in one order, as
+    ``new_group`` requires, and a rank outside the mesh gets None."""
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_distributed first")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if math.prod(shape) != world:
+    n = world if n_ranks is None else n_ranks
+    if math.prod(shape) != n or n > world:
         raise ValueError(f"mesh {dict(zip(axis_names, shape))} needs {math.prod(shape)} ranks, "
                          f"the world has {world}")
-    grid = np.arange(world).reshape(shape)
-    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    grid = np.arange(n).reshape(shape)
+    member = rank < n
     backend = dist.get_backend()
     groups = {}
     timeout = timedelta(seconds=GROUP_TIMEOUT_S)
-    batch_axes = tuple(i for i, a in enumerate(axis_names) if a != AXIS_HEADS)
+    batch_axes = tuple(i for i, a in enumerate(axis_names) if a in BATCH_AXES)
     kinds = [(a, (i,)) for i, a in enumerate(axis_names)]
     if len(batch_axes) > 1:      # else the batch group is the data group
         kinds.append((AXIS_BATCH, batch_axes))
@@ -146,7 +154,11 @@ def _build(axis_names: Tuple[str, ...], shape: Tuple[int, ...]) -> Mesh:
             group = dist.new_group([int(r) for r in ranks], timeout=timeout, backend=backend)
             if rank in ranks:
                 groups[name] = group
-    groups.setdefault(AXIS_BATCH, groups[AXIS_DATA])
+    if not member:
+        return None
+    if AXIS_DATA in groups:             # not on the seq mesh
+        groups.setdefault(AXIS_BATCH, groups[AXIS_DATA])
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
     return Mesh(axis_names, tuple(shape), coords, groups, backend)
 
 
@@ -173,15 +185,25 @@ def make_hierarchical_mesh(dcn: int, data: int, heads: int) -> Mesh:
     return _build((AXIS_DCN, AXIS_DATA, AXIS_HEADS), (dcn, data, heads))
 
 
-def auto_mesh(n: Optional[int] = None, kv_heads: int = 4) -> Mesh:
-    """The largest heads axis dividing both ``kv_heads`` and the rank count;
-    the rest becomes the data axis.  ``n`` must be the world's size (one
-    rank a process; JAX's may take a prefix of its devices)."""
+def make_seq_mesh(n: Optional[int] = None) -> Optional[Mesh]:
+    """The 1-D ``seq`` mesh (``nsa_tpu.parallel.context.make_seq_mesh``):
+    one process group that carries the sequence, over the world's first
+    ``n`` ranks (all by default), as ``auto_mesh``."""
+    n = n or dist.get_world_size()
+    return _build((AXIS_SEQ,), (n,), n)
+
+
+def auto_mesh(n: Optional[int] = None, kv_heads: int = 4) -> Optional[Mesh]:
+    """The largest heads axis dividing both ``kv_heads`` and ``n``; the
+    rest becomes the data axis.  The mesh spans the world's first ``n``
+    ranks (all by default), as JAX's takes its first ``n`` devices: every
+    rank of the world calls it, and a rank past the first ``n`` gets
+    None."""
     world = dist.get_world_size()
     n = n or world
-    if n != world:
+    if not 0 < n <= world:
         raise ValueError(f"auto_mesh over {n} ranks, the world has {world}")
-    return make_mesh(*auto_mesh_config(n, kv_heads).shape)
+    return _build((AXIS_DATA, AXIS_HEADS), auto_mesh_config(n, kv_heads).shape, n)
 
 
 def auto_mesh_config(n: int, kv_heads: int) -> MeshConfig:

@@ -8,7 +8,10 @@ Tensor parallelism over KV heads, JAX's table:
   output is summed over heads, ``comm.reduce_from_heads``)
 * gate projection ``[dim, 3*h]``        -> column (its columns are
   head-major, so a rank's columns are its heads' gates)
-* FF ``w1`` column, ``b1`` over heads, ``w2`` row, ``b2`` replicated
+* FF ``w1`` column, ``b1`` over heads, ``w2`` row, ``b2`` replicated;
+  the swiglu FF's ``w3`` column as its ``w1`` (JAX's table replicates it
+  and GSPMD reshards; the port's FF multiplies ``w1``'s and ``w3``'s
+  columns elementwise, so both split alike)
 * ``gate_b`` over heads, ``mem_kv [2, kvh, m, d]`` on axis 1, ``k_pos`` /
   ``v_pos [kvh, Bc, d]`` on axis 0
 * the per-head compressors' leaves (``mlp``, ``conv``: leading ``kvh``)
@@ -48,7 +51,7 @@ Spec = Tuple[Optional[str], ...]
 
 # split on axis 1: the column-parallel projections (and the full model's packed
 # decode projection ``w_qkv``), ``mem_kv [2, kvh, m, d]``
-_ON_AXIS_1 = {"w_q", "w_k", "w_v", "gate_w", "w1", "w_qkv", "mem_kv"}
+_ON_AXIS_1 = {"w_q", "w_k", "w_v", "gate_w", "w1", "w3", "w_qkv", "mem_kv"}
 # split on axis 0: the row-parallel projections, the per-head biases,
 # ``k_pos`` / ``v_pos [kvh, Bc, d]``
 _ON_AXIS_0 = {"w_out", "w2", "gate_b", "b1", "k_pos", "v_pos"}

@@ -114,7 +114,9 @@ def params_from_numpy(
     tree: Any, device="cuda", dtype: Optional[torch.dtype] = None
 ) -> Any:
     """Carry a params tree of numpy arrays (a JAX tree passed through
-    ``np.asarray``) across into tensors, keeping its dict/list layout.
+    ``np.asarray``) across into tensors, keeping its dict/list layout: a
+    model's, the swiglu FF's ``w1`` / ``w3`` / ``w2`` among its leaves, or a
+    list of adapters (``models/adapter.py``).
 
     bfloat16 arrays (an extension dtype that JAX registers with numpy) are
     reinterpreted through their bits, so this module needs no such package.

@@ -1,5 +1,7 @@
 """The port stands alone: importing it pulls in neither JAX nor nsa_tpu, no
-source of it imports them (or ml_dtypes), and importing builds nothing."""
+source of it imports them (or ml_dtypes, or optax, transformers and
+safetensors, which the machine with the card lacks), and importing builds
+nothing."""
 
 import os
 import re
@@ -9,7 +11,8 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|nsa_tpu)\b|ml_dtypes", re.M)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|nsa_tpu|optax|transformers|safetensors)\b|ml_dtypes", re.M)
 
 
 def test_import_leaves_jax_and_nsa_tpu_out():
@@ -22,8 +25,14 @@ def test_import_leaves_jax_and_nsa_tpu_out():
         "import nsa_tpu_torch.parallel.mesh, nsa_tpu_torch.parallel.comm\n"
         "import nsa_tpu_torch.parallel.sharding, nsa_tpu_torch.parallel.train_step\n"
         "import nsa_tpu_torch.train.continuous_pretrain\n"
+        "import nsa_tpu_torch.parallel.context, nsa_tpu_torch.parallel.scaling_bench\n"
+        "import nsa_tpu_torch.models.adapter, nsa_tpu_torch.models.llama_import\n"
+        "import nsa_tpu_torch.train.finetune, nsa_tpu_torch.train.finetune_cs441\n"
+        "import nsa_tpu_torch.train.task_data, nsa_tpu_torch.train.data_collection\n"
+        "import nsa_tpu_torch.eval.finetune_eval\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'nsa_tpu', 'ml_dtypes', 'triton'))\n"
+        "('jax', 'jaxlib', 'nsa_tpu', 'ml_dtypes', 'triton', 'optax', 'transformers', "
+        "'safetensors'))\n"
         "print(','.join(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

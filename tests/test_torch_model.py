@@ -149,5 +149,7 @@ def test_random_init_layout_matches_jax():
     assert t_shapes == j_shapes
     np.testing.assert_array_equal(port["layers"][1]["attn"]["gate_b"].numpy(),
                                   np.asarray(params["layers"][1]["attn"]["gate_b"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tt.transformer_forward(port, t_tiny(ff_kind="swiglu"), torch.zeros(1, 4, dtype=torch.long))
+    # swiglu runs since the adapter line (tests/test_torch_adapter.py); an FF
+    # kind neither package has raises
+    with pytest.raises(ValueError, match="ff_kind"):
+        tt.transformer_forward(port, t_tiny(ff_kind="relu"), torch.zeros(1, 4, dtype=torch.long))
